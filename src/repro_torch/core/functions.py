@@ -1,0 +1,122 @@
+"""Monotone submodular objective oracles on tensors, with a lane axis.
+
+As in the JAX package, each oracle is state-based: the current solution S
+is summarized by a compact ``state`` tensor, ``marginals(state, aux)``
+scores a whole block of candidates at once, and ``add`` folds one element
+into the state.  The engines run a whole grid of thresholds at once, so
+every method also takes a leading lane axis L: a state of shape (L, d)
+holds one solution per lane, and a candidate block is either shared by
+every lane, (C, d), or held per lane, (L, C, d).  An unbatched state (d,)
+with a (C, d) block is the plain single-solution call.
+
+Oracles ported so far: FeatureCoverage.  The others arrive with later
+slices of the port (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops, ref
+
+
+class SubmodularOracle:
+    """Protocol (duck-typed) for lane-batched submodular oracles.
+
+    Precision contract: feature rows may arrive in the storage dtype (f32 or
+    bf16); gains, states and values are always f32.
+
+    feat_dim:     width of an element's feature row.
+    device:       where the oracle's states and weights live.
+    use_kernel:   route the hot calls through the CUDA kernels (CUDA
+                  tensors) or their plain versions (CPU tensors).
+    init_state(lanes=None):   state for S = {}: (d,), or (lanes, d).
+    prep(state, cand_feats):  per-candidate aux, computed once per block.
+    marginals(state, aux):    gains f_S(e) for the block: (C,) or (L, C).
+    chunk_marginals(state, cand_feats): gains straight from features (the
+                  lazy engine's and the filter's streaming path).
+    chunk_accept(state, cand_feats, eligible, tau, budget): the fused
+                  engine's path.  Runs Algorithm 1's accept loop over each
+                  lane's (B, d) chunk in stream order and returns (mask
+                  (L, B) bool, new_state, gains (L, B) f32).  The default
+                  is a row scan (correct for every oracle); kerneled
+                  oracles override it with one sweep kernel.
+    add(state, aux_row):      state for S + {e}.
+    value(state):             f(S): () or (L,).
+    """
+
+    feat_dim: int
+    use_kernel: bool = False
+
+    def init_state(self, lanes: Optional[int] = None):  # pragma: no cover
+        raise NotImplementedError
+
+    def prep(self, state, cand_feats):
+        return cand_feats
+
+    def chunk_marginals(self, state, cand_feats):
+        return self.marginals(state, self.prep(state, cand_feats))
+
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget):
+        """Sequential threshold-accept sweep over one (L, B, d) chunk per
+        lane: row i's gain is its fresh marginal against the state after
+        every earlier accepted row; it is accepted when eligible & gain >=
+        tau & accepts-so-far < budget, and accepted rows update the state.
+        The gains are valid stale upper bounds for the lazy buffer."""
+        aux = self.prep(state, cand_feats)
+        return ref.accept_scan(
+            lambda st, row: self.marginals(st, row[:, None])[:, 0],
+            self.add, aux, state, eligible, tau, budget)
+
+    def marginals(self, state, aux):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def add(self, state, aux_row):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def value(self, state):  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureCoverage(SubmodularOracle):
+    """f(S) = sum_f w_f sqrt(sum_{e in S} x_{e,f}),  x >= 0.
+
+    Concave over modular, hence monotone submodular.  The state is the
+    modular accumulator (d,), so "ship G to every machine" is a d-float
+    message.
+    """
+
+    feat_dim: int
+    weights: Optional[torch.Tensor] = None  # optional (d,) nonneg f32
+    use_kernel: bool = False
+    device: torch.device = torch.device("cpu")
+
+    def init_state(self, lanes: Optional[int] = None):
+        shape = (self.feat_dim,) if lanes is None else (lanes, self.feat_dim)
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    def marginals(self, state, aux):
+        if self.use_kernel:
+            return ops.coverage_marginals(aux.contiguous(), state.contiguous(),
+                                          self.weights)
+        return ref.coverage_marginals(aux, state, self.weights)
+
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget):
+        if self.use_kernel:
+            return ops.coverage_accept(cand_feats.contiguous(),
+                                       state.contiguous(), self.weights,
+                                       eligible.contiguous(), tau, budget)
+        return super().chunk_accept(state, cand_feats, eligible, tau, budget)
+
+    def add(self, state, aux_row):
+        return state + aux_row
+
+    def value(self, state):
+        v = torch.sqrt(state)
+        if self.weights is not None:
+            v = v * self.weights
+        return v.sum(-1)

@@ -1,0 +1,150 @@
+"""DistributedSelector: the user-facing API for the paper's technique.
+
+It owns oracle construction from a spec, MRConfig derivation and the
+driver choice.  The m machines of the MapReduce model are a leading batch
+axis on one device (the sim substrate).  The selector runs on the CUDA card
+unless the caller passes ``device="cpu"``; with no card and no explicit
+device it raises rather than fall back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import functions as F
+from repro_torch.core import mapreduce as mr
+from repro_torch.core import precision as precision_mod
+from repro_torch.core.grids import validate_schedule_kind
+from repro_torch.core.rounds import epoch_round_log
+from repro_torch.core.threshold import validate_engine
+
+#: the OPT-free drivers, which need no OPT estimate or guess loop
+ALGORITHMS = ("two_round", "multi_epoch")
+
+#: every oracle of the JAX package; only feature_coverage is ported so far
+ORACLE_NAMES = ("feature_coverage", "facility_location", "weighted_coverage",
+                "saturated_coverage", "graph_cut", "log_det", "exemplar",
+                "mutual_information")
+
+#: the port's slice that brings each not-yet-ported oracle (ROADMAP.md)
+_PENDING_ORACLES = {
+    "facility_location": "slice 2 (FacilityLocation and its three kernels)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectorSpec:
+    k: int
+    oracle: str = "feature_coverage"   # see ORACLE_NAMES
+    algorithm: str = "two_round"       # see ALGORITHMS
+    eps: float = 0.15
+    epochs: Optional[int] = None       # multi_epoch levels; None derives
+    #                                    ceil(1/eps)
+    schedule_kind: str = "paper"       # grids.SCHEDULE_KINDS
+    accept: str = "first"
+    engine: str = "dense"              # "dense" | "lazy" | "fused"
+    chunk: int = 128                   # lazy/fused-engine chunk size
+    use_kernel: bool = False           # route through the CUDA kernels
+    precision: str = "f32"             # "f32" | "bf16" storage policy
+
+    def __post_init__(self):
+        precision_mod.validate(self.precision, where="SelectorSpec")
+        validate_engine(self.engine, self.accept, where="SelectorSpec")
+        validate_schedule_kind(self.schedule_kind, where="SelectorSpec")
+        if self.algorithm not in ALGORITHMS:
+            raise ValueError(f"SelectorSpec: unknown or not yet ported "
+                             f"algorithm {self.algorithm!r}; choose from "
+                             f"{ALGORITHMS}")
+
+    @property
+    def precision_policy(self):
+        return precision_mod.resolve(self.precision)
+
+
+def make_oracle(spec: SelectorSpec, feat_dim: int, device, weights=None):
+    """Build the spec's oracle on ``device``; ``weights`` are
+    FeatureCoverage's optional (d,) feature weights."""
+    if spec.oracle == "feature_coverage":
+        if weights is not None:
+            weights = torch.as_tensor(weights, dtype=torch.float32,
+                                      device=device)
+        return F.FeatureCoverage(feat_dim=feat_dim, weights=weights,
+                                 use_kernel=spec.use_kernel,
+                                 device=torch.device(device))
+    if spec.oracle in ORACLE_NAMES:
+        slice_name = _PENDING_ORACLES.get(
+            spec.oracle, "a later slice (the rest of the oracle zoo)")
+        raise NotImplementedError(
+            f"oracle {spec.oracle!r} is not ported to PyTorch yet; it comes "
+            f"with {slice_name}")
+    raise ValueError(f"unknown oracle {spec.oracle!r}; "
+                     f"registered: {ORACLE_NAMES}")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The CUDA card by default; ``"cpu"`` only when asked for.  Raises
+    when CUDA is wanted and there is no card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return dev
+
+
+class DistributedSelector:
+    """Runs the paper's MapReduce selection with ``n_machines`` simulated
+    machines on one device.
+
+    ``select(embeddings)``: embeddings (n_total, feat_dim); returns a
+    SelectionResult.  ``n_total`` must be a multiple of ``n_machines``.
+    """
+
+    def __init__(self, spec: SelectorSpec, n_total: int, feat_dim: int,
+                 n_machines: int = 1, device=None, weights=None):
+        self.spec = spec
+        self.device = resolve_device(device)
+        self.oracle = make_oracle(spec, feat_dim, self.device, weights)
+        self.cfg = mr.MRConfig(k=spec.k, n_total=n_total,
+                               n_machines=n_machines, eps=spec.eps,
+                               accept=spec.accept, engine=spec.engine,
+                               chunk=spec.chunk, epochs=spec.epochs,
+                               schedule_kind=spec.schedule_kind,
+                               precision=spec.precision)
+        self.cfg.require_even_shards(where="DistributedSelector")
+        self._epochs = 1 if spec.algorithm == "two_round" else None
+        self.round_log = epoch_round_log(
+            self.cfg, n_machines, feat_dim, self.cfg.n_epochs(self._epochs),
+            with_grid=True, with_top=True)
+
+    def select(self, embeddings, generator: Optional[torch.Generator] = None,
+               uniforms=None) -> mr.SelectionResult:
+        """Select k of the n_total rows.  The sample rounds draw from
+        ``generator`` (on the selector's device), or take ``uniforms``, an
+        (E, m, n/m) array of U[0, 1) draws."""
+        X = torch.as_tensor(embeddings, device=self.device)
+        n, d = X.shape
+        if n != self.cfg.n_total:
+            raise ValueError(f"select: got {n} rows, the selector was built "
+                             f"for n_total={self.cfg.n_total}")
+        m = self.cfg.n_machines
+        ids = torch.arange(n, dtype=torch.int32, device=self.device)
+        valid = torch.ones(n, dtype=torch.bool, device=self.device)
+        res, _ = mr.multi_epoch_sim(
+            self.oracle, X.reshape(m, n // m, d), ids.reshape(m, -1),
+            valid.reshape(m, -1), self.cfg, uniforms=uniforms,
+            generator=generator, epochs=self._epochs)
+        # degenerate-sample and overflow events surface in the round log's
+        # runtime counters (device scalars, no sync here)
+        self.round_log.note("tau_fallback", res.tau_fallback)
+        self.round_log.note("n_dropped", res.n_dropped)
+        return res
+
+    def opt_upper_bound(self, embeddings) -> torch.Tensor:
+        """k * (max singleton value) >= OPT >= max singleton."""
+        X = torch.as_tensor(embeddings, device=self.device)
+        st0 = self.oracle.init_state()
+        singles = self.oracle.marginals(st0, self.oracle.prep(st0, X))
+        return singles.max() * self.spec.k

@@ -1,0 +1,47 @@
+"""Single-machine baselines: classic greedy (Nemhauser–Wolsey–Fisher 1-1/e)
+and sequential threshold greedy.  They anchor the guarantee checks: a
+MapReduce selection's value is held against the greedy value, which is at
+most OPT.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.threshold import threshold_greedy
+
+
+def greedy(oracle, feats, valid, k: int, ids=None):
+    """Classic greedy: k argmax steps over the whole block.  Returns (ids
+    (k,) int32 -1 padded, size () int, value ()); the buffer holds row
+    indices, or global ids when ``ids`` is given."""
+    n = feats.shape[0]
+    dev = valid.device
+    st = oracle.init_state()
+    aux = oracle.prep(st, feats)
+    sol = torch.full((k,), -1, dtype=torch.int32, device=dev)
+    taken = torch.zeros(n, dtype=torch.bool, device=dev)
+    for i in range(k):
+        gains = torch.where(valid & ~taken, oracle.marginals(st, aux),
+                            float("-inf"))
+        best = gains.argmax()
+        ok = gains[best] > 0.0
+        st = torch.where(ok, oracle.add(st, aux[best]), st)
+        out_id = best.to(torch.int32) if ids is None else ids[best]
+        sol[i] = torch.where(ok, out_id, sol[i])
+        taken[best] |= ok
+    return sol, (sol >= 0).sum(), oracle.value(st)
+
+
+def threshold_sequential(oracle, feats, valid, k: int, tau):
+    """Single-machine ThresholdGreedy over the whole block (Algorithm 1 run
+    centrally), as one lane.  Returns (ids (k,), size (), value ())."""
+    n = feats.shape[0]
+    dev = valid.device
+    st = oracle.init_state(1)
+    sol = torch.full((1, k), -1, dtype=torch.int32, device=dev)
+    size = torch.zeros(1, dtype=torch.int32, device=dev)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    st, sol, size = threshold_greedy(oracle, st, sol, size, feats, ids, valid,
+                                     tau, k)
+    return sol[0], size[0], oracle.value(st)[0]

@@ -32,6 +32,12 @@ def _drop_jit_caches_between_modules():
 
     jax.clear_caches()
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one)")
+
+
 try:
     from hypothesis import HealthCheck, settings
 
