@@ -5,19 +5,25 @@
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
-1. Build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc.
+1. Build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc (one
+   process per source, all at once).
 2. Hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (f32 and bf16 x, weighted and unweighted), and time
-   both with CUDA events.
-3. Drive the main path at full width: DistributedSelector.select with the
-   two_round driver and FeatureCoverage, n = 1,048,576 rows of d = 256
-   (a 1 GiB f32 corpus on the card), k = 64, m = 16 simulated machines,
-   eps = 0.15, once per engine on the kernel route and once on the plain
-   route, then multi_epoch (E = 2) and bf16 storage on the fused engine.
-   Checks agreement between the routes and engines, the (1/2 - eps)
-   guarantee against sequential greedy, and that every kernel of the path
-   launched.
-4. Print the kernel table as one JSON line, the card's name and power
+   main paths' shapes, and time both with CUDA events:
+   coverage_marginals and coverage_accept (f32 and bf16 x, weighted and
+   unweighted); facility_marginals, rectified_residual_sum and
+   facility_accept (f32 and bf16, every lane mode, an odd shape at L = 1
+   and L = 100, and a bitwise repeat of each).
+3. Drive the FeatureCoverage main path at full width:
+   DistributedSelector.select with the two_round driver, n = 1,048,576
+   rows of d = 256 (a 1 GiB f32 corpus on the card), k = 64, m = 16
+   simulated machines, eps = 0.15, once per engine on the kernel route and
+   once on the plain route, then multi_epoch (E = 2) and bf16 storage on
+   the fused engine.  Checks agreement between the routes and engines, the
+   (1/2 - eps) guarantee against sequential greedy, and that every kernel
+   of the path launched.
+4. The same for FacilityLocation over the same corpus with a 256-row
+   reference set.
+5. Print the kernel table as one JSON line, the card's name and power
    limit, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -42,8 +48,12 @@ PEAK_F32 = 67e12
 N, D, K, M, EPS, CHUNK = 1 << 20, 256, 64, 16, 0.15, 128
 L = 37                 # tau-grid lanes at k=64, eps=0.15
 B = CHUNK              # lazy / fused chunk rows
+R = 256                # facility location reference rows
+S_ROWS = 98_560        # gathered sample (16 x 6160 rows)
+F_ROWS = 34_048        # gathered survivors per lane (16 x 2128 rows)
 GREEDY_ROWS = 1 << 16  # rows of the sequential greedy yardstick
-RTOL = ATOL = 1e-5
+TILE = 1 << 18         # row tile of the plain versions at full width
+RTOL = ATOL = 1e-5     # coverage kernels: sums over d in another order
 
 
 def check(cond, msg):
@@ -80,8 +90,43 @@ def bound_ms(n_bytes, n_ops):
                                        else "operations")
 
 
-def phase_kernels(torch, ref, cm, ca):
-    """Kernel vs plain version on the card; returns the JSON rows."""
+def check_sweep(name, got, want, tau, near_tol, close):
+    """Hold a kernel's accept sweep (mask, state, gains), (L, ...) each,
+    against the plain sweep.  Masks may part only at a row whose plain gain
+    is within ``near_tol[l]`` of tau; the gains are then compared up to
+    that row.  Returns (near-tau ties, max abs err)."""
+    km, ks, kg = got
+    pm, ps, pg = want
+    ties, err = 0, 0.0
+    for l in range(km.shape[0]):
+        diff = (km[l] != pm[l]).nonzero()
+        upto = km.shape[1]
+        if len(diff):
+            i = int(diff[0])
+            check(abs(float(pg[l, i]) - float(tau[l])) <= float(near_tol[l]),
+                  f"{name} lane {l} row {i}: masks differ away from tau "
+                  f"(gain {float(pg[l, i])}, tau {float(tau[l])})")
+            ties, upto = ties + 1, i + 1
+        else:
+            check(close(l, ks[l], ps[l], "state"),
+                  f"{name} lane {l}: states differ")
+            err = max(err, (ks[l] - ps[l]).abs().max().item())
+        check(close(l, kg[l, :upto], pg[l, :upto], "gains"),
+              f"{name} lane {l}: gains differ")
+        err = max(err, (kg[l, :upto] - pg[l, :upto]).abs().max().item())
+    return ties, err
+
+
+def lane_taus(torch, gains):
+    """Per-lane thresholds from "accept most rows" to "accept few"."""
+    q = torch.linspace(0.05, 0.95, gains.shape[0], device=gains.device)
+    return torch.stack([gains[l].quantile(q[l])
+                        for l in range(gains.shape[0])]).contiguous()
+
+
+def phase_coverage_kernels(torch, ref, cm, ca):
+    """Coverage kernels vs plain versions on the card; returns the JSON
+    rows."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     rows = {}
@@ -136,38 +181,18 @@ def phase_kernels(torch, ref, cm, ca):
             state = torch.rand((L, D), generator=g, device=dev) * 4
             w = torch.rand(D, generator=g, device=dev) + 0.5 if weighted else None
             elig = torch.rand((L, B), generator=g, device=dev) < 0.9
-            g0 = ref.coverage_marginals(x, state, w)
-            # lanes from "accept most rows" to "accept few"
-            q = torch.linspace(0.05, 0.95, L, device=dev)
-            tau = torch.stack([g0[l].quantile(q[l]) for l in range(L)])
-            tau = tau.contiguous()
+            tau = lane_taus(torch, ref.coverage_marginals(x, state, w))
             budget = torch.where(torch.arange(L, device=dev) % 5 == 0, 3,
                                  K).to(torch.int32)
-            km, ks, kg = ca.coverage_accept(x, state, w, elig, tau, budget)
-            pm, ps, pg = ref.coverage_accept(x, state, w, elig, tau, budget)
+            got = ca.coverage_accept(x, state, w, elig, tau, budget)
+            want = ref.coverage_accept(x, state, w, elig, tau, budget)
             torch.cuda.synchronize()
-            ties, err = 0, 0.0
-            for l in range(L):
-                diff = (km[l] != pm[l]).nonzero()
-                upto = B
-                if len(diff):
-                    i = int(diff[0])
-                    near = abs(float(pg[l, i]) - float(tau[l])) \
-                        <= 1e-5 * abs(float(tau[l]))
-                    check(near, f"coverage_accept lane {l} row {i}: masks "
-                          f"differ away from tau (gain {float(pg[l, i])}, "
-                          f"tau {float(tau[l])})")
-                    ties, upto = ties + 1, i + 1
-                else:
-                    check(torch.allclose(ks[l], ps[l], rtol=RTOL, atol=ATOL),
-                          f"coverage_accept lane {l}: states differ")
-                    err = max(err, (ks[l] - ps[l]).abs().max().item())
-                check(torch.allclose(kg[l, :upto], pg[l, :upto], rtol=RTOL,
-                                     atol=ATOL),
-                      f"coverage_accept lane {l}: gains differ")
-                err = max(err, (kg[l, :upto] - pg[l, :upto]).abs().max().item())
+            ties, err = check_sweep(
+                "coverage_accept", got, want, tau, RTOL * tau.abs(),
+                lambda l, a, b, what: torch.allclose(a, b, rtol=RTOL,
+                                                     atol=ATOL))
             worst = max(worst, err)
-            n_acc = int(pm.sum())
+            n_acc = int(want[0].sum())
             ms = cuda_ms(lambda: ca.coverage_accept(x, state, w, elig, tau,
                                                     budget), 50)
             pms = cuda_ms(lambda: ref.coverage_accept(x, state, w, elig, tau,
@@ -187,34 +212,261 @@ def phase_kernels(torch, ref, cm, ca):
     return rows
 
 
-def drive(torch, tsel, cm, ca, X, label, **spec_kw):
+def phase_facility_kernels(torch, ref, fm, fa):
+    """Facility kernels vs plain versions on the card; returns the JSON
+    rows.  Tolerances: ``ref.gemm_gain_tol`` for gains through a similarity
+    product (the f32 rounding bound of two evaluations that sum in
+    different orders), 2 r 2^-24 times the summed magnitudes for the
+    rectified residual sum."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = {}
+
+    def within(name, got, want, tol):
+        err = (got - want).abs()
+        check(bool((err <= tol).all()),
+              f"{name}: max abs err {err.max().item()} beyond tolerance")
+        return err.max().item()
+
+    def repeat(name, fn, first):
+        check(torch.equal(fn(), first), f"{name}: a repeated launch differs")
+
+    # -- facility_marginals: shared at the filter shape, per-lane at the
+    #    lazy chunk shape, two odd shapes, and a grid wider than one CTA's
+    #    lane group (two groups)
+    worst = 0.0
+    for label, Lk, C, r, d in (("shared", L, N, R, D), ("per-lane", L, B, R, D),
+                               ("odd shared", 100, 1000, 45, 70),
+                               ("odd per-lane", 1, 65, 45, 70),
+                               ("odd shared", 130, 1000, 45, 70)):
+        per_lane = label.endswith("per-lane")
+        for dtype in (torch.float32, torch.bfloat16):
+            if label.startswith("odd") and dtype == torch.bfloat16:
+                continue
+            shape = (Lk, C, d) if per_lane else (C, d)
+            cand = (torch.rand(shape, generator=g, device=dev) ** 2).to(dtype)
+            Rm = torch.rand((r, d), generator=g, device=dev)
+            state = torch.rand((Lk, r), generator=g, device=dev) * d / 4
+            if per_lane or C <= TILE:
+                plain = lambda: ref.facility_marginals(cand, Rm, state)  # noqa: E731
+            else:
+                # one lane at a time, in row tiles: the plain version's
+                # (L, C, r) temporaries would not fit in device memory
+                plain = lambda: torch.stack([torch.cat([  # noqa: E731
+                    ref.facility_marginals(cand[t:t + TILE], Rm, state[l])
+                    for t in range(0, C, TILE)]) for l in range(Lk)])
+            got = fm.facility_marginals(cand, Rm, state)
+            want = plain()
+            torch.cuda.synchronize()
+            tol = ref.gemm_gain_tol(cand, Rm)
+            err = within(f"facility_marginals {label} {dtype}", got, want,
+                         tol if per_lane else tol.expand(Lk, C))
+            repeat("facility_marginals", lambda: fm.facility_marginals(
+                cand, Rm, state), got)
+            worst = max(worst, err)
+            ms = cuda_ms(lambda: fm.facility_marginals(cand, Rm, state), 10)
+            pms = cuda_ms(plain, 1)
+            rows_c = Lk * C if per_lane else C
+            b_ms, b_by = bound_ms(cand.numel() * cand.element_size()
+                                  + r * d * 4 + Lk * r * 4 + Lk * C * 4,
+                                  2 * rows_c * r * d + 3 * Lk * C * r)
+            print(f"[kernels] facility_marginals {label} cand{tuple(shape)} "
+                  f"ref({r}, {d}) L={Lk} {str(dtype)[6:]}: max_abs_err={err} "
+                  f"tol_max={tol.max().item()} kernel_ms={ms} plain_ms={pms} "
+                  f"bound_ms={b_ms} ({b_by}) repeat=bitwise")
+            if label == "shared" and dtype == torch.float32:
+                rows["facility_marginals"] = dict(ms=ms, plain_ms=pms,
+                                                  bound_ms=b_ms, bound_by=b_by)
+                Xs, Rs = cand, Rm
+    rows["facility_marginals"]["max_abs_err"] = worst
+    mm = cuda_ms(lambda: torch.matmul(Xs, Rs.T), 10)
+    print(f"[kernels] yardstick: torch.matmul ({N}, {D}) x ({D}, {R}) f32 "
+          f"alone: {mm} ms (allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32})")
+
+    # -- rectified_residual_sum: unbatched over the corpus (local_top), the
+    #    shared sample with 37 lanes (dense phase 1), per-lane survivors
+    #    (dense phase 2), two odd shapes
+    worst = 0.0
+    for label, Lk, C, r in (("unbatched", 1, N, R), ("shared", L, S_ROWS, R),
+                            ("per-lane", L, F_ROWS, R),
+                            ("odd shared", 100, 1000, 45),
+                            ("odd per-lane", 1, 65, 45)):
+        per_lane = label.endswith("per-lane")
+        aux = torch.rand((Lk, C, r) if per_lane else (C, r), generator=g,
+                         device=dev) * 40
+        state = torch.rand((r,) if label == "unbatched" else (Lk, r),
+                           generator=g, device=dev) * 40
+        if per_lane or label == "unbatched":
+            plain = lambda: ref.rectified_residual_sum(aux, state)  # noqa: E731
+        else:
+            plain = lambda: torch.stack([  # noqa: E731
+                ref.rectified_residual_sum(aux, state[l]) for l in range(Lk)])
+        got = fm.rectified_residual_sum(aux, state)
+        want = plain()
+        torch.cuda.synchronize()
+        tol = 2 * r * 2.0 ** -24 * (aux.abs().sum(-1)
+                                    + state.abs().sum(-1, keepdim=True))
+        err = within(f"rectified_residual_sum {label}", got, want, tol)
+        repeat("rectified_residual_sum",
+               lambda: fm.rectified_residual_sum(aux, state), got)
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: fm.rectified_residual_sum(aux, state), 10)
+        pms = cuda_ms(plain, 1)
+        b_ms, b_by = bound_ms(aux.numel() * 4 + state.numel() * 4
+                              + Lk * C * 4, 3 * Lk * C * r)
+        print(f"[kernels] rectified_residual_sum {label} aux{tuple(aux.shape)} "
+              f"L={Lk}: max_abs_err={err} kernel_ms={ms} plain_ms={pms} "
+              f"bound_ms={b_ms} ({b_by}) repeat=bitwise")
+        if label == "unbatched":
+            rows["rectified_residual_sum"] = dict(ms=ms, plain_ms=pms,
+                                                  bound_ms=b_ms, bound_by=b_by)
+    rows["rectified_residual_sum"]["max_abs_err"] = worst
+
+    # -- facility_accept at the fused engine's shape, r = 256 and 1024, and
+    #    two odd shapes
+    worst = 0.0
+    for label, Lk, Bk, r, d in (("path", L, B, R, D), ("wide r", L, B, 1024, D),
+                                ("odd L=1", 1, 70, 45, 70),
+                                ("odd L=100", 100, B, 45, 70)):
+        for dtype in (torch.float32, torch.bfloat16):
+            if label.startswith("odd") and dtype == torch.bfloat16:
+                continue
+            cand = (torch.rand((Lk, Bk, d), generator=g, device=dev) ** 2
+                    ).to(dtype)
+            Rm = torch.rand((r, d), generator=g, device=dev)
+            state = torch.rand((Lk, r), generator=g, device=dev) * d / 4
+            elig = torch.rand((Lk, Bk), generator=g, device=dev) < 0.9
+            tau = lane_taus(torch, ref.facility_marginals(cand, Rm, state))
+            budget = torch.where(torch.arange(Lk, device=dev) % 5 == 0, 3,
+                                 K).to(torch.int32)
+            got = fa.facility_accept(cand, Rm, state, elig, tau, budget)
+            want = ref.facility_accept(cand, Rm, state, elig, tau, budget)
+            torch.cuda.synchronize()
+            # a gain and the state it is taken against are both sums of
+            # similarities: twice the worst row's bound covers them
+            lane_tol = 2 * ref.gemm_gain_tol(cand, Rm).amax(-1)
+            ties, err = check_sweep(
+                "facility_accept", got, want, tau, lane_tol,
+                lambda l, a, b, what: bool(((a - b).abs() <= lane_tol[l]).all()))
+            again = fa.facility_accept(cand, Rm, state, elig, tau, budget)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  "facility_accept: a repeated launch differs")
+            worst = max(worst, err)
+            n_acc = int(want[0].sum())
+            ms = cuda_ms(lambda: fa.facility_accept(cand, Rm, state, elig, tau,
+                                                    budget), 50)
+            pms = cuda_ms(lambda: ref.facility_accept(cand, Rm, state, elig,
+                                                      tau, budget), 2)
+            b_ms, b_by = bound_ms(
+                cand.numel() * cand.element_size() + r * d * 4
+                + 2 * Lk * r * 4 + Lk * Bk * 6 + Lk * 8,
+                2 * Lk * Bk * r * d + 4 * Lk * Bk * r + n_acc * r)
+            print(f"[kernels] facility_accept cand({Lk}, {Bk}, {d}) r={r} "
+                  f"{str(dtype)[6:]}: max_abs_err={err} near_tau_ties={ties} "
+                  f"accepted={n_acc} kernel_ms={ms} plain_ms={pms} "
+                  f"bound_ms={b_ms} ({b_by}) repeat=bitwise")
+            if label == "path" and dtype == torch.float32:
+                rows["facility_accept"] = dict(ms=ms, plain_ms=pms,
+                                               bound_ms=b_ms, bound_by=b_by)
+    rows["facility_accept"]["max_abs_err"] = worst
+    return rows
+
+
+def drive(torch, tsel, ops, X, label, reference=None, **spec_kw):
     """One select through the public entry point, with the launch counts
-    set to 0 just before and read just after.  Returns (result, wall ms,
-    (marginals launches, accept launches), selector)."""
+    set to 0 just before and read just after.  Returns (result, value,
+    wall ms, launch counts by kernel)."""
     spec = tsel.SelectorSpec(k=K, eps=EPS, chunk=CHUNK, **spec_kw)
     sel = tsel.DistributedSelector(spec, n_total=N, feat_dim=D, n_machines=M,
-                                   device="cuda")
+                                   device="cuda", reference=reference)
     gen = torch.Generator(device="cuda").manual_seed(1)
     torch.cuda.synchronize()
-    cm.launches = ca.launches = 0
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     res = sel.select(X, generator=gen)
     value = float(res.value)  # waits for the device
     wall = (time.perf_counter() - t0) * 1e3
-    counts = (cm.launches, ca.launches)
-    ids = res.sol_ids.cpu()
-    check(res.sol_ids.shape == (K,) and int(res.sol_size) == K,
-          f"{label}: expected {K} ids, got size {int(res.sol_size)}")
-    check(len(set(ids.tolist())) == K and int(ids.min()) >= 0
-          and int(ids.max()) < N, f"{label}: ids not {K} distinct rows")
+    counts = ops.launch_counts()
+    size = int(res.sol_size)
+    ids = res.sol_ids.cpu()[:size]
+    # facility location over all-positive similarities saturates after a
+    # few picks, so its lanes may stop short of k
+    full = spec.oracle == "feature_coverage"
+    check(res.sol_ids.shape == (K,) and (size == K if full else 1 <= size <= K),
+          f"{label}: got size {size}")
+    check(len(set(ids.tolist())) == size and int(ids.min()) >= 0
+          and int(ids.max()) < N, f"{label}: ids not {size} distinct rows")
     check(value == value and value > 0 and value != float("inf"),
           f"{label}: value {value}")
-    print(f"[main] {label}: value={value} |S|={int(res.sol_size)} "
+    nonzero = {k: v for k, v in counts.items() if v}
+    print(f"[main] {label}: value={value} |S|={size} "
           f"n_dropped={int(res.n_dropped)} tau_fallback={int(res.tau_fallback)} "
-          f"wall_ms={wall} launches(coverage_marginals, coverage_accept)="
-          f"{counts}")
+          f"wall_ms={wall} launches={nonzero}")
     print(sel.round_log.summary())
     return res, value, wall, counts
+
+
+def main_path(torch, tsel, tseq, ops, X, oracle, kernels, accept_kernel,
+              reference=None):
+    """Drive one oracle's main path: three engines on the kernel route, the
+    lazy engine on the plain route, multi_epoch E = 2 and bf16 storage on
+    the fused engine.  Returns the launches of each of ``kernels`` summed
+    over the kernel-route selects."""
+    launches = dict.fromkeys(kernels, 0)
+
+    def run(label, **kw):
+        res, value, _, counts = drive(torch, tsel, ops, X,
+                                      f"{oracle} {label}", reference,
+                                      oracle=oracle, **kw)
+        fused = kw.get("engine") == "fused"
+        for name in kernels:
+            want = fused if name == accept_kernel else True
+            check((counts[name] > 0) == want,
+                  f"{oracle} {label}: {name} launched {counts[name]} times")
+            launches[name] += counts[name]
+        return res, value
+
+    runs = {e: run(f"two_round {e} kernel", engine=e, use_kernel=True)
+            for e in ("dense", "lazy", "fused")}
+    res_p, value_p, _, counts = drive(torch, tsel, ops, X,
+                                      f"{oracle} two_round lazy plain",
+                                      reference, oracle=oracle, engine="lazy",
+                                      use_kernel=False)
+    check(not any(counts.values()), f"plain route launched kernels {counts}")
+    for engine, (res, value) in runs.items():
+        check(abs(value - value_p) <= 1e-3 * abs(value_p),
+              f"{oracle} {engine} value {value} vs plain {value_p}")
+        overlap = len(set(res.sol_ids.tolist()) & set(res_p.sol_ids.tolist())
+                      - {-1})
+        print(f"[main] {oracle} {engine} vs plain: rel_diff="
+              f"{abs(value - value_p) / value_p} id_overlap={overlap}/"
+              f"{int(res_p.sol_size)}")
+
+    greedy_oracle = tsel.make_oracle(tsel.SelectorSpec(k=K, oracle=oracle), D,
+                                     "cuda", reference=reference)
+    _, _, gval = tseq.greedy(greedy_oracle, X[:GREEDY_ROWS],
+                             torch.ones(GREEDY_ROWS, dtype=torch.bool,
+                                        device="cuda"), K)
+    gval = float(gval)
+    for engine, (_, value) in runs.items():
+        check(value >= (0.5 - EPS) * gval,
+              f"{oracle} {engine}: value {value} below (1/2 - eps) x greedy "
+              f"{gval}")
+    print(f"[main] {oracle} greedy on the first {GREEDY_ROWS} rows: "
+          f"value={gval}; two_round/greedy = "
+          f"{ {e: v / gval for e, (_, v) in runs.items()} }")
+
+    _, v_me = run("multi_epoch E=2 fused kernel", algorithm="multi_epoch",
+                  epochs=2, engine="fused", use_kernel=True)
+    check(v_me >= (0.5 - EPS) * gval, f"{oracle} multi_epoch value {v_me}")
+    _, v_bf = run("two_round fused kernel bf16", engine="fused",
+                  use_kernel=True, precision="bf16")
+    v_f32 = runs["fused"][1]
+    check(v_bf >= 0.99 * v_f32, f"{oracle} bf16 value {v_bf} < 0.99 x f32 "
+          f"{v_f32}")
+    print(f"[main] {oracle} bf16/f32 fused value ratio = {v_bf / v_f32}")
+    return launches
 
 
 def main() -> int:
@@ -230,73 +482,38 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import selector as tsel
     from repro_torch.core import sequential as tseq
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import coverage_accept as ca
     from repro_torch.kernels import coverage_marginals as cm
+    from repro_torch.kernels import facility_accept as fa
+    from repro_torch.kernels import facility_marginals as fm
 
     card = smi()
     print(f"[build] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    # the plain versions' products must be full f32, like the CPU reference
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmul is on; the plain versions need full f32 products")
+    print(f"[build] float32 matmul precision: "
+          f"{torch.get_float32_matmul_precision()}")
     t0 = time.perf_counter()
     _build.build_all()
-    print(f"[build] kernels built in {time.perf_counter() - t0:.3f} s; "
-          f"card: {card}")
+    print(f"[build] {len(_build.SOURCES)} kernel sources built in "
+          f"{time.perf_counter() - t0:.3f} s; card: {card}")
 
-    rows = phase_kernels(torch, ref, cm, ca)
+    rows = phase_coverage_kernels(torch, ref, cm, ca)
+    rows.update(phase_facility_kernels(torch, ref, fm, fa))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     X = torch.rand((N, D), generator=gen, device="cuda") ** 2
-    runs, launches = {}, {"coverage_marginals": 0, "coverage_accept": 0}
-    for engine in ("dense", "lazy", "fused"):
-        res, value, wall, counts = drive(torch, tsel, cm, ca, X,
-                                         f"two_round {engine} kernel",
-                                         engine=engine, use_kernel=True)
-        check(counts[0] > 0, f"{engine}: coverage_marginals never launched")
-        check((counts[1] > 0) == (engine == "fused"),
-              f"{engine}: coverage_accept launched {counts[1]} times")
-        launches["coverage_marginals"] += counts[0]
-        launches["coverage_accept"] += counts[1]
-        runs[engine] = (res, value)
-    res_p, value_p, _, counts = drive(torch, tsel, cm, ca, X,
-                                      "two_round lazy plain", engine="lazy",
-                                      use_kernel=False)
-    check(counts == (0, 0), f"plain route launched kernels {counts}")
-    for engine, (res, value) in runs.items():
-        check(abs(value - value_p) <= 1e-3 * abs(value_p),
-              f"{engine} value {value} vs plain {value_p}")
-        overlap = len(set(res.sol_ids.tolist()) & set(res_p.sol_ids.tolist()))
-        print(f"[main] {engine} vs plain: rel_diff="
-              f"{abs(value - value_p) / value_p} id_overlap={overlap}/{K}")
-
-    oracle = tsel.make_oracle(tsel.SelectorSpec(k=K), D, "cuda")
-    _, _, gval = tseq.greedy(oracle, X[:GREEDY_ROWS],
-                             torch.ones(GREEDY_ROWS, dtype=torch.bool,
-                                        device="cuda"), K)
-    gval = float(gval)
-    for engine, (_, value) in runs.items():
-        check(value >= (0.5 - EPS) * gval,
-              f"{engine}: value {value} below (1/2 - eps) x greedy {gval}")
-    print(f"[main] greedy on the first {GREEDY_ROWS} rows: value={gval}; "
-          f"two_round/greedy = "
-          f"{ {e: v / gval for e, (_, v) in runs.items()} }")
-
-    _, v_me, _, counts = drive(torch, tsel, cm, ca, X,
-                               "multi_epoch E=2 fused kernel",
-                               algorithm="multi_epoch", epochs=2,
-                               engine="fused", use_kernel=True)
-    check(counts[0] > 0 and counts[1] > 0, f"multi_epoch launches {counts}")
-    launches["coverage_marginals"] += counts[0]
-    launches["coverage_accept"] += counts[1]
-    check(v_me >= (0.5 - EPS) * gval, f"multi_epoch value {v_me}")
-    _, v_bf, _, counts = drive(torch, tsel, cm, ca, X,
-                               "two_round fused kernel bf16", engine="fused",
-                               use_kernel=True, precision="bf16")
-    check(counts[0] > 0 and counts[1] > 0, f"bf16 launches {counts}")
-    launches["coverage_marginals"] += counts[0]
-    launches["coverage_accept"] += counts[1]
-    v_f32 = runs["fused"][1]
-    check(v_bf >= 0.99 * v_f32, f"bf16 value {v_bf} < 0.99 x f32 {v_f32}")
-    print(f"[main] bf16/f32 fused value ratio = {v_bf / v_f32}")
+    reference = torch.rand((R, D), generator=gen, device="cuda")
+    launches = main_path(torch, tsel, tseq, ops, X, "feature_coverage",
+                         ("coverage_marginals", "coverage_accept"),
+                         "coverage_accept")
+    launches.update(main_path(
+        torch, tsel, tseq, ops, X, "facility_location",
+        ("facility_marginals", "rectified_residual_sum", "facility_accept"),
+        "facility_accept", reference=reference))
 
     table = []
     for name, src, replaces in (
@@ -305,7 +522,16 @@ def main() -> int:
              "src/repro/kernels/coverage_marginals.py:49"),
             ("coverage_accept",
              "src/repro_torch/kernels/csrc/coverage_accept.cu",
-             "src/repro/kernels/coverage_accept.py:32")):
+             "src/repro/kernels/coverage_accept.py:32"),
+            ("facility_marginals",
+             "src/repro_torch/kernels/csrc/facility_marginals.cu",
+             "src/repro/kernels/facility_marginals.py:59"),
+            ("rectified_residual_sum",
+             "src/repro_torch/kernels/csrc/facility_marginals.cu",
+             "src/repro/kernels/facility_marginals.py:107"),
+            ("facility_accept",
+             "src/repro_torch/kernels/csrc/facility_accept.cu",
+             "src/repro/kernels/facility_accept.py:64")):
         check(launches[name] > 0, f"{name} never launched on the main path")
         r = rows[name]
         table.append({"name": name, "route": "cuda", "source": src,

@@ -1,7 +1,8 @@
 """The selection stack on PyTorch: oracles, ThresholdGreedy engines, round
 primitives, MapReduce drivers and the selector API."""
 
-from repro_torch.core.functions import FeatureCoverage, SubmodularOracle
+from repro_torch.core.functions import (FacilityLocation, FeatureCoverage,
+                                        SubmodularOracle)
 from repro_torch.core.mapreduce import (MRConfig, SelectionResult,
                                         multi_epoch_sim, two_round_sim)
 from repro_torch.core.selector import (ALGORITHMS, ORACLE_NAMES,
@@ -11,7 +12,7 @@ from repro_torch.core.threshold import (GreedyStats, pack_by_mask,
                                         threshold_filter, threshold_greedy)
 
 __all__ = [
-    "FeatureCoverage", "SubmodularOracle",
+    "FacilityLocation", "FeatureCoverage", "SubmodularOracle",
     "MRConfig", "SelectionResult", "multi_epoch_sim", "two_round_sim",
     "ALGORITHMS", "ORACLE_NAMES", "DistributedSelector", "SelectorSpec",
     "make_oracle",

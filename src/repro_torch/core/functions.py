@@ -4,13 +4,19 @@ As in the JAX package, each oracle is state-based: the current solution S
 is summarized by a compact ``state`` tensor, ``marginals(state, aux)``
 scores a whole block of candidates at once, and ``add`` folds one element
 into the state.  The engines run a whole grid of thresholds at once, so
-every method also takes a leading lane axis L: a state of shape (L, d)
+every method also takes a leading lane axis L: a state of shape (L, w)
 holds one solution per lane, and a candidate block is either shared by
-every lane, (C, d), or held per lane, (L, C, d).  An unbatched state (d,)
-with a (C, d) block is the plain single-solution call.
+every lane, (C, d), or held per lane, (L, C, d).  An unbatched state (w,)
+with a (C, d) block is the plain single-solution call.  The state width w
+is the oracle's own: d for FeatureCoverage, the reference-set size r for
+FacilityLocation.
 
-Oracles ported so far: FeatureCoverage.  The others arrive with later
-slices of the port (see ROADMAP.md).
+Oracles ported so far: FeatureCoverage and FacilityLocation.  The others
+arrive with later slices of the port (see ROADMAP.md).
+
+Every oracle lives on the CUDA card unless it is built with
+``device="cpu"``; without a card and without that argument it raises (the
+same rule as the selector, ``repro_torch.device.resolve_device``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
 
 
@@ -33,7 +40,7 @@ class SubmodularOracle:
     device:       where the oracle's states and weights live.
     use_kernel:   route the hot calls through the CUDA kernels (CUDA
                   tensors) or their plain versions (CPU tensors).
-    init_state(lanes=None):   state for S = {}: (d,), or (lanes, d).
+    init_state(lanes=None):   state for S = {}: (w,), or (lanes, w).
     prep(state, cand_feats):  per-candidate aux, computed once per block.
     marginals(state, aux):    gains f_S(e) for the block: (C,) or (L, C).
     chunk_marginals(state, cand_feats): gains straight from features (the
@@ -93,7 +100,10 @@ class FeatureCoverage(SubmodularOracle):
     feat_dim: int
     weights: Optional[torch.Tensor] = None  # optional (d,) nonneg f32
     use_kernel: bool = False
-    device: torch.device = torch.device("cpu")
+    device: Optional[torch.device] = None   # None: the CUDA card
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
 
     def init_state(self, lanes: Optional[int] = None):
         shape = (self.feat_dim,) if lanes is None else (lanes, self.feat_dim)
@@ -120,3 +130,69 @@ class FeatureCoverage(SubmodularOracle):
         if self.weights is not None:
             v = v * self.weights
         return v.sum(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class FacilityLocation(SubmodularOracle):
+    """f(S) = sum_{v in R} max(0, max_{e in S} <x_v, x_e>).
+
+    ``reference`` is a replicated client set R (r, d), in the storage dtype
+    (the selector casts it, as the JAX selector does).  The state is the
+    cover vector (r,).  ``prep`` computes the (C, r) rectified similarity
+    block once per block; ``chunk_marginals`` and ``chunk_accept`` compute
+    their similarities inside the kernels, so the (C, r) block never
+    reaches device memory on those paths.
+    """
+
+    feat_dim: int
+    reference: Optional[torch.Tensor] = None  # (r, d)
+    use_kernel: bool = False
+    device: Optional[torch.device] = None     # None: the CUDA card
+
+    def __post_init__(self):
+        if self.reference is None:
+            raise ValueError("FacilityLocation needs a reference set (r, d)")
+        dev = resolve_device(self.device)
+        ref_ = torch.as_tensor(self.reference, device=dev).contiguous()
+        if ref_.dim() != 2 or ref_.shape[1] != self.feat_dim:
+            raise ValueError(f"FacilityLocation: reference must be (r, "
+                             f"{self.feat_dim}), got {tuple(ref_.shape)}")
+        object.__setattr__(self, "device", dev)
+        object.__setattr__(self, "reference", ref_)
+        # the f32 copy the products read (exact for a bf16 reference)
+        object.__setattr__(self, "_ref32", ref_.float())
+
+    def init_state(self, lanes: Optional[int] = None):
+        r = self.reference.shape[0]
+        shape = (r,) if lanes is None else (lanes, r)
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    def prep(self, state, cand_feats):
+        # f32 operands: a bf16 x bf16 matmul would round every similarity
+        # to bf16, where the JAX package accumulates and returns f32
+        return ref.similarities(cand_feats, self._ref32)
+
+    def marginals(self, state, aux):
+        if self.use_kernel:
+            return ops.rectified_residual_sum(aux.contiguous(),
+                                              state.contiguous())
+        return ref.rectified_residual_sum(aux, state)
+
+    def chunk_marginals(self, state, cand_feats):
+        if self.use_kernel:
+            return ops.facility_marginals(cand_feats.contiguous(), self._ref32,
+                                          state.contiguous())
+        return self.marginals(state, self.prep(state, cand_feats))
+
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget):
+        if self.use_kernel:
+            return ops.facility_accept(cand_feats.contiguous(), self._ref32,
+                                       state.contiguous(),
+                                       eligible.contiguous(), tau, budget)
+        return super().chunk_accept(state, cand_feats, eligible, tau, budget)
+
+    def add(self, state, aux_row):
+        return torch.maximum(state, aux_row)
+
+    def value(self, state):
+        return state.sum(-1)

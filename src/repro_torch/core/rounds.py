@@ -138,7 +138,7 @@ def local_filter(oracle, st, sol, size, feats, ids, valid, tau, cap: int,
     """Algorithm 2 local half for a grid of L lanes: each machine's
     survivors of ThresholdFilter against each lane's solution, packed.
 
-    feats (m, n, d), ids and valid (m, n); st (L, d), sol (L, k), size and
+    feats (m, n, d), ids and valid (m, n); st (L, w), sol (L, k), size and
     tau (L,).  Returns packed (L, m, cap, ...) buffers and (L, m) overflow
     counts.  A lane that already holds k elements sends nothing (Lemma 2's
     escape hatch: "we are done and do not send anything")."""
@@ -208,8 +208,8 @@ class SimRounds:
 # ---------------------------------------------------------------------------
 
 def empty_solution(oracle, k: int, lanes: int):
-    """The empty carry of ``lanes`` lanes: (state (L, d), sol (L, k) of -1,
-    size (L,) of 0)."""
+    """The empty carry of ``lanes`` lanes: (state (L, w) in the oracle's
+    state width, sol (L, k) of -1, size (L,) of 0)."""
     dev = oracle.device
     return (oracle.init_state(lanes),
             torch.full((lanes, k), -1, dtype=torch.int32, device=dev),

@@ -20,18 +20,22 @@ from repro_torch.core import precision as precision_mod
 from repro_torch.core.grids import validate_schedule_kind
 from repro_torch.core.rounds import epoch_round_log
 from repro_torch.core.threshold import validate_engine
+from repro_torch.device import resolve_device
 
 #: the OPT-free drivers, which need no OPT estimate or guess loop
 ALGORITHMS = ("two_round", "multi_epoch")
 
-#: every oracle of the JAX package; only feature_coverage is ported so far
+#: every oracle of the JAX package
 ORACLE_NAMES = ("feature_coverage", "facility_location", "weighted_coverage",
                 "saturated_coverage", "graph_cut", "log_det", "exemplar",
                 "mutual_information")
 
+#: the oracles the port runs so far
+PORTED_ORACLES = ("feature_coverage", "facility_location")
+
 #: the port's slice that brings each not-yet-ported oracle (ROADMAP.md)
 _PENDING_ORACLES = {
-    "facility_location": "slice 2 (FacilityLocation and its three kernels)",
+    "weighted_coverage": "slice 3 (WeightedCoverage and its two kernels)",
 }
 
 
@@ -47,6 +51,8 @@ class SelectorSpec:
     accept: str = "first"
     engine: str = "dense"              # "dense" | "lazy" | "fused"
     chunk: int = 128                   # lazy/fused-engine chunk size
+    reference_size: int = 256          # facility location clients (rows of
+    #                                    R that a caller draws or keeps)
     use_kernel: bool = False           # route through the CUDA kernels
     precision: str = "f32"             # "f32" | "bf16" storage policy
 
@@ -64,9 +70,11 @@ class SelectorSpec:
         return precision_mod.resolve(self.precision)
 
 
-def make_oracle(spec: SelectorSpec, feat_dim: int, device, weights=None):
+def make_oracle(spec: SelectorSpec, feat_dim: int, device, weights=None,
+                reference=None):
     """Build the spec's oracle on ``device``; ``weights`` are
-    FeatureCoverage's optional (d,) feature weights."""
+    FeatureCoverage's optional (d,) feature weights, ``reference`` the
+    replicated (r, d) client set that facility_location needs."""
     if spec.oracle == "feature_coverage":
         if weights is not None:
             weights = torch.as_tensor(weights, dtype=torch.float32,
@@ -74,6 +82,15 @@ def make_oracle(spec: SelectorSpec, feat_dim: int, device, weights=None):
         return F.FeatureCoverage(feat_dim=feat_dim, weights=weights,
                                  use_kernel=spec.use_kernel,
                                  device=torch.device(device))
+    if spec.oracle == "facility_location":
+        if reference is None:
+            raise ValueError("facility_location needs a reference set "
+                             "(reference=, shape (r, feat_dim))")
+        return F.FacilityLocation(feat_dim=feat_dim,
+                                  reference=torch.as_tensor(reference,
+                                                            device=device),
+                                  use_kernel=spec.use_kernel,
+                                  device=torch.device(device))
     if spec.oracle in ORACLE_NAMES:
         slice_name = _PENDING_ORACLES.get(
             spec.oracle, "a later slice (the rest of the oracle zoo)")
@@ -84,29 +101,26 @@ def make_oracle(spec: SelectorSpec, feat_dim: int, device, weights=None):
                      f"registered: {ORACLE_NAMES}")
 
 
-def resolve_device(device=None) -> torch.device:
-    """The CUDA card by default; ``"cpu"`` only when asked for.  Raises
-    when CUDA is wanted and there is no card."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return dev
-
-
 class DistributedSelector:
     """Runs the paper's MapReduce selection with ``n_machines`` simulated
     machines on one device.
 
     ``select(embeddings)``: embeddings (n_total, feat_dim); returns a
     SelectionResult.  ``n_total`` must be a multiple of ``n_machines``.
+    ``reference`` is facility_location's (r, feat_dim) client set; it rides
+    at the storage precision, as the JAX selector keeps it.
     """
 
     def __init__(self, spec: SelectorSpec, n_total: int, feat_dim: int,
-                 n_machines: int = 1, device=None, weights=None):
+                 n_machines: int = 1, device=None, weights=None,
+                 reference=None):
         self.spec = spec
         self.device = resolve_device(device)
-        self.oracle = make_oracle(spec, feat_dim, self.device, weights)
+        if reference is not None:
+            reference = spec.precision_policy.cast_storage(
+                torch.as_tensor(reference, device=self.device)).contiguous()
+        self.oracle = make_oracle(spec, feat_dim, self.device, weights,
+                                  reference)
         self.cfg = mr.MRConfig(k=spec.k, n_total=n_total,
                                n_machines=n_machines, eps=spec.eps,
                                accept=spec.accept, engine=spec.engine,

@@ -1,10 +1,13 @@
-"""Single-machine baselines: classic greedy (Nemhauser–Wolsey–Fisher 1-1/e)
-and sequential threshold greedy.  They anchor the guarantee checks: a
-MapReduce selection's value is held against the greedy value, which is at
-most OPT.
+"""Single-machine baselines: classic greedy (Nemhauser–Wolsey–Fisher 1-1/e),
+sequential threshold greedy, and exact brute force for tiny instances.
+They anchor the guarantee checks: a MapReduce selection's value is held
+against the greedy value, which is at most OPT, or against brute-force OPT
+when n is tiny.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -45,3 +48,25 @@ def threshold_sequential(oracle, feats, valid, k: int, tau):
     st, sol, size = threshold_greedy(oracle, st, sol, size, feats, ids, valid,
                                      tau, k)
     return sol[0], size[0], oracle.value(st)[0]
+
+
+def brute_force(oracle, feats, k: int):
+    """Exact OPT by enumeration, only for tiny (n choose k).  Each subset's
+    value comes from the state chain (prep, then one add per element).
+    Returns (best subset as a tuple of row indices, its value as a float);
+    the first subset in enumeration order wins a tie."""
+    n = feats.shape[0]
+
+    def value_of(subset):
+        st = oracle.init_state()
+        aux = oracle.prep(st, feats[list(subset)])
+        for i in range(len(subset)):
+            st = oracle.add(st, aux[i])
+        return float(oracle.value(st))
+
+    best, best_v = (), -1.0
+    for subset in itertools.combinations(range(n), min(k, n)):
+        v = value_of(subset)
+        if v > best_v:
+            best, best_v = subset, v
+    return best, best_v

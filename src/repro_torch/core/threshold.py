@@ -119,9 +119,10 @@ def threshold_greedy(oracle, oracle_state, sol_ids, sol_size, cand_feats,
     marginal against the lane's current solution is >= the lane's tau,
     until the lane holds k elements or no candidate qualifies.
 
-    oracle_state (L, d); sol_ids (L, k) int32, -1 padded; sol_size (L,)
-    int32; cand_feats (C, d) shared by every lane or (L, C, d) per lane;
-    cand_ids and cand_valid (C,) or (L, C); tau () or (L,).
+    oracle_state (L, w), w the oracle's state width; sol_ids (L, k) int32,
+    -1 padded; sol_size (L,) int32; cand_feats (C, d) shared by every lane
+    or (L, C, d) per lane; cand_ids and cand_valid (C,) or (L, C); tau ()
+    or (L,).
 
     Returns (oracle_state, sol_ids, sol_size), plus a per-lane GreedyStats
     when ``with_stats``.  The inputs are not modified.
@@ -277,9 +278,9 @@ def threshold_filter(oracle, oracle_state, cand_feats, cand_valid, tau,
     """Algorithm 2: the survivor mask of candidates whose marginal against
     the current solution is >= tau.
 
-    oracle_state (d,) with tau () gives a (C,) mask; (L, d) with tau (L,)
+    oracle_state (w,) with tau () gives a (C,) mask; (L, w) with tau (L,)
     gives (L, C).  ``chunk`` sweeps the plain route in (chunk, d) tiles so
-    it never holds the whole block's transient (L, C, d) aux, as the JAX
+    it never holds the whole block's transient (L, C, .) aux, as the JAX
     filter's ``lax.map`` does; a kernel keeps its tiles on chip, so the
     kernel route scores the whole block in one launch either way.  Gains
     are row-wise identical."""

@@ -2,7 +2,8 @@
 
 The system has no weights: what crosses is numpy data (the corpus sharded
 (m, n/m, d) with its ids and validity, FeatureCoverage's optional (d,)
-weights, and the sample rounds' U[0, 1) draws).  These helpers turn such
+weights, FacilityLocation's (r, d) reference set, and the sample rounds'
+U[0, 1) draws).  These helpers turn such
 arrays into the port's tensors and oracle on a given device, so a test can
 feed the same inputs to both packages.  numpy bfloat16 arrays (the
 ``ml_dtypes`` type that JAX hands out) arrive as torch.bfloat16.
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.functions import FeatureCoverage
+from repro_torch.core.functions import FacilityLocation, FeatureCoverage
 
 
 def tensor(a, device="cpu") -> torch.Tensor:
@@ -40,6 +41,15 @@ def feature_coverage(feat_dim: int, weights=None, use_kernel: bool = False,
                                             device)
     return FeatureCoverage(feat_dim=feat_dim, weights=w,
                            use_kernel=use_kernel, device=torch.device(device))
+
+
+def facility_location(feat_dim: int, reference, use_kernel: bool = False,
+                      device="cpu") -> FacilityLocation:
+    """The FacilityLocation oracle over the JAX side's (r, d) reference
+    set, kept in its dtype (a bf16 set is carried bit for bit)."""
+    return FacilityLocation(feat_dim=feat_dim,
+                            reference=tensor(reference, device),
+                            use_kernel=use_kernel, device=torch.device(device))
 
 
 def uniforms(draws, device="cpu") -> torch.Tensor:

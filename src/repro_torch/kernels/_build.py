@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("coverage_marginals", "coverage_accept")
+SOURCES = ("coverage_marginals", "coverage_accept", "facility_marginals",
+           "facility_accept")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,15 @@ SIGNATURES = {
     "coverage_accept": {
         "coverage_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _P),
+    },
+    "facility_marginals": {
+        "facility_marginals_launch": (_P, _I, _I, _P, _P, _P, _I, _LL, _I, _I,
+                                      _P),
+        "rectified_residual_sum_launch": (_P, _I, _P, _P, _I, _LL, _I, _P),
+    },
+    "facility_accept": {
+        "facility_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _P),
     },
 }
 

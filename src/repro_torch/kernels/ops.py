@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from repro_torch.kernels import coverage_accept as _ca
 from repro_torch.kernels import coverage_marginals as _cm
+from repro_torch.kernels import facility_accept as _fa
+from repro_torch.kernels import facility_marginals as _fm
 from repro_torch.kernels import ref
 
 
@@ -22,6 +24,22 @@ def _on_card(x) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain route for device {x.device}")
+
+
+def launch_counts() -> dict:
+    """Kernel launches per entry point since the last reset."""
+    return {"coverage_marginals": _cm.launches,
+            "coverage_accept": _ca.launches,
+            "facility_marginals": _fm.launches["facility_marginals"],
+            "rectified_residual_sum": _fm.launches["rectified_residual_sum"],
+            "facility_accept": _fa.launches}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    _cm.launches = _ca.launches = _fa.launches = 0
+    for name in _fm.launches:
+        _fm.launches[name] = 0
 
 
 def coverage_marginals(x, state, weights=None):
@@ -38,3 +56,28 @@ def coverage_accept(x, state, weights, eligible, tau, budget):
     if _on_card(x):
         return _ca.coverage_accept(x, state, weights, eligible, tau, budget)
     return ref.coverage_accept(x, state, weights, eligible, tau, budget)
+
+
+def facility_marginals(cand, reference, state):
+    """(C, d) | (L, C, d), (r, d), (r,) | (L, r) -> (C,) | (L, C) fused
+    FacilityLocation marginals (similarity product and rectified sum)."""
+    if _on_card(cand):
+        return _fm.facility_marginals(cand, reference, state)
+    return ref.facility_marginals(cand, reference, state)
+
+
+def rectified_residual_sum(aux, state):
+    """(C, r) | (L, C, r), (r,) | (L, r) -> (C,) | (L, C) FacilityLocation
+    marginals from precomputed similarities."""
+    if _on_card(aux):
+        return _fm.rectified_residual_sum(aux, state)
+    return ref.rectified_residual_sum(aux, state)
+
+
+def facility_accept(cand, reference, state, eligible, tau, budget):
+    """Fused FacilityLocation chunk-accept sweep over a (B, d) chunk per
+    lane.  Returns (mask bool, state f32, gains f32), batched like cand."""
+    if _on_card(cand):
+        return _fa.facility_accept(cand, reference, state, eligible, tau,
+                                   budget)
+    return ref.facility_accept(cand, reference, state, eligible, tau, budget)

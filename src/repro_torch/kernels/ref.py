@@ -30,6 +30,56 @@ def coverage_marginals(x, state, weights=None):
     return g.sum(-1)
 
 
+def rectified_residual_sum(aux, state):
+    """FacilityLocation marginal gains from precomputed similarities.
+
+    aux (C, r) or (L, C, r); state (r,) or (L, r) f32.  Returns (C,) for an
+    unbatched call, else (L, C) f32, with
+
+        gains[l, i] = sum_j max(aux[i, j] - state[l, j], 0)
+
+    A (C, r) ``aux`` with an (L, r) state is shared by every lane.
+    """
+    return torch.clamp_min(aux.float() - state.float().unsqueeze(-2),
+                           0.0).sum(-1)
+
+
+def similarities(cand, ref):
+    """The rectified similarity block max(cand @ ref.T, 0), f32 products of
+    the f32-lifted operands: (C, d) or (L, C, d) against (r, d)."""
+    return torch.clamp_min(torch.matmul(cand.float(), ref.float().T), 0.0)
+
+
+def facility_marginals(cand, ref, state):
+    """FacilityLocation marginal gains straight from features.
+
+    cand (C, d) or (L, C, d), float32 or bfloat16; ref (r, d); state (r,)
+    or (L, r) f32.  Returns (C,) for an unbatched call, else (L, C) f32:
+
+        gains[l, i] = sum_j max(max(<cand_i, ref_j>, 0) - state[l, j], 0)
+    """
+    return rectified_residual_sum(similarities(cand, ref), state)
+
+
+def gemm_gain_tol(cand, ref):
+    """Per-row bound on how far two float32 evaluations of a facility gain
+    may differ when they sum in different orders.
+
+    A similarity s_ij = sum_k c_ik r_jk summed in any order is within
+    d * 2^-24 * sum_k |c_ik| |r_jk| of the exact value; the gain sums r
+    rectified residuals (each 1-Lipschitz in s_ij) and its own rounding adds
+    at most r * 2^-24 times the same magnitude.  Two evaluations can each
+    be that far off, so
+
+        tol_i = 2 (d + r) 2^-24 sum_j sum_k |c_ik| |r_jk|
+              = 2 (d + r) 2^-24 <|c_i|, sum_j |r_j|>.
+
+    Shapes follow ``cand``: (C,) or (L, C)."""
+    d, r = ref.shape[-1], ref.shape[0]
+    mag = torch.matmul(cand.float().abs(), ref.float().abs().sum(0))
+    return 2.0 * (d + r) * 2.0 ** -24 * mag
+
+
 def _lanes(x, state, eligible, tau, budget):
     """Lift an unbatched accept call onto one lane; returns the lane-batched
     operands and whether to drop the lane axis again."""
@@ -80,4 +130,22 @@ def coverage_accept(x, state, weights, eligible, tau, budget):
         lambda st, xr: ((torch.sqrt(st + xr) - torch.sqrt(st)) * w).sum(-1),
         lambda st, xr: st + xr,
         x.float(), state, eligible.bool(), tau, budget)
+    return tuple(o[0] for o in out) if unbatched else out
+
+
+def facility_accept(cand, ref, state, eligible, tau, budget):
+    """FacilityLocation accept sweep over the rectified similarity rows.
+
+    cand (B, d) or (L, B, d); ref (r, d); state (r,) or (L, r) f32;
+    eligible (B,) or (L, B) bool; tau () or (L,); budget () or (L,) int.
+    Row i's gain is sum_j max(sims_ij - s_j, 0) against the live cover
+    vector s, and an accepted row applies s = max(s, sims_i).  Returns
+    (mask bool, state f32, gains f32), batched like ``cand``.
+    """
+    cand, state, eligible, tau, budget, unbatched = _lanes(
+        cand, state, eligible, tau, budget)
+    out = accept_scan(
+        lambda st, sr: torch.clamp_min(sr - st, 0.0).sum(-1),
+        torch.maximum,
+        similarities(cand, ref), state, eligible.bool(), tau, budget)
     return tuple(o[0] for o in out) if unbatched else out

@@ -3,9 +3,12 @@ synthetic embedded documents with the OPT-free MapReduce drivers, the m
 machines simulated on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.select --n 1048576 --k 64 \
-        --d 256 --machines 16 --engine fused --use-kernel
+        --d 256 --machines 16 --engine fused --use-kernel \
+        [--oracle facility_location]
 
-Runs on the CUDA card unless ``--device cpu`` is given.
+Embeddings are U[0, 1)^2; facility location's reference set is 256 rows of
+U[0, 1) drawn after them from the same generator, as the JAX CLI draws
+them.  Runs on the CUDA card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -17,9 +20,10 @@ import torch
 
 from repro_torch.core.grids import SCHEDULE_KINDS
 from repro_torch.core.precision import PRECISION_NAMES
-from repro_torch.core.selector import (ALGORITHMS, DistributedSelector,
-                                       SelectorSpec)
+from repro_torch.core.selector import (ALGORITHMS, PORTED_ORACLES,
+                                       DistributedSelector, SelectorSpec)
 from repro_torch.core.threshold import ENGINES
+from repro_torch.device import resolve_device
 
 
 def main(argv=None) -> None:
@@ -27,6 +31,8 @@ def main(argv=None) -> None:
     ap.add_argument("--n", type=int, default=8192)
     ap.add_argument("--k", type=int, default=64)
     ap.add_argument("--d", type=int, default=64)
+    ap.add_argument("--oracle", default="feature_coverage",
+                    choices=list(PORTED_ORACLES))
     ap.add_argument("--algorithm", default="two_round",
                     choices=list(ALGORITHMS))
     ap.add_argument("--engine", default="dense", choices=list(ENGINES),
@@ -52,21 +58,29 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    spec = SelectorSpec(k=args.k, algorithm=args.algorithm, eps=args.eps,
+    spec = SelectorSpec(k=args.k, oracle=args.oracle,
+                        algorithm=args.algorithm, eps=args.eps,
                         epochs=args.epochs, schedule_kind=args.schedule,
                         engine=args.engine, chunk=args.chunk,
                         use_kernel=args.use_kernel, precision=args.precision)
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    emb = torch.rand((args.n, args.d), generator=gen, device=device) ** 2
+    reference = None
+    if args.oracle == "facility_location":
+        reference = torch.rand((spec.reference_size, args.d), generator=gen,
+                               device=device)
     sel = DistributedSelector(spec, n_total=args.n, feat_dim=args.d,
-                              n_machines=args.machines, device=args.device)
-    gen = torch.Generator(device=sel.device).manual_seed(args.seed)
-    emb = torch.rand((args.n, args.d), generator=gen, device=sel.device) ** 2
+                              n_machines=args.machines, device=device,
+                              reference=reference)
 
     t0 = time.perf_counter()
     res = sel.select(emb, generator=gen)
     value = float(res.value)  # waits for the device
     dt = time.perf_counter() - t0
 
-    print(f"[select] n={args.n} k={args.k} d={args.d} algo={args.algorithm} "
+    print(f"[select] oracle={args.oracle} n={args.n} k={args.k} d={args.d} "
+          f"algo={args.algorithm} "
           f"engine={args.engine} machines={args.machines} "
           f"precision={args.precision} device={sel.device}")
     print(sel.round_log.summary())

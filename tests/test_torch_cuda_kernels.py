@@ -6,7 +6,11 @@ only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerance: rtol 1e-5 / atol 1e-5 (the kernels sum over d in another order).
+Tolerance: rtol 1e-5 / atol 1e-5 for the coverage kernels (they sum over d
+in another order); for the facility kernels the f32 rounding bound of
+``ref.gemm_gain_tol`` on the similarity products, and 2 r 2^-24 times the
+summed magnitudes for the rectified residual sum.  Every facility kernel
+must also return the same bits when launched twice.
 """
 
 import pytest
@@ -14,6 +18,8 @@ import torch
 
 from repro_torch.kernels import coverage_accept as tca
 from repro_torch.kernels import coverage_marginals as tcm
+from repro_torch.kernels import facility_accept as tfa
+from repro_torch.kernels import facility_marginals as tfm
 from repro_torch.kernels import ref
 
 RTOL = ATOL = 1e-5
@@ -61,3 +67,82 @@ def test_cuda_coverage_accept_matches_plain(cuda_device, dtype):
     assert torch.equal(got[0], want[0])
     torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(got[2], want[2], rtol=RTOL, atol=ATOL)
+
+
+def _within(got, want, tol):
+    assert got.shape == want.shape
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), f"max err {err.max().item()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,L,C,r,d", [
+    ("unbatched", 1, 1000, 256, 256), ("shared", 37, 700, 256, 256),
+    ("per_lane", 37, 128, 256, 256), ("shared", 100, 333, 45, 17),
+    ("per_lane", 1, 65, 33, 70), ("shared", 130, 70, 70, 8)])
+def test_cuda_facility_marginals_matches_plain(cuda_device, dtype, mode, L, C,
+                                               r, d):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    shape = (L, C, d) if mode == "per_lane" else (C, d)
+    cand = (torch.rand(shape, generator=g, device=cuda_device) ** 2).to(dtype)
+    R = torch.rand((r, d), generator=g, device=cuda_device).to(dtype)
+    state = torch.rand((r,) if mode == "unbatched" else (L, r), generator=g,
+                       device=cuda_device) * d / 4
+    before = tfm.launches["facility_marginals"]
+    got = tfm.facility_marginals(cand, R, state)
+    torch.cuda.synchronize()
+    assert tfm.launches["facility_marginals"] == before + 1
+    tol = ref.gemm_gain_tol(cand, R)
+    _within(got, ref.facility_marginals(cand, R, state),
+            tol if mode != "shared" else tol.expand(L, C))
+    assert torch.equal(got, tfm.facility_marginals(cand, R, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,L,C,r", [
+    ("unbatched", 1, 5000, 256), ("shared", 37, 3000, 256),
+    ("per_lane", 37, 500, 256), ("shared", 100, 77, 45),
+    ("per_lane", 3, 65, 1000)])
+def test_cuda_rectified_residual_sum_matches_plain(cuda_device, mode, L, C, r):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    aux = torch.rand((L, C, r) if mode == "per_lane" else (C, r), generator=g,
+                     device=cuda_device) * 40
+    state = torch.rand((r,) if mode == "unbatched" else (L, r), generator=g,
+                       device=cuda_device) * 40
+    got = tfm.rectified_residual_sum(aux, state)
+    torch.cuda.synchronize()
+    st = state.unsqueeze(-2)
+    tol = 2 * r * 2.0 ** -24 * (aux.abs() + st.abs()).sum(-1)
+    _within(got, ref.rectified_residual_sum(aux, state), tol)
+    assert torch.equal(got, tfm.rectified_residual_sum(aux, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,B,r,d", [(37, 128, 256, 256), (5, 128, 1024, 64),
+                                     (3, 70, 45, 17), (1, 1, 1, 1)])
+def test_cuda_facility_accept_matches_plain(cuda_device, dtype, L, B, r, d):
+    """Dyadic inputs (cand (a/8)^2, ref b/8), exact in f32 in any order, so
+    masks, states and gains must be equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    cand = ((torch.randint(0, 8, (L, B, d), generator=g, device=cuda_device)
+             / 8.0) ** 2).to(dtype)
+    R = (torch.randint(0, 8, (r, d), generator=g, device=cuda_device)
+         / 8.0).to(dtype)
+    state = torch.randint(0, 4 * d, (L, r), generator=g,
+                          device=cuda_device) / 64.0
+    elig = torch.rand((L, B), generator=g, device=cuda_device) < 0.9
+    g0 = ref.facility_marginals(cand, R, state)
+    tau = (g0.median(dim=1).values * 0.05).contiguous()
+    bud = torch.randint(1, B + 1, (L,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    before = tfa.launches
+    got = tfa.facility_accept(cand, R, state, elig, tau, bud)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    want = ref.facility_accept(cand, R, state, elig, tau, bud)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    again = tfa.facility_accept(cand, R, state, elig, tau, bud)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

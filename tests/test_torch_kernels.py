@@ -141,7 +141,8 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     tcm.launches = 0
     tca.launches = 0
     x, state, w = _inputs(6, 16, 8, "f32", True)
-    oracle = FeatureCoverage(feat_dim=8, weights=_t(w), use_kernel=True)
+    oracle = FeatureCoverage(feat_dim=8, weights=_t(w), use_kernel=True,
+                             device="cpu")
     ops.coverage_marginals(_t(x), _t(state), _t(w))
     oracle.marginals(_t(state)[None], _t(x))
     oracle.chunk_accept(_t(state)[None], _t(x)[None],
@@ -165,8 +166,9 @@ def test_oracle_routes_agree_and_value_is_consistent():
     plain route give the same gains and sweeps, and a marginal is the
     value difference f(S + e) - f(S)."""
     x, state, w = _inputs(7, 30, 10, "f32", True)
-    plain = FeatureCoverage(feat_dim=10, weights=_t(w))
-    kern = FeatureCoverage(feat_dim=10, weights=_t(w), use_kernel=True)
+    plain = FeatureCoverage(feat_dim=10, weights=_t(w), device="cpu")
+    kern = FeatureCoverage(feat_dim=10, weights=_t(w), use_kernel=True,
+                           device="cpu")
     st = _t(state)[None]
     g = plain.marginals(st, _t(x))
     torch.testing.assert_close(kern.marginals(st, _t(x)), g)

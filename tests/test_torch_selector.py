@@ -22,6 +22,7 @@ from repro.core import FeatureCoverage as JFeatureCoverage
 from repro.core import MRConfig as JMRConfig
 from repro.core import two_round_sim as j_two_round_sim
 from repro_torch.core import selector as tsel
+from repro_torch.core.functions import FacilityLocation, FeatureCoverage
 
 torch.set_num_threads(2)
 jax.config.update("jax_platform_name", "cpu")
@@ -74,8 +75,26 @@ def test_selector_needs_cuda_or_an_explicit_cpu(monkeypatch):
     assert sel.device.type == "cpu"
 
 
+def test_oracles_need_cuda_or_an_explicit_cpu(monkeypatch):
+    """The public oracles follow the selector's device rule: the card by
+    default, an error without one, the CPU only when asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ref = torch.rand(5, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FeatureCoverage(feat_dim=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FacilityLocation(feat_dim=4, reference=ref)
+    assert FeatureCoverage(feat_dim=4, device="cpu").device.type == "cpu"
+    fl = FacilityLocation(feat_dim=4, reference=ref, device="cpu")
+    assert fl.device.type == "cpu" and fl.init_state(3).shape == (3, 5)
+    assert tsel.resolve_device("cpu").type == "cpu"
+
+
 def test_spec_and_oracle_names_are_checked():
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="weighted_coverage"),
+                         4, "cpu")
+    with pytest.raises(ValueError, match="reference set"):
         tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="facility_location"),
                          4, "cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
