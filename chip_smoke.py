@@ -23,7 +23,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    of the path launched.
 4. The same for FacilityLocation over the same corpus with a 256-row
    reference set.
-5. Print the kernel table as one JSON line, the card's name and power
+5. Hold the WeightedCoverage and SaturatedCoverage kernels against their
+   plain versions (every lane mode, f32 and bf16, the main path's shapes
+   and odd ones: d = 45 and 70, L = 1 and 130; saturated states that
+   straddle the cap; a bitwise repeat of each), and time
+   weighted_coverage_marginals' yardstick torch.matmul.
+6. The main path for both over the same corpus (saturated coverage with
+   total = X.sum(0) and the default alpha = 0.25), then one more
+   SaturatedCoverage select at alpha = 2^-16, where the cap binds.
+7. Print the kernel table as one JSON line, the card's name and power
    limit, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -53,7 +61,9 @@ S_ROWS = 98_560        # gathered sample (16 x 6160 rows)
 F_ROWS = 34_048        # gathered survivors per lane (16 x 2128 rows)
 GREEDY_ROWS = 1 << 16  # rows of the sequential greedy yardstick
 TILE = 1 << 18         # row tile of the plain versions at full width
-RTOL = ATOL = 1e-5     # coverage kernels: sums over d in another order
+RTOL = ATOL = 1e-5     # coverage-family kernels: sums over d in another
+#                        order
+SAT_ALPHA = 2.0 ** -16  # the saturating select: cap ~ 5.3 per feature
 
 
 def check(cond, msg):
@@ -70,12 +80,25 @@ def smi():
 
 def cuda_ms(fn, iters):
     """Mean milliseconds of ``fn`` over ``iters`` calls, after a warm-up,
-    with CUDA events around the whole run."""
+    with CUDA events around the whole run.
+
+    The card first spins for twice the host time it takes to issue the
+    calls (at an assumed 2 GHz clock), so the host has enqueued every
+    launch before the first one runs: the events then time the launches
+    back to back, and a kernel shorter than its Python wrapper is not
+    timed as the wrapper.  A version that waits on the card inside each
+    call (the plain sweeps) is timed with its host gaps, as a caller would
+    see it."""
     import torch
     fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    head_start_s = 2 * (time.perf_counter() - t) * iters
+    torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(head_start_s, 1.0) * 2e9))
     t0.record()
     for _ in range(iters):
         fn()
@@ -373,13 +396,175 @@ def phase_facility_kernels(torch, ref, fm, fa):
     return rows
 
 
-def drive(torch, tsel, ops, X, label, reference=None, **spec_kw):
+def phase_weighted_saturated_kernels(torch, ref, wm, wa, sm, sa):
+    """WeightedCoverage and SaturatedCoverage kernels vs plain versions on
+    the card; returns the JSON rows.  Saturated states straddle the cap:
+    0, below it, at it, above it, and just below it so that s + x crosses
+    it.  Tolerance rtol/atol 1e-5 (sums over d in another order), and a
+    second launch must give the same bits."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    frac = torch.tensor([0.0, 0.5, 0.9, 1.0, 1.5], device=dev)
+    rows = {}
+
+    def with_w(name, weighted):
+        return "" if name.startswith("weighted") else f" weighted={weighted}"
+
+    def straddling(shape, cap):
+        return (frac[torch.randint(0, 5, shape, generator=g, device=dev)]
+                * cap).contiguous()
+
+    def operands(name, d, weighted):
+        """(state maker, kernel, plain, per-feature bytes) of ``name``."""
+        if name == "weighted_coverage_marginals":
+            return ((lambda shape: torch.rand(shape, generator=g, device=dev)
+                     * 2),
+                    wm.weighted_coverage_marginals,
+                    ref.weighted_coverage_marginals, 0)
+        cap = torch.rand(d, generator=g, device=dev) * 2 + 0.25
+        w = torch.rand(d, generator=g, device=dev) + 0.5 if weighted else None
+        return ((lambda shape: straddling(shape, cap)),
+                lambda x, st: sm.saturated_coverage_marginals(x, st, cap, w),
+                lambda x, st: ref.saturated_coverage_marginals(x, st, cap, w),
+                (2 if weighted else 1) * d * 4)
+
+    # -- marginals: shared at the filter shape, unbatched over the corpus
+    #    (max singleton, top singletons), per-lane at the lazy chunk shape,
+    #    and odd shapes
+    for name, n_ops in (("weighted_coverage_marginals", 2),
+                        ("saturated_coverage_marginals", 5)):
+        worst = 0.0
+        for label, Lk, C, d in (("shared", L, N, D), ("unbatched", 1, N, D),
+                                ("per-lane", L, B, D),
+                                ("odd shared", 130, 1000, 70),
+                                ("odd per-lane", 1, 65, 45),
+                                ("odd unbatched", 1, 1000, 45)):
+            per_lane = label.endswith("per-lane")
+            for dtype in (torch.float32, torch.bfloat16):
+                weighted = dtype == torch.bfloat16
+                make_state, kern, plain_fn, op_bytes = operands(name, d,
+                                                                weighted)
+                shape = (Lk, C, d) if per_lane else (C, d)
+                x = (torch.rand(shape, generator=g, device=dev) ** 2).to(dtype)
+                state = make_state((d,) if label.endswith("unbatched")
+                                   else (Lk, d))
+                if label == "shared":
+                    # one lane at a time: the plain version's (L, C, d)
+                    # temporaries would not fit in device memory
+                    plain = lambda: torch.stack([  # noqa: E731
+                        plain_fn(x, state[l]) for l in range(Lk)])
+                else:
+                    plain = lambda: plain_fn(x, state)  # noqa: E731
+                got = kern(x, state)
+                want = plain()
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+                      f"{name} {label} {dtype}: max abs err {err}")
+                check(torch.equal(kern(x, state), got),
+                      f"{name} {label}: a repeated launch differs")
+                worst = max(worst, err)
+                line = (f"[kernels] {name} {label} x{tuple(shape)} L={Lk} "
+                        f"{str(dtype)[6:]}{with_w(name, weighted)}: "
+                        f"max_abs_err={err} repeat=bitwise")
+                if not label.startswith("odd"):
+                    ms = cuda_ms(lambda: kern(x, state), 10)
+                    pms = cuda_ms(plain, 2)
+                    b_ms, b_by = bound_ms(
+                        x.numel() * x.element_size() + state.numel() * 4
+                        + op_bytes + Lk * C * 4,
+                        n_ops * Lk * C * d + (Lk * d if n_ops == 5 else 0))
+                    line += (f" kernel_ms={ms} plain_ms={pms} bound_ms={b_ms} "
+                             f"({b_by})")
+                    if name == "weighted_coverage_marginals" and not weighted:
+                        lib = {"shared": lambda: torch.matmul(x, state.T),
+                               "unbatched": lambda: torch.mv(x, state),
+                               "per-lane": lambda: torch.bmm(
+                                   x, state[:, :, None])}[label]
+                        lib_ms = cuda_ms(lib, 10)
+                        line += f" library_ms={lib_ms}"
+                    if label == "shared" and not weighted:
+                        rows[name] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                                          bound_by=b_by)
+                        if name == "weighted_coverage_marginals":
+                            rows[name]["library_ms"] = lib_ms
+                print(line)
+        rows[name]["max_abs_err"] = worst
+    print(f"[kernels] yardstick: torch.matmul / mv / bmm with allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+
+    # -- accept sweeps at the fused engine's shape and two odd shapes
+    for name in ("weighted_coverage_accept", "saturated_coverage_accept"):
+        worst = 0.0
+        for label, Lk, Bk, d in (("path", L, B, D), ("odd L=1", 1, 70, 45),
+                                 ("odd L=130", 130, B, 70)):
+            for dtype in (torch.float32, torch.bfloat16):
+                weighted = dtype == torch.bfloat16
+                x = (torch.rand((Lk, Bk, d), generator=g, device=dev) ** 2
+                     ).to(dtype)
+                elig = torch.rand((Lk, Bk), generator=g, device=dev) < 0.9
+                if name == "weighted_coverage_accept":
+                    state = torch.rand((Lk, d), generator=g, device=dev) * 2
+                    kern = lambda: wa.weighted_coverage_accept(  # noqa: E731
+                        x, state, elig, tau, budget)
+                    plain = lambda: ref.weighted_coverage_accept(  # noqa: E731
+                        x, state, elig, tau, budget)
+                    g0 = ref.weighted_coverage_marginals(x, state)
+                    op_bytes, n_ops, upd = 0, 2, 2
+                else:
+                    cap = torch.rand(d, generator=g, device=dev) * 2 + 0.25
+                    w = (torch.rand(d, generator=g, device=dev) + 0.5
+                         if weighted else None)
+                    state = straddling((Lk, d), cap)
+                    kern = lambda: sa.saturated_coverage_accept(  # noqa: E731
+                        x, state, cap, w, elig, tau, budget)
+                    plain = lambda: ref.saturated_coverage_accept(  # noqa: E731
+                        x, state, cap, w, elig, tau, budget)
+                    g0 = ref.saturated_coverage_marginals(x, state, cap, w)
+                    op_bytes = (2 if weighted else 1) * d * 4
+                    n_ops, upd = 5, 2
+                tau = lane_taus(torch, g0)
+                budget = torch.where(torch.arange(Lk, device=dev) % 5 == 0, 3,
+                                     K).to(torch.int32)
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                ties, err = check_sweep(
+                    name, got, want, tau, RTOL * tau.abs(),
+                    lambda l, a, b, what: torch.allclose(a, b, rtol=RTOL,
+                                                         atol=ATOL))
+                check(all(torch.equal(a, b) for a, b in zip(got, kern())),
+                      f"{name}: a repeated launch differs")
+                worst = max(worst, err)
+                n_acc = int(want[0].sum())
+                line = (f"[kernels] {name} {label} x({Lk}, {Bk}, {d}) "
+                        f"{str(dtype)[6:]}{with_w(name, weighted)}: "
+                        f"max_abs_err={err} near_tau_ties={ties} "
+                        f"accepted={n_acc} repeat=bitwise")
+                if label == "path":
+                    ms = cuda_ms(kern, 50)
+                    pms = cuda_ms(plain, 3)
+                    b_ms, b_by = bound_ms(
+                        x.numel() * x.element_size() + 2 * Lk * d * 4
+                        + op_bytes + Lk * Bk * 6 + Lk * 8,
+                        n_ops * Lk * Bk * d + upd * n_acc * d)
+                    line += (f" kernel_ms={ms} plain_ms={pms} bound_ms={b_ms} "
+                             f"({b_by})")
+                    if not weighted:
+                        rows[name] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                                          bound_by=b_by)
+                print(line)
+        rows[name]["max_abs_err"] = worst
+    return rows
+
+
+def drive(torch, tsel, ops, X, label, reference=None, total=None, **spec_kw):
     """One select through the public entry point, with the launch counts
     set to 0 just before and read just after.  Returns (result, value,
     wall ms, launch counts by kernel)."""
     spec = tsel.SelectorSpec(k=K, eps=EPS, chunk=CHUNK, **spec_kw)
     sel = tsel.DistributedSelector(spec, n_total=N, feat_dim=D, n_machines=M,
-                                   device="cuda", reference=reference)
+                                   device="cuda", reference=reference,
+                                   total=total)
     gen = torch.Generator(device="cuda").manual_seed(1)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -390,8 +575,10 @@ def drive(torch, tsel, ops, X, label, reference=None, **spec_kw):
     counts = ops.launch_counts()
     size = int(res.sol_size)
     ids = res.sol_ids.cpu()[:size]
-    # facility location over all-positive similarities saturates after a
-    # few picks, so its lanes may stop short of k
+    # facility location over all-positive similarities, weighted coverage
+    # (whose remaining weight decays geometrically) and saturated coverage
+    # at a binding cap saturate after a few picks, so their lanes may stop
+    # short of k
     full = spec.oracle == "feature_coverage"
     check(res.sol_ids.shape == (K,) and (size == K if full else 1 <= size <= K),
           f"{label}: got size {size}")
@@ -407,8 +594,20 @@ def drive(torch, tsel, ops, X, label, reference=None, **spec_kw):
     return res, value, wall, counts
 
 
+def greedy_value(torch, tsel, tseq, X, oracle, reference=None, total=None,
+                 **spec_kw):
+    """Sequential greedy's value on the first GREEDY_ROWS rows (<= OPT)."""
+    greedy_oracle = tsel.make_oracle(
+        tsel.SelectorSpec(k=K, oracle=oracle, **spec_kw), D, "cuda",
+        reference=reference, total=total)
+    _, _, gval = tseq.greedy(greedy_oracle, X[:GREEDY_ROWS],
+                             torch.ones(GREEDY_ROWS, dtype=torch.bool,
+                                        device="cuda"), K)
+    return float(gval)
+
+
 def main_path(torch, tsel, tseq, ops, X, oracle, kernels, accept_kernel,
-              reference=None):
+              reference=None, total=None):
     """Drive one oracle's main path: three engines on the kernel route, the
     lazy engine on the plain route, multi_epoch E = 2 and bf16 storage on
     the fused engine.  Returns the launches of each of ``kernels`` summed
@@ -417,7 +616,7 @@ def main_path(torch, tsel, tseq, ops, X, oracle, kernels, accept_kernel,
 
     def run(label, **kw):
         res, value, _, counts = drive(torch, tsel, ops, X,
-                                      f"{oracle} {label}", reference,
+                                      f"{oracle} {label}", reference, total,
                                       oracle=oracle, **kw)
         fused = kw.get("engine") == "fused"
         for name in kernels:
@@ -431,8 +630,8 @@ def main_path(torch, tsel, tseq, ops, X, oracle, kernels, accept_kernel,
             for e in ("dense", "lazy", "fused")}
     res_p, value_p, _, counts = drive(torch, tsel, ops, X,
                                       f"{oracle} two_round lazy plain",
-                                      reference, oracle=oracle, engine="lazy",
-                                      use_kernel=False)
+                                      reference, total, oracle=oracle,
+                                      engine="lazy", use_kernel=False)
     check(not any(counts.values()), f"plain route launched kernels {counts}")
     for engine, (res, value) in runs.items():
         check(abs(value - value_p) <= 1e-3 * abs(value_p),
@@ -443,12 +642,7 @@ def main_path(torch, tsel, tseq, ops, X, oracle, kernels, accept_kernel,
               f"{abs(value - value_p) / value_p} id_overlap={overlap}/"
               f"{int(res_p.sol_size)}")
 
-    greedy_oracle = tsel.make_oracle(tsel.SelectorSpec(k=K, oracle=oracle), D,
-                                     "cuda", reference=reference)
-    _, _, gval = tseq.greedy(greedy_oracle, X[:GREEDY_ROWS],
-                             torch.ones(GREEDY_ROWS, dtype=torch.bool,
-                                        device="cuda"), K)
-    gval = float(gval)
+    gval = greedy_value(torch, tsel, tseq, X, oracle, reference, total)
     for engine, (_, value) in runs.items():
         check(value >= (0.5 - EPS) * gval,
               f"{oracle} {engine}: value {value} below (1/2 - eps) x greedy "
@@ -469,6 +663,40 @@ def main_path(torch, tsel, tseq, ops, X, oracle, kernels, accept_kernel,
     return launches
 
 
+def saturating_select(torch, tsel, tseq, ops, X, total):
+    """SaturatedCoverage at alpha = 2^-16 (cap ~ 5.3 per feature), where the
+    cap binds within the first picks, so the min branch of both kernels
+    runs: the fused engine on the kernel route against the lazy engine on
+    the plain route, the cap's effect on the value, and the (1/2 - eps)
+    guarantee.  Returns the kernel-route select's launch counts."""
+    kw = dict(oracle="saturated_coverage", saturated_alpha=SAT_ALPHA)
+    label = "saturated_coverage alpha=2^-16 two_round"
+    res, value, _, counts = drive(torch, tsel, ops, X, f"{label} fused kernel",
+                                  total=total, engine="fused", use_kernel=True,
+                                  **kw)
+    for name in ("saturated_coverage_marginals", "saturated_coverage_accept"):
+        check(counts[name] > 0, f"{label}: {name} never launched")
+    _, value_p, _, counts_p = drive(torch, tsel, ops, X, f"{label} lazy plain",
+                                    total=total, engine="lazy",
+                                    use_kernel=False, **kw)
+    check(not any(counts_p.values()), f"plain route launched kernels {counts_p}")
+    check(abs(value - value_p) <= 1e-3 * abs(value_p),
+          f"{label}: fused value {value} vs plain {value_p}")
+    picked = res.sol_ids[:int(res.sol_size)].long()
+    unsaturated = float(X[picked].sum())
+    check(value < 0.999 * unsaturated,
+          f"{label}: value {value} vs the rows' sum {unsaturated}: the cap "
+          f"did not bind")
+    gval = greedy_value(torch, tsel, tseq, X, "saturated_coverage",
+                        total=total, saturated_alpha=SAT_ALPHA)
+    check(value >= (0.5 - EPS) * gval,
+          f"{label}: value {value} below (1/2 - eps) x greedy {gval}")
+    print(f"[main] {label}: value={value} plain={value_p} rows' sum="
+          f"{unsaturated} greedy on the first {GREEDY_ROWS} rows={gval} "
+          f"ratio={value / gval}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -487,6 +715,10 @@ def main() -> int:
     from repro_torch.kernels import coverage_marginals as cm
     from repro_torch.kernels import facility_accept as fa
     from repro_torch.kernels import facility_marginals as fm
+    from repro_torch.kernels import saturated_coverage_accept as sa
+    from repro_torch.kernels import saturated_coverage_marginals as sm
+    from repro_torch.kernels import weighted_coverage_accept as wa
+    from repro_torch.kernels import weighted_coverage_marginals as wm
 
     card = smi()
     print(f"[build] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -503,6 +735,7 @@ def main() -> int:
 
     rows = phase_coverage_kernels(torch, ref, cm, ca)
     rows.update(phase_facility_kernels(torch, ref, fm, fa))
+    rows.update(phase_weighted_saturated_kernels(torch, ref, wm, wa, sm, sa))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     X = torch.rand((N, D), generator=gen, device="cuda") ** 2
@@ -514,6 +747,21 @@ def main() -> int:
         torch, tsel, tseq, ops, X, "facility_location",
         ("facility_marginals", "rectified_residual_sum", "facility_accept"),
         "facility_accept", reference=reference))
+    launches.update(main_path(
+        torch, tsel, tseq, ops, X, "weighted_coverage",
+        ("weighted_coverage_marginals", "weighted_coverage_accept"),
+        "weighted_coverage_accept"))
+    # the ground set's feature sum, f32 from the f32 corpus, as the JAX
+    # CLI computes it
+    total = X.sum(0)
+    launches.update(main_path(
+        torch, tsel, tseq, ops, X, "saturated_coverage",
+        ("saturated_coverage_marginals", "saturated_coverage_accept"),
+        "saturated_coverage_accept", total=total))
+    for name, n in saturating_select(torch, tsel, tseq, ops, X,
+                                     total).items():
+        if name.startswith("saturated"):
+            launches[name] += n
 
     table = []
     for name, src, replaces in (
@@ -531,14 +779,29 @@ def main() -> int:
              "src/repro/kernels/facility_marginals.py:107"),
             ("facility_accept",
              "src/repro_torch/kernels/csrc/facility_accept.cu",
-             "src/repro/kernels/facility_accept.py:64")):
+             "src/repro/kernels/facility_accept.py:64"),
+            ("weighted_coverage_marginals",
+             "src/repro_torch/kernels/csrc/weighted_coverage_marginals.cu",
+             "src/repro/kernels/weighted_coverage_marginals.py:49"),
+            ("weighted_coverage_accept",
+             "src/repro_torch/kernels/csrc/weighted_coverage_accept.cu",
+             "src/repro/kernels/weighted_coverage_accept.py:28"),
+            ("saturated_coverage_marginals",
+             "src/repro_torch/kernels/csrc/saturated_coverage_marginals.cu",
+             "src/repro/kernels/saturated_coverage_marginals.py:49"),
+            ("saturated_coverage_accept",
+             "src/repro_torch/kernels/csrc/saturated_coverage_accept.cu",
+             "src/repro/kernels/saturated_coverage_accept.py:27")):
         check(launches[name] > 0, f"{name} never launched on the main path")
         r = rows[name]
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "launches": launches[name],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                      "bound_by": r["bound_by"], "library_ms": None})
+                      "bound_by": r["bound_by"],
+                      # one PyTorch call that computes the same function,
+                      # where there is one (None: there is none)
+                      "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": table}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

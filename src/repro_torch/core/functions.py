@@ -8,11 +8,13 @@ every method also takes a leading lane axis L: a state of shape (L, w)
 holds one solution per lane, and a candidate block is either shared by
 every lane, (C, d), or held per lane, (L, C, d).  An unbatched state (w,)
 with a (C, d) block is the plain single-solution call.  The state width w
-is the oracle's own: d for FeatureCoverage, the reference-set size r for
-FacilityLocation.
+is the oracle's own: d for FeatureCoverage and SaturatedCoverage, the
+universe size for WeightedCoverage (whose feature rows are incidence rows),
+the reference-set size r for FacilityLocation.
 
-Oracles ported so far: FeatureCoverage and FacilityLocation.  The others
-arrive with later slices of the port (see ROADMAP.md).
+Oracles ported so far: FeatureCoverage, FacilityLocation, WeightedCoverage
+and SaturatedCoverage.  The others arrive with later slices of the port
+(see ROADMAP.md).
 
 Every oracle lives on the CUDA card unless it is built with
 ``device="cpu"``; without a card and without that argument it raises (the
@@ -196,3 +198,129 @@ class FacilityLocation(SubmodularOracle):
 
     def value(self, state):
         return state.sum(-1)
+
+
+def _feature_operand(t, feat_dim, device, what):
+    """An optional per-feature operand as a contiguous float32 (feat_dim,)
+    tensor on ``device`` (None stays None)."""
+    if t is None:
+        return None
+    t = torch.as_tensor(t, dtype=torch.float32, device=device).contiguous()
+    if t.shape != (feat_dim,):
+        raise ValueError(f"{what} must be ({feat_dim},), got {tuple(t.shape)}")
+    return t
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightedCoverage(SubmodularOracle):
+    """Weighted max-coverage: element e covers universe item u when
+    x[e, u] = 1, and f(S) is the weight of the items S covers.
+
+    The feature row is an incidence row over the universe of ``feat_dim``
+    items.  The state is the remaining (uncovered) weight per item, so it
+    starts at the weights, not at zeros; the marginal is the remaining
+    weight a row picks up, sum_u s_u x_u, and an accept applies
+    s = s (1 - x).
+    """
+
+    feat_dim: int                           # universe size
+    weights: Optional[torch.Tensor] = None  # (U,) item weights; None: ones
+    use_kernel: bool = False
+    device: Optional[torch.device] = None   # None: the CUDA card
+
+    def __post_init__(self):
+        dev = resolve_device(self.device)
+        w = _feature_operand(self.weights, self.feat_dim, dev, "weights")
+        if w is None:
+            w = torch.ones(self.feat_dim, dtype=torch.float32, device=dev)
+        object.__setattr__(self, "device", dev)
+        object.__setattr__(self, "weights", w)
+
+    def init_state(self, lanes: Optional[int] = None):
+        # a fresh contiguous copy: the kernels refuse an expanded view, and
+        # the state must never alias the weights
+        if lanes is None:
+            return self.weights.clone()
+        return self.weights.repeat(lanes, 1)
+
+    def marginals(self, state, aux):
+        if self.use_kernel:
+            return ops.weighted_coverage_marginals(aux.contiguous(),
+                                                   state.contiguous())
+        return ref.weighted_coverage_marginals(aux, state)
+
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget):
+        if self.use_kernel:
+            return ops.weighted_coverage_accept(cand_feats.contiguous(),
+                                                state.contiguous(),
+                                                eligible.contiguous(), tau,
+                                                budget)
+        return super().chunk_accept(state, cand_feats, eligible, tau, budget)
+
+    def add(self, state, aux_row):
+        # s (1 - x), not s - s x: exact (0 or s) on binary incidence rows
+        return state * (1.0 - aux_row)
+
+    def value(self, state):
+        return self.weights.sum() - state.sum(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SaturatedCoverage(SubmodularOracle):
+    """f(S) = sum_f w_f min(sum_{e in S} x_{e,f}, alpha * total_f), x >= 0.
+
+    Coverage that saturates at a fraction ``alpha`` of the ground set's
+    per-feature total (cf. Krause-Guestrin SATURATE); min(., cap) is
+    concave nondecreasing, so the composition with the modular accumulator
+    is monotone submodular.  ``total`` is a corpus-level statistic computed
+    once up front by the caller, kept in float32; cap = alpha * total is
+    one float32 multiply, as in the JAX package.  The state is the O(d)
+    accumulator.
+    """
+
+    feat_dim: int
+    total: Optional[torch.Tensor] = None    # (d,) sum of all element rows
+    alpha: float = 0.25                     # saturation fraction of total
+    weights: Optional[torch.Tensor] = None  # optional (d,) nonneg f32
+    use_kernel: bool = False
+    device: Optional[torch.device] = None   # None: the CUDA card
+
+    def __post_init__(self):
+        if self.total is None:
+            raise ValueError("SaturatedCoverage needs the ground set's "
+                             "feature sum (total, shape (feat_dim,))")
+        dev = resolve_device(self.device)
+        total = _feature_operand(self.total, self.feat_dim, dev, "total")
+        object.__setattr__(self, "device", dev)
+        object.__setattr__(self, "total", total)
+        object.__setattr__(self, "weights", _feature_operand(
+            self.weights, self.feat_dim, dev, "weights"))
+        object.__setattr__(self, "cap", total * torch.tensor(
+            self.alpha, dtype=torch.float32, device=dev))
+
+    def init_state(self, lanes: Optional[int] = None):
+        shape = (self.feat_dim,) if lanes is None else (lanes, self.feat_dim)
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    def marginals(self, state, aux):
+        if self.use_kernel:
+            return ops.saturated_coverage_marginals(
+                aux.contiguous(), state.contiguous(), self.cap, self.weights)
+        return ref.saturated_coverage_marginals(aux, state, self.cap,
+                                                self.weights)
+
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget):
+        if self.use_kernel:
+            return ops.saturated_coverage_accept(
+                cand_feats.contiguous(), state.contiguous(), self.cap,
+                self.weights, eligible.contiguous(), tau, budget)
+        return super().chunk_accept(state, cand_feats, eligible, tau, budget)
+
+    def add(self, state, aux_row):
+        return state + aux_row
+
+    def value(self, state):
+        v = torch.minimum(state, self.cap)
+        if self.weights is not None:
+            v = v * self.weights
+        return v.sum(-1)

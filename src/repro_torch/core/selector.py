@@ -31,11 +31,12 @@ ORACLE_NAMES = ("feature_coverage", "facility_location", "weighted_coverage",
                 "mutual_information")
 
 #: the oracles the port runs so far
-PORTED_ORACLES = ("feature_coverage", "facility_location")
+PORTED_ORACLES = ("feature_coverage", "facility_location",
+                  "weighted_coverage", "saturated_coverage")
 
 #: the port's slice that brings each not-yet-ported oracle (ROADMAP.md)
 _PENDING_ORACLES = {
-    "weighted_coverage": "slice 3 (WeightedCoverage and its two kernels)",
+    "graph_cut": "slice 4 (GraphCut and its two kernels)",
 }
 
 
@@ -53,6 +54,7 @@ class SelectorSpec:
     chunk: int = 128                   # lazy/fused-engine chunk size
     reference_size: int = 256          # facility location clients (rows of
     #                                    R that a caller draws or keeps)
+    saturated_alpha: float = 0.25      # SaturatedCoverage saturation frac
     use_kernel: bool = False           # route through the CUDA kernels
     precision: str = "f32"             # "f32" | "bf16" storage policy
 
@@ -71,10 +73,16 @@ class SelectorSpec:
 
 
 def make_oracle(spec: SelectorSpec, feat_dim: int, device, weights=None,
-                reference=None):
+                reference=None, total=None):
     """Build the spec's oracle on ``device``; ``weights`` are
     FeatureCoverage's optional (d,) feature weights, ``reference`` the
-    replicated (r, d) client set that facility_location needs."""
+    replicated (r, d) client set that facility_location needs, ``total``
+    the ground set's (d,) feature sum that saturated_coverage needs (a
+    corpus statistic, computed once up front).  weighted_coverage gets
+    all-ones item weights, as the JAX selector builds it."""
+    if weights is not None and spec.oracle != "feature_coverage":
+        raise ValueError(f"weights= applies to feature_coverage only, not "
+                         f"{spec.oracle!r}")
     if spec.oracle == "feature_coverage":
         if weights is not None:
             weights = torch.as_tensor(weights, dtype=torch.float32,
@@ -91,6 +99,18 @@ def make_oracle(spec: SelectorSpec, feat_dim: int, device, weights=None,
                                                             device=device),
                                   use_kernel=spec.use_kernel,
                                   device=torch.device(device))
+    if spec.oracle == "weighted_coverage":
+        return F.WeightedCoverage(feat_dim=feat_dim,
+                                  use_kernel=spec.use_kernel,
+                                  device=torch.device(device))
+    if spec.oracle == "saturated_coverage":
+        if total is None:
+            raise ValueError("saturated_coverage needs the ground set's "
+                             "feature sum (total=, shape (feat_dim,))")
+        return F.SaturatedCoverage(feat_dim=feat_dim, total=total,
+                                   alpha=spec.saturated_alpha,
+                                   use_kernel=spec.use_kernel,
+                                   device=torch.device(device))
     if spec.oracle in ORACLE_NAMES:
         slice_name = _PENDING_ORACLES.get(
             spec.oracle, "a later slice (the rest of the oracle zoo)")
@@ -108,19 +128,24 @@ class DistributedSelector:
     ``select(embeddings)``: embeddings (n_total, feat_dim); returns a
     SelectionResult.  ``n_total`` must be a multiple of ``n_machines``.
     ``reference`` is facility_location's (r, feat_dim) client set; it rides
-    at the storage precision, as the JAX selector keeps it.
+    at the storage precision, as the JAX selector keeps it.  ``total`` is
+    saturated_coverage's (feat_dim,) ground-set feature sum; it is an
+    accumulator statistic and stays float32 whatever the storage precision.
     """
 
     def __init__(self, spec: SelectorSpec, n_total: int, feat_dim: int,
                  n_machines: int = 1, device=None, weights=None,
-                 reference=None):
+                 reference=None, total=None):
         self.spec = spec
         self.device = resolve_device(device)
         if reference is not None:
             reference = spec.precision_policy.cast_storage(
                 torch.as_tensor(reference, device=self.device)).contiguous()
+        if total is not None:
+            total = torch.as_tensor(total, dtype=torch.float32,
+                                    device=self.device)
         self.oracle = make_oracle(spec, feat_dim, self.device, weights,
-                                  reference)
+                                  reference, total)
         self.cfg = mr.MRConfig(k=spec.k, n_total=n_total,
                                n_machines=n_machines, eps=spec.eps,
                                accept=spec.accept, engine=spec.engine,

@@ -1,9 +1,9 @@
 """Carrying data across from the JAX side.
 
 The system has no weights: what crosses is numpy data (the corpus sharded
-(m, n/m, d) with its ids and validity, FeatureCoverage's optional (d,)
-weights, FacilityLocation's (r, d) reference set, and the sample rounds'
-U[0, 1) draws).  These helpers turn such
+(m, n/m, d) with its ids and validity, the coverage oracles' optional (d,)
+weights, FacilityLocation's (r, d) reference set, SaturatedCoverage's (d,)
+ground-set total, and the sample rounds' U[0, 1) draws).  These helpers turn such
 arrays into the port's tensors and oracle on a given device, so a test can
 feed the same inputs to both packages.  numpy bfloat16 arrays (the
 ``ml_dtypes`` type that JAX hands out) arrive as torch.bfloat16.
@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.functions import FacilityLocation, FeatureCoverage
+from repro_torch.core.functions import (FacilityLocation, FeatureCoverage,
+                                        SaturatedCoverage, WeightedCoverage)
 
 
 def tensor(a, device="cpu") -> torch.Tensor:
@@ -24,6 +25,10 @@ def tensor(a, device="cpu") -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
+
+
+def _f32(a, device):
+    return None if a is None else tensor(np.asarray(a, np.float32), device)
 
 
 def shard(feats_mk, ids_mk, valid_mk, device="cpu"):
@@ -37,9 +42,7 @@ def shard(feats_mk, ids_mk, valid_mk, device="cpu"):
 def feature_coverage(feat_dim: int, weights=None, use_kernel: bool = False,
                      device="cpu") -> FeatureCoverage:
     """The FeatureCoverage oracle with the JAX side's optional weights."""
-    w = None if weights is None else tensor(np.asarray(weights, np.float32),
-                                            device)
-    return FeatureCoverage(feat_dim=feat_dim, weights=w,
+    return FeatureCoverage(feat_dim=feat_dim, weights=_f32(weights, device),
                            use_kernel=use_kernel, device=torch.device(device))
 
 
@@ -52,6 +55,25 @@ def facility_location(feat_dim: int, reference, use_kernel: bool = False,
                             use_kernel=use_kernel, device=torch.device(device))
 
 
+def weighted_coverage(feat_dim: int, weights=None, use_kernel: bool = False,
+                      device="cpu") -> WeightedCoverage:
+    """The WeightedCoverage oracle with the JAX side's optional (U,) item
+    weights, kept float32 (None: all ones)."""
+    return WeightedCoverage(feat_dim=feat_dim, weights=_f32(weights, device),
+                            use_kernel=use_kernel, device=torch.device(device))
+
+
+def saturated_coverage(feat_dim: int, total, alpha: float = 0.25,
+                       weights=None, use_kernel: bool = False,
+                       device="cpu") -> SaturatedCoverage:
+    """The SaturatedCoverage oracle with the JAX side's (d,) ground-set
+    total and optional (d,) weights, both kept float32, so the cap
+    alpha * total is the same f32 product in both packages."""
+    return SaturatedCoverage(feat_dim=feat_dim, total=_f32(total, device),
+                             alpha=alpha, weights=_f32(weights, device),
+                             use_kernel=use_kernel, device=torch.device(device))
+
+
 def uniforms(draws, device="cpu") -> torch.Tensor:
     """The sample rounds' draws, (E, m, n/m) or (m, n/m), as float32."""
-    return tensor(np.asarray(draws, np.float32), device)
+    return _f32(draws, device)

@@ -26,7 +26,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("coverage_marginals", "coverage_accept", "facility_marginals",
-           "facility_accept")
+           "facility_accept", "weighted_coverage_marginals",
+           "weighted_coverage_accept", "saturated_coverage_marginals",
+           "saturated_coverage_accept")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +50,22 @@ SIGNATURES = {
     "facility_accept": {
         "facility_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _P),
+    },
+    "weighted_coverage_marginals": {
+        "weighted_coverage_marginals_launch": (_P, _I, _I, _P, _P, _I, _LL, _I,
+                                               _P),
+    },
+    "weighted_coverage_accept": {
+        "weighted_coverage_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                            _I, _I, _I, _P),
+    },
+    "saturated_coverage_marginals": {
+        "saturated_coverage_marginals_launch": (_P, _I, _I, _P, _P, _P, _P, _I,
+                                                _LL, _I, _P),
+    },
+    "saturated_coverage_accept": {
+        "saturated_coverage_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P,
+                                             _P, _P, _P, _I, _I, _I, _P),
     },
 }
 

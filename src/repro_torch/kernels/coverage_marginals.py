@@ -10,19 +10,12 @@ routes CPU tensors to the plain version in ``kernels.ref``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _wrap
 
 #: kernel launches since the last reset (set to 0 to reset)
 launches = 0
-
-
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"coverage_marginals: {msg}")
 
 
 def coverage_marginals(x, state, weights=None):
@@ -31,39 +24,19 @@ def coverage_marginals(x, state, weights=None):
     contiguous CUDA tensors on one device.  Returns (C,) for x (C, d) with
     state (d,), else (L, C) float32."""
     global launches
-    _check(x.is_cuda, f"x must be a CUDA tensor, got {x.device}")
-    _check(x.dtype in (torch.float32, torch.bfloat16),
-           f"x must be float32 or bfloat16, got {x.dtype}")
-    _check(state.dtype == torch.float32, f"state must be float32, got {state.dtype}")
-    _check(x.dim() in (2, 3) and state.dim() in (1, 2),
-           f"bad ranks x{tuple(x.shape)} state{tuple(state.shape)}")
+    name = "coverage_marginals"
+    _wrap.check_rows(name, x)
     d = x.shape[-1]
-    C = x.shape[-2]
-    L = 1 if state.dim() == 1 else state.shape[0]
-    per_lane = x.dim() == 3
-    _check(state.shape[-1] == d, f"state width {state.shape[-1]} != d={d}")
-    _check(not per_lane or (state.dim() == 2 and x.shape[0] == L),
-           f"per-lane x{tuple(x.shape)} needs state (L, d), got {tuple(state.shape)}")
-    tensors = [x, state]
-    if weights is not None:
-        _check(weights.dtype == torch.float32 and weights.shape == (d,),
-               f"weights must be float32 ({d},), got {weights.dtype} {tuple(weights.shape)}")
-        tensors.append(weights)
-    for t in tensors:
-        _check(t.device == x.device, f"tensors on {t.device} and {x.device}")
-        _check(t.is_contiguous(), "inputs must be contiguous")
-    out = torch.empty((L, C) if state.dim() == 2 else (C,),
-                      dtype=torch.float32, device=x.device)
+    L, C, per_lane, out_shape = _wrap.lanes(name, x, state, d)
+    _wrap.feature(name, weights, d, "weights")
+    _wrap.placed(name, (x, state, weights), x.device)
+    out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
     if C == 0:
         return out
-    lib = _build.library("coverage_marginals")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.coverage_marginals_launch(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), int(per_lane),
-            state.data_ptr(), weights.data_ptr() if weights is not None else None,
-            out.data_ptr(), L, C, d, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"coverage_marginals: CUDA error {err} at launch")
+    _wrap.launch(name, _build.library(name).coverage_marginals_launch,
+                 x.device, x.data_ptr(), int(x.dtype == torch.bfloat16),
+                 int(per_lane), state.data_ptr(),
+                 None if weights is None else weights.data_ptr(),
+                 out.data_ptr(), L, C, d)
     launches += 1
     return out

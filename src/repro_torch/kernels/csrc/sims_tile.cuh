@@ -4,6 +4,8 @@
 //
 //     tile[i][j] = max( sum_k cand[row0 + i][k] * ref[col0 + j][k], 0 )
 //
+// (kRectify = false drops the max: weighted_coverage_marginals.cu takes
+// the lanes' remaining-weight vectors as the ref rows.)
 // for a kTileRows x kTileCols block, computed by one CTA of kThreads
 // threads with a plain f32 FFMA loop: d is staged through shared memory
 // kDepth columns at a time (cand transposed to [k][row], ref to [k][col]),
@@ -47,7 +49,7 @@ __device__ __forceinline__ int micro_col() { return (threadIdx.x & 15) * kMicro;
 // acc[m][n] = tile[micro_row() + m][micro_col() + n].  cand is (C, d),
 // ref (r, d) f32, both row-major.  Every thread of the CTA must call it;
 // it ends with a barrier, so the stage may be reused at once.
-template <typename TC>
+template <typename TC, bool kRectify = true>
 __device__ __forceinline__ void tile(const TC* __restrict__ cand, long long C,
                                      const float* __restrict__ ref, int r,
                                      int d, long long row0, int col0,
@@ -84,10 +86,12 @@ __device__ __forceinline__ void tile(const TC* __restrict__ cand, long long C,
     }
     __syncthreads();
   }
+  if (kRectify) {
 #pragma unroll
-  for (int m = 0; m < kMicro; ++m)
+    for (int m = 0; m < kMicro; ++m)
 #pragma unroll
-    for (int n = 0; n < kMicro; ++n) acc[m][n] = fmaxf(acc[m][n], 0.0f);
+      for (int n = 0; n < kMicro; ++n) acc[m][n] = fmaxf(acc[m][n], 0.0f);
+  }
 }
 
 }  // namespace sims

@@ -11,22 +11,15 @@ against the live cover vector.  This wrapper only launches;
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _wrap
 
 #: kernel launches since the last reset (set to 0 to reset)
 launches = 0
 
 #: most reference rows one CTA holds in registers (256 threads x 16)
 MAX_R = 4096
-
-
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"facility_accept: {msg}")
 
 
 def facility_accept(cand, ref, state, eligible, tau, budget):
@@ -36,51 +29,27 @@ def facility_accept(cand, ref, state, eligible, tau, budget):
     float32; budget () or (L,) int32.  Returns (mask bool, state float32,
     gains float32), batched like cand."""
     global launches
-    _check(cand.is_cuda, f"cand must be a CUDA tensor, got {cand.device}")
-    for t, what in ((cand, "cand"), (ref, "ref")):
-        _check(t.dtype in (torch.float32, torch.bfloat16),
-               f"{what} must be float32 or bfloat16, got {t.dtype}")
-    _check(cand.dim() in (2, 3),
-           f"cand must be (B, d) or (L, B, d), got {tuple(cand.shape)}")
-    unbatched = cand.dim() == 2
-    if unbatched:
-        cand, state, eligible = cand[None], state[None], eligible[None]
-    L, B, d = cand.shape
-    _check(ref.dim() == 2 and ref.shape[1] == d,
-           f"ref must be (r, {d}), got {tuple(ref.shape)}")
+    name = "facility_accept"
+    _wrap.check_rows(name, cand, "cand")
+    _wrap.check_rows(name, ref, "ref")
+    d = cand.shape[-1]
+    _wrap.check(ref.dim() == 2 and ref.shape[1] == d, name,
+                f"ref must be (r, {d}), got {tuple(ref.shape)}")
     r = ref.shape[0]
-    _check(1 <= r <= MAX_R, f"r={r} outside [1, {MAX_R}]")
-    tau = torch.as_tensor(tau, dtype=torch.float32, device=cand.device).reshape(-1)
-    budget = torch.as_tensor(budget, dtype=torch.int32,
-                             device=cand.device).reshape(-1)
-    _check(state.dtype == torch.float32 and state.shape == (L, r),
-           f"state must be float32 {(L, r)}, got {state.dtype} {tuple(state.shape)}")
-    _check(eligible.dtype == torch.bool and eligible.shape == (L, B),
-           f"eligible must be bool {(L, B)}, got {eligible.dtype} "
-           f"{tuple(eligible.shape)}")
-    _check(tau.dtype == torch.float32 and tau.shape == (L,),
-           f"tau must be float32 ({L},), got {tau.dtype} {tuple(tau.shape)}")
-    _check(budget.dtype == torch.int32 and budget.shape == (L,),
-           f"budget must be int32 ({L},), got {budget.dtype} {tuple(budget.shape)}")
-    for t in (cand, ref, state, eligible, tau, budget):
-        _check(t.device == cand.device, f"tensors on {t.device} and {cand.device}")
-        _check(t.is_contiguous(), "inputs must be contiguous")
+    _wrap.check(1 <= r <= MAX_R, name, f"r={r} outside [1, {MAX_R}]")
+    cand, state, eligible, tau, budget, unbatched = _wrap.sweep_operands(
+        name, cand, state, eligible, tau, budget, r)
+    _wrap.placed(name, (cand, ref, state, eligible, tau, budget), cand.device)
     ref = ref.float()
-    mask = torch.empty((L, B), dtype=torch.bool, device=cand.device)
-    state_out = torch.empty((L, r), dtype=torch.float32, device=cand.device)
-    gains = torch.empty((L, B), dtype=torch.float32, device=cand.device)
+    mask, state_out, gains = _wrap.sweep_outputs(cand, r)
+    L, B = cand.shape[:2]
     work = torch.empty((L, B, r), dtype=torch.float32, device=cand.device)
-    lib = _build.library("facility_accept")
-    with torch.cuda.device(cand.device):
-        stream = torch.cuda.current_stream(cand.device).cuda_stream
-        err = lib.facility_accept_launch(
-            cand.data_ptr(), int(cand.dtype == torch.bfloat16), ref.data_ptr(),
-            state.data_ptr(), eligible.data_ptr(), tau.data_ptr(),
-            budget.data_ptr(), mask.data_ptr(), state_out.data_ptr(),
-            gains.data_ptr(), work.data_ptr(), L, B, r, d,
-            ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"facility_accept: CUDA error {err} at launch")
+    _wrap.launch(name, _build.library(name).facility_accept_launch,
+                 cand.device, cand.data_ptr(),
+                 int(cand.dtype == torch.bfloat16), ref.data_ptr(),
+                 state.data_ptr(), eligible.data_ptr(), tau.data_ptr(),
+                 budget.data_ptr(), mask.data_ptr(), state_out.data_ptr(),
+                 gains.data_ptr(), work.data_ptr(), L, B, r, d)
     launches += 1
     if unbatched:
         return mask[0], state_out[0], gains[0]

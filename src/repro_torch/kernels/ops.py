@@ -14,6 +14,17 @@ from repro_torch.kernels import coverage_marginals as _cm
 from repro_torch.kernels import facility_accept as _fa
 from repro_torch.kernels import facility_marginals as _fm
 from repro_torch.kernels import ref
+from repro_torch.kernels import saturated_coverage_accept as _sa
+from repro_torch.kernels import saturated_coverage_marginals as _sm
+from repro_torch.kernels import weighted_coverage_accept as _wa
+from repro_torch.kernels import weighted_coverage_marginals as _wm
+
+#: the wrapper modules that count their launches in a plain integer
+_COUNTED = {"coverage_marginals": _cm, "coverage_accept": _ca,
+            "facility_accept": _fa, "weighted_coverage_marginals": _wm,
+            "weighted_coverage_accept": _wa,
+            "saturated_coverage_marginals": _sm,
+            "saturated_coverage_accept": _sa}
 
 
 def _on_card(x) -> bool:
@@ -28,16 +39,15 @@ def _on_card(x) -> bool:
 
 def launch_counts() -> dict:
     """Kernel launches per entry point since the last reset."""
-    return {"coverage_marginals": _cm.launches,
-            "coverage_accept": _ca.launches,
-            "facility_marginals": _fm.launches["facility_marginals"],
-            "rectified_residual_sum": _fm.launches["rectified_residual_sum"],
-            "facility_accept": _fa.launches}
+    counts = {name: mod.launches for name, mod in _COUNTED.items()}
+    counts.update(_fm.launches)
+    return counts
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    _cm.launches = _ca.launches = _fa.launches = 0
+    for mod in _COUNTED.values():
+        mod.launches = 0
     for name in _fm.launches:
         _fm.launches[name] = 0
 
@@ -81,3 +91,37 @@ def facility_accept(cand, reference, state, eligible, tau, budget):
         return _fa.facility_accept(cand, reference, state, eligible, tau,
                                    budget)
     return ref.facility_accept(cand, reference, state, eligible, tau, budget)
+
+
+def weighted_coverage_marginals(x, state):
+    """(C, U) | (L, C, U), (U,) | (L, U) -> (C,) | (L, C) WeightedCoverage
+    marginals."""
+    if _on_card(x):
+        return _wm.weighted_coverage_marginals(x, state)
+    return ref.weighted_coverage_marginals(x, state)
+
+
+def weighted_coverage_accept(x, state, eligible, tau, budget):
+    """Fused WeightedCoverage chunk-accept sweep over a (B, U) tile per
+    lane.  Returns (mask bool, state f32, gains f32), batched like x."""
+    if _on_card(x):
+        return _wa.weighted_coverage_accept(x, state, eligible, tau, budget)
+    return ref.weighted_coverage_accept(x, state, eligible, tau, budget)
+
+
+def saturated_coverage_marginals(x, state, cap, weights=None):
+    """(C, d) | (L, C, d), (d,) | (L, d), (d,)[, (d,)] -> (C,) | (L, C)
+    SaturatedCoverage marginals."""
+    if _on_card(x):
+        return _sm.saturated_coverage_marginals(x, state, cap, weights)
+    return ref.saturated_coverage_marginals(x, state, cap, weights)
+
+
+def saturated_coverage_accept(x, state, cap, weights, eligible, tau, budget):
+    """Fused SaturatedCoverage chunk-accept sweep over a (B, d) tile per
+    lane.  Returns (mask bool, state f32, gains f32), batched like x."""
+    if _on_card(x):
+        return _sa.saturated_coverage_accept(x, state, cap, weights, eligible,
+                                             tau, budget)
+    return ref.saturated_coverage_accept(x, state, cap, weights, eligible,
+                                         tau, budget)

@@ -30,6 +30,41 @@ def coverage_marginals(x, state, weights=None):
     return g.sum(-1)
 
 
+def weighted_coverage_marginals(x, state):
+    """WeightedCoverage marginal gains.
+
+    x (C, U) or (L, C, U), float32 or bfloat16; state (U,) or (L, U) f32,
+    the remaining (uncovered) weight per universe item.  Returns (C,) for
+    an unbatched call, else (L, C) f32, with
+
+        gains[l, i] = sum_u state[l, u] * x[i, u]
+
+    A (C, U) ``x`` with an (L, U) state is shared by every lane.
+    """
+    return (state.float().unsqueeze(-2) * x.float()).sum(-1)
+
+
+def saturated_coverage_marginals(x, state, cap, weights=None):
+    """SaturatedCoverage marginal gains.
+
+    x (C, d) or (L, C, d), float32 or bfloat16; state (d,) or (L, d) f32;
+    cap (d,) f32, the per-feature saturation level alpha * total; weights
+    optional (d,) f32.  Returns (C,) for an unbatched call, else (L, C) f32,
+    with
+
+        gains[l, i] = sum_f w_f (min(state[l, f] + x[i, f], cap_f)
+                                 - min(state[l, f], cap_f))
+
+    A (C, d) ``x`` with an (L, d) state is shared by every lane.
+    """
+    st = state.float().unsqueeze(-2)
+    cap = cap.float()
+    g = torch.minimum(st + x.float(), cap) - torch.minimum(st, cap)
+    if weights is not None:
+        g = g * weights
+    return g.sum(-1)
+
+
 def rectified_residual_sum(aux, state):
     """FacilityLocation marginal gains from precomputed similarities.
 
@@ -80,17 +115,6 @@ def gemm_gain_tol(cand, ref):
     return 2.0 * (d + r) * 2.0 ** -24 * mag
 
 
-def _lanes(x, state, eligible, tau, budget):
-    """Lift an unbatched accept call onto one lane; returns the lane-batched
-    operands and whether to drop the lane axis again."""
-    unbatched = x.dim() == 2
-    if unbatched:
-        x, state, eligible = x[None], state[None], eligible[None]
-    L = x.shape[0]
-    tau = torch.as_tensor(tau, dtype=torch.float32, device=x.device)
-    budget = torch.as_tensor(budget, dtype=torch.int32, device=x.device)
-    return (x, state, eligible, tau.reshape(-1).expand(L),
-            budget.reshape(-1).expand(L), unbatched)
 
 
 def accept_scan(gain_fn, update_fn, rows, state, eligible, tau, budget):
@@ -115,6 +139,22 @@ def accept_scan(gain_fn, update_fn, rows, state, eligible, tau, budget):
     return mask, st, gains
 
 
+def _sweep(gain_fn, update_fn, rows, state, eligible, tau, budget):
+    """``accept_scan`` over rows (B, w') or (L, B, w'), f32 or bf16 (lifted
+    to f32), with an unbatched call lifted onto one lane and its outputs
+    unbatched again."""
+    unbatched = rows.dim() == 2
+    if unbatched:
+        rows, state, eligible = rows[None], state[None], eligible[None]
+    L = rows.shape[0]
+    tau = torch.as_tensor(tau, dtype=torch.float32, device=rows.device)
+    budget = torch.as_tensor(budget, dtype=torch.int32, device=rows.device)
+    out = accept_scan(gain_fn, update_fn, rows.float(), state,
+                      eligible.bool(), tau.reshape(-1).expand(L),
+                      budget.reshape(-1).expand(L))
+    return tuple(o[0] for o in out) if unbatched else out
+
+
 def coverage_accept(x, state, weights, eligible, tau, budget):
     """FeatureCoverage accept sweep.
 
@@ -122,15 +162,43 @@ def coverage_accept(x, state, weights, eligible, tau, budget):
     None; eligible (B,) or (L, B) bool; tau () or (L,); budget () or (L,)
     int.  Returns (mask bool, state f32, gains f32), batched like ``x``.
     """
-    x, state, eligible, tau, budget, unbatched = _lanes(
-        x, state, eligible, tau, budget)
     w = (weights if weights is not None
          else torch.ones(x.shape[-1], dtype=torch.float32, device=x.device))
-    out = accept_scan(
+    return _sweep(
         lambda st, xr: ((torch.sqrt(st + xr) - torch.sqrt(st)) * w).sum(-1),
-        lambda st, xr: st + xr,
-        x.float(), state, eligible.bool(), tau, budget)
-    return tuple(o[0] for o in out) if unbatched else out
+        lambda st, xr: st + xr, x, state, eligible, tau, budget)
+
+
+def weighted_coverage_accept(x, state, eligible, tau, budget):
+    """WeightedCoverage accept sweep.
+
+    x (B, U) or (L, B, U); state (U,) or (L, U) f32, the remaining weight;
+    eligible (B,) or (L, B) bool; tau () or (L,); budget () or (L,) int.
+    Row i's gain is sum_u s_u x_iu, and an accepted row applies
+    s = s * (1 - x_i), exact (0 or s) on binary incidence rows.  Returns
+    (mask bool, state f32, gains f32), batched like ``x``.
+    """
+    return _sweep(lambda st, xr: (st * xr).sum(-1),
+                  lambda st, xr: st * (1.0 - xr),
+                  x, state, eligible, tau, budget)
+
+
+def saturated_coverage_accept(x, state, cap, weights, eligible, tau, budget):
+    """SaturatedCoverage accept sweep.
+
+    x (B, d) or (L, B, d); state (d,) or (L, d) f32; cap (d,) f32; weights
+    (d,) f32 or None; eligible (B,) or (L, B) bool; tau () or (L,); budget
+    () or (L,) int.  Row i's gain is sum_f w_f (min(s_f + x_if, cap_f) -
+    min(s_f, cap_f)), and an accepted row applies s += x_i.  Returns (mask
+    bool, state f32, gains f32), batched like ``x``.
+    """
+    w = (weights if weights is not None
+         else torch.ones(x.shape[-1], dtype=torch.float32, device=x.device))
+    cap = cap.float()
+    return _sweep(
+        lambda st, xr: ((torch.minimum(st + xr, cap)
+                         - torch.minimum(st, cap)) * w).sum(-1),
+        lambda st, xr: st + xr, x, state, eligible, tau, budget)
 
 
 def facility_accept(cand, ref, state, eligible, tau, budget):
@@ -142,10 +210,6 @@ def facility_accept(cand, ref, state, eligible, tau, budget):
     vector s, and an accepted row applies s = max(s, sims_i).  Returns
     (mask bool, state f32, gains f32), batched like ``cand``.
     """
-    cand, state, eligible, tau, budget, unbatched = _lanes(
-        cand, state, eligible, tau, budget)
-    out = accept_scan(
-        lambda st, sr: torch.clamp_min(sr - st, 0.0).sum(-1),
-        torch.maximum,
-        similarities(cand, ref), state, eligible.bool(), tau, budget)
-    return tuple(o[0] for o in out) if unbatched else out
+    return _sweep(lambda st, sr: torch.clamp_min(sr - st, 0.0).sum(-1),
+                  torch.maximum, similarities(cand, ref), state, eligible,
+                  tau, budget)

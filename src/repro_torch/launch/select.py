@@ -8,7 +8,9 @@ machines simulated on one device.
 
 Embeddings are U[0, 1)^2; facility location's reference set is 256 rows of
 U[0, 1) drawn after them from the same generator, as the JAX CLI draws
-them.  Runs on the CUDA card unless ``--device cpu`` is given.
+them, and saturated coverage's ``total`` is the embeddings' f32 column sum,
+as the JAX CLI computes it (before any bf16 cast).  Runs on the CUDA card
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -66,13 +68,15 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     emb = torch.rand((args.n, args.d), generator=gen, device=device) ** 2
-    reference = None
+    reference = total = None
     if args.oracle == "facility_location":
         reference = torch.rand((spec.reference_size, args.d), generator=gen,
                                device=device)
+    if args.oracle == "saturated_coverage":
+        total = emb.sum(0)
     sel = DistributedSelector(spec, n_total=args.n, feat_dim=args.d,
                               n_machines=args.machines, device=device,
-                              reference=reference)
+                              reference=reference, total=total)
 
     t0 = time.perf_counter()
     res = sel.select(emb, generator=gen)

@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 from oracle_contract import (K_CAP, build_facility_location,
-                             build_feature_coverage, distinct_subsets)
+                             build_feature_coverage,
+                             build_saturated_coverage,
+                             build_weighted_coverage, distinct_subsets)
 
 from repro.core import sequential as jseq
 from repro_torch import interop
@@ -21,9 +23,12 @@ from repro_torch.core import sequential as tseq
 torch.set_num_threads(2)
 
 N, D = 14, 6
-NAMES = ("feature_coverage", "facility_location")
+NAMES = ("feature_coverage", "facility_location", "weighted_coverage",
+         "saturated_coverage")
 BUILDERS = {"feature_coverage": build_feature_coverage,
-            "facility_location": build_facility_location}
+            "facility_location": build_facility_location,
+            "weighted_coverage": build_weighted_coverage,
+            "saturated_coverage": build_saturated_coverage}
 
 
 def _build(name, seed, use_kernel=False):
@@ -33,9 +38,16 @@ def _build(name, seed, use_kernel=False):
     j_oracle, feats = BUILDERS[name](rng, N, D)
     if name == "feature_coverage":
         t_oracle = interop.feature_coverage(D, use_kernel=use_kernel)
-    else:
+    elif name == "facility_location":
         t_oracle = interop.facility_location(
             D, np.asarray(j_oracle.reference), use_kernel=use_kernel)
+    elif name == "weighted_coverage":
+        t_oracle = interop.weighted_coverage(
+            D, np.asarray(j_oracle.weights), use_kernel=use_kernel)
+    else:
+        t_oracle = interop.saturated_coverage(
+            D, np.asarray(j_oracle.total), j_oracle.alpha,
+            np.asarray(j_oracle.weights), use_kernel=use_kernel)
     return rng, j_oracle, t_oracle, interop.tensor(np.asarray(feats))
 
 

@@ -91,11 +91,13 @@ def test_oracles_need_cuda_or_an_explicit_cpu(monkeypatch):
 
 
 def test_spec_and_oracle_names_are_checked():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="weighted_coverage"),
-                         4, "cpu")
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="graph_cut"), 4, "cpu")
     with pytest.raises(ValueError, match="reference set"):
         tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="facility_location"),
+                         4, "cpu")
+    with pytest.raises(ValueError, match="feature sum"):
+        tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="saturated_coverage"),
                          4, "cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="log_det"), 4, "cpu")
