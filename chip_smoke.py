@@ -31,7 +31,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 6. The main path for both over the same corpus (saturated coverage with
    total = X.sum(0) and the default alpha = 0.25), then one more
    SaturatedCoverage select at alpha = 2^-16, where the cap binds.
-7. Print the kernel table as one JSON line, the card's name and power
+7. Hold the GraphCut and log-det kernels against their plain versions
+   (every lane mode, f32 and bf16, the main path's shapes and odd ones:
+   d = 45 and 70, L = 1 and 130, k_max = 1, 7 and 100; GraphCut states
+   whose redundancy term cancels the linear one; bases empty, partial and
+   full, and sweeps whose appends run into k_max; a bitwise repeat of
+   each), and time the products alone as torch.matmul / mv / bmm.
+8. The main path for GraphCut (total = X.sum(0), lam = 0.5),
+   LogDetDiversity (alpha = 1) and MutualInformationGaussian (noise = 1;
+   k_max = k for both) over the same corpus; mutual information must give
+   log-det's ids and exactly half its value in every select.
+9. Print the kernel table as one JSON line, the card's name and power
    limit, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -557,6 +567,306 @@ def phase_weighted_saturated_kernels(torch, ref, wm, wa, sm, sa):
     return rows
 
 
+def graph_cut_tol(x, coef, lam):
+    """Per (lane, row) bound on how far two float32 evaluations of a graph
+    cut gain may differ when they sum in different orders: each is within
+    (d + 2) 2^-24 of the summed term magnitudes,
+    sum_f |x_f| |c_f| + lam x_f^2.  x (C, d) or (L, C, d), coef (L, d);
+    shapes follow the gains, (L, C)."""
+    x = x.float()
+    d = x.shape[-1]
+    mag = (x.abs() @ coef.abs().T).T if x.dim() == 2 else \
+        (x.abs() @ coef.abs().unsqueeze(-1)).squeeze(-1)
+    return 2.0 * (d + 2) * 2.0 ** -24 * (mag + lam * (x * x).sum(-1))
+
+
+def logdet_bases(torch, ref, g, L, k, d, sizes, alpha, dtype):
+    """(U (L, k, d), logdet (L,), size (L,)) of lanes that hold ``sizes``
+    rows of U[0, 1)^2 rounded to ``dtype``, appended with the plain
+    Gram-Schmidt append (rows past a lane's size stay zero)."""
+    dev = sizes.device
+    rows = torch.stack([
+        (torch.rand((L, d), generator=g, device=dev) ** 2).to(dtype).float()
+        for _ in range(k)])
+    return ref.logdet_basis(rows, sizes, alpha)
+
+
+def phase_graph_cut_logdet_kernels(torch, ref, gm, ga, lm, la):
+    """GraphCut and log-det kernels vs plain versions on the card; returns
+    the JSON rows.  GraphCut states put 2 lam s between 0 and 1.2 t, so the
+    redundancy term cancels part or all of the linear one; tolerance
+    ``graph_cut_tol`` for gains, states bitwise (the same f32 adds).  Log-det
+    bases hold 0 rows, some, and k (full), and a sweep's appends run into
+    k_max; tolerance rtol 1e-5 / atol 1e-4 (the JAX package's own for
+    log-det gains) for gains, logdet and U.  Every kernel must also give the
+    same bits when launched twice."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    lam, alpha = 0.5, 1.0
+    LD_RTOL, LD_ATOL = 1e-5, 1e-4
+    rows = {}
+
+    def lane_sizes(Lk, k):
+        s = (torch.arange(Lk, device=dev) * 13) % (k + 1)
+        s[:2] = torch.tensor([0, k], device=dev)[:Lk]
+        return s.to(torch.int32)
+
+    def gc_states(Lk, t):
+        frac = torch.rand((Lk, 1), generator=g, device=dev) * 1.2
+        return (t * frac / (2 * lam)).contiguous()
+
+    # -- graph_cut_marginals: shared at the filter shape, unbatched over the
+    #    corpus (max singleton, top singletons), per-lane at the lazy chunk
+    #    shape, odd shapes
+    worst = 0.0
+    for label, Lk, C, d in (("shared", L, N, D), ("unbatched", 1, N, D),
+                            ("per-lane", L, B, D),
+                            ("odd shared", 130, 1000, 70),
+                            ("odd per-lane", 1, 65, 45),
+                            ("odd unbatched", 1, 1000, 45)):
+        per_lane = label.endswith("per-lane")
+        for dtype in (torch.float32, torch.bfloat16):
+            shape = (Lk, C, d) if per_lane else (C, d)
+            x = (torch.rand(shape, generator=g, device=dev) ** 2).to(dtype)
+            # the ground set's sum at full width; a sum of that size else
+            t = (x.float().sum(0) if x.dim() == 2 and C == N else
+                 torch.rand(d, generator=g, device=dev) * N / 3).contiguous()
+            state = gc_states(Lk, t)
+            if label.endswith("unbatched"):
+                state = state[0].contiguous()
+            coef = t - 2.0 * lam * state.reshape(-1, d)
+            got = gm.graph_cut_marginals(x, t, state, lam)
+            want = ref.graph_cut_marginals(x, t, state, lam)
+            torch.cuda.synchronize()
+            tol = graph_cut_tol(x, coef, lam).reshape(got.shape)
+            err = (got - want).abs()
+            check(bool((err <= tol).all()),
+                  f"graph_cut_marginals {label} {dtype}: max abs err "
+                  f"{err.max().item()} beyond tolerance")
+            check(torch.equal(gm.graph_cut_marginals(x, t, state, lam), got),
+                  f"graph_cut_marginals {label}: a repeated launch differs")
+            worst = max(worst, err.max().item())
+            line = (f"[kernels] graph_cut_marginals {label} x{tuple(shape)} "
+                    f"L={Lk} {str(dtype)[6:]}: max_abs_err={err.max().item()} "
+                    f"tol_max={tol.max().item()} "
+                    f"min_gain={want.min().item()} repeat=bitwise")
+            if not label.startswith("odd"):
+                ms = cuda_ms(lambda: gm.graph_cut_marginals(x, t, state, lam),
+                             10)
+                pms = cuda_ms(lambda: ref.graph_cut_marginals(x, t, state,
+                                                              lam), 2)
+                b_ms, b_by = bound_ms(
+                    x.numel() * x.element_size() + state.numel() * 4 + d * 4
+                    + Lk * C * 4,
+                    2 * Lk * C * d + 2 * (Lk if per_lane else 1) * C * d
+                    + Lk * C + 2 * Lk * d)
+                xf = x.float()
+                lib = {"shared": lambda: torch.matmul(xf, coef.T),
+                       "unbatched": lambda: torch.mv(xf, coef[0]),
+                       "per-lane": lambda: torch.bmm(
+                           xf, coef[:, :, None])}[label]
+                lib_ms = cuda_ms(lib, 10)
+                line += (f" kernel_ms={ms} plain_ms={pms} bound_ms={b_ms} "
+                         f"({b_by}) library_ms={lib_ms}")
+                if label == "shared" and dtype == torch.float32:
+                    rows["graph_cut_marginals"] = dict(
+                        ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lib_ms)
+            print(line)
+    rows["graph_cut_marginals"]["max_abs_err"] = worst
+
+    # -- graph_cut_accept at the fused engine's shape and odd shapes
+    worst = 0.0
+    for label, Lk, Bk, d in (("path", L, B, D), ("odd L=1", 1, 70, 45),
+                             ("odd L=130", 130, B, 70)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.rand((Lk, Bk, d), generator=g, device=dev) ** 2
+                 ).to(dtype)
+            t = (torch.rand(d, generator=g, device=dev) * N / 3).contiguous()
+            state = gc_states(Lk, t)
+            elig = torch.rand((Lk, Bk), generator=g, device=dev) < 0.9
+            tau = lane_taus(torch, ref.graph_cut_marginals(x, t, state, lam))
+            budget = torch.where(torch.arange(Lk, device=dev) % 5 == 0, 3,
+                                 K).to(torch.int32)
+            kern = lambda: ga.graph_cut_accept(  # noqa: E731
+                x, t, state, elig, tau, budget, lam)
+            plain = lambda: ref.graph_cut_accept(  # noqa: E731
+                x, t, state, elig, tau, budget, lam)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            # a gain taken against a state that has grown by accepted rows:
+            # the same bound at the largest state of the sweep
+            lane_tol = graph_cut_tol(
+                x, t + 2 * lam * (state + x.float().sum(1)), lam).amax(-1)
+            ties, err = check_sweep(
+                "graph_cut_accept", got, want, tau, lane_tol,
+                lambda l, a, b, what: (torch.equal(a, b) if what == "state"
+                                       else bool(((a - b).abs()
+                                                  <= lane_tol[l]).all())))
+            check(all(torch.equal(a, b) for a, b in zip(got, kern())),
+                  "graph_cut_accept: a repeated launch differs")
+            worst = max(worst, err)
+            n_acc = int(want[0].sum())
+            line = (f"[kernels] graph_cut_accept {label} x({Lk}, {Bk}, {d}) "
+                    f"{str(dtype)[6:]}: max_abs_err={err} near_tau_ties={ties} "
+                    f"accepted={n_acc} repeat=bitwise")
+            if label == "path":
+                ms = cuda_ms(kern, 50)
+                pms = cuda_ms(plain, 3)
+                b_ms, b_by = bound_ms(
+                    x.numel() * x.element_size() + 2 * Lk * d * 4 + d * 4
+                    + Lk * Bk * 6 + Lk * 8,
+                    5 * Lk * Bk * d + 3 * n_acc * d)
+                line += (f" kernel_ms={ms} plain_ms={pms} bound_ms={b_ms} "
+                         f"({b_by})")
+                if dtype == torch.float32:
+                    rows["graph_cut_accept"] = dict(ms=ms, plain_ms=pms,
+                                                    bound_ms=b_ms,
+                                                    bound_by=b_by)
+            print(line)
+    rows["graph_cut_accept"]["max_abs_err"] = worst
+
+    def ld_close(a, b):
+        return torch.allclose(a, b, rtol=LD_RTOL, atol=LD_ATOL)
+
+    # -- logdet_marginals: shared at the filter shape, unbatched over the
+    #    corpus, per-lane at the lazy chunk shape; odd shapes with k = 1, 7
+    #    and 100 (more than one 64-column tile per lane); scale 1 and 0.5
+    worst = 0.0
+    for label, Lk, C, d, k in (("shared", L, N, D, K), ("unbatched", 1, N, D, K),
+                               ("per-lane", L, B, D, K),
+                               ("odd shared", 130, 1000, 70, 7),
+                               ("odd shared", 130, 1000, 45, 1),
+                               ("odd shared", 5, 1000, 70, 100),
+                               ("odd per-lane", 3, 65, 45, 7),
+                               ("odd unbatched", 1, 1000, 45, 1)):
+        per_lane = label.endswith("per-lane")
+        for dtype in (torch.float32, torch.bfloat16):
+            scale = 1.0 if dtype == torch.float32 else 0.5
+            shape = (Lk, C, d) if per_lane else (C, d)
+            x = (torch.rand(shape, generator=g, device=dev) ** 2).to(dtype)
+            nb = 2 if label.endswith("unbatched") else Lk
+            U, _, _ = logdet_bases(torch, ref, g, nb, k, d,
+                                   lane_sizes(nb, k), alpha, dtype)
+            if label.endswith("unbatched"):
+                U = U[1].contiguous()   # a full basis
+            if label == "shared":
+                # one lane at a time: the plain version's (L, C, k)
+                # projection would take 10 GB
+                plain = lambda: torch.stack([  # noqa: E731
+                    ref.logdet_marginals(x, U[l], alpha, scale=scale)
+                    for l in range(Lk)])
+            else:
+                plain = lambda: ref.logdet_marginals(  # noqa: E731
+                    x, U, alpha, scale=scale)
+            got = lm.logdet_marginals(x, U, alpha, scale)
+            want = plain()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(ld_close(got, want), f"logdet_marginals {label} k={k} "
+                  f"{dtype}: max abs err {err}")
+            check(torch.equal(lm.logdet_marginals(x, U, alpha, scale), got),
+                  f"logdet_marginals {label}: a repeated launch differs")
+            worst = max(worst, err)
+            line = (f"[kernels] logdet_marginals {label} x{tuple(shape)} "
+                    f"L={Lk} k={k} {str(dtype)[6:]} scale={scale}: "
+                    f"max_abs_err={err} gains=[{want.min().item()}, "
+                    f"{want.max().item()}] repeat=bitwise")
+            if not label.startswith("odd"):
+                ms = cuda_ms(lambda: lm.logdet_marginals(x, U, alpha, scale),
+                             5)
+                pms = cuda_ms(plain, 2)
+                rows_c = Lk * C if per_lane or U.dim() == 3 else C
+                b_ms, b_by = bound_ms(
+                    x.numel() * x.element_size() + U.numel() * 4
+                    + got.numel() * 4,
+                    2 * rows_c * d * k + 2 * (Lk if per_lane else 1) * C * d
+                    + 2 * rows_c * k + 6 * rows_c)
+                xf = x.float()
+                lib = {"shared": lambda: torch.matmul(
+                           xf, U.reshape(-1, d).T),
+                       "unbatched": lambda: torch.matmul(xf, U.T),
+                       "per-lane": lambda: torch.bmm(
+                           xf, U.transpose(1, 2))}[label]
+                lib_ms = cuda_ms(lib, 5)
+                line += (f" kernel_ms={ms} plain_ms={pms} bound_ms={b_ms} "
+                         f"({b_by}) library_ms={lib_ms}")
+                if label == "shared" and dtype == torch.float32:
+                    rows["logdet_marginals"] = dict(
+                        ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lib_ms)
+            print(line)
+    rows["logdet_marginals"]["max_abs_err"] = worst
+    print(f"[kernels] yardstick: torch.matmul / mv / bmm with allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+
+    # -- logdet_accept at the fused engine's shape and odd shapes; lanes at
+    #    size k - 2 with budget k run their appends into k_max
+    worst = 0.0
+    for label, Lk, Bk, d, k in (("path", L, B, D, K), ("odd L=1", 1, 70, 45, 7),
+                                ("odd L=130", 130, B, 70, 1),
+                                ("odd k=7", 9, B, 45, 7)):
+        for dtype in (torch.float32, torch.bfloat16):
+            scale = 1.0 if dtype == torch.float32 else 0.5
+            x = (torch.rand((Lk, Bk, d), generator=g, device=dev) ** 2
+                 ).to(dtype)
+            sizes = lane_sizes(Lk, k)
+            sizes[2::3] = max(k - 2, 0)
+            U, ld, sz = logdet_bases(torch, ref, g, Lk, k, d, sizes, alpha,
+                                     dtype)
+            elig = torch.rand((Lk, Bk), generator=g, device=dev) < 0.9
+            tau = lane_taus(torch, ref.logdet_marginals(x, U, alpha,
+                                                        scale=scale))
+            tau[2::3] = 0.0   # accept every eligible row: run into k_max
+            budget = torch.where(torch.arange(Lk, device=dev) % 5 == 0, 3,
+                                 K).to(torch.int32)
+            kern = lambda: la.logdet_accept(  # noqa: E731
+                x, U, ld, sz, elig, tau, budget, alpha, scale)
+            plain = lambda: ref.logdet_accept(  # noqa: E731
+                x, U, ld, sz, elig, tau, budget, alpha, scale=scale)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            near = LD_ATOL + LD_RTOL * tau.abs()
+            ties, err = check_sweep(
+                "logdet_accept", (got[0], got[1], got[4]),
+                (want[0], want[1], want[4]), tau, near,
+                lambda l, a, b, what: ld_close(a, b))
+            same = (got[0] == want[0]).all(-1)
+            check(torch.equal(got[3][same], want[3][same])
+                  and ld_close(got[2][same], want[2][same]),
+                  "logdet_accept: logdet or size differ")
+            full = want[3] > k   # appends were dropped at k_max
+            check(Lk < 3 or bool((full & same).any()),
+                  "logdet_accept: no lane ran its appends into k_max")
+            check(all(torch.equal(a, b) for a, b in zip(got, kern())),
+                  "logdet_accept: a repeated launch differs")
+            worst = max(worst, err)
+            n_acc = int(want[0].sum())
+            line = (f"[kernels] logdet_accept {label} x({Lk}, {Bk}, {d}) "
+                    f"k={k} {str(dtype)[6:]} scale={scale}: max_abs_err={err} "
+                    f"near_tau_ties={ties} accepted={n_acc} "
+                    f"lanes_past_k_max={int(full.sum())} repeat=bitwise")
+            if label == "path":
+                ms = cuda_ms(kern, 50)
+                pms = cuda_ms(plain, 3)
+                # live rows of U at each scanned row, from the plain sweep
+                before = want[0].to(torch.int64).cumsum(1) - want[0].long()
+                live = (sz[:, None].long() + before).clamp(max=k)
+                n_ops = int((2 * d * live + 2 * d + 2 * live).sum()
+                            + (want[0] * (2 * d * live + 3 * d)).sum())
+                b_ms, b_by = bound_ms(
+                    x.numel() * x.element_size() + 2 * U.numel() * 4
+                    + Lk * 16 + Lk * Bk * 6 + Lk * 8, n_ops)
+                line += (f" kernel_ms={ms} plain_ms={pms} bound_ms={b_ms} "
+                         f"({b_by})")
+                if dtype == torch.float32:
+                    rows["logdet_accept"] = dict(ms=ms, plain_ms=pms,
+                                                 bound_ms=b_ms, bound_by=b_by)
+            print(line)
+    rows["logdet_accept"]["max_abs_err"] = worst
+    return rows
+
+
 def drive(torch, tsel, ops, X, label, reference=None, total=None, **spec_kw):
     """One select through the public entry point, with the launch counts
     set to 0 just before and read just after.  Returns (result, value,
@@ -607,17 +917,20 @@ def greedy_value(torch, tsel, tseq, X, oracle, reference=None, total=None,
 
 
 def main_path(torch, tsel, tseq, ops, X, oracle, kernels, accept_kernel,
-              reference=None, total=None):
+              reference=None, total=None, results=None):
     """Drive one oracle's main path: three engines on the kernel route, the
     lazy engine on the plain route, multi_epoch E = 2 and bf16 storage on
     the fused engine.  Returns the launches of each of ``kernels`` summed
-    over the kernel-route selects."""
+    over the kernel-route selects; ``results``, when given, receives each
+    select's (result, value) by label."""
     launches = dict.fromkeys(kernels, 0)
+    results = {} if results is None else results
 
     def run(label, **kw):
         res, value, _, counts = drive(torch, tsel, ops, X,
                                       f"{oracle} {label}", reference, total,
                                       oracle=oracle, **kw)
+        results[label] = (res, value)
         fused = kw.get("engine") == "fused"
         for name in kernels:
             want = fused if name == accept_kernel else True
@@ -632,6 +945,7 @@ def main_path(torch, tsel, tseq, ops, X, oracle, kernels, accept_kernel,
                                       f"{oracle} two_round lazy plain",
                                       reference, total, oracle=oracle,
                                       engine="lazy", use_kernel=False)
+    results["two_round lazy plain"] = (res_p, value_p)
     check(not any(counts.values()), f"plain route launched kernels {counts}")
     for engine, (res, value) in runs.items():
         check(abs(value - value_p) <= 1e-3 * abs(value_p),
@@ -715,6 +1029,10 @@ def main() -> int:
     from repro_torch.kernels import coverage_marginals as cm
     from repro_torch.kernels import facility_accept as fa
     from repro_torch.kernels import facility_marginals as fm
+    from repro_torch.kernels import graph_cut_accept as ga
+    from repro_torch.kernels import graph_cut_marginals as gm
+    from repro_torch.kernels import logdet_accept as la
+    from repro_torch.kernels import logdet_marginals as lm
     from repro_torch.kernels import saturated_coverage_accept as sa
     from repro_torch.kernels import saturated_coverage_marginals as sm
     from repro_torch.kernels import weighted_coverage_accept as wa
@@ -736,6 +1054,7 @@ def main() -> int:
     rows = phase_coverage_kernels(torch, ref, cm, ca)
     rows.update(phase_facility_kernels(torch, ref, fm, fa))
     rows.update(phase_weighted_saturated_kernels(torch, ref, wm, wa, sm, sa))
+    rows.update(phase_graph_cut_logdet_kernels(torch, ref, gm, ga, lm, la))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     X = torch.rand((N, D), generator=gen, device="cuda") ** 2
@@ -762,6 +1081,32 @@ def main() -> int:
                                      total).items():
         if name.startswith("saturated"):
             launches[name] += n
+
+    # GraphCut with the same total and the JAX default lam = 0.5, then
+    # LogDetDiversity at alpha = 1 and MutualInformationGaussian at noise 1
+    # (k_max = k for both): the same selects, so MI must give log-det's ids
+    # and exactly half its value (the 0.5 scale is a power of two)
+    launches.update(main_path(
+        torch, tsel, tseq, ops, X, "graph_cut",
+        ("graph_cut_marginals", "graph_cut_accept"), "graph_cut_accept",
+        total=total))
+    ld_kernels = ("logdet_marginals", "logdet_accept")
+    by_ld, by_mi = {}, {}
+    launches.update(main_path(torch, tsel, tseq, ops, X, "log_det",
+                              ld_kernels, "logdet_accept", results=by_ld))
+    for name, n in main_path(torch, tsel, tseq, ops, X, "mutual_information",
+                             ld_kernels, "logdet_accept",
+                             results=by_mi).items():
+        launches[name] += n
+    for label, (res, value) in by_ld.items():
+        res_mi, value_mi = by_mi[label]
+        check(torch.equal(res_mi.sol_ids, res.sol_ids)
+              and value_mi == 0.5 * value,
+              f"{label}: mutual information {value_mi} with ids "
+              f"{res_mi.sol_ids.tolist()} is not half of log-det {value} "
+              f"with ids {res.sol_ids.tolist()}")
+    print(f"[main] mutual_information at noise 1 = 0.5 x log_det, same ids, "
+          f"in all {len(by_ld)} selects")
 
     table = []
     for name, src, replaces in (
@@ -791,7 +1136,19 @@ def main() -> int:
              "src/repro/kernels/saturated_coverage_marginals.py:49"),
             ("saturated_coverage_accept",
              "src/repro_torch/kernels/csrc/saturated_coverage_accept.cu",
-             "src/repro/kernels/saturated_coverage_accept.py:27")):
+             "src/repro/kernels/saturated_coverage_accept.py:27"),
+            ("graph_cut_marginals",
+             "src/repro_torch/kernels/csrc/graph_cut_marginals.cu",
+             "src/repro/kernels/graph_cut_marginals.py:50"),
+            ("graph_cut_accept",
+             "src/repro_torch/kernels/csrc/graph_cut_accept.cu",
+             "src/repro/kernels/graph_cut_accept.py:29"),
+            ("logdet_marginals",
+             "src/repro_torch/kernels/csrc/logdet_marginals.cu",
+             "src/repro/kernels/logdet_marginals.py:52"),
+            ("logdet_accept",
+             "src/repro_torch/kernels/csrc/logdet_accept.cu",
+             "src/repro/kernels/logdet_accept.py:133")):
         check(launches[name] > 0, f"{name} never launched on the main path")
         r = rows[name]
         table.append({"name": name, "route": "cuda", "source": src,

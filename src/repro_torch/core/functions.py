@@ -8,13 +8,17 @@ every method also takes a leading lane axis L: a state of shape (L, w)
 holds one solution per lane, and a candidate block is either shared by
 every lane, (C, d), or held per lane, (L, C, d).  An unbatched state (w,)
 with a (C, d) block is the plain single-solution call.  The state width w
-is the oracle's own: d for FeatureCoverage and SaturatedCoverage, the
-universe size for WeightedCoverage (whose feature rows are incidence rows),
-the reference-set size r for FacilityLocation.
+is the oracle's own: d for FeatureCoverage, SaturatedCoverage and GraphCut,
+the universe size for WeightedCoverage (whose feature rows are incidence
+rows), the reference-set size r for FacilityLocation.  LogDetDiversity and
+MutualInformationGaussian keep a tuple state, (U (L, k_max, d), logdet
+(L,), size (L,)), each member with the lane axis (``repro_torch.states``
+selects and maps such states).
 
-Oracles ported so far: FeatureCoverage, FacilityLocation, WeightedCoverage
-and SaturatedCoverage.  The others arrive with later slices of the port
-(see ROADMAP.md).
+Oracles ported so far: FeatureCoverage, FacilityLocation, WeightedCoverage,
+SaturatedCoverage, GraphCut, LogDetDiversity and MutualInformationGaussian.
+ExemplarClustering arrives with a later slice of the port (see
+ROADMAP.md).
 
 Every oracle lives on the CUDA card unless it is built with
 ``device="cpu"``; without a card and without that argument it raises (the
@@ -42,7 +46,8 @@ class SubmodularOracle:
     device:       where the oracle's states and weights live.
     use_kernel:   route the hot calls through the CUDA kernels (CUDA
                   tensors) or their plain versions (CPU tensors).
-    init_state(lanes=None):   state for S = {}: (w,), or (lanes, w).
+    init_state(lanes=None):   state for S = {}: (w,), or (lanes, w) (a
+                  tuple of such tensors for the log-det oracles).
     prep(state, cand_feats):  per-candidate aux, computed once per block.
     marginals(state, aux):    gains f_S(e) for the block: (C,) or (L, C).
     chunk_marginals(state, cand_feats): gains straight from features (the
@@ -324,3 +329,158 @@ class SaturatedCoverage(SubmodularOracle):
         if self.weights is not None:
             v = v * self.weights
         return v.sum(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphCut(SubmodularOracle):
+    """Monotone graph cut over the similarity graph w(u, v) = <x_u, x_v>:
+
+        f(S) = sum_{u in V, v in S} w(u, v) - lam sum_{u, v in S} w(u, v)
+             = <t, s> - lam ||s||^2
+
+    with s = sum_{v in S} x_v (the O(d) state) and t = ``total``, the
+    ground set's feature sum, computed once up front by the caller and
+    kept float32.  lam in [0, 1/2] keeps f monotone; it is one scalar,
+    kept as a Python float (a NumPy scalar or a 0-d tensor is converted,
+    anything else is refused).
+    """
+
+    feat_dim: int
+    total: Optional[torch.Tensor] = None    # (d,) sum of all element rows
+    lam: float = 0.5
+    use_kernel: bool = False
+    device: Optional[torch.device] = None   # None: the CUDA card
+
+    def __post_init__(self):
+        if self.total is None:
+            raise ValueError("GraphCut needs the ground set's feature sum "
+                             "(total, shape (feat_dim,))")
+        try:
+            lam = float(self.lam)
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"GraphCut lam must be one scalar, got "
+                             f"{self.lam!r}") from e
+        object.__setattr__(self, "lam", lam)
+        dev = resolve_device(self.device)
+        object.__setattr__(self, "device", dev)
+        object.__setattr__(self, "total", _feature_operand(
+            self.total, self.feat_dim, dev, "total"))
+
+    def init_state(self, lanes: Optional[int] = None):
+        shape = (self.feat_dim,) if lanes is None else (lanes, self.feat_dim)
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    def marginals(self, state, aux):
+        if self.use_kernel:
+            return ops.graph_cut_marginals(aux.contiguous(), self.total,
+                                           state.contiguous(), self.lam)
+        return ref.graph_cut_marginals(aux, self.total, state, self.lam)
+
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget):
+        if self.use_kernel:
+            return ops.graph_cut_accept(cand_feats.contiguous(), self.total,
+                                        state.contiguous(),
+                                        eligible.contiguous(), tau, budget,
+                                        self.lam)
+        return super().chunk_accept(state, cand_feats, eligible, tau, budget)
+
+    def add(self, state, aux_row):
+        return state + aux_row
+
+    def value(self, state):
+        return state @ self.total - self.lam * (state * state).sum(-1)
+
+
+class _WhitenedBasis(SubmodularOracle):
+    """The log-det geometry shared by LogDetDiversity and
+    MutualInformationGaussian: f(S) = scale * log det(I + alpha X_S X_S^T).
+
+    The state is the whitened incremental Cholesky of the JAX package: with
+    I + alpha X_S X_S^T = L L^T, U = L^-1 X_S (k_max rows, those at or past
+    |S| zero), the running f(S), and |S|.  A candidate's marginal is
+    scale * log d2 with v = alpha U x and the Schur complement
+    d2 = 1 + alpha ||x||^2 - ||v||^2, and ``add`` is the rank-1 Gram-Schmidt
+    append (``ref.logdet_append``).  The marginals follow the JAX oracle's
+    order (alpha^2 ||U x||^2), the accept sweep and ``add`` the sweep's
+    (v = alpha U x, then ||v||^2).
+
+    ``k_max`` must be at least the cardinality budget (``make_oracle`` sets
+    it to SelectorSpec.k).  The dense engine adds every lane's row before
+    it selects, so a lane already holding k_max rows sees an append at
+    size == k_max: it writes no row of U, as the JAX package's
+    out-of-bounds scatter writes none, and the engine discards that state.
+    """
+
+    scale = 1.0
+
+    def init_state(self, lanes: Optional[int] = None):
+        lead = () if lanes is None else (lanes,)
+        dev = self.device
+        return (torch.zeros(lead + (self.k_max, self.feat_dim),
+                            dtype=torch.float32, device=dev),
+                torch.zeros(lead, dtype=torch.float32, device=dev),
+                torch.zeros(lead, dtype=torch.int32, device=dev))
+
+    def marginals(self, state, aux):
+        U = state[0]
+        if self.use_kernel:
+            return ops.logdet_marginals(aux.contiguous(), U.contiguous(),
+                                        self.alpha, self.scale)
+        return ref.logdet_marginals(aux, U, self.alpha, scale=self.scale)
+
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget):
+        if self.use_kernel:
+            mask, U, logdet, size, gains = ops.logdet_accept(
+                cand_feats.contiguous(), *(t.contiguous() for t in state),
+                eligible.contiguous(), tau, budget, self.alpha, self.scale)
+            return mask, (U, logdet, size), gains
+        return super().chunk_accept(state, cand_feats, eligible, tau, budget)
+
+    def add(self, state, aux_row):
+        return ref.logdet_append(state, aux_row, self.alpha,
+                                 scale=self.scale)
+
+    def value(self, state):
+        return state[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class LogDetDiversity(_WhitenedBasis):
+    """DPP-style diversity, f(S) = log det(I + alpha X_S X_S^T): monotone
+    submodular for any features.  See ``_WhitenedBasis`` for the state."""
+
+    feat_dim: int
+    k_max: int = 1
+    alpha: float = 1.0
+    use_kernel: bool = False
+    device: Optional[torch.device] = None   # None: the CUDA card
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class MutualInformationGaussian(_WhitenedBasis):
+    """Sensor-placement mutual information under a Gaussian process with
+    i.i.d. observation noise of standard deviation ``noise``:
+
+        f(S) = 0.5 log det(I + noise^-2 X_S X_S^T),
+
+    the log-det geometry at alpha = 1 / noise^2 with scale 0.5; it shares
+    LogDetDiversity's state and kernels.  At noise 1 it is exactly half of
+    LogDetDiversity at alpha 1: the 0.5 scale is a power of two."""
+
+    feat_dim: int
+    k_max: int = 1
+    noise: float = 1.0
+    use_kernel: bool = False
+    device: Optional[torch.device] = None   # None: the CUDA card
+
+    scale = 0.5
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    @property
+    def alpha(self):
+        return 1.0 / (self.noise * self.noise)

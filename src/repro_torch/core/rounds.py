@@ -209,7 +209,8 @@ class SimRounds:
 
 def empty_solution(oracle, k: int, lanes: int):
     """The empty carry of ``lanes`` lanes: (state (L, w) in the oracle's
-    state width, sol (L, k) of -1, size (L,) of 0)."""
+    state width, or its tuple of (L, ...) tensors, sol (L, k) of -1, size
+    (L,) of 0)."""
     dev = oracle.device
     return (oracle.init_state(lanes),
             torch.full((lanes, k), -1, dtype=torch.int32, device=dev),

@@ -32,11 +32,12 @@ ORACLE_NAMES = ("feature_coverage", "facility_location", "weighted_coverage",
 
 #: the oracles the port runs so far
 PORTED_ORACLES = ("feature_coverage", "facility_location",
-                  "weighted_coverage", "saturated_coverage")
+                  "weighted_coverage", "saturated_coverage", "graph_cut",
+                  "log_det", "mutual_information")
 
 #: the port's slice that brings each not-yet-ported oracle (ROADMAP.md)
 _PENDING_ORACLES = {
-    "graph_cut": "slice 4 (GraphCut and its two kernels)",
+    "exemplar": "slice 5 (ExemplarClustering and its two kernels)",
 }
 
 
@@ -55,6 +56,9 @@ class SelectorSpec:
     reference_size: int = 256          # facility location clients (rows of
     #                                    R that a caller draws or keeps)
     saturated_alpha: float = 0.25      # SaturatedCoverage saturation frac
+    graph_cut_lam: float = 0.5         # GraphCut redundancy weight lam
+    logdet_alpha: float = 1.0          # LogDetDiversity kernel scale alpha
+    mi_noise: float = 1.0              # MutualInformationGaussian noise
     use_kernel: bool = False           # route through the CUDA kernels
     precision: str = "f32"             # "f32" | "bf16" storage policy
 
@@ -77,9 +81,10 @@ def make_oracle(spec: SelectorSpec, feat_dim: int, device, weights=None,
     """Build the spec's oracle on ``device``; ``weights`` are
     FeatureCoverage's optional (d,) feature weights, ``reference`` the
     replicated (r, d) client set that facility_location needs, ``total``
-    the ground set's (d,) feature sum that saturated_coverage needs (a
-    corpus statistic, computed once up front).  weighted_coverage gets
-    all-ones item weights, as the JAX selector builds it."""
+    the ground set's (d,) feature sum that saturated_coverage and graph_cut
+    need (a corpus statistic, computed once up front).  weighted_coverage
+    gets all-ones item weights, as the JAX selector builds it; the log-det
+    oracles get k_max = spec.k."""
     if weights is not None and spec.oracle != "feature_coverage":
         raise ValueError(f"weights= applies to feature_coverage only, not "
                          f"{spec.oracle!r}")
@@ -111,12 +116,27 @@ def make_oracle(spec: SelectorSpec, feat_dim: int, device, weights=None,
                                    alpha=spec.saturated_alpha,
                                    use_kernel=spec.use_kernel,
                                    device=torch.device(device))
-    if spec.oracle in ORACLE_NAMES:
-        slice_name = _PENDING_ORACLES.get(
-            spec.oracle, "a later slice (the rest of the oracle zoo)")
+    if spec.oracle == "graph_cut":
+        if total is None:
+            raise ValueError("graph_cut needs the ground set's feature sum "
+                             "(total=, shape (feat_dim,))")
+        return F.GraphCut(feat_dim=feat_dim, total=total,
+                          lam=spec.graph_cut_lam, use_kernel=spec.use_kernel,
+                          device=torch.device(device))
+    if spec.oracle == "log_det":
+        return F.LogDetDiversity(feat_dim=feat_dim, k_max=spec.k,
+                                 alpha=spec.logdet_alpha,
+                                 use_kernel=spec.use_kernel,
+                                 device=torch.device(device))
+    if spec.oracle == "mutual_information":
+        return F.MutualInformationGaussian(feat_dim=feat_dim, k_max=spec.k,
+                                           noise=spec.mi_noise,
+                                           use_kernel=spec.use_kernel,
+                                           device=torch.device(device))
+    if spec.oracle in _PENDING_ORACLES:
         raise NotImplementedError(
             f"oracle {spec.oracle!r} is not ported to PyTorch yet; it comes "
-            f"with {slice_name}")
+            f"with {_PENDING_ORACLES[spec.oracle]}")
     raise ValueError(f"unknown oracle {spec.oracle!r}; "
                      f"registered: {ORACLE_NAMES}")
 
@@ -129,8 +149,9 @@ class DistributedSelector:
     SelectionResult.  ``n_total`` must be a multiple of ``n_machines``.
     ``reference`` is facility_location's (r, feat_dim) client set; it rides
     at the storage precision, as the JAX selector keeps it.  ``total`` is
-    saturated_coverage's (feat_dim,) ground-set feature sum; it is an
-    accumulator statistic and stays float32 whatever the storage precision.
+    saturated_coverage's and graph_cut's (feat_dim,) ground-set feature
+    sum; it is an accumulator statistic and stays float32 whatever the
+    storage precision.
     """
 
     def __init__(self, spec: SelectorSpec, n_total: int, feat_dim: int,

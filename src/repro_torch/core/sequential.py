@@ -12,6 +12,7 @@ import itertools
 import torch
 
 from repro_torch.core.threshold import threshold_greedy
+from repro_torch.states import where_state
 
 
 def greedy(oracle, feats, valid, k: int, ids=None):
@@ -29,7 +30,7 @@ def greedy(oracle, feats, valid, k: int, ids=None):
                             float("-inf"))
         best = gains.argmax()
         ok = gains[best] > 0.0
-        st = torch.where(ok, oracle.add(st, aux[best]), st)
+        st = where_state(ok, oracle.add(st, aux[best]), st)
         out_id = best.to(torch.int32) if ids is None else ids[best]
         sol[i] = torch.where(ok, out_id, sol[i])
         taken[best] |= ok

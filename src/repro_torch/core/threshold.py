@@ -5,8 +5,9 @@ The JAX package writes each engine as a ``lax.while_loop`` for one
 threshold and vmaps it over the threshold grid.  A data-dependent loop does
 not map onto ``torch.vmap``, so here every engine carries a leading lane
 axis L and loops while any lane is active (not done and below k).  An
-inactive lane keeps its carry through ``torch.where``, which is what JAX's
-batching rule for ``while_loop`` does, so the per-lane ``GreedyStats`` count
+inactive lane keeps its carry through a per-lane select
+(``repro_torch.states.where_state``), which is what JAX's batching rule
+for ``while_loop`` does, so the per-lane ``GreedyStats`` count
 only that lane's own trips.  Each trip costs one host sync (the ``any``
 that decides whether to loop again).
 
@@ -29,6 +30,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.states import where_state
 
 NEG = float("-inf")
 
@@ -119,7 +122,8 @@ def threshold_greedy(oracle, oracle_state, sol_ids, sol_size, cand_feats,
     marginal against the lane's current solution is >= the lane's tau,
     until the lane holds k elements or no candidate qualifies.
 
-    oracle_state (L, w), w the oracle's state width; sol_ids (L, k) int32,
+    oracle_state (L, w), w the oracle's state width, or a tuple of tensors
+    with that leading lane axis (the log-det oracles); sol_ids (L, k) int32,
     -1 padded; sol_size (L,) int32; cand_feats (C, d) shared by every lane
     or (L, C, d) per lane; cand_ids and cand_valid (C,) or (L, C); tau ()
     or (L,).
@@ -166,7 +170,7 @@ def _threshold_greedy_dense(oracle, st, sol_ids, sol_size, feats, ids, valid,
             idx = torch.where(ok, gains, NEG).argmax(-1)
         accept_now = active & ok.any(-1)
         row = _lane_rows(aux, idx[:, None])[:, 0]
-        st = torch.where(accept_now[:, None], oracle.add(st, row), st)
+        st = where_state(accept_now, oracle.add(st, row), st)
         cr.append_one(accept_now, ids[cr.lanes, idx], idx)
         cr.done = torch.where(active, ~accept_now, cr.done)
         cr.count(active, C)
@@ -221,7 +225,7 @@ def _threshold_greedy_lazy(oracle, st, sol_ids, sol_size, feats, ids, valid,
         idx = idxs.gather(1, j[:, None])[:, 0]
         accept_now = active & found
         row = oracle.prep(st, _lane_rows(feats, idx[:, None]))[:, 0]
-        st = torch.where(accept_now[:, None], oracle.add(st, row), st)
+        st = where_state(accept_now, oracle.add(st, row), st)
         cr.append_one(accept_now, ids[cr.lanes, idx], idx)
         g_stale = torch.where(active[:, None], new_stale, g_stale)
         hot_left = valid & ~cr.taken & (g_stale >= tau[:, None])
@@ -255,7 +259,7 @@ def _threshold_greedy_fused(oracle, st, sol_ids, sol_size, feats, ids, valid,
         mask, new_st, g_chunk = oracle.chunk_accept(
             st, _lane_rows(feats, idxs), eligible.gather(1, idxs), tau, budget)
         mask = mask & active[:, None]
-        st = torch.where(active[:, None], new_st, st)
+        st = where_state(active, new_st, st)
         g_stale = torch.where(active[:, None], g_stale.scatter(1, idxs, g_chunk),
                               g_stale)
         # in-order append of every accepted row; slot k is the sentinel for

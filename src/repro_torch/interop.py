@@ -2,8 +2,9 @@
 
 The system has no weights: what crosses is numpy data (the corpus sharded
 (m, n/m, d) with its ids and validity, the coverage oracles' optional (d,)
-weights, FacilityLocation's (r, d) reference set, SaturatedCoverage's (d,)
-ground-set total, and the sample rounds' U[0, 1) draws).  These helpers turn such
+weights, FacilityLocation's (r, d) reference set, SaturatedCoverage's and
+GraphCut's (d,) ground-set total, a log-det oracle's (U, logdet, size)
+state, and the sample rounds' U[0, 1) draws).  These helpers turn such
 arrays into the port's tensors and oracle on a given device, so a test can
 feed the same inputs to both packages.  numpy bfloat16 arrays (the
 ``ml_dtypes`` type that JAX hands out) arrive as torch.bfloat16.
@@ -15,6 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.functions import (FacilityLocation, FeatureCoverage,
+                                        GraphCut, LogDetDiversity,
+                                        MutualInformationGaussian,
                                         SaturatedCoverage, WeightedCoverage)
 
 
@@ -72,6 +75,39 @@ def saturated_coverage(feat_dim: int, total, alpha: float = 0.25,
     return SaturatedCoverage(feat_dim=feat_dim, total=_f32(total, device),
                              alpha=alpha, weights=_f32(weights, device),
                              use_kernel=use_kernel, device=torch.device(device))
+
+
+def graph_cut(feat_dim: int, total, lam: float = 0.5,
+              use_kernel: bool = False, device="cpu") -> GraphCut:
+    """The GraphCut oracle with the JAX side's (d,) ground-set total, kept
+    float32."""
+    return GraphCut(feat_dim=feat_dim, total=_f32(total, device), lam=lam,
+                    use_kernel=use_kernel, device=torch.device(device))
+
+
+def log_det(feat_dim: int, k_max: int, alpha: float = 1.0,
+            use_kernel: bool = False, device="cpu") -> LogDetDiversity:
+    """The LogDetDiversity oracle with the JAX side's k_max and alpha."""
+    return LogDetDiversity(feat_dim=feat_dim, k_max=k_max, alpha=alpha,
+                           use_kernel=use_kernel, device=torch.device(device))
+
+
+def mutual_information(feat_dim: int, k_max: int, noise: float = 1.0,
+                       use_kernel: bool = False,
+                       device="cpu") -> MutualInformationGaussian:
+    """The MutualInformationGaussian oracle with the JAX side's k_max and
+    noise."""
+    return MutualInformationGaussian(feat_dim=feat_dim, k_max=k_max,
+                                     noise=noise, use_kernel=use_kernel,
+                                     device=torch.device(device))
+
+
+def logdet_state(U, logdet, size, device="cpu"):
+    """A JAX log-det state (U (k, d) f32, logdet () f32, size () int32),
+    or one stacked over lanes ((L, k, d), (L,), (L,)), as the port's tuple
+    state."""
+    return (_f32(U, device), _f32(logdet, device),
+            tensor(np.asarray(size, np.int32), device))
 
 
 def uniforms(draws, device="cpu") -> torch.Tensor:

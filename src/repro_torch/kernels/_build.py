@@ -7,8 +7,8 @@ the checkout, keyed on a hash of every source and header plus the flags, so
 an edited source rebuilds and an unchanged one loads at once.  All sources
 build in parallel, one ``nvcc`` each.
 
-``--use_fast_math`` is deliberately absent: it turns ``sqrtf`` into an
-approximation, and the kernels must match their plain versions.
+``--use_fast_math`` is deliberately absent: it turns ``sqrtf`` and ``logf``
+into approximations, and the kernels must match their plain versions.
 """
 
 from __future__ import annotations
@@ -28,11 +28,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("coverage_marginals", "coverage_accept", "facility_marginals",
            "facility_accept", "weighted_coverage_marginals",
            "weighted_coverage_accept", "saturated_coverage_marginals",
-           "saturated_coverage_accept")
+           "saturated_coverage_accept", "graph_cut_marginals",
+           "graph_cut_accept", "logdet_marginals", "logdet_accept")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 #: C signature of every entry point: (argtypes, restype = cudaError_t)
 SIGNATURES = {
     "coverage_marginals": {
@@ -66,6 +68,22 @@ SIGNATURES = {
     "saturated_coverage_accept": {
         "saturated_coverage_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P,
                                              _P, _P, _P, _I, _I, _I, _P),
+    },
+    "graph_cut_marginals": {
+        "graph_cut_marginals_launch": (_P, _I, _I, _P, _P, _F, _P, _I, _LL,
+                                       _I, _P),
+    },
+    "graph_cut_accept": {
+        "graph_cut_accept_launch": (_P, _I, _P, _P, _F, _P, _P, _P, _P, _P,
+                                    _P, _I, _I, _I, _P),
+    },
+    "logdet_marginals": {
+        "logdet_marginals_launch": (_P, _I, _I, _P, _P, _I, _I, _LL, _I, _F,
+                                    _F, _F, _F, _P),
+    },
+    "logdet_accept": {
+        "logdet_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
     },
 }
 

@@ -5,7 +5,10 @@
 //     tile[i][j] = max( sum_k cand[row0 + i][k] * ref[col0 + j][k], 0 )
 //
 // (kRectify = false drops the max: weighted_coverage_marginals.cu takes
-// the lanes' remaining-weight vectors as the ref rows.)
+// the lanes' remaining-weight vectors as the ref rows.  The ref operand is
+// a row-major (r, d) f32 pointer, or any value with a ref_at overload
+// found by argument-dependent lookup: graph_cut_marginals.cu forms its
+// coefficient rows as it stages them.)
 // for a kTileRows x kTileCols block, computed by one CTA of kThreads
 // threads with a plain f32 FFMA loop: d is staged through shared memory
 // kDepth columns at a time (cand transposed to [k][row], ref to [k][col]),
@@ -46,14 +49,21 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
 __device__ __forceinline__ int micro_row() { return (threadIdx.x >> 4) * kMicro; }
 __device__ __forceinline__ int micro_col() { return (threadIdx.x & 15) * kMicro; }
 
-// acc[m][n] = tile[micro_row() + m][micro_col() + n].  cand is (C, d),
-// ref (r, d) f32, both row-major.  Every thread of the CTA must call it;
-// it ends with a barrier, so the stage may be reused at once.
-template <typename TC, bool kRectify = true>
+// Element (col, k) of a row-major (r, d) f32 ref operand.
+__device__ __forceinline__ float ref_at(const float* __restrict__ ref,
+                                        int col, int k, int d) {
+  return ref[(long long)col * d + k];
+}
+
+// acc[m][n] = tile[micro_row() + m][micro_col() + n].  cand is (C, d)
+// row-major; ref is read as ref_at(ref, col, k, d) for col < r, k < d.
+// Every thread of the CTA must call it; it ends with a barrier, so the
+// stage may be reused at once.
+template <typename TC, bool kRectify = true, typename TR = const float*>
 __device__ __forceinline__ void tile(const TC* __restrict__ cand, long long C,
-                                     const float* __restrict__ ref, int r,
-                                     int d, long long row0, int col0,
-                                     Stage& st, float acc[kMicro][kMicro]) {
+                                     TR ref, int r, int d, long long row0,
+                                     int col0, Stage& st,
+                                     float acc[kMicro][kMicro]) {
 #pragma unroll
   for (int m = 0; m < kMicro; ++m)
 #pragma unroll
@@ -69,7 +79,7 @@ __device__ __forceinline__ void tile(const TC* __restrict__ cand, long long C,
     for (int j = 0; j < 4; ++j) {
       const int k = k0 + sk + j;
       st.a[sk + j][sr] = (row < C && k < d) ? to_f(cand[row * d + k]) : 0.0f;
-      st.b[sk + j][sr] = (col < r && k < d) ? ref[(long long)col * d + k] : 0.0f;
+      st.b[sk + j][sr] = (col < r && k < d) ? ref_at(ref, col, k, d) : 0.0f;
     }
     __syncthreads();
 #pragma unroll

@@ -13,6 +13,10 @@ from repro_torch.kernels import coverage_accept as _ca
 from repro_torch.kernels import coverage_marginals as _cm
 from repro_torch.kernels import facility_accept as _fa
 from repro_torch.kernels import facility_marginals as _fm
+from repro_torch.kernels import graph_cut_accept as _ga
+from repro_torch.kernels import graph_cut_marginals as _gm
+from repro_torch.kernels import logdet_accept as _la
+from repro_torch.kernels import logdet_marginals as _lm
 from repro_torch.kernels import ref
 from repro_torch.kernels import saturated_coverage_accept as _sa
 from repro_torch.kernels import saturated_coverage_marginals as _sm
@@ -24,7 +28,9 @@ _COUNTED = {"coverage_marginals": _cm, "coverage_accept": _ca,
             "facility_accept": _fa, "weighted_coverage_marginals": _wm,
             "weighted_coverage_accept": _wa,
             "saturated_coverage_marginals": _sm,
-            "saturated_coverage_accept": _sa}
+            "saturated_coverage_accept": _sa, "graph_cut_marginals": _gm,
+            "graph_cut_accept": _ga, "logdet_marginals": _lm,
+            "logdet_accept": _la}
 
 
 def _on_card(x) -> bool:
@@ -125,3 +131,40 @@ def saturated_coverage_accept(x, state, cap, weights, eligible, tau, budget):
                                              tau, budget)
     return ref.saturated_coverage_accept(x, state, cap, weights, eligible,
                                          tau, budget)
+
+
+def graph_cut_marginals(x, total, state, lam=0.5):
+    """(C, d) | (L, C, d), (d,), (d,) | (L, d) -> (C,) | (L, C) GraphCut
+    marginals."""
+    if _on_card(x):
+        return _gm.graph_cut_marginals(x, total, state, lam)
+    return ref.graph_cut_marginals(x, total, state, lam)
+
+
+def graph_cut_accept(x, total, state, eligible, tau, budget, lam=0.5):
+    """Fused GraphCut chunk-accept sweep over a (B, d) tile per lane.
+    Returns (mask bool, state f32, gains f32), batched like x."""
+    if _on_card(x):
+        return _ga.graph_cut_accept(x, total, state, eligible, tau, budget,
+                                    lam)
+    return ref.graph_cut_accept(x, total, state, eligible, tau, budget, lam)
+
+
+def logdet_marginals(x, U, alpha=1.0, scale=1.0):
+    """(C, d) | (L, C, d), (k, d) | (L, k, d) -> (C,) | (L, C) log-det
+    (scale 1) or mutual-information (scale 0.5) marginals."""
+    if _on_card(x):
+        return _lm.logdet_marginals(x, U, alpha, scale)
+    return ref.logdet_marginals(x, U, alpha, scale=scale)
+
+
+def logdet_accept(x, U, logdet, size, eligible, tau, budget, alpha=1.0,
+                  scale=1.0):
+    """Fused log-det / mutual-information chunk-accept sweep over a (B, d)
+    tile per lane.  Returns (mask bool, U f32, logdet f32, size int32,
+    gains f32), batched like x."""
+    if _on_card(x):
+        return _la.logdet_accept(x, U, logdet, size, eligible, tau, budget,
+                                 alpha, scale)
+    return ref.logdet_accept(x, U, logdet, size, eligible, tau, budget,
+                             alpha, scale=scale)

@@ -11,6 +11,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.states import tree_map, where_state
+
+#: clamp of the log-det Schur complement (exact math keeps it >= 1)
+LOGDET_EPS = 1e-12
+
 
 def coverage_marginals(x, state, weights=None):
     """FeatureCoverage marginal gains.
@@ -96,6 +101,96 @@ def facility_marginals(cand, ref, state):
     return rectified_residual_sum(similarities(cand, ref), state)
 
 
+def graph_cut_marginals(x, total, state, lam=0.5):
+    """GraphCut marginal gains.
+
+    x (C, d) or (L, C, d), float32 or bfloat16; total (d,) f32, the ground
+    set's feature sum t; state (d,) or (L, d) f32, the selected rows' sum s.
+    Returns (C,) for an unbatched call, else (L, C) f32, with
+
+        gains[l, i] = <x_i, t - 2 lam s_l> - lam ||x_i||^2
+
+    written as the JAX reference writes it: the product first, then the
+    squared norm subtracted.  A (C, d) ``x`` with an (L, d) state is shared
+    by every lane.
+    """
+    x = x.float()
+    coef = total.float() - 2.0 * lam * state.float()
+    if x.dim() == 2 and coef.dim() == 2:
+        lin = torch.matmul(x, coef.T).T
+    else:
+        lin = torch.matmul(x, coef.unsqueeze(-1)).squeeze(-1)
+    return lin - lam * (x * x).sum(-1)
+
+
+def logdet_marginals(x, U, alpha=1.0, eps=LOGDET_EPS, scale=1.0):
+    """LogDetDiversity (scale 1) and MutualInformationGaussian (scale 0.5)
+    marginal gains.
+
+    x (C, d) or (L, C, d), float32 or bfloat16; U (k, d) or (L, k, d) f32,
+    the whitened basis of each lane's solution (rows at or past |S| are 0).
+    Returns (C,) for an unbatched call, else (L, C) f32, with
+
+        gains[l, i] = scale * log(max(1 + alpha ||x_i||^2
+                                      - alpha^2 ||U_l x_i||^2, eps))
+
+    A (C, d) ``x`` with an (L, k, d) basis is shared by every lane.
+    """
+    x = x.float()
+    proj = torch.matmul(x, U.float().transpose(-1, -2))
+    resid = (1.0 + alpha * (x * x).sum(-1)
+             - (alpha * alpha) * (proj * proj).sum(-1))
+    gains = torch.log(torch.clamp_min(resid, eps))
+    return gains if scale == 1.0 else scale * gains
+
+
+def _border(U, x, alpha, eps):
+    """The Cholesky border v = alpha U x of row x (d,) or (L, d) against
+    the basis U (k, d) or (L, k, d), and the clamped Schur complement
+    d2 = max(1 + alpha ||x||^2 - ||v||^2, eps), in the JAX sweep's order."""
+    v = alpha * torch.matmul(U, x.unsqueeze(-1)).squeeze(-1)
+    d2 = torch.clamp_min(1.0 + alpha * (x * x).sum(-1) - (v * v).sum(-1), eps)
+    return v, d2
+
+
+def logdet_append(state, x, alpha=1.0, eps=LOGDET_EPS, scale=1.0):
+    """The log-det state after adding row ``x``: the rank-1 Gram-Schmidt
+    append of the JAX oracle's ``add``,
+
+        v = alpha U x,  d2 = max(1 + alpha ||x||^2 - ||v||^2, eps),
+        U[size] = (x - v^T U) / sqrt(d2),  logdet += scale log d2,
+        size += 1.
+
+    state (U (k, d), logdet (), size ()) or lane-batched (U (L, k, d),
+    logdet (L,), size (L,)); x (d,) or (L, d).  An append at size >= k
+    writes no row of U (the JAX package's out-of-bounds scatter, which it
+    drops); logdet and size still move, as there."""
+    U, logdet, size = state
+    x = x.float()
+    v, d2 = _border(U, x, alpha, eps)
+    u_new = (x - torch.matmul(v.unsqueeze(-2), U).squeeze(-2)) \
+        / torch.sqrt(d2).unsqueeze(-1)
+    rows = torch.arange(U.shape[-2], device=U.device)
+    hit = rows == size.unsqueeze(-1)   # all False at size >= k
+    U = torch.where(hit.unsqueeze(-1), u_new.unsqueeze(-2), U)
+    return U, logdet + scale * torch.log(d2), size + 1
+
+
+def logdet_basis(rows, sizes, alpha=1.0):
+    """The lane-batched log-det state (U (L, k, d), logdet (L,), size (L,))
+    in which lane l has appended rows[0, l], ..., rows[sizes[l] - 1, l] one
+    by one with ``logdet_append``.  rows (k, L, d) f32, sizes (L,) int;
+    rows of U at or past a lane's size stay zero."""
+    k, L, d = rows.shape
+    dev = rows.device
+    st = (torch.zeros((L, k, d), device=dev), torch.zeros(L, device=dev),
+          torch.zeros(L, dtype=torch.int32, device=dev))
+    for step in range(k):
+        st = where_state(step < sizes, logdet_append(st, rows[step], alpha),
+                         st)
+    return st
+
+
 def gemm_gain_tol(cand, ref):
     """Per-row bound on how far two float32 evaluations of a facility gain
     may differ when they sum in different orders.
@@ -122,17 +217,19 @@ def accept_scan(gain_fn, update_fn, rows, state, eligible, tau, budget):
     entry: row i's gain is taken against the state after every earlier
     accepted row, and the row is accepted when eligible & gain >= tau &
     accepts-so-far < budget.  Returns (mask (L, B) bool, state (L, d) f32,
-    gains (L, B) f32)."""
-    st = state.float()
+    gains (L, B) f32).  The state may be a tuple of lane-batched tensors
+    (``repro_torch.states``)."""
+    st = tree_map(lambda t: t.float() if t.is_floating_point() else t, state)
     L, B = rows.shape[:2]
-    n_acc = torch.zeros(L, dtype=torch.int32, device=st.device)
-    mask = torch.zeros(L, B, dtype=torch.bool, device=st.device)
-    gains = torch.zeros(L, B, dtype=torch.float32, device=st.device)
+    dev = rows.device
+    n_acc = torch.zeros(L, dtype=torch.int32, device=dev)
+    mask = torch.zeros(L, B, dtype=torch.bool, device=dev)
+    gains = torch.zeros(L, B, dtype=torch.float32, device=dev)
     for i in range(B):
         xr = rows[:, i]
         g = gain_fn(st, xr)
         acc = eligible[:, i] & (g >= tau) & (n_acc < budget)
-        st = torch.where(acc[:, None], update_fn(st, xr), st)
+        st = where_state(acc, update_fn(st, xr), st)
         n_acc = n_acc + acc.to(torch.int32)
         mask[:, i] = acc
         gains[:, i] = g
@@ -142,17 +239,18 @@ def accept_scan(gain_fn, update_fn, rows, state, eligible, tau, budget):
 def _sweep(gain_fn, update_fn, rows, state, eligible, tau, budget):
     """``accept_scan`` over rows (B, w') or (L, B, w'), f32 or bf16 (lifted
     to f32), with an unbatched call lifted onto one lane and its outputs
-    unbatched again."""
+    unbatched again.  The state may be a tuple (``repro_torch.states``)."""
     unbatched = rows.dim() == 2
     if unbatched:
-        rows, state, eligible = rows[None], state[None], eligible[None]
+        rows, eligible = rows[None], eligible[None]
+        state = tree_map(lambda t: t[None], state)
     L = rows.shape[0]
     tau = torch.as_tensor(tau, dtype=torch.float32, device=rows.device)
     budget = torch.as_tensor(budget, dtype=torch.int32, device=rows.device)
     out = accept_scan(gain_fn, update_fn, rows.float(), state,
                       eligible.bool(), tau.reshape(-1).expand(L),
                       budget.reshape(-1).expand(L))
-    return tuple(o[0] for o in out) if unbatched else out
+    return tree_map(lambda t: t[0], out) if unbatched else out
 
 
 def coverage_accept(x, state, weights, eligible, tau, budget):
@@ -213,3 +311,44 @@ def facility_accept(cand, ref, state, eligible, tau, budget):
     return _sweep(lambda st, sr: torch.clamp_min(sr - st, 0.0).sum(-1),
                   torch.maximum, similarities(cand, ref), state, eligible,
                   tau, budget)
+
+
+def graph_cut_accept(x, total, state, eligible, tau, budget, lam=0.5):
+    """GraphCut accept sweep.
+
+    x (B, d) or (L, B, d); total (d,) f32; state (d,) or (L, d) f32;
+    eligible (B,) or (L, B) bool; tau () or (L,); budget () or (L,) int.
+    Row i's gain is sum_f (x_if (t_f - 2 lam s_f) - lam x_if^2), the JAX
+    reference sweep's order, and an accepted row applies s += x_i.  Returns
+    (mask bool, state f32, gains f32), batched like ``x``.
+    """
+    total = total.float()
+    return _sweep(
+        lambda st, xr: (xr * (total - 2.0 * lam * st) - lam * xr * xr).sum(-1),
+        lambda st, xr: st + xr, x, state, eligible, tau, budget)
+
+
+def logdet_accept(x, U, logdet, size, eligible, tau, budget, alpha=1.0,
+                  eps=LOGDET_EPS, scale=1.0):
+    """LogDetDiversity (scale 1) / MutualInformationGaussian (scale 0.5)
+    accept sweep.
+
+    x (B, d) or (L, B, d); U (k, d) or (L, k, d) f32; logdet () or (L,)
+    f32; size () or (L,) int32; eligible (B,) or (L, B) bool; tau () or
+    (L,); budget () or (L,) int.  Row i's gain is scale * log d2 with
+    v = alpha U x_i and d2 = max(1 + alpha ||x_i||^2 - ||v||^2, eps), against
+    the live basis; an accepted row is appended by ``logdet_append`` (an
+    append at size >= k writes no row).  Returns (mask bool, U f32, logdet
+    f32, size int32, gains f32), batched like ``x``.
+    """
+    def gain(st, xr):
+        g = torch.log(_border(st[0], xr, alpha, eps)[1])
+        return g if scale == 1.0 else scale * g
+
+    mask, (U, logdet, size), gains = _sweep(
+        gain, lambda st, xr: logdet_append(st, xr, alpha, eps, scale), x,
+        (U.float(), torch.as_tensor(logdet, dtype=torch.float32,
+                                    device=x.device),
+         torch.as_tensor(size, dtype=torch.int32, device=x.device)),
+        eligible, tau, budget)
+    return mask, U, logdet, size, gains

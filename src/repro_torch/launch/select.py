@@ -8,8 +8,10 @@ machines simulated on one device.
 
 Embeddings are U[0, 1)^2; facility location's reference set is 256 rows of
 U[0, 1) drawn after them from the same generator, as the JAX CLI draws
-them, and saturated coverage's ``total`` is the embeddings' f32 column sum,
-as the JAX CLI computes it (before any bf16 cast).  Runs on the CUDA card
+them, and saturated coverage's and graph cut's ``total`` is the embeddings'
+f32 column sum, as the JAX CLI computes it (before any bf16 cast).  The
+log-det oracles take k_max = k; ``--mi-noise`` is mutual information's
+sensor noise.  Runs on the CUDA card
 unless ``--device cpu`` is given.
 """
 
@@ -50,6 +52,8 @@ def main(argv=None) -> None:
     ap.add_argument("--epochs", type=int, default=None,
                     help="multi_epoch threshold levels (2 rounds each); "
                          "default derives ceil(1/eps) from --eps")
+    ap.add_argument("--mi-noise", type=float, default=1.0,
+                    help="mutual_information sensor noise")
     ap.add_argument("--eps", type=float, default=0.15)
     ap.add_argument("--schedule", default="paper",
                     choices=list(SCHEDULE_KINDS))
@@ -64,7 +68,8 @@ def main(argv=None) -> None:
                         algorithm=args.algorithm, eps=args.eps,
                         epochs=args.epochs, schedule_kind=args.schedule,
                         engine=args.engine, chunk=args.chunk,
-                        use_kernel=args.use_kernel, precision=args.precision)
+                        use_kernel=args.use_kernel, precision=args.precision,
+                        mi_noise=args.mi_noise)
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     emb = torch.rand((args.n, args.d), generator=gen, device=device) ** 2
@@ -72,7 +77,7 @@ def main(argv=None) -> None:
     if args.oracle == "facility_location":
         reference = torch.rand((spec.reference_size, args.d), generator=gen,
                                device=device)
-    if args.oracle == "saturated_coverage":
+    if args.oracle in ("saturated_coverage", "graph_cut"):
         total = emb.sum(0)
     sel = DistributedSelector(spec, n_total=args.n, feat_dim=args.d,
                               n_machines=args.machines, device=device,

@@ -14,7 +14,13 @@ summed magnitudes for the rectified residual sum.  Every facility kernel
 and the weighted and saturated kernels must also return the same bits when
 launched twice.  The accept sweeps of weighted and saturated coverage run
 on exact data (binary rows with dyadic weights; (a/8)^2 rows with a dyadic
-cap), where masks, states and gains must be equal.
+cap), where masks, states and gains must be equal.  The GraphCut kernels
+run on dyadic rows (a/8) with dyadic totals and states (2 lam s up to
+1.25 t), where every sum is exact: gains, masks and states must be equal.
+The log-det kernels run on bases built by the plain append (empty,
+partial, full), to rtol 1e-5 / atol 1e-4 for gains, bases and logdet; their
+sweeps take tau = 0 or +inf, so masks depend on eligibility and budget
+alone and must be equal, and appends run into k_max.
 """
 
 import pytest
@@ -24,6 +30,10 @@ from repro_torch.kernels import coverage_accept as tca
 from repro_torch.kernels import coverage_marginals as tcm
 from repro_torch.kernels import facility_accept as tfa
 from repro_torch.kernels import facility_marginals as tfm
+from repro_torch.kernels import graph_cut_accept as tga
+from repro_torch.kernels import graph_cut_marginals as tgm
+from repro_torch.kernels import logdet_accept as tla
+from repro_torch.kernels import logdet_marginals as tlm
 from repro_torch.kernels import ref
 from repro_torch.kernels import saturated_coverage_accept as tsa
 from repro_torch.kernels import saturated_coverage_marginals as tsm
@@ -272,3 +282,137 @@ def test_cuda_saturated_coverage_accept_matches_plain(cuda_device, dtype,
         assert torch.equal(a, b)
     again = tsa.saturated_coverage_accept(x, state, cap, w, elig, tau, bud)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+LD_RTOL, LD_ATOL = 1e-5, 1e-4
+
+
+def _graph_cut_case(g, dev, mode, L, C, d, dtype):
+    x = (torch.randint(0, 9, (L, C, d) if mode == "per_lane" else (C, d),
+                       generator=g, device=dev) / 8.0).to(dtype)
+    total = torch.randint(0, 64, (d,), generator=g, device=dev) / 2.0
+    frac = torch.randint(0, 6, (d,) if mode == "unbatched" else (L, 1),
+                         generator=g, device=dev) / 4.0
+    return x, total, (total * frac).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,L,C,d", LANE_MODES)
+def test_cuda_graph_cut_marginals_matches_plain(cuda_device, dtype, mode, L,
+                                                C, d):
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    x, total, state = _graph_cut_case(g, cuda_device, mode, L, C, d, dtype)
+    before = tgm.launches
+    got = tgm.graph_cut_marginals(x, total, state, 0.5)
+    torch.cuda.synchronize()
+    assert tgm.launches == before + 1
+    assert torch.equal(got, ref.graph_cut_marginals(x, total, state, 0.5))
+    assert torch.equal(got, tgm.graph_cut_marginals(x, total, state, 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,B,d", [(37, 128, 256), (3, 70, 45), (1, 1, 1),
+                                   (130, 128, 300)])
+def test_cuda_graph_cut_accept_matches_plain(cuda_device, dtype, L, B, d):
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    x, total, state = _graph_cut_case(g, cuda_device, "per_lane", L, B, d,
+                                      dtype)
+    state = state.expand(L, d).contiguous()
+    elig = torch.rand((L, B), generator=g, device=cuda_device) < 0.9
+    bud = torch.randint(1, B + 1, (L,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    tau = ref.graph_cut_marginals(x, total, state).median(dim=1).values
+    before = tga.launches
+    got = tga.graph_cut_accept(x, total, state, elig, tau, bud, 0.5)
+    torch.cuda.synchronize()
+    assert tga.launches == before + 1
+    want = ref.graph_cut_accept(x, total, state, elig, tau, bud, 0.5)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    again = tga.graph_cut_accept(x, total, state, elig, tau, bud, 0.5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _bases(g, dev, L, k, d, sizes):
+    """Lane bases (U, logdet, size) holding ``sizes`` rows of U[0, 1)^2,
+    appended one by one with the plain append."""
+    rows = torch.stack([torch.rand((L, d), generator=g, device=dev) ** 2
+                        for _ in range(k)])
+    return ref.logdet_basis(rows, sizes)
+
+
+def _sizes(dev, L, k):
+    s = torch.arange(L, device=dev) * 5 % (k + 1)
+    s[0] = k
+    return s.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,L,C,d,k", [
+    ("unbatched", 1, 5000, 256, 64), ("shared", 37, 3000, 256, 64),
+    ("per_lane", 37, 128, 256, 64), ("shared", 130, 333, 70, 7),
+    ("shared", 100, 200, 45, 1), ("shared", 4, 300, 70, 100),
+    ("per_lane", 3, 65, 45, 7)])
+def test_cuda_logdet_marginals_matches_plain(cuda_device, dtype, scale, mode,
+                                             L, C, d, k):
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = (torch.rand((L, C, d) if mode == "per_lane" else (C, d), generator=g,
+                    device=cuda_device) ** 2).to(dtype)
+    U = _bases(g, cuda_device, L, k, d, _sizes(cuda_device, L, k))[0]
+    if mode == "unbatched":
+        U = U[0].contiguous()
+    before = tlm.launches
+    got = tlm.logdet_marginals(x, U, 1.0, scale)
+    torch.cuda.synchronize()
+    assert tlm.launches == before + 1
+    torch.testing.assert_close(
+        got, ref.logdet_marginals(x, U, 1.0, scale=scale), rtol=LD_RTOL,
+        atol=LD_ATOL)
+    assert torch.equal(got, tlm.logdet_marginals(x, U, 1.0, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,B,d,k", [(37, 128, 256, 64), (3, 70, 45, 7),
+                                     (1, 1, 1, 1), (130, 128, 70, 1)])
+def test_cuda_logdet_accept_matches_plain(cuda_device, dtype, scale, L, B, d,
+                                          k):
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    x = (torch.rand((L, B, d), generator=g, device=cuda_device) ** 2
+         ).to(dtype)
+    U, ld, sz = _bases(g, cuda_device, L, k, d, _sizes(cuda_device, L, k))
+    elig = torch.rand((L, B), generator=g, device=cuda_device) < 0.9
+    tau = torch.where(torch.arange(L, device=cuda_device) % 4 == 3,
+                      float("inf"), 0.0)
+    bud = torch.randint(1, B + 1, (L,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    before = tla.launches
+    got = tla.logdet_accept(x, U, ld, sz, elig, tau, bud, 1.0, scale)
+    torch.cuda.synchronize()
+    assert tla.launches == before + 1
+    want = ref.logdet_accept(x, U, ld, sz, elig, tau, bud, 1.0, scale=scale)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+    for a, b in zip((got[1], got[2], got[4]), (want[1], want[2], want[4])):
+        torch.testing.assert_close(a, b, rtol=LD_RTOL, atol=LD_ATOL)
+    if L > 1:
+        assert bool((want[3] > k).any())   # appends past k_max were dropped
+    again = tla.logdet_accept(x, U, ld, sz, elig, tau, bud, 1.0, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_logdet_accept_refuses_a_basis_beyond_shared_memory(cuda_device):
+    x = torch.rand((2, 8, 256), device=cuda_device)
+    U = torch.zeros((2, 256, 256), device=cuda_device)
+    ld = torch.zeros(2, device=cuda_device)
+    sz = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    elig = torch.ones((2, 8), dtype=torch.bool, device=cuda_device)
+    before = tla.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tla.logdet_accept(x, U, ld, sz, elig, 0.0, 4)
+    assert tla.launches == before

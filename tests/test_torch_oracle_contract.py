@@ -12,23 +12,28 @@ import numpy as np
 import pytest
 import torch
 from oracle_contract import (K_CAP, build_facility_location,
-                             build_feature_coverage,
+                             build_feature_coverage, build_graph_cut,
+                             build_log_det, build_mutual_information,
                              build_saturated_coverage,
                              build_weighted_coverage, distinct_subsets)
 
 from repro.core import sequential as jseq
 from repro_torch import interop
 from repro_torch.core import sequential as tseq
+from repro_torch.states import tree_map
 
 torch.set_num_threads(2)
 
 N, D = 14, 6
 NAMES = ("feature_coverage", "facility_location", "weighted_coverage",
-         "saturated_coverage")
+         "saturated_coverage", "graph_cut", "log_det", "mutual_information")
 BUILDERS = {"feature_coverage": build_feature_coverage,
             "facility_location": build_facility_location,
             "weighted_coverage": build_weighted_coverage,
-            "saturated_coverage": build_saturated_coverage}
+            "saturated_coverage": build_saturated_coverage,
+            "graph_cut": build_graph_cut,
+            "log_det": build_log_det,
+            "mutual_information": build_mutual_information}
 
 
 def _build(name, seed, use_kernel=False):
@@ -44,6 +49,16 @@ def _build(name, seed, use_kernel=False):
     elif name == "weighted_coverage":
         t_oracle = interop.weighted_coverage(
             D, np.asarray(j_oracle.weights), use_kernel=use_kernel)
+    elif name == "graph_cut":
+        t_oracle = interop.graph_cut(D, np.asarray(j_oracle.total),
+                                     j_oracle.lam, use_kernel=use_kernel)
+    elif name == "log_det":
+        t_oracle = interop.log_det(D, j_oracle.k_max, j_oracle.alpha,
+                                   use_kernel=use_kernel)
+    elif name == "mutual_information":
+        t_oracle = interop.mutual_information(D, j_oracle.k_max,
+                                              j_oracle.noise,
+                                              use_kernel=use_kernel)
     else:
         t_oracle = interop.saturated_coverage(
             D, np.asarray(j_oracle.total), j_oracle.alpha,
@@ -102,7 +117,9 @@ def test_torch_add_consistency(name, use_kernel):
         st_e = oracle.add(st, aux[e])
         np.testing.assert_allclose(float(oracle.value(st_e)), fS + gains[e],
                                    rtol=3e-4, atol=3e-4)
-        assert st_e.shape == st.shape and st_e.dtype == st.dtype
+        # the same shapes and dtypes, leaf by leaf (a tuple for log-det)
+        spec = lambda t: (t.shape, t.dtype)  # noqa: E731
+        assert tree_map(spec, st_e) == tree_map(spec, st)
 
 
 @pytest.mark.parametrize("chunk", [1, 5, N])

@@ -91,7 +91,7 @@ def test_oracles_need_cuda_or_an_explicit_cpu(monkeypatch):
 
 
 def test_spec_and_oracle_names_are_checked():
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(ValueError, match="feature sum"):
         tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="graph_cut"), 4, "cpu")
     with pytest.raises(ValueError, match="reference set"):
         tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="facility_location"),
@@ -99,8 +99,10 @@ def test_spec_and_oracle_names_are_checked():
     with pytest.raises(ValueError, match="feature sum"):
         tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="saturated_coverage"),
                          4, "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="log_det"), 4, "cpu")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="exemplar"), 4, "cpu")
+    assert tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="log_det"), 4,
+                            "cpu").k_max == 4
     with pytest.raises(ValueError, match="unknown oracle"):
         tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="nope"), 4, "cpu")
     with pytest.raises(ValueError, match="algorithm"):
