@@ -7,41 +7,35 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. Build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc (one
    process per source, all at once).
-2. Hold each kernel against its plain PyTorch version on the card at the
-   main paths' shapes, and time both with CUDA events:
-   coverage_marginals and coverage_accept (f32 and bf16 x, weighted and
-   unweighted); facility_marginals, rectified_residual_sum and
-   facility_accept (f32 and bf16, every lane mode, an odd shape at L = 1
-   and L = 100, and a bitwise repeat of each).
-3. Drive the FeatureCoverage main path at full width:
-   DistributedSelector.select with the two_round driver, n = 1,048,576
-   rows of d = 256 (a 1 GiB f32 corpus on the card), k = 64, m = 16
-   simulated machines, eps = 0.15, once per engine on the kernel route and
-   once on the plain route, then multi_epoch (E = 2) and bf16 storage on
-   the fused engine.  Checks agreement between the routes and engines, the
-   (1/2 - eps) guarantee against sequential greedy, and that every kernel
-   of the path launched.
-4. The same for FacilityLocation over the same corpus with a 256-row
-   reference set.
-5. Hold the WeightedCoverage and SaturatedCoverage kernels against their
-   plain versions (every lane mode, f32 and bf16, the main path's shapes
-   and odd ones: d = 45 and 70, L = 1 and 130; saturated states that
-   straddle the cap; a bitwise repeat of each), and time
-   weighted_coverage_marginals' yardstick torch.matmul.
-6. The main path for both over the same corpus (saturated coverage with
-   total = X.sum(0) and the default alpha = 0.25), then one more
-   SaturatedCoverage select at alpha = 2^-16, where the cap binds.
-7. Hold the GraphCut and log-det kernels against their plain versions
-   (every lane mode, f32 and bf16, the main path's shapes and odd ones:
-   d = 45 and 70, L = 1 and 130, k_max = 1, 7 and 100; GraphCut states
-   whose redundancy term cancels the linear one; bases empty, partial and
-   full, and sweeps whose appends run into k_max; a bitwise repeat of
-   each), and time the products alone as torch.matmul / mv / bmm.
-8. The main path for GraphCut (total = X.sum(0), lam = 0.5),
-   LogDetDiversity (alpha = 1) and MutualInformationGaussian (noise = 1;
-   k_max = k for both) over the same corpus; mutual information must give
-   log-det's ids and exactly half its value in every select.
-9. Print the kernel table as one JSON line, the card's name and power
+2. Hold each of the fifteen kernels against its plain PyTorch version on
+   the card, at the main paths' shapes (L = 37 lanes, C = 1,048,576 rows
+   for a filter, B = 128 for a chunk, d = r = 256, k_max = 64, f32 and
+   bf16) and at odd ones, every lane mode, each launch repeated bitwise,
+   and time kernel, plain version and, where one exists, the PyTorch call
+   of the same product: the coverage, facility, weighted and saturated
+   coverage, graph cut, log-det and exemplar kernels.
+3. The knapsack cost mode of the seven accept sweeps against their plain
+   versions, with budgets that bind inside the chunk in half the lanes.
+4. Drive each oracle's main path at full width through
+   DistributedSelector.select: two_round with n = 1,048,576 rows of
+   d = 256 (a 1 GiB f32 corpus on the card), k = 64, m = 16 simulated
+   machines, eps = 0.15, once per engine on the kernel route and once on
+   the plain route, then multi_epoch (E = 2) and bf16 storage on the fused
+   engine; check the routes' and engines' agreement, the (1/2 - eps)
+   guarantee against sequential greedy, and that every kernel of the path
+   launched.  FeatureCoverage; FacilityLocation and ExemplarClustering
+   with a 256-row reference set; WeightedCoverage; SaturatedCoverage
+   (total = X.sum(0), alpha = 0.25, and once more at alpha = 2^-16, where
+   the cap binds); GraphCut (lam = 0.5); LogDetDiversity (alpha = 1) and
+   MutualInformationGaussian (noise = 1), which must give log-det's ids
+   and exactly half its value.
+5. Knapsack selection (costs U[0.5, 2), budget 40) on all eight oracles,
+   fused on the kernel route against lazy on the plain route, each sweep
+   in its cost mode and the chosen costs within the budget; FeatureCoverage
+   on all three engines (the same ids) and with unit costs and budget k
+   (the cardinality select's ids); a partition matroid (8 parts, caps 8)
+   on FeatureCoverage; the time of the plane split's copy.
+6. Print the kernel table as one JSON line, the card's name and power
    limit, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -74,6 +68,8 @@ TILE = 1 << 18         # row tile of the plain versions at full width
 RTOL = ATOL = 1e-5     # coverage-family kernels: sums over d in another
 #                        order
 SAT_ALPHA = 2.0 ** -16  # the saturating select: cap ~ 5.3 per feature
+KNAP_BUDGET = K * 1.25 / 2  # knapsack budget (the JAX CLI's default): 40
+N_PARTS, PART_CAP = 8, 8    # partition matroid: parts, cap of each
 
 
 def check(cond, msg):
@@ -126,7 +122,8 @@ def bound_ms(n_bytes, n_ops):
 def check_sweep(name, got, want, tau, near_tol, close):
     """Hold a kernel's accept sweep (mask, state, gains), (L, ...) each,
     against the plain sweep.  Masks may part only at a row whose plain gain
-    is within ``near_tol[l]`` of tau; the gains are then compared up to
+    is within ``near_tol[l]`` of its threshold (tau (L,), or per row
+    (L, B): tau * cost in the cost mode); the gains are then compared up to
     that row.  Returns (near-tau ties, max abs err)."""
     km, ks, kg = got
     pm, ps, pg = want
@@ -136,9 +133,10 @@ def check_sweep(name, got, want, tau, near_tol, close):
         upto = km.shape[1]
         if len(diff):
             i = int(diff[0])
-            check(abs(float(pg[l, i]) - float(tau[l])) <= float(near_tol[l]),
+            t = float(tau[l, i] if tau.dim() == 2 else tau[l])
+            check(abs(float(pg[l, i]) - t) <= float(near_tol[l]),
                   f"{name} lane {l} row {i}: masks differ away from tau "
-                  f"(gain {float(pg[l, i])}, tau {float(tau[l])})")
+                  f"(gain {float(pg[l, i])}, tau {t})")
             ties, upto = ties + 1, i + 1
         else:
             check(close(l, ks[l], ps[l], "state"),
@@ -867,14 +865,285 @@ def phase_graph_cut_logdet_kernels(torch, ref, gm, ga, lm, la):
     return rows
 
 
-def drive(torch, tsel, ops, X, label, reference=None, total=None, **spec_kw):
+def phase_exemplar_kernels(torch, ref, em, ea):
+    """ExemplarClustering kernels vs plain versions on the card; returns the
+    JSON rows.  Candidates and references are U[0, 1) (the distances'
+    three terms nearly cancel: ||r||^2 ~ 85, 2 <c, r> ~ 128, ||c||^2 ~ 85
+    at d = 256), states m0 = ||r||^2 times U[0, 1) (a min-distance vector
+    never exceeds m0).  Tolerance ``ref.exemplar_gain_tol`` for gains (the
+    f32 rounding bound of two evaluations of the three-term distance,
+    summed over r), twice its worst row for a sweep's gains and state.
+    Every kernel must give the same bits when launched twice."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = {}
+
+    def inputs(shape_c, r, d, dtype, lanes):
+        cand = torch.rand(shape_c + (d,), generator=g, device=dev).to(dtype)
+        Rm = torch.rand((r, d), generator=g, device=dev).to(dtype)
+        m0 = (Rm.float() ** 2).sum(-1)
+        frac = torch.rand((lanes, r) if lanes else (r,), generator=g,
+                          device=dev)
+        return cand, Rm, (m0 * frac).contiguous()
+
+    # -- exemplar_marginals: shared at the filter shape, unbatched over the
+    #    corpus (max singleton, top singletons), per-lane at the lazy chunk
+    #    shape; ragged d = 45, 70 and r = 100, 300; L = 1 and 130
+    worst = 0.0
+    for label, Lk, C, r, d in (("shared", L, N, R, D), ("unbatched", 1, N, R, D),
+                               ("per-lane", L, B, R, D),
+                               ("odd shared", 130, 1000, 100, 45),
+                               ("odd shared", 100, 1000, 300, 70),
+                               ("odd per-lane", 1, 65, 100, 70)):
+        per_lane = label.endswith("per-lane")
+        unbatched = label == "unbatched"
+        for dtype in (torch.float32, torch.bfloat16):
+            if label.startswith("odd") and dtype == torch.bfloat16:
+                continue
+            cand, Rm, state = inputs((Lk, C) if per_lane else (C,), r, d,
+                                     dtype, None if unbatched else Lk)
+            if per_lane or C <= TILE:
+                plain = lambda: ref.exemplar_marginals(cand, Rm, state)  # noqa: E731
+            elif unbatched:
+                plain = lambda: torch.cat([  # noqa: E731
+                    ref.exemplar_marginals(cand[t:t + TILE], Rm, state)
+                    for t in range(0, C, TILE)])
+            else:
+                # one lane at a time, in row tiles: the plain version's
+                # (L, C, r) temporaries would not fit in device memory
+                plain = lambda: torch.stack([torch.cat([  # noqa: E731
+                    ref.exemplar_marginals(cand[t:t + TILE], Rm, state[l])
+                    for t in range(0, C, TILE)]) for l in range(Lk)])
+            got = em.exemplar_marginals(cand, Rm, state)
+            want = plain()
+            torch.cuda.synchronize()
+            tol = ref.exemplar_gain_tol(cand, Rm)
+            if label.endswith("shared"):
+                tol = tol.expand(Lk, C)
+            err = (got - want).abs()
+            check(bool((err <= tol).all()),
+                  f"exemplar_marginals {label} {dtype}: max abs err "
+                  f"{err.max().item()} beyond tolerance")
+            check(torch.equal(em.exemplar_marginals(cand, Rm, state), got),
+                  "exemplar_marginals: a repeated launch differs")
+            worst = max(worst, err.max().item())
+            line = (f"[kernels] exemplar_marginals {label} cand"
+                    f"{tuple(cand.shape)} ref({r}, {d}) L={Lk} "
+                    f"{str(dtype)[6:]}: max_abs_err={err.max().item()} "
+                    f"tol_max={tol.max().item()} repeat=bitwise")
+            if not label.startswith("odd"):
+                ms = cuda_ms(lambda: em.exemplar_marginals(cand, Rm, state),
+                             10)
+                pms = cuda_ms(plain, 1)
+                rows_c = Lk * C if per_lane else C
+                b_ms, b_by = bound_ms(
+                    cand.numel() * cand.element_size() + r * d * 4 + r * 4
+                    + state.numel() * 4 + got.numel() * 4,
+                    2 * rows_c * r * d + 4 * rows_c * r + 2 * rows_c * d
+                    + 3 * Lk * C * r)
+                cf, rf = cand.float(), Rm.float()
+                lib_ms = cuda_ms(lambda: torch.matmul(cf, rf.T), 10)
+                line += (f" kernel_ms={ms} plain_ms={pms} bound_ms={b_ms} "
+                         f"({b_by}) library_ms={lib_ms} (torch.matmul of the "
+                         f"product)")
+                if label == "shared" and dtype == torch.float32:
+                    rows["exemplar_marginals"] = dict(
+                        ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lib_ms)
+            print(line)
+    rows["exemplar_marginals"]["max_abs_err"] = worst
+
+    # -- exemplar_accept at the fused engine's shape, r = 256 and 1024, and
+    #    ragged shapes
+    worst = 0.0
+    for label, Lk, Bk, r, d in (("path", L, B, R, D), ("wide r", L, B, 1024, D),
+                                ("odd L=1", 1, 70, 100, 70),
+                                ("odd L=100", 100, B, 300, 45)):
+        for dtype in (torch.float32, torch.bfloat16):
+            if label.startswith("odd") and dtype == torch.bfloat16:
+                continue
+            cand, Rm, state = inputs((Lk, Bk), r, d, dtype, Lk)
+            elig = torch.rand((Lk, Bk), generator=g, device=dev) < 0.9
+            tau = lane_taus(torch, ref.exemplar_marginals(cand, Rm, state))
+            budget = torch.where(torch.arange(Lk, device=dev) % 5 == 0, 3,
+                                 K).to(torch.int32)
+            kern = lambda: ea.exemplar_accept(  # noqa: E731
+                cand, Rm, state, elig, tau, budget)
+            plain = lambda: ref.exemplar_accept(  # noqa: E731
+                cand, Rm, state, elig, tau, budget)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            lane_tol = 2 * ref.exemplar_gain_tol(cand, Rm).amax(-1)
+            ties, err = check_sweep(
+                "exemplar_accept", got, want, tau, lane_tol,
+                lambda l, a, b, what: bool(((a - b).abs()
+                                            <= lane_tol[l]).all()))
+            check(all(torch.equal(a, b) for a, b in zip(got, kern())),
+                  "exemplar_accept: a repeated launch differs")
+            worst = max(worst, err)
+            n_acc = int(want[0].sum())
+            line = (f"[kernels] exemplar_accept cand({Lk}, {Bk}, {d}) r={r} "
+                    f"{str(dtype)[6:]}: max_abs_err={err} near_tau_ties={ties} "
+                    f"accepted={n_acc} repeat=bitwise")
+            if label == "path":
+                ms = cuda_ms(kern, 50)
+                pms = cuda_ms(plain, 2)
+                b_ms, b_by = bound_ms(
+                    cand.numel() * cand.element_size() + r * d * 4 + r * 4
+                    + 2 * Lk * r * 4 + Lk * Bk * 6 + Lk * 8,
+                    2 * Lk * Bk * r * d + 7 * Lk * Bk * r + 2 * Lk * Bk * d
+                    + n_acc * r)
+                line += (f" kernel_ms={ms} plain_ms={pms} bound_ms={b_ms} "
+                         f"({b_by})")
+                if dtype == torch.float32:
+                    rows["exemplar_accept"] = dict(ms=ms, plain_ms=pms,
+                                                   bound_ms=b_ms,
+                                                   bound_by=b_by)
+            print(line)
+    rows["exemplar_accept"]["max_abs_err"] = worst
+    return rows
+
+
+def phase_cost_sweeps(torch, ref, sweeps, rows):
+    """The knapsack cost mode of the seven accept sweeps vs their plain
+    versions, at the fused engine's shape (L = 37, B = 128, d = 256, r =
+    256, k_max = 64, f32), with costs U[0.5, 2) and per-lane remaining
+    budgets: half the cost the cardinality sweep spends in even lanes (the
+    spend test cuts accepts inside the chunk), unbounded in odd lanes.
+    Masks may part only at a row whose gain is within the sweep's tolerance
+    of tau * cost.  Adds ``cost_ms`` (and the accepts the budget cut) to
+    each sweep's row; repeats must be bitwise."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    lam, alpha = 0.5, 1.0
+    LD_RTOL, LD_ATOL = 1e-5, 1e-4
+    even = torch.arange(L, device=dev) % 2 == 0
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def feature_close(l, a, b, what):
+        return torch.allclose(a, b, rtol=RTOL, atol=ATOL)
+
+    cases = {}
+    x = rand(L, B, D) ** 2
+    st = rand(L, D) * 4
+    cases["coverage_accept"] = (
+        lambda *cc: sweeps["coverage_accept"].coverage_accept(
+            x, st, None, *cc),
+        lambda *cc: ref.coverage_accept(x, st, None, *cc),
+        ref.coverage_marginals(x, st), None, feature_close)
+    xw, sw = rand(L, B, D) ** 2, rand(L, D)
+    cases["weighted_coverage_accept"] = (
+        lambda *cc: sweeps["weighted_coverage_accept"].weighted_coverage_accept(
+            xw, sw, *cc),
+        lambda *cc: ref.weighted_coverage_accept(xw, sw, *cc),
+        ref.weighted_coverage_marginals(xw, sw), None, feature_close)
+    xs, cap = rand(L, B, D) ** 2, rand(D) * 4 + 1
+    ss = (rand(L, D) * 1.2 * cap).contiguous()
+    cases["saturated_coverage_accept"] = (
+        lambda *cc: sweeps["saturated_coverage_accept"]
+        .saturated_coverage_accept(xs, ss, cap, None, *cc),
+        lambda *cc: ref.saturated_coverage_accept(xs, ss, cap, None, *cc),
+        ref.saturated_coverage_marginals(xs, ss, cap), None, feature_close)
+    xg, t = rand(L, B, D) ** 2, (rand(D) * N / 3).contiguous()
+    sg = (t * rand(L, 1) * 1.2 / (2 * lam)).contiguous()
+    gc_tol = graph_cut_tol(xg, t + 2 * lam * (sg + xg.sum(1)), lam).amax(-1)
+    cases["graph_cut_accept"] = (
+        lambda *cc: sweeps["graph_cut_accept"].graph_cut_accept(
+            xg, t, sg, *cc[:3], lam, *cc[3:]),
+        lambda *cc: ref.graph_cut_accept(xg, t, sg, *cc[:3], lam, *cc[3:]),
+        ref.graph_cut_marginals(xg, t, sg, lam), gc_tol,
+        lambda l, a, b, what: (torch.equal(a, b) if what == "state"
+                               else bool(((a - b).abs() <= gc_tol[l]).all())))
+    cf, Rf = rand(L, B, D) ** 2, rand(R, D)
+    sf = rand(L, R) * D / 4
+    fa_tol = 2 * ref.gemm_gain_tol(cf, Rf).amax(-1)
+    cases["facility_accept"] = (
+        lambda *cc: sweeps["facility_accept"].facility_accept(cf, Rf, sf, *cc),
+        lambda *cc: ref.facility_accept(cf, Rf, sf, *cc),
+        ref.facility_marginals(cf, Rf, sf), fa_tol,
+        lambda l, a, b, what: bool(((a - b).abs() <= fa_tol[l]).all()))
+    ce, Re = rand(L, B, D), rand(R, D)
+    se = ((Re * Re).sum(-1) * rand(L, R)).contiguous()
+    ex_tol = 2 * ref.exemplar_gain_tol(ce, Re).amax(-1)
+    cases["exemplar_accept"] = (
+        lambda *cc: sweeps["exemplar_accept"].exemplar_accept(ce, Re, se, *cc),
+        lambda *cc: ref.exemplar_accept(ce, Re, se, *cc),
+        ref.exemplar_marginals(ce, Re, se), ex_tol,
+        lambda l, a, b, what: bool(((a - b).abs() <= ex_tol[l]).all()))
+    xl = rand(L, B, D) ** 2
+    sizes = ((torch.arange(L, device=dev) * 13) % (K + 1)).to(torch.int32)
+    U, ld, sz = logdet_bases(torch, ref, g, L, K, D, sizes, alpha,
+                             torch.float32)
+    cases["logdet_accept"] = (
+        lambda *cc: sweeps["logdet_accept"].logdet_accept(
+            xl, U, ld, sz, *cc[:3], alpha, 1.0, *cc[3:]),
+        lambda *cc: ref.logdet_accept(xl, U, ld, sz, *cc[:3], alpha,
+                                      cost=cc[3], cost_budget=cc[4]),
+        ref.logdet_marginals(xl, U, alpha), None,
+        lambda l, a, b, what: torch.allclose(a, b, rtol=LD_RTOL,
+                                             atol=LD_ATOL))
+
+    for name, (kern, plain, gains0, lane_tol, close) in cases.items():
+        elig = rand(L, B) < 0.9
+        cost = (0.5 + 1.5 * rand(L, B)).contiguous()
+        tau = lane_taus(torch, gains0 / cost.mean())
+        budget = torch.full((L,), K, dtype=torch.int32, device=dev)
+        card = plain(elig, tau, budget, None, None)
+        spent_card = torch.where(card[0], cost, 0.0).sum(-1)
+        free = plain(elig, tau, budget, cost, torch.full((L,), 1e9,
+                                                         device=dev))
+        spent_free = torch.where(free[0], cost, 0.0).sum(-1)
+        cb = torch.where(even, 0.5 * spent_free, 1e9).contiguous()
+        got = kern(elig, tau, budget, cost, cb)
+        want = plain(elig, tau, budget, cost, cb)
+        torch.cuda.synchronize()
+        three = (lambda o: (o[0], o[1], o[4])) if name == "logdet_accept" \
+            else (lambda o: o)
+        thr = tau[:, None] * cost
+        if lane_tol is None:
+            lane_tol = (LD_ATOL + LD_RTOL * thr.abs().amax(-1)
+                        if name == "logdet_accept"
+                        else ATOL + RTOL * thr.abs().amax(-1))
+        ties, err = check_sweep(f"{name}[cost]", three(got), three(want),
+                                thr, lane_tol, close)
+        spent = torch.where(got[0], cost, 0.0).sum(-1)
+        check(bool((spent <= cb * (1 + 1e-6)).all()),
+              f"{name}[cost]: a lane spent beyond its budget")
+        cut = free[0].sum(-1) - want[0].sum(-1)
+        check(int(cut[even].max()) > 0 and int(cut[~even].abs().max()) == 0,
+              f"{name}[cost]: the budget cut no accept in a bound lane")
+        check(all(torch.equal(a, b) for a, b in zip(got, kern(
+            elig, tau, budget, cost, cb))),
+            f"{name}[cost]: a repeated launch differs")
+        ms = cuda_ms(lambda: kern(elig, tau, budget, cost, cb), 50)
+        card_ms = cuda_ms(lambda: kern(elig, tau, budget, None, None), 50)
+        pms = cuda_ms(lambda: plain(elig, tau, budget, cost, cb), 2)
+        rows[name]["cost_ms"] = ms
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        print(f"[kernels] {name} cost mode x({L}, {B}, {D}) f32: "
+              f"max_abs_err={err} near_tau_ties={ties} "
+              f"accepted={int(want[0].sum())} (cardinality "
+              f"{int(card[0].sum())}, unbounded budget "
+              f"{int(free[0].sum())}) cut_by_budget={int(cut.sum())} in "
+              f"{int((cut > 0).sum())} of {int(even.sum())} bound lanes "
+              f"cost_ms={ms} cardinality_ms={card_ms} plain_ms={pms} "
+              f"repeat=bitwise")
+    return rows
+
+
+def drive(torch, tsel, ops, X, label, reference=None, total=None,
+          sel_kw=None, **spec_kw):
     """One select through the public entry point, with the launch counts
-    set to 0 just before and read just after.  Returns (result, value,
-    wall ms, launch counts by kernel)."""
+    set to 0 just before and read just after.  ``sel_kw`` are the
+    selector's per-element constraint data.  Returns (result, value, wall
+    ms, launch counts by kernel, with each sweep's cost-mode launches under
+    "<name>[cost]")."""
     spec = tsel.SelectorSpec(k=K, eps=EPS, chunk=CHUNK, **spec_kw)
     sel = tsel.DistributedSelector(spec, n_total=N, feat_dim=D, n_machines=M,
                                    device="cuda", reference=reference,
-                                   total=total)
+                                   total=total, **(sel_kw or {}))
     gen = torch.Generator(device="cuda").manual_seed(1)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -883,13 +1152,17 @@ def drive(torch, tsel, ops, X, label, reference=None, total=None, **spec_kw):
     value = float(res.value)  # waits for the device
     wall = (time.perf_counter() - t0) * 1e3
     counts = ops.launch_counts()
+    counts.update({f"{name}[cost]": n
+                   for name, n in ops.cost_launch_counts().items()})
     size = int(res.sol_size)
     ids = res.sol_ids.cpu()[:size]
     # facility location over all-positive similarities, weighted coverage
-    # (whose remaining weight decays geometrically) and saturated coverage
-    # at a binding cap saturate after a few picks, so their lanes may stop
-    # short of k
-    full = spec.oracle == "feature_coverage"
+    # (whose remaining weight decays geometrically), saturated coverage at a
+    # binding cap and exemplar clustering saturate after a few picks, and a
+    # knapsack or partition budget stops a lane early, so those lanes may
+    # stop short of k
+    full = (spec.oracle == "feature_coverage"
+            and spec.constraint == "cardinality")
     check(res.sol_ids.shape == (K,) and (size == K if full else 1 <= size <= K),
           f"{label}: got size {size}")
     check(len(set(ids.tolist())) == size and int(ids.min()) >= 0
@@ -977,6 +1250,130 @@ def main_path(torch, tsel, tseq, ops, X, oracle, kernels, accept_kernel,
     return launches
 
 
+#: each oracle's kernels on the main path, its accept sweep, and which
+#: corpus statistic it needs ("reference" or "total")
+ORACLES = (
+    ("feature_coverage", ("coverage_marginals", "coverage_accept"),
+     "coverage_accept", None),
+    ("facility_location", ("facility_marginals", "rectified_residual_sum",
+                           "facility_accept"), "facility_accept", "reference"),
+    ("weighted_coverage", ("weighted_coverage_marginals",
+                           "weighted_coverage_accept"),
+     "weighted_coverage_accept", None),
+    ("saturated_coverage", ("saturated_coverage_marginals",
+                            "saturated_coverage_accept"),
+     "saturated_coverage_accept", "total"),
+    ("graph_cut", ("graph_cut_marginals", "graph_cut_accept"),
+     "graph_cut_accept", "total"),
+    ("log_det", ("logdet_marginals", "logdet_accept"), "logdet_accept", None),
+    ("mutual_information", ("logdet_marginals", "logdet_accept"),
+     "logdet_accept", None),
+    ("exemplar", ("exemplar_marginals", "exemplar_accept"), "exemplar_accept",
+     "reference"))
+
+
+def knapsack_selects(torch, tsel, ops, X, stats, costs, card_fc):
+    """Knapsack selection (costs U[0.5, 2) per row, budget k * 1.25 / 2 =
+    40, the JAX CLI's): one fused two_round select on the kernel route for
+    each of the eight oracles, held against the lazy engine on the plain
+    route (rtol 1e-3); every fused select must launch its oracle's sweep,
+    each time in the cost mode, and its chosen rows' costs must sum, in
+    float64 on the host, to at most the budget.  FeatureCoverage also runs
+    dense and lazy on the kernel route (for accept="first" they must give
+    the fused ids), and once with unit costs and budget k, which must give
+    the cardinality select's ids (``card_fc``).  Returns the kernel
+    launches of the kernel-route selects."""
+    launches = {}
+    costs64 = costs.double().cpu()
+    sel_kw = dict(element_costs=costs)
+    for oracle, kernels, accept_kernel, needs in ORACLES:
+        kw = dict(oracle=oracle, constraint="knapsack",
+                  knapsack_budget=KNAP_BUDGET, sel_kw=sel_kw,
+                  **({needs: stats[needs]} if needs else {}))
+        label = f"{oracle} knapsack two_round"
+        res, value, _, counts = drive(torch, tsel, ops, X,
+                                      f"{label} fused kernel", engine="fused",
+                                      use_kernel=True, **kw)
+        n = counts[accept_kernel]
+        check(n > 0 and counts[f"{accept_kernel}[cost]"] == n,
+              f"{label}: {accept_kernel} launched {n} times, "
+              f"{counts[f'{accept_kernel}[cost]']} in the cost mode")
+        for name in kernels:
+            launches[name] = launches.get(name, 0) + counts[name]
+        ids = res.sol_ids[:int(res.sol_size)].long().cpu()
+        spent = float(costs64[ids].sum())
+        check(spent <= KNAP_BUDGET, f"{label}: chosen costs sum to {spent}")
+        _, value_p, _, counts_p = drive(torch, tsel, ops, X,
+                                        f"{label} lazy plain", engine="lazy",
+                                        use_kernel=False, **kw)
+        check(not any(counts_p.values()),
+              f"plain route launched kernels {counts_p}")
+        check(abs(value - value_p) <= 1e-3 * abs(value_p),
+              f"{label}: fused value {value} vs plain {value_p}")
+        print(f"[knapsack] {oracle}: value={value} plain={value_p} "
+              f"|S|={int(res.sol_size)} spent={spent} of {KNAP_BUDGET} "
+              f"{accept_kernel}[cost] launches={n}")
+        if oracle == "feature_coverage":
+            fused_ids = res.sol_ids
+            for engine in ("dense", "lazy"):
+                r_e, _, _, _ = drive(torch, tsel, ops, X,
+                                     f"{label} {engine} kernel",
+                                     engine=engine, use_kernel=True, **kw)
+                check(torch.equal(r_e.sol_ids, fused_ids),
+                      f"{label}: {engine} ids {r_e.sol_ids.tolist()} differ "
+                      f"from fused {fused_ids.tolist()}")
+            unit = drive(torch, tsel, ops, X,
+                         "feature_coverage knapsack unit costs, budget k",
+                         engine="fused", use_kernel=True, oracle=oracle,
+                         constraint="knapsack", knapsack_budget=float(K),
+                         sel_kw=dict(element_costs=torch.ones_like(costs)))[0]
+            check(torch.equal(unit.sol_ids, card_fc.sol_ids),
+                  "unit-cost knapsack with budget k did not give the "
+                  "cardinality select's ids")
+            print("[knapsack] feature_coverage: dense, lazy and fused give the "
+                  "same ids; unit costs with budget k give the cardinality "
+                  "select's ids")
+    return launches
+
+
+def partition_select(torch, tsel, ops, X, parts):
+    """A partition matroid of N_PARTS parts, each capped at PART_CAP, on
+    FeatureCoverage: the fused engine (its sweep is the plain constrained
+    row scan, the JAX design, scoring rows through coverage_marginals)
+    against the lazy engine, both on the kernel route; the per-part counts
+    of the chosen rows must keep to the caps.  Returns the launches."""
+    caps = torch.full((N_PARTS,), PART_CAP, dtype=torch.int32)
+    kw = dict(oracle="feature_coverage", constraint="partition_matroid",
+              use_kernel=True, sel_kw=dict(parts=parts, part_caps=caps))
+    label = f"feature_coverage partition({N_PARTS} x {PART_CAP}) two_round"
+    res, value, _, counts = drive(torch, tsel, ops, X, f"{label} fused kernel",
+                                  engine="fused", **kw)
+    check(counts["coverage_marginals"] > 0,
+          f"{label}: coverage_marginals never launched")
+    _, value_l, _, _ = drive(torch, tsel, ops, X, f"{label} lazy kernel",
+                             engine="lazy", **kw)
+    check(abs(value - value_l) <= 1e-3 * abs(value_l),
+          f"{label}: fused value {value} vs lazy {value_l}")
+    ids = res.sol_ids[:int(res.sol_size)].long()
+    per_part = torch.bincount(parts[ids].long(), minlength=N_PARTS).cpu()
+    check(bool((per_part <= PART_CAP).all()),
+          f"{label}: per-part counts {per_part.tolist()} beyond {PART_CAP}")
+    print(f"[partition] value={value} lazy={value_l} |S|={int(res.sol_size)} "
+          f"per-part counts={per_part.tolist()} caps={PART_CAP}")
+    return {"coverage_marginals": counts["coverage_marginals"]}
+
+
+def plane_split(torch, X, costs):
+    """Print the time of the contiguous copy that ``split_plane`` takes of
+    the (m, n/m, d + 1) augmented shard at the filter (f32), and its
+    rate."""
+    aug = torch.cat([X, costs[:, None]], 1).reshape(M, N // M, D + 1)
+    ms = cuda_ms(lambda: aug[..., :-1].contiguous(), 5)
+    moved = aug.numel() * 4 + X.numel() * 4
+    print(f"[knapsack] plane split copy ({M}, {N // M}, {D + 1}) -> "
+          f"({M}, {N // M}, {D}) f32: {ms} ms, {moved / ms / 1e9} TB/s")
+
+
 def saturating_select(torch, tsel, tseq, ops, X, total):
     """SaturatedCoverage at alpha = 2^-16 (cap ~ 5.3 per feature), where the
     cap binds within the first picks, so the min branch of both kernels
@@ -1027,6 +1424,8 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import coverage_accept as ca
     from repro_torch.kernels import coverage_marginals as cm
+    from repro_torch.kernels import exemplar_accept as ea
+    from repro_torch.kernels import exemplar_marginals as em
     from repro_torch.kernels import facility_accept as fa
     from repro_torch.kernels import facility_marginals as fm
     from repro_torch.kernels import graph_cut_accept as ga
@@ -1055,13 +1454,24 @@ def main() -> int:
     rows.update(phase_facility_kernels(torch, ref, fm, fa))
     rows.update(phase_weighted_saturated_kernels(torch, ref, wm, wa, sm, sa))
     rows.update(phase_graph_cut_logdet_kernels(torch, ref, gm, ga, lm, la))
+    rows.update(phase_exemplar_kernels(torch, ref, em, ea))
+    phase_cost_sweeps(torch, ref, {
+        "coverage_accept": ca, "weighted_coverage_accept": wa,
+        "saturated_coverage_accept": sa, "graph_cut_accept": ga,
+        "facility_accept": fa, "exemplar_accept": ea, "logdet_accept": la},
+        rows)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     X = torch.rand((N, D), generator=gen, device="cuda") ** 2
     reference = torch.rand((R, D), generator=gen, device="cuda")
+    # the constraints' per-element data, drawn after the reference from the
+    # same generator, as the JAX CLI draws it
+    costs = 0.5 + 1.5 * torch.rand(N, generator=gen, device="cuda")
+    parts = torch.randint(0, N_PARTS, (N,), generator=gen, device="cuda")
+    by_fc = {}
     launches = main_path(torch, tsel, tseq, ops, X, "feature_coverage",
                          ("coverage_marginals", "coverage_accept"),
-                         "coverage_accept")
+                         "coverage_accept", results=by_fc)
     launches.update(main_path(
         torch, tsel, tseq, ops, X, "facility_location",
         ("facility_marginals", "rectified_residual_sum", "facility_accept"),
@@ -1077,10 +1487,9 @@ def main() -> int:
         torch, tsel, tseq, ops, X, "saturated_coverage",
         ("saturated_coverage_marginals", "saturated_coverage_accept"),
         "saturated_coverage_accept", total=total))
-    for name, n in saturating_select(torch, tsel, tseq, ops, X,
-                                     total).items():
-        if name.startswith("saturated"):
-            launches[name] += n
+    counts = saturating_select(torch, tsel, tseq, ops, X, total)
+    for name in ("saturated_coverage_marginals", "saturated_coverage_accept"):
+        launches[name] += counts[name]
 
     # GraphCut with the same total and the JAX default lam = 0.5, then
     # LogDetDiversity at alpha = 1 and MutualInformationGaussian at noise 1
@@ -1107,6 +1516,23 @@ def main() -> int:
               f"with ids {res.sol_ids.tolist()}")
     print(f"[main] mutual_information at noise 1 = 0.5 x log_det, same ids, "
           f"in all {len(by_ld)} selects")
+
+    # ExemplarClustering over the same corpus and the same 256-row reference
+    # set as FacilityLocation
+    launches.update(main_path(
+        torch, tsel, tseq, ops, X, "exemplar",
+        ("exemplar_marginals", "exemplar_accept"), "exemplar_accept",
+        reference=reference))
+
+    # constrained selection: knapsack on every oracle, the partition matroid
+    # on FeatureCoverage
+    plane_split(torch, X, costs)
+    for name, n in knapsack_selects(
+            torch, tsel, ops, X, dict(reference=reference, total=total),
+            costs, by_fc["two_round fused kernel"][0]).items():
+        launches[name] += n
+    for name, n in partition_select(torch, tsel, ops, X, parts).items():
+        launches[name] += n
 
     table = []
     for name, src, replaces in (
@@ -1148,7 +1574,13 @@ def main() -> int:
              "src/repro/kernels/logdet_marginals.py:52"),
             ("logdet_accept",
              "src/repro_torch/kernels/csrc/logdet_accept.cu",
-             "src/repro/kernels/logdet_accept.py:133")):
+             "src/repro/kernels/logdet_accept.py:133"),
+            ("exemplar_marginals",
+             "src/repro_torch/kernels/csrc/exemplar_marginals.cu",
+             "src/repro/kernels/exemplar_marginals.py:55"),
+            ("exemplar_accept",
+             "src/repro_torch/kernels/csrc/exemplar_accept.cu",
+             "src/repro/kernels/exemplar_accept.py:69")):
         check(launches[name] > 0, f"{name} never launched on the main path")
         r = rows[name]
         table.append({"name": name, "route": "cuda", "source": src,
@@ -1158,7 +1590,10 @@ def main() -> int:
                       "bound_by": r["bound_by"],
                       # one PyTorch call that computes the same function,
                       # where there is one (None: there is none)
-                      "library_ms": r.get("library_ms")})
+                      "library_ms": r.get("library_ms"),
+                      # the accept sweeps' knapsack cost mode
+                      **({"cost_ms": r["cost_ms"]} if "cost_ms" in r
+                         else {})})
     print(json.dumps({"kernels": table}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -10,15 +10,16 @@ every lane, (C, d), or held per lane, (L, C, d).  An unbatched state (w,)
 with a (C, d) block is the plain single-solution call.  The state width w
 is the oracle's own: d for FeatureCoverage, SaturatedCoverage and GraphCut,
 the universe size for WeightedCoverage (whose feature rows are incidence
-rows), the reference-set size r for FacilityLocation.  LogDetDiversity and
+rows), the reference-set size r for FacilityLocation and
+ExemplarClustering.  LogDetDiversity and
 MutualInformationGaussian keep a tuple state, (U (L, k_max, d), logdet
 (L,), size (L,)), each member with the lane axis (``repro_torch.states``
 selects and maps such states).
 
-Oracles ported so far: FeatureCoverage, FacilityLocation, WeightedCoverage,
-SaturatedCoverage, GraphCut, LogDetDiversity and MutualInformationGaussian.
-ExemplarClustering arrives with a later slice of the port (see
-ROADMAP.md).
+Oracles: FeatureCoverage, FacilityLocation, WeightedCoverage,
+SaturatedCoverage, GraphCut, LogDetDiversity, MutualInformationGaussian and
+ExemplarClustering (the JAX package's AdversarialThreshold, a test
+instance, is not ported).
 
 Every oracle lives on the CUDA card unless it is built with
 ``device="cpu"``; without a card and without that argument it raises (the
@@ -52,12 +53,14 @@ class SubmodularOracle:
     marginals(state, aux):    gains f_S(e) for the block: (C,) or (L, C).
     chunk_marginals(state, cand_feats): gains straight from features (the
                   lazy engine's and the filter's streaming path).
-    chunk_accept(state, cand_feats, eligible, tau, budget): the fused
-                  engine's path.  Runs Algorithm 1's accept loop over each
-                  lane's (B, d) chunk in stream order and returns (mask
-                  (L, B) bool, new_state, gains (L, B) f32).  The default
-                  is a row scan (correct for every oracle); kerneled
-                  oracles override it with one sweep kernel.
+    chunk_accept(state, cand_feats, eligible, tau, budget, cost=None,
+                  cost_budget=None): the fused engine's path.  Runs
+                  Algorithm 1's accept loop over each lane's (B, d) chunk
+                  in stream order and returns (mask (L, B) bool,
+                  new_state, gains (L, B) f32); ``cost`` (L, B) and
+                  ``cost_budget`` (L,) select the knapsack rule.  The
+                  default is a row scan (correct for every oracle);
+                  kerneled oracles override it with one sweep kernel.
     add(state, aux_row):      state for S + {e}.
     value(state):             f(S): () or (L,).
     """
@@ -74,16 +77,23 @@ class SubmodularOracle:
     def chunk_marginals(self, state, cand_feats):
         return self.marginals(state, self.prep(state, cand_feats))
 
-    def chunk_accept(self, state, cand_feats, eligible, tau, budget):
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget,
+                     cost=None, cost_budget=None):
         """Sequential threshold-accept sweep over one (L, B, d) chunk per
         lane: row i's gain is its fresh marginal against the state after
         every earlier accepted row; it is accepted when eligible & gain >=
         tau & accepts-so-far < budget, and accepted rows update the state.
-        The gains are valid stale upper bounds for the lazy buffer."""
+        The gains are valid stale upper bounds for the lazy buffer.
+
+        Knapsack-constrained sweeps pass ``cost`` (L, B) f32 per-row costs
+        and ``cost_budget`` (L,) f32 remaining budgets: a row is then
+        accepted when gain >= tau * cost_i and the running spend + cost_i
+        stays within the budget (``ref.accept_scan``).  ``cost=None`` is
+        the cardinality sweep."""
         aux = self.prep(state, cand_feats)
         return ref.accept_scan(
             lambda st, row: self.marginals(st, row[:, None])[:, 0],
-            self.add, aux, state, eligible, tau, budget)
+            self.add, aux, state, eligible, tau, budget, cost, cost_budget)
 
     def marginals(self, state, aux):  # pragma: no cover - interface
         raise NotImplementedError
@@ -122,12 +132,15 @@ class FeatureCoverage(SubmodularOracle):
                                           self.weights)
         return ref.coverage_marginals(aux, state, self.weights)
 
-    def chunk_accept(self, state, cand_feats, eligible, tau, budget):
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget,
+                     cost=None, cost_budget=None):
         if self.use_kernel:
             return ops.coverage_accept(cand_feats.contiguous(),
                                        state.contiguous(), self.weights,
-                                       eligible.contiguous(), tau, budget)
-        return super().chunk_accept(state, cand_feats, eligible, tau, budget)
+                                       eligible.contiguous(), tau, budget,
+                                       cost, cost_budget)
+        return super().chunk_accept(state, cand_feats, eligible, tau, budget,
+                                    cost, cost_budget)
 
     def add(self, state, aux_row):
         return state + aux_row
@@ -191,18 +204,93 @@ class FacilityLocation(SubmodularOracle):
                                           state.contiguous())
         return self.marginals(state, self.prep(state, cand_feats))
 
-    def chunk_accept(self, state, cand_feats, eligible, tau, budget):
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget,
+                     cost=None, cost_budget=None):
         if self.use_kernel:
             return ops.facility_accept(cand_feats.contiguous(), self._ref32,
                                        state.contiguous(),
-                                       eligible.contiguous(), tau, budget)
-        return super().chunk_accept(state, cand_feats, eligible, tau, budget)
+                                       eligible.contiguous(), tau, budget,
+                                       cost, cost_budget)
+        return super().chunk_accept(state, cand_feats, eligible, tau, budget,
+                                    cost, cost_budget)
 
     def add(self, state, aux_row):
         return torch.maximum(state, aux_row)
 
     def value(self, state):
         return state.sum(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExemplarClustering(SubmodularOracle):
+    """k-medoid loss reduction over a replicated reference set R (r, d):
+
+        f(S) = L({e0}) - L(S + {e0}),
+        L(S) = sum_{v in R} min_{e in S} ||v - x_e||^2
+
+    with the phantom exemplar e0 at the origin.  The state is R's current
+    min squared-distance vector (r,), starting at m0 = ||v||^2; a
+    candidate's marginal is sum_j max(m_j - d2(e, j), 0), the shape of
+    FacilityLocation with distances instead of similarities.  ``reference``
+    is kept in the storage dtype (the selector casts it), with an f32 copy
+    for the products and m0 as its f32 sum of squares.  ``prep`` computes
+    the (C, r) clamped distance block (``ref.exemplar_distances``, a full
+    f32 ``torch.matmul``) and ``marginals`` sums its residuals in plain
+    tensor ops, as the JAX oracle does; ``chunk_marginals`` and
+    ``chunk_accept`` take the distances inside the kernels, so the (C, r)
+    block never reaches device memory on those paths.
+    """
+
+    feat_dim: int
+    reference: Optional[torch.Tensor] = None  # (r, d)
+    use_kernel: bool = False
+    device: Optional[torch.device] = None     # None: the CUDA card
+
+    def __post_init__(self):
+        if self.reference is None:
+            raise ValueError("ExemplarClustering needs a reference set (r, d)")
+        dev = resolve_device(self.device)
+        ref_ = torch.as_tensor(self.reference, device=dev).contiguous()
+        if ref_.dim() != 2 or ref_.shape[1] != self.feat_dim:
+            raise ValueError(f"ExemplarClustering: reference must be (r, "
+                             f"{self.feat_dim}), got {tuple(ref_.shape)}")
+        ref32 = ref_.float()
+        object.__setattr__(self, "device", dev)
+        object.__setattr__(self, "reference", ref_)
+        object.__setattr__(self, "_ref32", ref32)
+        object.__setattr__(self, "m0", (ref32 * ref32).sum(-1))
+
+    def init_state(self, lanes: Optional[int] = None):
+        return self.m0.clone() if lanes is None else self.m0.repeat(lanes, 1)
+
+    def prep(self, state, cand_feats):
+        return ref.exemplar_distances(cand_feats, self._ref32)
+
+    def marginals(self, state, aux):
+        # the JAX oracle has no kernel here either: a plain residual sum
+        return ref.exemplar_residual_sum(aux, state)
+
+    def chunk_marginals(self, state, cand_feats):
+        if self.use_kernel:
+            return ops.exemplar_marginals(cand_feats.contiguous(),
+                                          self._ref32, state.contiguous())
+        return self.marginals(state, self.prep(state, cand_feats))
+
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget,
+                     cost=None, cost_budget=None):
+        if self.use_kernel:
+            return ops.exemplar_accept(cand_feats.contiguous(), self._ref32,
+                                       state.contiguous(),
+                                       eligible.contiguous(), tau, budget,
+                                       cost, cost_budget)
+        return super().chunk_accept(state, cand_feats, eligible, tau, budget,
+                                    cost, cost_budget)
+
+    def add(self, state, aux_row):
+        return torch.minimum(state, aux_row)
+
+    def value(self, state):
+        return (self.m0 - state).sum(-1)
 
 
 def _feature_operand(t, feat_dim, device, what):
@@ -254,13 +342,15 @@ class WeightedCoverage(SubmodularOracle):
                                                    state.contiguous())
         return ref.weighted_coverage_marginals(aux, state)
 
-    def chunk_accept(self, state, cand_feats, eligible, tau, budget):
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget,
+                     cost=None, cost_budget=None):
         if self.use_kernel:
             return ops.weighted_coverage_accept(cand_feats.contiguous(),
                                                 state.contiguous(),
                                                 eligible.contiguous(), tau,
-                                                budget)
-        return super().chunk_accept(state, cand_feats, eligible, tau, budget)
+                                                budget, cost, cost_budget)
+        return super().chunk_accept(state, cand_feats, eligible, tau, budget,
+                                    cost, cost_budget)
 
     def add(self, state, aux_row):
         # s (1 - x), not s - s x: exact (0 or s) on binary incidence rows
@@ -314,12 +404,15 @@ class SaturatedCoverage(SubmodularOracle):
         return ref.saturated_coverage_marginals(aux, state, self.cap,
                                                 self.weights)
 
-    def chunk_accept(self, state, cand_feats, eligible, tau, budget):
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget,
+                     cost=None, cost_budget=None):
         if self.use_kernel:
             return ops.saturated_coverage_accept(
                 cand_feats.contiguous(), state.contiguous(), self.cap,
-                self.weights, eligible.contiguous(), tau, budget)
-        return super().chunk_accept(state, cand_feats, eligible, tau, budget)
+                self.weights, eligible.contiguous(), tau, budget, cost,
+                cost_budget)
+        return super().chunk_accept(state, cand_feats, eligible, tau, budget,
+                                    cost, cost_budget)
 
     def add(self, state, aux_row):
         return state + aux_row
@@ -376,13 +469,16 @@ class GraphCut(SubmodularOracle):
                                            state.contiguous(), self.lam)
         return ref.graph_cut_marginals(aux, self.total, state, self.lam)
 
-    def chunk_accept(self, state, cand_feats, eligible, tau, budget):
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget,
+                     cost=None, cost_budget=None):
         if self.use_kernel:
             return ops.graph_cut_accept(cand_feats.contiguous(), self.total,
                                         state.contiguous(),
                                         eligible.contiguous(), tau, budget,
-                                        self.lam)
-        return super().chunk_accept(state, cand_feats, eligible, tau, budget)
+                                        self.lam, cost=cost,
+                                        cost_budget=cost_budget)
+        return super().chunk_accept(state, cand_feats, eligible, tau, budget,
+                                    cost, cost_budget)
 
     def add(self, state, aux_row):
         return state + aux_row
@@ -428,13 +524,16 @@ class _WhitenedBasis(SubmodularOracle):
                                         self.alpha, self.scale)
         return ref.logdet_marginals(aux, U, self.alpha, scale=self.scale)
 
-    def chunk_accept(self, state, cand_feats, eligible, tau, budget):
+    def chunk_accept(self, state, cand_feats, eligible, tau, budget,
+                     cost=None, cost_budget=None):
         if self.use_kernel:
             mask, U, logdet, size, gains = ops.logdet_accept(
                 cand_feats.contiguous(), *(t.contiguous() for t in state),
-                eligible.contiguous(), tau, budget, self.alpha, self.scale)
+                eligible.contiguous(), tau, budget, self.alpha, self.scale,
+                cost, cost_budget)
             return mask, (U, logdet, size), gains
-        return super().chunk_accept(state, cand_feats, eligible, tau, budget)
+        return super().chunk_accept(state, cand_feats, eligible, tau, budget,
+                                    cost, cost_budget)
 
     def add(self, state, aux_row):
         return ref.logdet_append(state, aux_row, self.alpha,

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import constraints as constraints_mod
 from repro_torch.core import grids, rounds
 from repro_torch.core import precision as precision_mod
 from repro_torch.core.rounds import RoundLog, SimRounds, run_epochs
@@ -56,11 +57,28 @@ class MRConfig:
     epochs: Optional[int] = None          # None derives ceil(1/eps)
     schedule_kind: str = "paper"          # grids.SCHEDULE_KINDS
     precision: str = "f32"                # "f32" | "bf16" storage policy
+    constraint: Optional[constraints_mod.Constraint] = None
+    #                                       feasibility constraint threaded
+    #                                       through the drivers; None is
+    #                                       plain k-cardinality
 
     def __post_init__(self):
         validate_engine(self.engine, self.accept, where="MRConfig")
         grids.validate_schedule_kind(self.schedule_kind, where="MRConfig")
         precision_mod.validate(self.precision, where="MRConfig")
+        if self.constraint is not None and not isinstance(
+                self.constraint, constraints_mod.Constraint):
+            raise TypeError(
+                "MRConfig: constraint must be a repro_torch.core.constraints."
+                f"Constraint (or None), got {type(self.constraint).__name__}"
+                "; build one with constraints.make_constraint(...)")
+
+    @property
+    def constraint_planes(self) -> int:
+        """Width of the constraint's attribute plane: the extra columns the
+        round backends append to every packed message, which the Lemma-2/6
+        byte accounting counts."""
+        return constraints_mod.n_planes_of(self.constraint)
 
     @property
     def precision_policy(self) -> precision_mod.Precision:
@@ -109,9 +127,11 @@ class MRConfig:
 
 def _tau_grid(oracle, cfg: MRConfig, s_feats, s_ids, s_valid):
     """Threshold guesses tau_j = (v/2k)(1+eps)^j from the max singleton v
-    of a gathered message, with the degenerate-sample guard.  Returns
-    (taus (J,), degenerate () int32)."""
-    v = grids.max_singleton(oracle, s_feats, s_valid)
+    of a gathered message (its base features, without the constraint
+    plane), with the degenerate-sample guard.  Returns (taus (J,),
+    degenerate () int32)."""
+    base, _ = constraints_mod.split_plane(s_feats, cfg.constraint_planes)
+    v = grids.max_singleton(oracle, base, s_valid)
     return grids.tau_grid_from_v(v, cfg.k, cfg.eps, cfg.grid_size())
 
 
@@ -125,8 +145,9 @@ def _epoch_select(oracle, rr, cfg: MRConfig, epoch_uniforms, epochs: int,
     S1, sdrop1 = rr.sample(epoch_uniforms[0], cfg.sample_p, s_cap)
     taus, fb_d = _tau_grid(oracle, cfg, *S1)
     sched = grids.epoch_schedule(taus, epochs, cfg.eps, kind)
-    (st_j, sol_j, size_j), drops = run_epochs(
-        oracle, rr, sched, epoch_uniforms, cfg, first_sample=(S1, sdrop1))
+    carry, drops = run_epochs(oracle, rr, sched, epoch_uniforms, cfg,
+                              first_sample=(S1, sdrop1))
+    st_j, sol_j, size_j = carry[:3]
     dval = oracle.value(st_j)
 
     pool, _ = rr.tops(oracle, t_cap)
@@ -172,10 +193,13 @@ def multi_epoch_sim(oracle, feats_mk, ids_mk, valid_mk, cfg: MRConfig,
     best lane wins; ``epochs=1`` is two_round_sim.
 
     feats_mk (m, n/m, d); ids_mk and valid_mk (m, n/m).  ``uniforms``:
-    the sample rounds' (E, m, n/m) draws (see ``epoch_uniforms``)."""
+    the sample rounds' (E, m, n/m) draws (see ``epoch_uniforms``).  Under
+    ``cfg.constraint`` every message carries its attribute plane, and the
+    RoundLog counts the width d + n_planes."""
     E = cfg.n_epochs(epochs)
     kind = schedule_kind or cfg.schedule_kind
-    rr = SimRounds(feats_mk, ids_mk, valid_mk, precision=cfg.precision_policy)
+    rr = SimRounds(feats_mk, ids_mk, valid_mk, precision=cfg.precision_policy,
+                   constraint=cfg.constraint)
     log = rounds.epoch_round_log(cfg, rr.m, rr.feat_dim, E, with_grid=True,
                                  with_top=True)
     u = epoch_uniforms(uniforms, E, rr.m, rr.n_local, feats_mk.device,

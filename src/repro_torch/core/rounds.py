@@ -13,6 +13,12 @@ of guesses per epoch (G lanes sharing every epoch's sample), carrying the
 lanes' partial solutions across epochs; one epoch is two MapReduce rounds.
 ``RoundLog`` records each round's message bytes from the static buffer
 shapes, so the Lemma-2/6 bounds are checkable numbers.
+
+Constrained selection (``MRConfig.constraint``): ``SimRounds`` appends the
+constraint's attribute plane to the sharded rows, so every message ships
+it (width d + n_planes); the local halves and the central accepts split it
+off in front of the oracle, and the carry grows the lanes' feasibility
+state, (state, sol, size, cstate), which rides across epochs.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from typing import Dict, List
 
 import torch
 
+from repro_torch.core.constraints import (append_plane, n_planes_of,
+                                          split_plane)
 from repro_torch.core.threshold import (exclude_ids, pack_by_mask,
                                         threshold_filter, threshold_greedy)
 
@@ -134,30 +142,42 @@ def local_sample(feats, ids, valid, uniforms, p: float, cap: int):
 
 
 def local_filter(oracle, st, sol, size, feats, ids, valid, tau, cap: int,
-                 k: int, chunk=None):
+                 k: int, chunk=None, constraint=None, cstate=None):
     """Algorithm 2 local half for a grid of L lanes: each machine's
     survivors of ThresholdFilter against each lane's solution, packed.
 
     feats (m, n, d), ids and valid (m, n); st (L, w), sol (L, k), size and
     tau (L,).  Returns packed (L, m, cap, ...) buffers and (L, m) overflow
     counts.  A lane that already holds k elements sends nothing (Lemma 2's
-    escape hatch: "we are done and do not send anything")."""
+    escape hatch: "we are done and do not send anything").
+
+    Under a constraint the rows are augmented (plane columns last): the
+    filter scores the base features, drops rows infeasible under each
+    lane's ``cstate`` (sound: feasibility is monotone), compares against
+    the per-row threshold (tau * cost for a knapsack), and the packed
+    survivors keep their plane columns."""
     m, n, d = feats.shape
     L = tau.shape[0]
     v = exclude_ids(ids.reshape(-1), valid.reshape(-1), sol)
-    mask = threshold_filter(oracle, st, feats.reshape(m * n, d), v, tau,
-                            chunk=chunk)
+    base, plane = split_plane(feats.reshape(m * n, d),
+                              n_planes_of(constraint))
+    if plane is not None:
+        v = v & constraint.eligible(cstate, plane)
+        tau = constraint.row_tau(tau, plane)
+    mask = threshold_filter(oracle, st, base, v, tau, chunk=chunk)
     mask = (mask & (size < k)[:, None]).reshape(L, m, n)
     return pack_by_mask(feats, ids, mask, cap)
 
 
-def local_top(oracle, feats, ids, valid, cap: int):
+def local_top(oracle, feats, ids, valid, cap: int, constraint=None):
     """Algorithm 7 local half: each machine's top-``cap`` rows by singleton
-    value.  The cut to the O(k) largest is the algorithm's intent, not an
-    overflow, so n_dropped is 0."""
+    value (scored on the base features when the rows carry a constraint
+    plane; the packed rows keep it).  The cut to the O(k) largest is the
+    algorithm's intent, not an overflow, so n_dropped is 0."""
     m, n, d = feats.shape
     st0 = oracle.init_state()
-    gains = oracle.marginals(st0, oracle.prep(st0, feats.reshape(m * n, d)))
+    base, _ = split_plane(feats.reshape(m * n, d), n_planes_of(constraint))
+    gains = oracle.marginals(st0, oracle.prep(st0, base))
     f, i, v, _ = pack_by_mask(feats, ids, valid, cap,
                               priority=gains.reshape(m, n))
     return f, i, v, torch.zeros((), dtype=torch.int32, device=ids.device)
@@ -166,16 +186,28 @@ def local_top(oracle, feats, ids, valid, cap: int):
 class SimRounds:
     """Round primitives with the m machines as a leading batch axis.
 
-    Holds the (m, n/m, d) sharded ground set; every primitive returns the
+    Holds the (m, n/m, d) sharded ground set, with the constraint's
+    attribute plane appended at the storage dtype (so ``feat_dim`` and the
+    byte accounting are the augmented width); every primitive returns the
     *gathered* message triple (feats, ids, valid) with the machine axis
     flattened into the capacity axis, which is what the central machine
     sees, plus the summed overflow count."""
 
-    def __init__(self, feats_mk, ids_mk, valid_mk, precision=None):
+    def __init__(self, feats_mk, ids_mk, valid_mk, precision=None,
+                 constraint=None):
         if precision is not None:
             feats_mk = precision.cast_storage(feats_mk)
+        feats_mk = append_plane(feats_mk, constraint, ids_mk)
+        self.constraint = constraint
         self.feats_mk, self.ids_mk, self.valid_mk = feats_mk, ids_mk, valid_mk
         self.m, self.n_local, self.feat_dim = feats_mk.shape
+
+    def _constrained(self, **kw):
+        """The constraint keywords of the local halves: none when the run
+        is unconstrained, so the plain calls keep their signature."""
+        if self.constraint is None:
+            return {}
+        return dict(constraint=self.constraint, **kw)
 
     def sample(self, uniforms, p: float, cap: int):
         sf, si, sv, sdrop = local_sample(self.feats_mk, self.ids_mk,
@@ -185,19 +217,22 @@ class SimRounds:
 
     def tops(self, oracle, cap: int):
         tf, ti, tv, tdrop = local_top(oracle, self.feats_mk, self.ids_mk,
-                                      self.valid_mk, cap)
+                                      self.valid_mk, cap,
+                                      **self._constrained())
         return ((tf.reshape(self.m * cap, self.feat_dim), ti.reshape(-1),
                  tv.reshape(-1)), tdrop)
 
     def filter_grid(self, oracle, st_j, sol_j, size_j, taus, cap: int,
-                    k: int, chunk):
+                    k: int, chunk, cstate_j=None):
         """Per-lane survivor filter for a (J,)-stacked grid of partial
-        solutions; lane j's gathered message is machine 0's buffer, then
-        machine 1's, and so on."""
+        solutions (and their feasibility states, under a constraint); lane
+        j's gathered message is machine 0's buffer, then machine 1's, and
+        so on."""
         J = taus.shape[0]
         rf, ri, rv, rdrop = local_filter(oracle, st_j, sol_j, size_j,
                                          self.feats_mk, self.ids_mk,
-                                         self.valid_mk, taus, cap, k, chunk)
+                                         self.valid_mk, taus, cap, k, chunk,
+                                         **self._constrained(cstate=cstate_j))
         m, d = self.m, self.feat_dim
         return ((rf.reshape(J, m * cap, d), ri.reshape(J, m * cap),
                  rv.reshape(J, m * cap)), rdrop.sum())
@@ -207,34 +242,49 @@ class SimRounds:
 # central-phase pieces and the epoch engine
 # ---------------------------------------------------------------------------
 
-def empty_solution(oracle, k: int, lanes: int):
+def empty_solution(oracle, k: int, lanes: int, constraint=None):
     """The empty carry of ``lanes`` lanes: (state (L, w) in the oracle's
     state width, or its tuple of (L, ...) tensors, sol (L, k) of -1, size
-    (L,) of 0)."""
+    (L,) of 0), and the lanes' empty feasibility state last under a
+    constraint."""
     dev = oracle.device
-    return (oracle.init_state(lanes),
-            torch.full((lanes, k), -1, dtype=torch.int32, device=dev),
-            torch.zeros(lanes, dtype=torch.int32, device=dev))
+    carry = (oracle.init_state(lanes),
+             torch.full((lanes, k), -1, dtype=torch.int32, device=dev),
+             torch.zeros(lanes, dtype=torch.int32, device=dev))
+    if constraint is None:
+        return carry
+    return carry + (constraint.init_state(lanes),)
 
 
 def greedy_step(oracle, carry, cands, tau, k: int, cfg):
     """One central accept: extend every lane's carried (state, sol, size)
     with the gathered candidates (shared, or one message per lane) at the
-    lane's threshold, excluding already-selected ids."""
-    st, sol, size = carry
+    lane's threshold, excluding already-selected ids.  Under
+    ``cfg.constraint`` the carry holds the lanes' feasibility state last,
+    and the candidates' plane columns are split off in front of the
+    engine."""
+    st, sol, size = carry[:3]
     feats, ids, valid = cands
     valid = exclude_ids(ids, valid & (ids >= 0), sol)
-    return threshold_greedy(oracle, st, sol, size, feats, ids, valid, tau, k,
+    constraint = cfg.constraint
+    if constraint is None:
+        return threshold_greedy(oracle, st, sol, size, feats, ids, valid, tau,
+                                k, accept=cfg.accept, engine=cfg.engine,
+                                chunk=cfg.chunk)
+    base, plane = split_plane(feats, n_planes_of(constraint))
+    return threshold_greedy(oracle, st, sol, size, base, ids, valid, tau, k,
                             accept=cfg.accept, engine=cfg.engine,
-                            chunk=cfg.chunk)
+                            chunk=cfg.chunk, constraint=constraint,
+                            cstate=carry[3], cplane=plane)
 
 
 def grid_phase1(oracle, S, taus, k: int, cfg):
     """First central accept of a grid epoch: an independent empty-start
     greedy per threshold guess (the paper's parallel tau copies), all
     lanes over the one shared sample."""
-    return greedy_step(oracle, empty_solution(oracle, k, taus.shape[0]), S,
-                       taus, k, cfg)
+    return greedy_step(oracle, empty_solution(oracle, k, taus.shape[0],
+                                              cfg.constraint), S, taus, k,
+                       cfg)
 
 
 def sparse_sweep(oracle, pool, schedule, cfg):
@@ -242,10 +292,11 @@ def sparse_sweep(oracle, pool, schedule, cfg):
     threshold sequence over the gathered top-singleton pool, with no extra
     rounds.  ``schedule`` is a list of per-level (G,) threshold columns.
     Returns per-lane (sol (G, k), size (G,), value (G,))."""
-    carry = empty_solution(oracle, cfg.k, schedule[0].shape[0])
+    carry = empty_solution(oracle, cfg.k, schedule[0].shape[0],
+                           cfg.constraint)
     for tau in schedule:
         carry = greedy_step(oracle, carry, pool, tau, cfg.k, cfg)
-    st, sol, size = carry
+    st, sol, size = carry[:3]
     return sol, size, oracle.value(st)
 
 
@@ -261,8 +312,10 @@ def run_epochs(oracle, rounds, schedule, epoch_uniforms, cfg,
 
     ``epoch_uniforms[e]`` are epoch e's (m, n/m) sample draws;
     ``first_sample`` injects epoch 1's already-gathered sample (the
-    unknown-OPT drivers derive the grid from it first).  Returns
-    ((state, sol, size), drops)."""
+    unknown-OPT drivers derive the grid from it first).  Under
+    ``cfg.constraint`` the lanes' feasibility state rides the carry across
+    epochs and into every local filter.  Returns ((state, sol, size[,
+    cstate]), drops)."""
     k = cfg.k
     s_cap, f_cap, _ = cfg.caps()
     carry = None
@@ -276,8 +329,8 @@ def run_epochs(oracle, rounds, schedule, epoch_uniforms, cfg,
             carry = grid_phase1(oracle, S, taus, k, cfg)
         else:
             carry = greedy_step(oracle, carry, S, taus, k, cfg)
-        R, rdrop = rounds.filter_grid(oracle, *carry, taus, f_cap, k,
-                                      cfg.filter_chunk)
+        R, rdrop = rounds.filter_grid(oracle, *carry[:3], taus, f_cap, k,
+                                      cfg.filter_chunk, *carry[3:])
         carry = greedy_step(oracle, carry, R, taus, k, cfg)
         drops = drops + sdrop + rdrop
     return carry, drops

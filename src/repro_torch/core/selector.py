@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import constraints as constraints_mod
 from repro_torch.core import functions as F
 from repro_torch.core import mapreduce as mr
 from repro_torch.core import precision as precision_mod
@@ -30,15 +31,8 @@ ORACLE_NAMES = ("feature_coverage", "facility_location", "weighted_coverage",
                 "saturated_coverage", "graph_cut", "log_det", "exemplar",
                 "mutual_information")
 
-#: the oracles the port runs so far
-PORTED_ORACLES = ("feature_coverage", "facility_location",
-                  "weighted_coverage", "saturated_coverage", "graph_cut",
-                  "log_det", "mutual_information")
-
-#: the port's slice that brings each not-yet-ported oracle (ROADMAP.md)
-_PENDING_ORACLES = {
-    "exemplar": "slice 5 (ExemplarClustering and its two kernels)",
-}
+#: the oracles the port runs: all of them
+PORTED_ORACLES = ORACLE_NAMES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,17 +47,26 @@ class SelectorSpec:
     accept: str = "first"
     engine: str = "dense"              # "dense" | "lazy" | "fused"
     chunk: int = 128                   # lazy/fused-engine chunk size
-    reference_size: int = 256          # facility location clients (rows of
-    #                                    R that a caller draws or keeps)
+    reference_size: int = 256          # facility location / exemplar
+    #                                    reference rows (rows of R that a
+    #                                    caller draws or keeps)
     saturated_alpha: float = 0.25      # SaturatedCoverage saturation frac
     graph_cut_lam: float = 0.5         # GraphCut redundancy weight lam
     logdet_alpha: float = 1.0          # LogDetDiversity kernel scale alpha
     mi_noise: float = 1.0              # MutualInformationGaussian noise
     use_kernel: bool = False           # route through the CUDA kernels
     precision: str = "f32"             # "f32" | "bf16" storage policy
+    constraint: str = "cardinality"    # feasibility constraint, see
+    #                                    constraints.CONSTRAINT_NAMES; the
+    #                                    per-element data (costs / part
+    #                                    labels) is a DistributedSelector
+    #                                    argument: it belongs to the corpus
+    knapsack_budget: Optional[float] = None   # constraint="knapsack" budget
 
     def __post_init__(self):
         precision_mod.validate(self.precision, where="SelectorSpec")
+        constraints_mod.validate_constraint_name(self.constraint,
+                                                 where="SelectorSpec")
         validate_engine(self.engine, self.accept, where="SelectorSpec")
         validate_schedule_kind(self.schedule_kind, where="SelectorSpec")
         if self.algorithm not in ALGORITHMS:
@@ -80,7 +83,8 @@ def make_oracle(spec: SelectorSpec, feat_dim: int, device, weights=None,
                 reference=None, total=None):
     """Build the spec's oracle on ``device``; ``weights`` are
     FeatureCoverage's optional (d,) feature weights, ``reference`` the
-    replicated (r, d) client set that facility_location needs, ``total``
+    replicated (r, d) client set that facility_location and exemplar need,
+    ``total``
     the ground set's (d,) feature sum that saturated_coverage and graph_cut
     need (a corpus statistic, computed once up front).  weighted_coverage
     gets all-ones item weights, as the JAX selector builds it; the log-det
@@ -133,10 +137,15 @@ def make_oracle(spec: SelectorSpec, feat_dim: int, device, weights=None,
                                            noise=spec.mi_noise,
                                            use_kernel=spec.use_kernel,
                                            device=torch.device(device))
-    if spec.oracle in _PENDING_ORACLES:
-        raise NotImplementedError(
-            f"oracle {spec.oracle!r} is not ported to PyTorch yet; it comes "
-            f"with {_PENDING_ORACLES[spec.oracle]}")
+    if spec.oracle == "exemplar":
+        if reference is None:
+            raise ValueError("exemplar needs a reference set "
+                             "(reference=, shape (r, feat_dim))")
+        return F.ExemplarClustering(feat_dim=feat_dim,
+                                    reference=torch.as_tensor(reference,
+                                                              device=device),
+                                    use_kernel=spec.use_kernel,
+                                    device=torch.device(device))
     raise ValueError(f"unknown oracle {spec.oracle!r}; "
                      f"registered: {ORACLE_NAMES}")
 
@@ -147,16 +156,20 @@ class DistributedSelector:
 
     ``select(embeddings)``: embeddings (n_total, feat_dim); returns a
     SelectionResult.  ``n_total`` must be a multiple of ``n_machines``.
-    ``reference`` is facility_location's (r, feat_dim) client set; it rides
-    at the storage precision, as the JAX selector keeps it.  ``total`` is
-    saturated_coverage's and graph_cut's (feat_dim,) ground-set feature
-    sum; it is an accumulator statistic and stays float32 whatever the
-    storage precision.
+    ``reference`` is facility_location's and exemplar's (r, feat_dim)
+    reference set; it rides at the storage precision, as the JAX selector
+    keeps it.  ``total`` is saturated_coverage's and graph_cut's
+    (feat_dim,) ground-set feature sum; it is an accumulator statistic and
+    stays float32 whatever the storage precision.  ``element_costs``
+    (n_total,) are the knapsack's per-element costs (``spec.constraint ==
+    "knapsack"``, with ``spec.knapsack_budget``); ``parts`` (n_total,) and
+    ``part_caps`` (P,) the partition matroid's labels and capacities.
     """
 
     def __init__(self, spec: SelectorSpec, n_total: int, feat_dim: int,
                  n_machines: int = 1, device=None, weights=None,
-                 reference=None, total=None):
+                 reference=None, total=None, element_costs=None, parts=None,
+                 part_caps=None):
         self.spec = spec
         self.device = resolve_device(device)
         if reference is not None:
@@ -167,17 +180,25 @@ class DistributedSelector:
                                     device=self.device)
         self.oracle = make_oracle(spec, feat_dim, self.device, weights,
                                   reference, total)
+        # the constraint marries the spec's knob (name, budget) to the
+        # corpus's per-element data, which only the selector sees
+        self.constraint = constraints_mod.make_constraint(
+            spec.constraint, n_total, costs=element_costs,
+            budget=spec.knapsack_budget, parts=parts, capacities=part_caps,
+            device=self.device)
         self.cfg = mr.MRConfig(k=spec.k, n_total=n_total,
                                n_machines=n_machines, eps=spec.eps,
                                accept=spec.accept, engine=spec.engine,
                                chunk=spec.chunk, epochs=spec.epochs,
                                schedule_kind=spec.schedule_kind,
-                               precision=spec.precision)
+                               precision=spec.precision,
+                               constraint=self.constraint)
         self.cfg.require_even_shards(where="DistributedSelector")
         self._epochs = 1 if spec.algorithm == "two_round" else None
+        # every message carries the constraint's plane columns
         self.round_log = epoch_round_log(
-            self.cfg, n_machines, feat_dim, self.cfg.n_epochs(self._epochs),
-            with_grid=True, with_top=True)
+            self.cfg, n_machines, feat_dim + self.cfg.constraint_planes,
+            self.cfg.n_epochs(self._epochs), with_grid=True, with_top=True)
 
     def select(self, embeddings, generator: Optional[torch.Generator] = None,
                uniforms=None) -> mr.SelectionResult:

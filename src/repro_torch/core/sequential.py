@@ -15,22 +15,37 @@ from repro_torch.core.threshold import threshold_greedy
 from repro_torch.states import where_state
 
 
-def greedy(oracle, feats, valid, k: int, ids=None):
+def greedy(oracle, feats, valid, k: int, ids=None, constraint=None):
     """Classic greedy: k argmax steps over the whole block.  Returns (ids
     (k,) int32 -1 padded, size () int, value ()); the buffer holds row
-    indices, or global ids when ``ids`` is given."""
+    indices, or global ids when ``ids`` is given.  ``constraint`` (from
+    ``core.constraints``) restricts each step's argmax to the elements it
+    still admits and accounts each accepted element; its attribute plane
+    is looked up by global id (row index when ``ids`` is None)."""
     n = feats.shape[0]
     dev = valid.device
     st = oracle.init_state()
     aux = oracle.prep(st, feats)
     sol = torch.full((k,), -1, dtype=torch.int32, device=dev)
     taken = torch.zeros(n, dtype=torch.bool, device=dev)
+    constrained = constraint is not None and constraint.n_planes > 0
+    if constrained:
+        plane = constraint.plane(
+            torch.arange(n, dtype=torch.int32, device=dev) if ids is None
+            else ids)
+        cstate = constraint.init_state()
     for i in range(k):
         gains = torch.where(valid & ~taken, oracle.marginals(st, aux),
                             float("-inf"))
+        if constrained:
+            gains = torch.where(constraint.eligible(cstate, plane), gains,
+                                float("-inf"))
         best = gains.argmax()
         ok = gains[best] > 0.0
         st = where_state(ok, oracle.add(st, aux[best]), st)
+        if constrained:
+            cstate = torch.where(ok, constraint.add(cstate, plane[best]),
+                                 cstate)
         out_id = best.to(torch.int32) if ids is None else ids[best]
         sol[i] = torch.where(ok, out_id, sol[i])
         taken[best] |= ok
@@ -70,4 +85,44 @@ def brute_force(oracle, feats, k: int):
         v = value_of(subset)
         if v > best_v:
             best, best_v = subset, v
+    return best, best_v
+
+
+def brute_force_constrained(oracle, feats, k: int, constraint):
+    """Exact constrained OPT by enumeration, only for tiny n: the best
+    subset of size <= k that the constraint admits, checked element by
+    element with the constraint's ``admit`` (the engines' own feasibility
+    rule).  Returns (best subset as a tuple of row indices, its value as a
+    float); the first subset in enumeration order wins a tie, and the
+    empty subset (value 0) is the start."""
+    n = feats.shape[0]
+    plane = (None if constraint is None or constraint.n_planes == 0
+             else constraint.plane(torch.arange(n, dtype=torch.int32,
+                                                device=feats.device)))
+
+    def feasible(subset):
+        if plane is None:
+            return True
+        cstate = constraint.init_state()
+        for e in subset:
+            ok, cstate = constraint.admit(cstate, plane[e])
+            if not bool(ok):
+                return False
+        return True
+
+    def value_of(subset):
+        st = oracle.init_state()
+        aux = oracle.prep(st, feats[list(subset)])
+        for i in range(len(subset)):
+            st = oracle.add(st, aux[i])
+        return float(oracle.value(st))
+
+    best, best_v = (), 0.0
+    for r in range(1, min(k, n) + 1):
+        for subset in itertools.combinations(range(n), r):
+            if not feasible(subset):
+                continue
+            v = value_of(subset)
+            if v > best_v:
+                best, best_v = subset, v
     return best, best_v

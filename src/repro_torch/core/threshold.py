@@ -113,10 +113,36 @@ class _Carry:
         self.n_iters = self.n_iters + a
 
 
+def _row_tau(constraint, tau, cplane, C):
+    """The (L, C) per-row accept threshold: each lane's tau, scaled per row
+    by a cost-ratio constraint."""
+    if constraint is None or cplane is None:
+        return tau[:, None].expand(-1, C)
+    return constraint.row_tau(tau, cplane).expand(tau.shape[0], C)
+
+
+def _feasible(constraint, cstate, cplane, valid):
+    """``valid`` (L, C) masked by the constraint's feasibility under
+    ``cstate``: the lazy and fused engines may drop infeasible rows from
+    their hot sets because feasibility is monotone."""
+    if constraint is None or cplane is None:
+        return valid
+    return valid & constraint.eligible(cstate, cplane)
+
+
+def _cstate_accept(constraint, cstate, cplane, idx, accept_now):
+    """Account row ``idx`` (L,) into each accepting lane's state."""
+    if constraint is None or cplane is None:
+        return cstate
+    row = _lane_rows(cplane, idx[:, None])[:, 0]
+    return where_state(accept_now, constraint.add(cstate, row), cstate)
+
+
 def threshold_greedy(oracle, oracle_state, sol_ids, sol_size, cand_feats,
                      cand_ids, cand_valid, tau, k: int, accept: str = "first",
                      engine: str = "dense", chunk: int = DEFAULT_CHUNK,
-                     with_stats: bool = False):
+                     with_stats: bool = False, constraint=None, cstate=None,
+                     cplane=None):
     """Algorithm 1 for L threshold lanes at once.  Extends each lane's
     (sol_ids, sol_size, oracle_state) greedily with candidates whose
     marginal against the lane's current solution is >= the lane's tau,
@@ -128,8 +154,15 @@ def threshold_greedy(oracle, oracle_state, sol_ids, sol_size, cand_feats,
     or (L, C, d) per lane; cand_ids and cand_valid (C,) or (L, C); tau ()
     or (L,).
 
-    Returns (oracle_state, sol_ids, sol_size), plus a per-lane GreedyStats
-    when ``with_stats``.  The inputs are not modified.
+    Constrained selection (``core/constraints.py``): pass ``constraint``
+    with the lanes' feasibility state ``cstate`` ((L,) or (L, P); None
+    starts empty) and the candidates' attribute plane ``cplane``
+    ((C, n_planes) or (L, C, n_planes)).  Every engine then accepts only
+    feasible rows and applies the constraint's per-row threshold
+    (tau * cost for a knapsack), and the return grows the updated cstate.
+
+    Returns (oracle_state, sol_ids, sol_size[, cstate]), plus a per-lane
+    GreedyStats when ``with_stats``.  The inputs are not modified.
     """
     validate_engine(engine, accept, where="threshold_greedy")
     L = sol_size.shape[0]
@@ -139,23 +172,29 @@ def threshold_greedy(oracle, oracle_state, sol_ids, sol_size, cand_feats,
     tau = tau.expand(L).contiguous()
     cand_ids = cand_ids.expand(L, C)
     cand_valid = cand_valid.expand(L, C)
+    if constraint is not None and cstate is None:
+        cstate = constraint.init_state(L)
     fn = {"dense": _threshold_greedy_dense,
           "lazy": _threshold_greedy_lazy,
           "fused": _threshold_greedy_fused}[engine]
-    st, carry = fn(oracle, oracle_state, sol_ids, sol_size, cand_feats,
-                   cand_ids, cand_valid, tau, k, accept, chunk)
+    st, carry, cst = fn(oracle, oracle_state, sol_ids, sol_size, cand_feats,
+                        cand_ids, cand_valid, tau, k, accept, chunk,
+                        constraint, cstate, cplane)
     out = (st, carry.sol, carry.size)
+    if constraint is not None:
+        out = out + (cst,)
     if with_stats:
         return out + (GreedyStats(carry.n_evals, carry.n_iters),)
     return out
 
 
 def _threshold_greedy_dense(oracle, st, sol_ids, sol_size, feats, ids, valid,
-                            tau, k, accept, chunk):
+                            tau, k, accept, chunk, constraint, cst, cplane):
     """One full-block marginals call per accept."""
     L, C = valid.shape
     aux = oracle.prep(st, feats)
     order = torch.arange(C, device=valid.device)
+    tau_row = _row_tau(constraint, tau, cplane, C)
     cr = _Carry(sol_ids, sol_size, C, k,
                 torch.zeros(L, dtype=torch.bool, device=valid.device))
     while True:
@@ -163,7 +202,8 @@ def _threshold_greedy_dense(oracle, st, sol_ids, sol_size, feats, ids, valid,
         if not bool(active.any()):
             break
         gains = oracle.marginals(st, aux)
-        ok = valid & ~cr.taken & (gains >= tau[:, None])
+        ok = (_feasible(constraint, cst, cplane, valid & ~cr.taken)
+              & (gains >= tau_row))
         if accept == "first":
             idx = torch.where(ok, order, C).argmin(-1)
         else:
@@ -171,41 +211,46 @@ def _threshold_greedy_dense(oracle, st, sol_ids, sol_size, feats, ids, valid,
         accept_now = active & ok.any(-1)
         row = _lane_rows(aux, idx[:, None])[:, 0]
         st = where_state(accept_now, oracle.add(st, row), st)
+        cst = _cstate_accept(constraint, cst, cplane, idx, accept_now)
         cr.append_one(accept_now, ids[cr.lanes, idx], idx)
         cr.done = torch.where(active, ~accept_now, cr.done)
         cr.count(active, C)
-    return st, cr
+    return st, cr, cst
 
 
 def _threshold_greedy_lazy(oracle, st, sol_ids, sol_size, feats, ids, valid,
-                           tau, k, accept, chunk):
+                           tau, k, accept, chunk, constraint, cst, cplane):
     """Stale-gain upper bounds plus chunked on-demand rescoring.
 
     Invariant: ``g_stale >= fresh marginal`` for every row.  accept="first"
     rescores the contiguous chunk at the scan frontier (the first hot row),
     with its start clamped to C - B as ``lax.dynamic_slice`` clamps it, and
-    accepts the earliest row whose fresh gain clears tau.  accept="best"
-    rescores the B hottest stale bounds and accepts the best fresh gain
-    only when it also beats every stale bound outside the chunk.
+    accepts the earliest row whose fresh gain clears its threshold.
+    accept="best" rescores the B hottest stale bounds and accepts the best
+    fresh gain only when it also beats every stale bound outside the chunk.
+    A constrained run folds feasibility into the hot set and compares fresh
+    gains against the per-row threshold.
     """
     L, C = valid.shape
     B = max(1, min(chunk, C))
     dev = valid.device
     arange_b = torch.arange(B, device=dev)
+    tau_row = _row_tau(constraint, tau, cplane, C)
     g_stale = torch.full((L, C), float("inf"), dtype=torch.float32, device=dev)
     cr = _Carry(sol_ids, sol_size, C, k, ~valid.any(-1))
     while True:
         active = cr.active()
         if not bool(active.any()):
             break
-        eligible = valid & ~cr.taken
-        hot = eligible & (g_stale >= tau[:, None])
+        eligible = _feasible(constraint, cst, cplane, valid & ~cr.taken)
+        hot = eligible & (g_stale >= tau_row)
         if accept == "first":
             base = _first_true(hot).clamp(max=C - B)
             idxs = base[:, None] + arange_b
             g_chunk = oracle.chunk_marginals(st, _lane_rows(feats, idxs))
             new_stale = g_stale.scatter(1, idxs, g_chunk)
-            ok = eligible.gather(1, idxs) & (g_chunk >= tau[:, None])
+            ok = (eligible.gather(1, idxs)
+                  & (g_chunk >= tau_row.gather(1, idxs)))
             j = _first_true(ok)
             found = ok.any(-1)
         else:
@@ -219,31 +264,76 @@ def _threshold_greedy_lazy(oracle, st, sol_ids, sol_size, feats, ids, valid,
             jkey = torch.where(chunk_ok, g_chunk, NEG)
             j = jkey.argmax(-1)
             best_fresh = jkey.gather(1, j[:, None])[:, 0]
+            tau_j = tau_row.gather(1, idxs.gather(1, j[:, None]))[:, 0]
             max_rest = key.scatter(1, idxs, NEG).amax(-1)
             found = (chunk_ok.gather(1, j[:, None])[:, 0]
-                     & (best_fresh >= tau) & (best_fresh >= max_rest))
+                     & (best_fresh >= tau_j) & (best_fresh >= max_rest))
         idx = idxs.gather(1, j[:, None])[:, 0]
         accept_now = active & found
         row = oracle.prep(st, _lane_rows(feats, idx[:, None]))[:, 0]
         st = where_state(accept_now, oracle.add(st, row), st)
+        cst = _cstate_accept(constraint, cst, cplane, idx, accept_now)
         cr.append_one(accept_now, ids[cr.lanes, idx], idx)
         g_stale = torch.where(active[:, None], new_stale, g_stale)
-        hot_left = valid & ~cr.taken & (g_stale >= tau[:, None])
+        hot_left = (_feasible(constraint, cst, cplane, valid & ~cr.taken)
+                    & (g_stale >= tau_row))
         cr.done = torch.where(active, ~hot_left.any(-1), cr.done)
         cr.count(active, B)
-    return st, cr
+    return st, cr, cst
+
+
+def constrained_chunk_accept(oracle, constraint, oracle_state, cstate,
+                             feats_chunk, plane_chunk, eligible, tau, budget):
+    """The plain constrained accept sweep: Algorithm 1's sequential loop
+    over each lane's (B, d) chunk with a per-row feasibility consult, the
+    JAX package's ``lax.scan`` of the same name as a Python loop.
+
+    The fused engine runs it when the constraint's state cannot ride the
+    sweep kernels' scalar cost carry (fused_mode "scan": the partition
+    matroid's per-part counts, where two same-part rows of one chunk must
+    see each other's count).  Returns (mask (L, B) bool, oracle_state,
+    cstate, gains (L, B) f32)."""
+    aux = oracle.prep(oracle_state, feats_chunk)
+    L, B = eligible.shape
+    dev = eligible.device
+    tau_rows = constraint.row_tau(tau, plane_chunk).expand(L, B)
+    st, cst = oracle_state, cstate
+    n_acc = torch.zeros(L, dtype=torch.int32, device=dev)
+    mask = torch.zeros(L, B, dtype=torch.bool, device=dev)
+    gains = torch.zeros(L, B, dtype=torch.float32, device=dev)
+    for i in range(B):
+        row, prow = aux[:, i], plane_chunk[:, i]
+        g = oracle.marginals(st, row[:, None])[:, 0]
+        feas = constraint.eligible(cst, prow[:, None])[:, 0]
+        acc = (eligible[:, i] & feas & (g >= tau_rows[:, i])
+               & (n_acc < budget))
+        st = where_state(acc, oracle.add(st, row), st)
+        cst = where_state(acc, constraint.add(cst, prow), cst)
+        n_acc = n_acc + acc.to(torch.int32)
+        mask[:, i] = acc
+        gains[:, i] = g
+    return mask, st, cst, gains
 
 
 def _threshold_greedy_fused(oracle, st, sol_ids, sol_size, feats, ids, valid,
-                            tau, k, accept, chunk):
+                            tau, k, accept, chunk, constraint, cst, cplane):
     """The accept loop runs inside ``oracle.chunk_accept``: each trip sweeps
     the contiguous chunk at the scan frontier (start clamped to C - B) and
     appends every accepted row in stream order.  Same stale-gain invariant
-    and frontier as the lazy engine; one trip per chunk, not per accept."""
+    and frontier as the lazy engine; one trip per chunk, not per accept.
+
+    Under a constraint the sweep follows its ``fused_mode``: "cost" hands
+    the chunk's row costs and each lane's remaining budget to the oracle's
+    sweep (the kernels' cost mode), then adds the accepted costs with one
+    reduction per lane, as the JAX engine does; "scan" runs
+    ``constrained_chunk_accept``."""
     L, C = valid.shape
     B = max(1, min(chunk, C))
     dev = valid.device
     arange_b = torch.arange(B, device=dev)
+    tau_row = _row_tau(constraint, tau, cplane, C)
+    mode = ("none" if constraint is None or cplane is None
+            else constraint.fused_mode)
     g_stale = torch.full((L, C), float("inf"), dtype=torch.float32, device=dev)
     cr = _Carry(sol_ids, sol_size, C, k, ~valid.any(-1))
     sentinel = torch.full((L, 1), -1, dtype=cr.sol.dtype, device=dev)
@@ -251,15 +341,31 @@ def _threshold_greedy_fused(oracle, st, sol_ids, sol_size, feats, ids, valid,
         active = cr.active()
         if not bool(active.any()):
             break
-        eligible = valid & ~cr.taken
-        hot = eligible & (g_stale >= tau[:, None])
+        eligible = _feasible(constraint, cst, cplane, valid & ~cr.taken)
+        hot = eligible & (g_stale >= tau_row)
         base = _first_true(hot).clamp(max=C - B)
         idxs = base[:, None] + arange_b
         budget = (k - cr.size).to(torch.int32)
-        mask, new_st, g_chunk = oracle.chunk_accept(
-            st, _lane_rows(feats, idxs), eligible.gather(1, idxs), tau, budget)
+        rows, elig = _lane_rows(feats, idxs), eligible.gather(1, idxs)
+        if mode == "none":
+            mask, new_st, g_chunk = oracle.chunk_accept(st, rows, elig, tau,
+                                                        budget)
+            new_cst = cst
+        elif mode == "cost":
+            cost = constraint.fused_cost(_lane_rows(cplane, idxs))
+            mask, new_st, g_chunk = oracle.chunk_accept(
+                st, rows, elig, tau, budget, cost.contiguous(),
+                constraint.fused_cost_budget(cst))
+            new_cst = constraint.fused_spend(
+                cst, torch.where(mask, cost, 0.0).sum(-1))
+        else:
+            mask, new_st, new_cst, g_chunk = constrained_chunk_accept(
+                oracle, constraint, st, cst, rows, _lane_rows(cplane, idxs),
+                elig, tau, budget)
         mask = mask & active[:, None]
         st = where_state(active, new_st, st)
+        if new_cst is not None:
+            cst = where_state(active, new_cst, cst)
         g_stale = torch.where(active[:, None], g_stale.scatter(1, idxs, g_chunk),
                               g_stale)
         # in-order append of every accepted row; slot k is the sentinel for
@@ -271,10 +377,11 @@ def _threshold_greedy_fused(oracle, st, sol_ids, sol_size, feats, ids, valid,
         cr.sol = buf[:, :k].contiguous()
         cr.size = cr.size + m32.sum(-1, dtype=torch.int32)
         cr.taken = cr.taken.scatter(1, idxs, cr.taken.gather(1, idxs) | mask)
-        hot_left = valid & ~cr.taken & (g_stale >= tau[:, None])
+        hot_left = (_feasible(constraint, cst, cplane, valid & ~cr.taken)
+                    & (g_stale >= tau_row))
         cr.done = torch.where(active, ~hot_left.any(-1), cr.done)
         cr.count(active, B)
-    return st, cr
+    return st, cr, cst
 
 
 def threshold_filter(oracle, oracle_state, cand_feats, cand_valid, tau,
@@ -283,11 +390,12 @@ def threshold_filter(oracle, oracle_state, cand_feats, cand_valid, tau,
     the current solution is >= tau.
 
     oracle_state (w,) with tau () gives a (C,) mask; (L, w) with tau (L,)
-    gives (L, C).  ``chunk`` sweeps the plain route in (chunk, d) tiles so
-    it never holds the whole block's transient (L, C, .) aux, as the JAX
-    filter's ``lax.map`` does; a kernel keeps its tiles on chip, so the
-    kernel route scores the whole block in one launch either way.  Gains
-    are row-wise identical."""
+    gives (L, C), and a per-row threshold (L, C) (a knapsack's tau * cost)
+    or (L, 1) is taken as it is.  ``chunk`` sweeps the plain route in
+    (chunk, d) tiles so it never holds the whole block's transient
+    (L, C, .) aux, as the JAX filter's ``lax.map`` does; a kernel keeps its
+    tiles on chip, so the kernel route scores the whole block in one launch
+    either way.  Gains are row-wise identical."""
     tau = torch.as_tensor(tau, dtype=torch.float32, device=cand_valid.device)
     if tau.dim() == 1:
         tau = tau[:, None]

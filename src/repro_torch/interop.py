@@ -2,9 +2,11 @@
 
 The system has no weights: what crosses is numpy data (the corpus sharded
 (m, n/m, d) with its ids and validity, the coverage oracles' optional (d,)
-weights, FacilityLocation's (r, d) reference set, SaturatedCoverage's and
-GraphCut's (d,) ground-set total, a log-det oracle's (U, logdet, size)
-state, and the sample rounds' U[0, 1) draws).  These helpers turn such
+weights, FacilityLocation's and ExemplarClustering's (r, d) reference set,
+SaturatedCoverage's and GraphCut's (d,) ground-set total, a log-det
+oracle's (U, logdet, size) state, a knapsack's costs and budget or a
+partition matroid's labels and caps, and the sample rounds' U[0, 1)
+draws).  These helpers turn such
 arrays into the port's tensors and oracle on a given device, so a test can
 feed the same inputs to both packages.  numpy bfloat16 arrays (the
 ``ml_dtypes`` type that JAX hands out) arrive as torch.bfloat16.
@@ -15,8 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.functions import (FacilityLocation, FeatureCoverage,
-                                        GraphCut, LogDetDiversity,
+from repro_torch.core.constraints import Knapsack, PartitionMatroid
+from repro_torch.core.functions import (ExemplarClustering, FacilityLocation,
+                                        FeatureCoverage, GraphCut,
+                                        LogDetDiversity,
                                         MutualInformationGaussian,
                                         SaturatedCoverage, WeightedCoverage)
 
@@ -56,6 +60,31 @@ def facility_location(feat_dim: int, reference, use_kernel: bool = False,
     return FacilityLocation(feat_dim=feat_dim,
                             reference=tensor(reference, device),
                             use_kernel=use_kernel, device=torch.device(device))
+
+
+def exemplar(feat_dim: int, reference, use_kernel: bool = False,
+             device="cpu") -> ExemplarClustering:
+    """The ExemplarClustering oracle over the JAX side's (r, d) reference
+    set, kept in its dtype (a bf16 set is carried bit for bit)."""
+    return ExemplarClustering(feat_dim=feat_dim,
+                              reference=tensor(reference, device),
+                              use_kernel=use_kernel,
+                              device=torch.device(device))
+
+
+def knapsack(costs, budget: float, device="cpu") -> Knapsack:
+    """The Knapsack constraint over the JAX side's (n,) costs, float32,
+    and its budget."""
+    return Knapsack(budget=float(budget),
+                    costs=_f32(np.asarray(costs).reshape(-1), device))
+
+
+def partition_matroid(parts, caps, device="cpu") -> PartitionMatroid:
+    """The PartitionMatroid constraint over the JAX side's (n,) part labels
+    and (P,) capacities, int32."""
+    return PartitionMatroid(
+        capacities=tensor(np.asarray(caps, np.int32).reshape(-1), device),
+        parts=tensor(np.asarray(parts, np.int32).reshape(-1), device))
 
 
 def weighted_coverage(feat_dim: int, weights=None, use_kernel: bool = False,

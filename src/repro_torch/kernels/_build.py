@@ -29,20 +29,24 @@ SOURCES = ("coverage_marginals", "coverage_accept", "facility_marginals",
            "facility_accept", "weighted_coverage_marginals",
            "weighted_coverage_accept", "saturated_coverage_marginals",
            "saturated_coverage_accept", "graph_cut_marginals",
-           "graph_cut_accept", "logdet_marginals", "logdet_accept")
+           "graph_cut_accept", "logdet_marginals", "logdet_accept",
+           "exemplar_marginals", "exemplar_accept")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+#: the accept sweeps' operands of the knapsack cost mode: the (L, B) row
+#: costs and the (L,) remaining budgets, or two null pointers
+_COST = (_P, _P)
 #: C signature of every entry point: (argtypes, restype = cudaError_t)
 SIGNATURES = {
     "coverage_marginals": {
         "coverage_marginals_launch": (_P, _I, _I, _P, _P, _P, _I, _LL, _I, _P),
     },
     "coverage_accept": {
-        "coverage_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _P),
+        "coverage_accept_launch": (_P, _I, _P, _P, _P, _P, _P, *_COST, _P,
+                                   _P, _P, _I, _I, _I, _P),
     },
     "facility_marginals": {
         "facility_marginals_launch": (_P, _I, _I, _P, _P, _P, _I, _LL, _I, _I,
@@ -50,16 +54,16 @@ SIGNATURES = {
         "rectified_residual_sum_launch": (_P, _I, _P, _P, _I, _LL, _I, _P),
     },
     "facility_accept": {
-        "facility_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _P),
+        "facility_accept_launch": (_P, _I, _P, _P, _P, _P, _P, *_COST, _P, _P,
+                                   _P, _P, _I, _I, _I, _I, _P),
     },
     "weighted_coverage_marginals": {
         "weighted_coverage_marginals_launch": (_P, _I, _I, _P, _P, _I, _LL, _I,
                                                _P),
     },
     "weighted_coverage_accept": {
-        "weighted_coverage_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
-                                            _I, _I, _I, _P),
+        "weighted_coverage_accept_launch": (_P, _I, _P, _P, _P, _P, *_COST,
+                                            _P, _P, _P, _I, _I, _I, _P),
     },
     "saturated_coverage_marginals": {
         "saturated_coverage_marginals_launch": (_P, _I, _I, _P, _P, _P, _P, _I,
@@ -67,23 +71,33 @@ SIGNATURES = {
     },
     "saturated_coverage_accept": {
         "saturated_coverage_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P,
-                                             _P, _P, _P, _I, _I, _I, _P),
+                                             *_COST, _P, _P, _P, _I, _I, _I,
+                                             _P),
     },
     "graph_cut_marginals": {
         "graph_cut_marginals_launch": (_P, _I, _I, _P, _P, _F, _P, _I, _LL,
                                        _I, _P),
     },
     "graph_cut_accept": {
-        "graph_cut_accept_launch": (_P, _I, _P, _P, _F, _P, _P, _P, _P, _P,
-                                    _P, _I, _I, _I, _P),
+        "graph_cut_accept_launch": (_P, _I, _P, _P, _F, _P, _P, _P, *_COST,
+                                    _P, _P, _P, _I, _I, _I, _P),
     },
     "logdet_marginals": {
         "logdet_marginals_launch": (_P, _I, _I, _P, _P, _I, _I, _LL, _I, _F,
                                     _F, _F, _F, _P),
     },
     "logdet_accept": {
-        "logdet_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
+        "logdet_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P, *_COST, _P,
+                                 _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                                 _P),
+    },
+    "exemplar_marginals": {
+        "exemplar_marginals_launch": (_P, _I, _I, _P, _P, _P, _P, _I, _LL, _I,
+                                      _I, _P),
+    },
+    "exemplar_accept": {
+        "exemplar_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P, *_COST, _P,
+                                   _P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 

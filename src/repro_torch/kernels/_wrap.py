@@ -90,6 +90,33 @@ def sweep_operands(name, x, state, eligible, tau, budget, width):
     return x, state, eligible, tau, budget, unbatched
 
 
+def cost_operands(name, cost, cost_budget, L, B, device, unbatched):
+    """The knapsack operands of a sweep's cost mode, lifted like
+    ``sweep_operands``: cost (B,) or (L, B) float32 per-row costs and
+    cost_budget () or (L,) float32 remaining budgets, both given or both
+    None (the cardinality mode).  Returns (cost (L, B) or None,
+    cost_budget (L,) or None)."""
+    check((cost is None) == (cost_budget is None), name,
+          "cost and cost_budget go together")
+    if cost is None:
+        return None, None
+    if unbatched:
+        cost = cost[None]
+    cost_budget = torch.as_tensor(cost_budget, dtype=torch.float32,
+                                  device=device).reshape(-1)
+    check(cost.dtype == torch.float32 and cost.shape == (L, B), name,
+          f"cost must be float32 {(L, B)}, got {cost.dtype} "
+          f"{tuple(cost.shape)}")
+    check(cost_budget.shape == (L,), name,
+          f"cost_budget must be ({L},), got {tuple(cost_budget.shape)}")
+    return cost, cost_budget
+
+
+def ptr(t):
+    """A tensor's device address, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
 def sweep_outputs(x, width):
     """Empty (mask (L, B) bool, state (L, width) f32, gains (L, B) f32)
     for a lifted (L, B, .) sweep."""

@@ -1,11 +1,22 @@
 // The shared ThresholdGreedy accept sweep for the fused chunk-accept
 // kernels (the Hopper counterpart of run_sweep in
-// src/repro/kernels/_accept_common.py).
+// src/repro/kernels/_accept_common.py), in both of its modes.
 //
 // One CTA sweeps one lane's (B, d) tile in stream order.  Row i is scored
 // against the state after every earlier accept, and it is accepted iff
 //
-//     eligible[i] && gain_i >= tau && accepts_so_far < budget.
+//     eligible[i] && gain_i >= tau && accepts_so_far < budget
+//
+// (the cardinality mode, kCost = false), or, in the knapsack cost mode
+// (kCost = true, a (B,) row-cost vector c and a remaining budget),
+//
+//     eligible[i] && gain_i >= tau * c_i && accepts_so_far < budget
+//                 && spent + c_i <= cost_budget,
+//
+// with spent the f32 sum of the accepted costs, added in row order; each
+// product and sum is rounded on its own (__fmul_rn, __fadd_rn), as the JAX
+// carry rounds it.  The mode is a template parameter, so the cardinality
+// instantiation is the loop without any cost code.
 //
 // The order is the semantics, so the rows form a chain of B dependent block
 // reductions; that chain, not the bytes, is what bounds a sweep.  The
@@ -24,22 +35,25 @@
 //     float partial(int i)  this thread's share of row i's gain, against
 //                           the current state
 //     void  accept()        apply the row just scored to the state
-// Later accept kernels (facility location, exemplar, ...) reuse the sweep
-// with their own Step.
+// The feature sweeps (feature_sweep.cuh), facility_accept.cu and
+// exemplar_accept.cu run on it with their own Steps.
 #pragma once
 
 #include <cuda_runtime.h>
 
-template <int kThreads, class Step>
+template <int kThreads, bool kCost, class Step>
 __device__ __forceinline__ void run_sweep(Step& step, int B,
                                           const unsigned char* __restrict__ eligible,
                                           float tau, int budget,
+                                          const float* __restrict__ cost,
+                                          float cost_budget,
                                           unsigned char* __restrict__ mask_out,
                                           float* __restrict__ gains_out) {
   constexpr int kWarps = kThreads / 32;
   __shared__ float partials[2][kWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int n_acc = 0;
+  float spent = 0.0f;
   for (int i = 0; i < B; ++i) {
     float p = step.partial(i);
 #pragma unroll
@@ -49,7 +63,15 @@ __device__ __forceinline__ void run_sweep(Step& step, int B,
     float gain = partials[i & 1][0];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) gain += partials[i & 1][w];
-    const bool acc = eligible[i] && gain >= tau && n_acc < budget;
+    bool acc;
+    if constexpr (kCost) {
+      const float c = cost[i];
+      acc = eligible[i] && gain >= __fmul_rn(tau, c) && n_acc < budget &&
+            __fadd_rn(spent, c) <= cost_budget;
+      if (acc) spent = __fadd_rn(spent, c);
+    } else {
+      acc = eligible[i] && gain >= tau && n_acc < budget;
+    }
     if (acc) {
       step.accept();
       ++n_acc;

@@ -2,9 +2,10 @@
 //
 // Replaces the TPU kernel src/repro/kernels/coverage_accept.py,
 // coverage_accept (its pallas_call is accept_call in
-// src/repro/kernels/_accept_common.py), in the cardinality mode
-// (cost=None).  One launch serves L lanes, one CTA each, which is what the
-// JAX engines got from vmapping the Pallas kernel over the tau grid.
+// src/repro/kernels/_accept_common.py), in both of its modes: cardinality
+// (cost=None) and knapsack cost (accept_sweep.cuh).  One launch serves L
+// lanes, one CTA each, which is what the JAX engines got from vmapping the
+// Pallas kernel over the tau grid.
 //
 // Per lane: sweep the (B, d) tile in order; row i's gain is
 //     sum_f w_f * ( sqrt(s_f + x_if) - sqrt(s_f) )
@@ -26,12 +27,13 @@
 extern "C" int coverage_accept_launch(const void* x, int x_is_bf16,
                                       const void* state, const void* weights,
                                       const void* eligible, const void* tau,
-                                      const void* budget, void* mask,
+                                      const void* budget, const void* cost,
+                                      const void* cost_budget, void* mask,
                                       void* state_out, void* gains, int L,
                                       int B, int d, void* stream) {
   const rules::Coverage rule{static_cast<const float*>(weights)};
   return (int)feature_sweep::launch_any(x, x_is_bf16, state, rule, eligible,
-                                        tau, budget, mask, state_out, gains,
-                                        L, B, d,
+                                        tau, budget, cost, cost_budget, mask,
+                                        state_out, gains, L, B, d,
                                         static_cast<cudaStream_t>(stream));
 }

@@ -29,15 +29,12 @@
 //    operations.
 //
 // What the designs do about it:
-//  * facility_marginals: a CTA owns 64 candidate rows and a group of lanes
-//    and walks the r columns in 64-wide tiles.  Each tile's rectified
-//    similarities (sims_tile.cuh) land in shared memory beside the lanes'
-//    64-column state slice; the threads then re-map onto (lane, 4 rows)
-//    quads that add the tile's residuals into a per-(lane, row) sum that
-//    the same thread owns for the whole kernel, so each output is written
-//    once and no float atomics are used (a repeated launch gives the same
-//    bits).  Lane groups hold up to kMaxLaneGroup lanes in shared memory;
-//    a wider grid is split into groups, each recomputing the product.
+//  * facility_marginals: the lane-group tile walk of reference_tile.cuh
+//    (shared with exemplar_marginals.cu) with its Facility rule: a CTA owns
+//    64 candidate rows and up to 128 lanes, computes each 64-column tile of
+//    rectified similarities once for all of them, and sums the lanes'
+//    residuals in per-(lane, row) sums that one thread owns, with no float
+//    atomics (a repeated launch gives the same bits).
 //  * rectified_residual_sum: a CTA owns up to kMaxLanes lanes and walks row
 //    tiles; one warp reads an aux row once (coalesced, 16 bytes a thread
 //    when r % 4 == 0, so enough loads are in flight to stream at the
@@ -50,110 +47,9 @@
 
 #include <type_traits>
 
-#include "sims_tile.cuh"
+#include "reference_tile.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------- fused
-constexpr int kMaxLaneGroup = 128;
-constexpr int kQuadRows = sims::kTileRows / 4;   // a quad is rows i + 16m
-constexpr int kSPitch = sims::kTileCols + 1;     // padded rows: no bank conflicts
-
-size_t fm_smem_bytes(int lanes) {
-  return sizeof(sims::Stage) +
-         sizeof(float) * ((size_t)sims::kTileRows * kSPitch +   // sims tile
-                          (size_t)lanes * kSPitch +             // state slice
-                          (size_t)lanes * sims::kTileRows);     // sums
-}
-
-template <typename TC>
-__global__ void __launch_bounds__(sims::kThreads)
-facility_marginals_kernel(const TC* __restrict__ cand, int cand_per_lane,
-                          const float* __restrict__ ref,
-                          const float* __restrict__ state,
-                          float* __restrict__ out, int L, long long C, int r,
-                          int d, int group) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  sims::Stage& stage = *reinterpret_cast<sims::Stage*>(smem_raw);
-  float* S = reinterpret_cast<float*>(smem_raw + sizeof(sims::Stage));
-  float* st = S + sims::kTileRows * kSPitch;   // [nl][kSPitch]
-  float* sums = st + group * kSPitch;          // [nl][kTileRows]
-
-  int l0, nl;
-  const TC* x = cand;
-  if (cand_per_lane) {
-    l0 = blockIdx.y;
-    nl = 1;
-    x = cand + (long long)l0 * C * d;
-  } else {
-    l0 = blockIdx.y * group;
-    nl = min(group, L - l0);
-  }
-  const long long row0 = (long long)blockIdx.x * sims::kTileRows;
-  const int tid = threadIdx.x;
-  for (int t = tid; t < nl * sims::kTileRows; t += sims::kThreads) sums[t] = 0.0f;
-
-  const int mr = sims::micro_row(), mc = sims::micro_col();
-  for (int col0 = 0; col0 < r; col0 += sims::kTileCols) {
-    float acc[sims::kMicro][sims::kMicro];
-    sims::tile(x, C, ref, r, d, row0, col0, stage, acc);
-#pragma unroll
-    for (int m = 0; m < sims::kMicro; ++m)
-#pragma unroll
-      for (int n = 0; n < sims::kMicro; ++n)
-        S[(mr + m) * kSPitch + mc + n] = acc[m][n];
-    const int nc = min(sims::kTileCols, r - col0);
-    for (int t = tid; t < nl * sims::kTileCols; t += sims::kThreads) {
-      const int l = t / sims::kTileCols, c = t % sims::kTileCols;
-      st[l * kSPitch + c] =
-          c < nc ? __ldg(state + (long long)(l0 + l) * r + col0 + c) : 0.0f;
-    }
-    __syncthreads();
-    for (int q = tid; q < nl * kQuadRows; q += sims::kThreads) {
-      const int l = q / kQuadRows, i = q % kQuadRows;
-      const float* sl = st + l * kSPitch;
-      float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int c = 0; c < nc; ++c) {
-        const float s = sl[c];
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-          p[m] += fmaxf(S[(i + kQuadRows * m) * kSPitch + c] - s, 0.0f);
-      }
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        sums[l * sims::kTileRows + i + kQuadRows * m] += p[m];
-    }
-    __syncthreads();   // S and st are rewritten by the next column tile
-  }
-  for (int t = tid; t < nl * sims::kTileRows; t += sims::kThreads) {
-    const int l = t / sims::kTileRows, i = t % sims::kTileRows;
-    const long long row = row0 + i;
-    if (row < C) out[(long long)(l0 + l) * C + row] = sums[t];
-  }
-}
-
-template <typename TC>
-cudaError_t launch_fm(const void* cand, int cand_per_lane, const void* ref,
-                      const void* state, void* out, int L, long long C, int r,
-                      int d, cudaStream_t stream) {
-  const int group = cand_per_lane ? 1 : (L < kMaxLaneGroup ? L : kMaxLaneGroup);
-  const size_t smem = fm_smem_bytes(group);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        facility_marginals_kernel<TC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const long long row_tiles = (C + sims::kTileRows - 1) / sims::kTileRows;
-  const int lane_blocks = cand_per_lane ? L : (L + group - 1) / group;
-  if (row_tiles > 0x7fffffffLL || lane_blocks > 65535) return cudaErrorInvalidValue;
-  dim3 grid((unsigned)row_tiles, lane_blocks);
-  facility_marginals_kernel<TC><<<grid, sims::kThreads, smem, stream>>>(
-      static_cast<const TC*>(cand), cand_per_lane,
-      static_cast<const float*>(ref), static_cast<const float*>(state),
-      static_cast<float*>(out), L, C, r, d, group);
-  return cudaGetLastError();
-}
 
 // ------------------------------------------------------------- residual
 constexpr int kRThreads = 256;   // 8 warps
@@ -244,14 +140,10 @@ extern "C" int facility_marginals_launch(const void* cand, int cand_is_bf16,
                                          const void* state, void* out, int L,
                                          long long C, int r, int d,
                                          void* stream) {
-  if (L <= 0 || C <= 0) return (int)cudaSuccess;
-  if (r <= 0 || d < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cand_is_bf16
-      ? launch_fm<__nv_bfloat16>(cand, cand_per_lane, ref, state, out, L, C,
-                                 r, d, s)
-      : launch_fm<float>(cand, cand_per_lane, ref, state, out, L, C, r, d, s);
-  return (int)e;
+  return (int)reftile::launch_marginals(cand, cand_is_bf16, cand_per_lane, ref,
+                                        reftile::Facility{nullptr}, state, out,
+                                        L, C, r, d,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rectified_residual_sum_launch(const void* aux, int aux_per_lane,

@@ -1,7 +1,9 @@
 // The accept sweep of the coverage-family oracles (coverage_accept.cu,
 // weighted_coverage_accept.cu, saturated_coverage_accept.cu): a Step for
 // the shared sweep in accept_sweep.cuh over an O(d) elementwise state, with
-// a Rule from feature_rules.cuh.
+// a Rule from feature_rules.cuh, in the cardinality mode or the knapsack
+// cost mode (a (L, B) row-cost matrix and an (L,) remaining budget; see
+// accept_sweep.cuh).
 //
 // One CTA sweeps one lane's (B, d) tile.  Every thread owns kPer features:
 // their state, pre = Rule::pre(s) and the Rule's operands stay in registers
@@ -63,11 +65,12 @@ struct Step {
   }
 };
 
-template <typename T, int kPer, class Rule>
+template <typename T, int kPer, bool kCost, class Rule>
 __global__ void __launch_bounds__(kThreads)
 kernel(const T* __restrict__ x, const float* __restrict__ state, Rule rule,
        const unsigned char* __restrict__ eligible,
        const float* __restrict__ tau, const int* __restrict__ budget,
+       const float* __restrict__ cost, const float* __restrict__ cost_budget,
        unsigned char* __restrict__ mask, float* __restrict__ state_out,
        float* __restrict__ gains, int B, int d) {
   const int l = blockIdx.x;
@@ -85,8 +88,10 @@ kernel(const T* __restrict__ x, const float* __restrict__ state, Rule rule,
     step.pre[j] = Rule::pre(step.s[j], step.ops[j]);
   }
   step.load_row(0, step.next);
-  run_sweep<kThreads>(step, B, eligible + (long long)l * B, tau[l], budget[l],
-                      mask + (long long)l * B, gains + (long long)l * B);
+  run_sweep<kThreads, kCost>(
+      step, B, eligible + (long long)l * B, tau[l], budget[l],
+      kCost ? cost + (long long)l * B : nullptr, kCost ? cost_budget[l] : 0.0f,
+      mask + (long long)l * B, gains + (long long)l * B);
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     const int f = threadIdx.x + j * kThreads;
@@ -97,26 +102,39 @@ kernel(const T* __restrict__ x, const float* __restrict__ state, Rule rule,
 template <typename T, int kPer, class Rule>
 cudaError_t launch_per(const void* x, const void* state, const Rule& rule,
                        const void* eligible, const void* tau,
-                       const void* budget, void* mask, void* state_out,
+                       const void* budget, const void* cost,
+                       const void* cost_budget, void* mask, void* state_out,
                        void* gains, int L, int B, int d, cudaStream_t stream) {
-  kernel<T, kPer, Rule><<<L, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(state), rule,
-      static_cast<const unsigned char*>(eligible),
-      static_cast<const float*>(tau), static_cast<const int*>(budget),
-      static_cast<unsigned char*>(mask), static_cast<float*>(state_out),
-      static_cast<float*>(gains), B, d);
+  const T* xt = static_cast<const T*>(x);
+  const float* st = static_cast<const float*>(state);
+  const unsigned char* el = static_cast<const unsigned char*>(eligible);
+  const float* ta = static_cast<const float*>(tau);
+  const int* bu = static_cast<const int*>(budget);
+  const float* co = static_cast<const float*>(cost);
+  const float* cb = static_cast<const float*>(cost_budget);
+  unsigned char* ma = static_cast<unsigned char*>(mask);
+  float* so = static_cast<float*>(state_out);
+  float* ga = static_cast<float*>(gains);
+  if (co)
+    kernel<T, kPer, true, Rule><<<L, kThreads, 0, stream>>>(
+        xt, st, rule, el, ta, bu, co, cb, ma, so, ga, B, d);
+  else
+    kernel<T, kPer, false, Rule><<<L, kThreads, 0, stream>>>(
+        xt, st, rule, el, ta, bu, co, cb, ma, so, ga, B, d);
   return cudaGetLastError();
 }
 
 template <typename T, class Rule>
 cudaError_t launch(const void* x, const void* state, const Rule& rule,
                    const void* eligible, const void* tau, const void* budget,
-                   void* mask, void* state_out, void* gains, int L, int B,
-                   int d, cudaStream_t stream) {
+                   const void* cost, const void* cost_budget, void* mask,
+                   void* state_out, void* gains, int L, int B, int d,
+                   cudaStream_t stream) {
 #define REPRO_SWEEP_CASE(P)                                                   \
   if (d <= (P) * kThreads)                                                    \
     return launch_per<T, P, Rule>(x, state, rule, eligible, tau, budget,      \
-                                  mask, state_out, gains, L, B, d, stream);
+                                  cost, cost_budget, mask, state_out, gains,  \
+                                  L, B, d, stream);
   REPRO_SWEEP_CASE(1)
   REPRO_SWEEP_CASE(2)
   REPRO_SWEEP_CASE(4)
@@ -127,19 +145,23 @@ cudaError_t launch(const void* x, const void* state, const Rule& rule,
 }
 
 // Launch L lane sweeps, one CTA each, dispatching on the dtype of x
-// (float32 or bfloat16).  Nothing runs when L or d is 0.
+// (float32 or bfloat16) and on the mode: cost (L, B) f32 and cost_budget
+// (L,) f32 select the cost mode, nullptr the cardinality mode.  Nothing
+// runs when L or d is 0.
 template <class Rule>
 cudaError_t launch_any(const void* x, int x_is_bf16, const void* state,
                        const Rule& rule, const void* eligible,
-                       const void* tau, const void* budget, void* mask,
-                       void* state_out, void* gains, int L, int B, int d,
+                       const void* tau, const void* budget, const void* cost,
+                       const void* cost_budget, void* mask, void* state_out,
+                       void* gains, int L, int B, int d,
                        cudaStream_t stream) {
   if (L <= 0 || d <= 0) return cudaSuccess;
   return x_is_bf16
-      ? launch<__nv_bfloat16>(x, state, rule, eligible, tau, budget, mask,
-                              state_out, gains, L, B, d, stream)
-      : launch<float>(x, state, rule, eligible, tau, budget, mask, state_out,
-                      gains, L, B, d, stream);
+      ? launch<__nv_bfloat16>(x, state, rule, eligible, tau, budget, cost,
+                              cost_budget, mask, state_out, gains, L, B, d,
+                              stream)
+      : launch<float>(x, state, rule, eligible, tau, budget, cost,
+                      cost_budget, mask, state_out, gains, L, B, d, stream);
 }
 
 }  // namespace feature_sweep

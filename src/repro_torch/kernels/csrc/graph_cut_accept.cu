@@ -2,9 +2,9 @@
 //
 // Replaces the TPU kernel src/repro/kernels/graph_cut_accept.py,
 // graph_cut_accept (its pallas_call is accept_call in
-// src/repro/kernels/_accept_common.py), in the cardinality mode
-// (cost=None).  One launch serves L lanes, one CTA each, in place of the
-// JAX engines' vmap over the tau grid.
+// src/repro/kernels/_accept_common.py), in both of its modes: cardinality
+// (cost=None) and knapsack cost (accept_sweep.cuh).  One launch serves L
+// lanes, one CTA each, in place of the JAX engines' vmap over the tau grid.
 //
 // Per lane: sweep the (B, d) tile in order; row i's gain is
 //     sum_f ( x_if (t_f - 2 lam s_f) - lam x_if^2 )
@@ -27,11 +27,11 @@
 extern "C" int graph_cut_accept_launch(
     const void* x, int x_is_bf16, const void* state, const void* total,
     float lam, const void* eligible, const void* tau, const void* budget,
-    void* mask, void* state_out, void* gains, int L, int B, int d,
-    void* stream) {
+    const void* cost, const void* cost_budget, void* mask, void* state_out,
+    void* gains, int L, int B, int d, void* stream) {
   const rules::GraphCut rule{static_cast<const float*>(total), lam};
   return (int)feature_sweep::launch_any(x, x_is_bf16, state, rule, eligible,
-                                        tau, budget, mask, state_out, gains,
-                                        L, B, d,
+                                        tau, budget, cost, cost_budget, mask,
+                                        state_out, gains, L, B, d,
                                         static_cast<cudaStream_t>(stream));
 }

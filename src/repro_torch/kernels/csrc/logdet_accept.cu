@@ -2,9 +2,10 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/logdet_accept.py,
-// logdet_accept (body _la_kernel), in the cardinality mode (cost=None).
-// One launch serves L lanes, one CTA each, in place of the JAX engines'
-// vmap over the tau grid.
+// logdet_accept (body _la_kernel), in both of its modes: cardinality
+// (cost=None) and knapsack cost (a (B,) row-cost vector and a remaining
+// budget, the rule of accept_sweep.cuh).  One launch serves L lanes, one
+// CTA each, in place of the JAX engines' vmap over the tau grid.
 //
 // Per lane: the whitened basis U (k, d) lives in shared memory for the
 // whole sweep.  Rows are taken in stream order; for row i
@@ -12,7 +13,11 @@
 //   2. ||x_i||^2;
 //   3. d2 = max(1 + alpha ||x_i||^2 - sum_j v_j^2, eps);
 //   4. gain = scale * log d2 (scale = 0.5 is mutual information);
-//   5. accept iff eligible && gain >= tau && n_acc < budget;
+//   5. accept iff eligible && gain >= tau && n_acc < budget, or, in the
+//      cost mode, iff eligible && gain >= tau * c_i && n_acc < budget &&
+//      spent + c_i <= cost_budget, spent the f32 sum of the accepted
+//      costs in row order (the JAX kernel's carry, each step rounded on
+//      its own);
 //   6. on accept, U[size0 + n_acc] = (x_i - sum_j v_j U_j) / sqrt(d2) and
 //      logdet += gain.  An append at row k (or past it) writes no row, as
 //      the JAX kernel's masked select writes none; logdet and size still
@@ -52,12 +57,13 @@ __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-template <typename T>
+template <typename T, bool kCost>
 __global__ void __launch_bounds__(kThreads)
 kernel(const T* __restrict__ x, const float* __restrict__ U_in,
        const float* __restrict__ logdet_in, const int* __restrict__ size_in,
        const unsigned char* __restrict__ eligible,
        const float* __restrict__ tau, const int* __restrict__ budget,
+       const float* __restrict__ cost, const float* __restrict__ cost_budget,
        unsigned char* __restrict__ mask, float* __restrict__ U_out,
        float* __restrict__ logdet_out, int* __restrict__ size_out,
        float* __restrict__ gains, int B, int k, int d, Params p) {
@@ -77,6 +83,8 @@ kernel(const T* __restrict__ x, const float* __restrict__ U_in,
   const int budget_l = budget[l];
   float ld = logdet_in[l];
   int n_acc = 0;
+  const float cbud = kCost ? cost_budget[l] : 0.0f;
+  float spent = 0.0f;
   for (int i = 0; i < B; ++i) {
     const float* xc = xs + (i & 1) * d;
     // row i staged, the last append written, the last row's dots read
@@ -107,8 +115,15 @@ kernel(const T* __restrict__ x, const float* __restrict__ U_in,
         __fsub_rn(__fadd_rn(1.0f, __fmul_rn(p.alpha, dots[k])), vv), p.eps);
     float g = logf(d2);
     if (p.scale != 1.0f) g = __fmul_rn(p.scale, g);
-    const bool acc = eligible[(long long)l * B + i] && g >= tau_l &&
-                     n_acc < budget_l;
+    bool acc;
+    if constexpr (kCost) {
+      const float c = cost[(long long)l * B + i];
+      acc = eligible[(long long)l * B + i] && g >= __fmul_rn(tau_l, c) &&
+            n_acc < budget_l && __fadd_rn(spent, c) <= cbud;
+      if (acc) spent = __fadd_rn(spent, c);
+    } else {
+      acc = eligible[(long long)l * B + i] && g >= tau_l && n_acc < budget_l;
+    }
     if (acc) {
       const int row = size0 + n_acc;
       if (row >= 0 && row < k) {
@@ -136,27 +151,49 @@ kernel(const T* __restrict__ x, const float* __restrict__ U_in,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* U, const void* logdet,
-                   const void* size, const void* eligible, const void* tau,
-                   const void* budget, void* mask, void* U_out,
-                   void* logdet_out, void* size_out, void* gains, int L,
-                   int B, int k, int d, const Params& p, size_t smem,
-                   cudaStream_t stream) {
+template <typename T, bool kCost>
+cudaError_t launch_mode(const void* x, const void* U, const void* logdet,
+                        const void* size, const void* eligible,
+                        const void* tau, const void* budget, const void* cost,
+                        const void* cost_budget, void* mask, void* U_out,
+                        void* logdet_out, void* size_out, void* gains, int L,
+                        int B, int k, int d, const Params& p, size_t smem,
+                        cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel<T, kCost>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kernel<T><<<L, kThreads, smem, stream>>>(
+  kernel<T, kCost><<<L, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(U),
       static_cast<const float*>(logdet), static_cast<const int*>(size),
       static_cast<const unsigned char*>(eligible),
       static_cast<const float*>(tau), static_cast<const int*>(budget),
+      static_cast<const float*>(cost), static_cast<const float*>(cost_budget),
       static_cast<unsigned char*>(mask), static_cast<float*>(U_out),
       static_cast<float*>(logdet_out), static_cast<int*>(size_out),
       static_cast<float*>(gains), B, k, d, p);
   return cudaGetLastError();
+}
+
+// cost (L, B) f32 and cost_budget (L,) f32 select the knapsack cost mode,
+// nullptr the cardinality mode.
+template <typename T>
+cudaError_t launch(const void* x, const void* U, const void* logdet,
+                   const void* size, const void* eligible, const void* tau,
+                   const void* budget, const void* cost,
+                   const void* cost_budget, void* mask, void* U_out,
+                   void* logdet_out, void* size_out, void* gains, int L,
+                   int B, int k, int d, const Params& p, size_t smem,
+                   cudaStream_t stream) {
+  return cost
+      ? launch_mode<T, true>(x, U, logdet, size, eligible, tau, budget, cost,
+                             cost_budget, mask, U_out, logdet_out, size_out,
+                             gains, L, B, k, d, p, smem, stream)
+      : launch_mode<T, false>(x, U, logdet, size, eligible, tau, budget,
+                              cost, cost_budget, mask, U_out, logdet_out,
+                              size_out, gains, L, B, k, d, p, smem, stream);
 }
 
 }  // namespace
@@ -164,9 +201,10 @@ cudaError_t launch(const void* x, const void* U, const void* logdet,
 extern "C" int logdet_accept_launch(
     const void* x, int x_is_bf16, const void* U, const void* logdet,
     const void* size, const void* eligible, const void* tau,
-    const void* budget, void* mask, void* U_out, void* logdet_out,
-    void* size_out, void* gains, int L, int B, int k, int d, float alpha,
-    float scale, float eps, void* stream) {
+    const void* budget, const void* cost, const void* cost_budget,
+    void* mask, void* U_out, void* logdet_out, void* size_out, void* gains,
+    int L, int B, int k, int d, float alpha, float scale, float eps,
+    void* stream) {
   if (L <= 0) return (int)cudaSuccess;
   // U, two staged rows and the k + 1 dot products; the wrapper refuses a
   // (k, d) beyond the 227 KiB a block may use (logdet_accept.SMEM_BYTES)
@@ -175,10 +213,10 @@ extern "C" int logdet_accept_launch(
   const Params p{alpha, scale, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(x_is_bf16
-      ? launch<__nv_bfloat16>(x, U, logdet, size, eligible, tau, budget, mask,
-                              U_out, logdet_out, size_out, gains, L, B, k, d,
-                              p, (size_t)smem, s)
-      : launch<float>(x, U, logdet, size, eligible, tau, budget, mask, U_out,
-                      logdet_out, size_out, gains, L, B, k, d, p,
-                      (size_t)smem, s));
+      ? launch<__nv_bfloat16>(x, U, logdet, size, eligible, tau, budget,
+                              cost, cost_budget, mask, U_out, logdet_out,
+                              size_out, gains, L, B, k, d, p, (size_t)smem, s)
+      : launch<float>(x, U, logdet, size, eligible, tau, budget, cost,
+                      cost_budget, mask, U_out, logdet_out, size_out, gains,
+                      L, B, k, d, p, (size_t)smem, s));
 }

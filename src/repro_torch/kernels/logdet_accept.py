@@ -1,14 +1,15 @@
 """CUDA kernel: fused LogDetDiversity / MutualInformationGaussian
 chunk-accept sweep (csrc/logdet_accept.cu).
 
-The port of ``repro.kernels.logdet_accept`` (a Pallas TPU kernel),
-cardinality mode: one launch sweeps the (B, d) tile of every lane, one CTA
-per lane, in stream order against the lane's whitened basis U (k, d), which
-stays in shared memory; an accepted row is the rank-1 Gram-Schmidt append
-U[size] = (x - v^T U) / d with logdet += gain, and an append at size == k
-writes no row.  alpha and scale are launch arguments (scale = 0.5 is mutual
-information).  This wrapper only launches; ``kernels.ops`` routes CPU
-tensors to the plain version in ``kernels.ref``.
+The port of ``repro.kernels.logdet_accept`` (a Pallas TPU kernel), in both
+of its modes (cardinality, and the knapsack cost mode of
+``cost``/``cost_budget``): one launch sweeps the (B, d) tile of every
+lane, one CTA per lane, in stream order against the lane's whitened basis
+U (k, d), which stays in shared memory; an accepted row is the rank-1
+Gram-Schmidt append U[size] = (x - v^T U) / d with logdet += gain, and an
+append at size == k writes no row.  alpha and scale are launch arguments
+(scale = 0.5 is mutual information).  This wrapper only launches;
+``kernels.ops`` routes CPU tensors to the plain version in ``kernels.ref``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ from repro_torch.kernels.ref import LOGDET_EPS
 #: kernel launches since the last reset (set to 0 to reset)
 launches = 0
 
+#: of those, launches in the knapsack cost mode
+cost_launches = 0
+
 #: dynamic shared memory one block may use on the H100
 SMEM_LIMIT = 227 * 1024
 
@@ -32,14 +36,16 @@ def smem_bytes(k: int, d: int) -> int:
 
 
 def logdet_accept(x, U, logdet, size, eligible, tau, budget, alpha=1.0,
-                  scale=1.0):
+                  scale=1.0, cost=None, cost_budget=None):
     """Launch the sweep.  x (B, d) or (L, B, d), float32 or bfloat16; U
     (k, d) or (L, k, d) float32; logdet () or (L,) float32; size () or (L,)
     int32; eligible (B,) or (L, B) bool; tau () or (L,) float32; budget ()
-    or (L,) int32.  Returns (mask bool, U float32, logdet float32, size
-    int32, gains float32), batched like x.  Raises ValueError when U does
+    or (L,) int32; cost (B,) or (L, B) and cost_budget () or (L,) float32,
+    or both None (the knapsack cost mode, or the cardinality mode).  Returns
+    (mask bool, U float32, logdet float32, size int32, gains float32),
+    batched like x.  Raises ValueError when U does
     not fit in shared memory."""
-    global launches
+    global launches, cost_launches
     name = "logdet_accept"
     _wrap.check_rows(name, x)
     _wrap.check(x.dim() in (2, 3), name,
@@ -73,7 +79,10 @@ def logdet_accept(x, U, logdet, size, eligible, tau, budget, alpha=1.0,
                 f"{tuple(tau.shape)}")
     _wrap.check(budget.shape == (L,), name, f"budget must be ({L},), got "
                 f"{tuple(budget.shape)}")
-    _wrap.placed(name, (x, U, logdet, size, eligible, tau, budget), x.device)
+    cost, cost_budget = _wrap.cost_operands(name, cost, cost_budget, L, B,
+                                            x.device, unbatched)
+    _wrap.placed(name, (x, U, logdet, size, eligible, tau, budget, cost,
+                        cost_budget), x.device)
     dev = x.device
     mask = torch.empty((L, B), dtype=torch.bool, device=dev)
     U_out = torch.empty((L, k, d), dtype=torch.float32, device=dev)
@@ -83,11 +92,14 @@ def logdet_accept(x, U, logdet, size, eligible, tau, budget, alpha=1.0,
     _wrap.launch(name, _build.library(name).logdet_accept_launch, dev,
                  x.data_ptr(), int(x.dtype == torch.bfloat16), U.data_ptr(),
                  logdet.data_ptr(), size.data_ptr(), eligible.data_ptr(),
-                 tau.data_ptr(), budget.data_ptr(), mask.data_ptr(),
+                 tau.data_ptr(), budget.data_ptr(), _wrap.ptr(cost),
+                 _wrap.ptr(cost_budget), mask.data_ptr(),
                  U_out.data_ptr(), ld_out.data_ptr(), size_out.data_ptr(),
                  gains.data_ptr(), L, B, k, d, float(alpha), float(scale),
                  float(LOGDET_EPS))
     launches += 1
+    if cost is not None:
+        cost_launches += 1
     if unbatched:
         return mask[0], U_out[0], ld_out[0], size_out[0], gains[0]
     return mask, U_out, ld_out, size_out, gains

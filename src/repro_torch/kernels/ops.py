@@ -5,12 +5,19 @@ check of where the tensor lies): a CUDA tensor goes to the hand-written
 CUDA kernel, which launches or raises; a CPU tensor goes to the plain
 PyTorch version in ``kernels.ref``.  Nothing falls back from one to the
 other.
+
+Every accept sweep takes ``cost`` and ``cost_budget``, both given or both
+None: the knapsack cost mode of the JAX sweeps (row i accepted when
+gain >= tau * c_i and the running spend + c_i stays within the remaining
+budget), or the cardinality mode.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels import coverage_accept as _ca
 from repro_torch.kernels import coverage_marginals as _cm
+from repro_torch.kernels import exemplar_accept as _ea
+from repro_torch.kernels import exemplar_marginals as _em
 from repro_torch.kernels import facility_accept as _fa
 from repro_torch.kernels import facility_marginals as _fm
 from repro_torch.kernels import graph_cut_accept as _ga
@@ -30,7 +37,8 @@ _COUNTED = {"coverage_marginals": _cm, "coverage_accept": _ca,
             "saturated_coverage_marginals": _sm,
             "saturated_coverage_accept": _sa, "graph_cut_marginals": _gm,
             "graph_cut_accept": _ga, "logdet_marginals": _lm,
-            "logdet_accept": _la}
+            "logdet_accept": _la, "exemplar_marginals": _em,
+            "exemplar_accept": _ea}
 
 
 def _on_card(x) -> bool:
@@ -50,10 +58,19 @@ def launch_counts() -> dict:
     return counts
 
 
+def cost_launch_counts() -> dict:
+    """Launches of each accept sweep in the knapsack cost mode since the
+    last reset (a part of ``launch_counts``)."""
+    return {name: mod.cost_launches for name, mod in _COUNTED.items()
+            if hasattr(mod, "cost_launches")}
+
+
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch counts to 0."""
     for mod in _COUNTED.values():
         mod.launches = 0
+        if hasattr(mod, "cost_launches"):
+            mod.cost_launches = 0
     for name in _fm.launches:
         _fm.launches[name] = 0
 
@@ -66,12 +83,12 @@ def coverage_marginals(x, state, weights=None):
     return ref.coverage_marginals(x, state, weights)
 
 
-def coverage_accept(x, state, weights, eligible, tau, budget):
+def coverage_accept(x, state, weights, eligible, tau, budget, cost=None,
+                    cost_budget=None):
     """Fused FeatureCoverage chunk-accept sweep over a (B, d) tile per
     lane.  Returns (mask bool, state f32, gains f32), batched like x."""
-    if _on_card(x):
-        return _ca.coverage_accept(x, state, weights, eligible, tau, budget)
-    return ref.coverage_accept(x, state, weights, eligible, tau, budget)
+    fn = _ca.coverage_accept if _on_card(x) else ref.coverage_accept
+    return fn(x, state, weights, eligible, tau, budget, cost, cost_budget)
 
 
 def facility_marginals(cand, reference, state):
@@ -90,13 +107,30 @@ def rectified_residual_sum(aux, state):
     return ref.rectified_residual_sum(aux, state)
 
 
-def facility_accept(cand, reference, state, eligible, tau, budget):
+def facility_accept(cand, reference, state, eligible, tau, budget,
+                    cost=None, cost_budget=None):
     """Fused FacilityLocation chunk-accept sweep over a (B, d) chunk per
     lane.  Returns (mask bool, state f32, gains f32), batched like cand."""
+    fn = _fa.facility_accept if _on_card(cand) else ref.facility_accept
+    return fn(cand, reference, state, eligible, tau, budget, cost,
+              cost_budget)
+
+
+def exemplar_marginals(cand, reference, state):
+    """(C, d) | (L, C, d), (r, d), (r,) | (L, r) -> (C,) | (L, C) fused
+    ExemplarClustering marginals (distance product and residual sum)."""
     if _on_card(cand):
-        return _fa.facility_accept(cand, reference, state, eligible, tau,
-                                   budget)
-    return ref.facility_accept(cand, reference, state, eligible, tau, budget)
+        return _em.exemplar_marginals(cand, reference, state)
+    return ref.exemplar_marginals(cand, reference, state)
+
+
+def exemplar_accept(cand, reference, state, eligible, tau, budget,
+                    cost=None, cost_budget=None):
+    """Fused ExemplarClustering chunk-accept sweep over a (B, d) chunk per
+    lane.  Returns (mask bool, state f32, gains f32), batched like cand."""
+    fn = _ea.exemplar_accept if _on_card(cand) else ref.exemplar_accept
+    return fn(cand, reference, state, eligible, tau, budget, cost,
+              cost_budget)
 
 
 def weighted_coverage_marginals(x, state):
@@ -107,12 +141,13 @@ def weighted_coverage_marginals(x, state):
     return ref.weighted_coverage_marginals(x, state)
 
 
-def weighted_coverage_accept(x, state, eligible, tau, budget):
+def weighted_coverage_accept(x, state, eligible, tau, budget, cost=None,
+                             cost_budget=None):
     """Fused WeightedCoverage chunk-accept sweep over a (B, U) tile per
     lane.  Returns (mask bool, state f32, gains f32), batched like x."""
-    if _on_card(x):
-        return _wa.weighted_coverage_accept(x, state, eligible, tau, budget)
-    return ref.weighted_coverage_accept(x, state, eligible, tau, budget)
+    fn = (_wa.weighted_coverage_accept if _on_card(x)
+          else ref.weighted_coverage_accept)
+    return fn(x, state, eligible, tau, budget, cost, cost_budget)
 
 
 def saturated_coverage_marginals(x, state, cap, weights=None):
@@ -123,14 +158,14 @@ def saturated_coverage_marginals(x, state, cap, weights=None):
     return ref.saturated_coverage_marginals(x, state, cap, weights)
 
 
-def saturated_coverage_accept(x, state, cap, weights, eligible, tau, budget):
+def saturated_coverage_accept(x, state, cap, weights, eligible, tau, budget,
+                              cost=None, cost_budget=None):
     """Fused SaturatedCoverage chunk-accept sweep over a (B, d) tile per
     lane.  Returns (mask bool, state f32, gains f32), batched like x."""
-    if _on_card(x):
-        return _sa.saturated_coverage_accept(x, state, cap, weights, eligible,
-                                             tau, budget)
-    return ref.saturated_coverage_accept(x, state, cap, weights, eligible,
-                                         tau, budget)
+    fn = (_sa.saturated_coverage_accept if _on_card(x)
+          else ref.saturated_coverage_accept)
+    return fn(x, state, cap, weights, eligible, tau, budget, cost,
+              cost_budget)
 
 
 def graph_cut_marginals(x, total, state, lam=0.5):
@@ -141,13 +176,12 @@ def graph_cut_marginals(x, total, state, lam=0.5):
     return ref.graph_cut_marginals(x, total, state, lam)
 
 
-def graph_cut_accept(x, total, state, eligible, tau, budget, lam=0.5):
+def graph_cut_accept(x, total, state, eligible, tau, budget, lam=0.5,
+                     cost=None, cost_budget=None):
     """Fused GraphCut chunk-accept sweep over a (B, d) tile per lane.
     Returns (mask bool, state f32, gains f32), batched like x."""
-    if _on_card(x):
-        return _ga.graph_cut_accept(x, total, state, eligible, tau, budget,
-                                    lam)
-    return ref.graph_cut_accept(x, total, state, eligible, tau, budget, lam)
+    fn = _ga.graph_cut_accept if _on_card(x) else ref.graph_cut_accept
+    return fn(x, total, state, eligible, tau, budget, lam, cost, cost_budget)
 
 
 def logdet_marginals(x, U, alpha=1.0, scale=1.0):
@@ -159,12 +193,13 @@ def logdet_marginals(x, U, alpha=1.0, scale=1.0):
 
 
 def logdet_accept(x, U, logdet, size, eligible, tau, budget, alpha=1.0,
-                  scale=1.0):
+                  scale=1.0, cost=None, cost_budget=None):
     """Fused log-det / mutual-information chunk-accept sweep over a (B, d)
     tile per lane.  Returns (mask bool, U f32, logdet f32, size int32,
     gains f32), batched like x."""
     if _on_card(x):
         return _la.logdet_accept(x, U, logdet, size, eligible, tau, budget,
-                                 alpha, scale)
+                                 alpha, scale, cost, cost_budget)
     return ref.logdet_accept(x, U, logdet, size, eligible, tau, budget,
-                             alpha, scale=scale)
+                             alpha, scale=scale, cost=cost,
+                             cost_budget=cost_budget)

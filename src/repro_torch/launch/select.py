@@ -6,22 +6,30 @@ machines simulated on one device.
         --d 256 --machines 16 --engine fused --use-kernel \
         [--oracle facility_location]
 
-Embeddings are U[0, 1)^2; facility location's reference set is 256 rows of
-U[0, 1) drawn after them from the same generator, as the JAX CLI draws
-them, and saturated coverage's and graph cut's ``total`` is the embeddings'
-f32 column sum, as the JAX CLI computes it (before any bf16 cast).  The
-log-det oracles take k_max = k; ``--mi-noise`` is mutual information's
-sensor noise.  Runs on the CUDA card
-unless ``--device cpu`` is given.
+Embeddings are U[0, 1)^2; facility location's and exemplar's reference
+set is 256 rows of U[0, 1) drawn after them from the same generator, as the
+JAX CLI draws them, and saturated coverage's and graph cut's ``total`` is
+the embeddings' f32 column sum, as the JAX CLI computes it (before any bf16
+cast).  The log-det oracles take k_max = k; ``--mi-noise`` is mutual
+information's sensor noise.
+
+``--constraint knapsack`` draws per-element costs U[0.5, 2) after the
+reference, from the same generator, with the budget ``--budget`` (default
+k * 1.25 / 2); ``--constraint partition_matroid`` draws part labels
+uniformly over ``--n-parts`` parts, each capped at max(1, k // n_parts),
+as the JAX CLI does.  Runs on the CUDA card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
 
+from repro_torch.core.constraints import CONSTRAINT_NAMES
 from repro_torch.core.grids import SCHEDULE_KINDS
 from repro_torch.core.precision import PRECISION_NAMES
 from repro_torch.core.selector import (ALGORITHMS, PORTED_ORACLES,
@@ -52,6 +60,16 @@ def main(argv=None) -> None:
     ap.add_argument("--epochs", type=int, default=None,
                     help="multi_epoch threshold levels (2 rounds each); "
                          "default derives ceil(1/eps) from --eps")
+    ap.add_argument("--constraint", default="cardinality",
+                    choices=list(CONSTRAINT_NAMES),
+                    help="feasibility constraint on the selection; the "
+                         "launcher draws synthetic per-element costs / part "
+                         "labels to exercise it")
+    ap.add_argument("--budget", type=float, default=None,
+                    help="knapsack cost budget (default: k * mean cost / 2)")
+    ap.add_argument("--n-parts", type=int, default=8,
+                    help="partition_matroid: number of parts (capacities "
+                         "split k evenly)")
     ap.add_argument("--mi-noise", type=float, default=1.0,
                     help="mutual_information sensor noise")
     ap.add_argument("--eps", type=float, default=0.15)
@@ -69,19 +87,31 @@ def main(argv=None) -> None:
                         epochs=args.epochs, schedule_kind=args.schedule,
                         engine=args.engine, chunk=args.chunk,
                         use_kernel=args.use_kernel, precision=args.precision,
-                        mi_noise=args.mi_noise)
+                        mi_noise=args.mi_noise, constraint=args.constraint)
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     emb = torch.rand((args.n, args.d), generator=gen, device=device) ** 2
     reference = total = None
-    if args.oracle == "facility_location":
+    if args.oracle in ("facility_location", "exemplar"):
         reference = torch.rand((spec.reference_size, args.d), generator=gen,
                                device=device)
     if args.oracle in ("saturated_coverage", "graph_cut"):
         total = emb.sum(0)
+    costs = parts = part_caps = None
+    if args.constraint == "knapsack":
+        costs = 0.5 + 1.5 * torch.rand(args.n, generator=gen, device=device)
+        budget = args.budget if args.budget is not None else args.k * 1.25 / 2
+        spec = dataclasses.replace(spec, knapsack_budget=budget)
+    elif args.constraint == "partition_matroid":
+        parts = torch.randint(0, args.n_parts, (args.n,), generator=gen,
+                              device=device)
+        part_caps = torch.full((args.n_parts,), max(1, args.k // args.n_parts),
+                               dtype=torch.int32)
     sel = DistributedSelector(spec, n_total=args.n, feat_dim=args.d,
                               n_machines=args.machines, device=device,
-                              reference=reference, total=total)
+                              reference=reference, total=total,
+                              element_costs=costs, parts=parts,
+                              part_caps=part_caps)
 
     t0 = time.perf_counter()
     res = sel.select(emb, generator=gen)
@@ -89,7 +119,7 @@ def main(argv=None) -> None:
     dt = time.perf_counter() - t0
 
     print(f"[select] oracle={args.oracle} n={args.n} k={args.k} d={args.d} "
-          f"algo={args.algorithm} "
+          f"algo={args.algorithm} constraint={args.constraint} "
           f"engine={args.engine} machines={args.machines} "
           f"precision={args.precision} device={sel.device}")
     print(sel.round_log.summary())

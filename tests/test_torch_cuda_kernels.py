@@ -20,7 +20,15 @@ run on dyadic rows (a/8) with dyadic totals and states (2 lam s up to
 The log-det kernels run on bases built by the plain append (empty,
 partial, full), to rtol 1e-5 / atol 1e-4 for gains, bases and logdet; their
 sweeps take tau = 0 or +inf, so masks depend on eligibility and budget
-alone and must be equal, and appends run into k_max.
+alone and must be equal, and appends run into k_max.  The exemplar
+marginals hold to ``ref.exemplar_gain_tol`` (the f32 rounding bound of the
+three-term distance, summed over r), the exemplar sweep runs on dyadic
+rows and references (a/8, b/8) with states m0 times quarters, where every
+distance and gain is exact: masks, states and gains must be equal.  The
+cost mode of every sweep runs on the same data as its cardinality test,
+with dyadic costs (multiples of 1/8 in [0.5, 2)) and budgets that bind
+inside the chunk in some lanes, so the spend and every tau * cost are
+exact; it is held to the same tolerance as the cardinality mode.
 """
 
 import pytest
@@ -28,6 +36,8 @@ import torch
 
 from repro_torch.kernels import coverage_accept as tca
 from repro_torch.kernels import coverage_marginals as tcm
+from repro_torch.kernels import exemplar_accept as tea
+from repro_torch.kernels import exemplar_marginals as tem
 from repro_torch.kernels import facility_accept as tfa
 from repro_torch.kernels import facility_marginals as tfm
 from repro_torch.kernels import graph_cut_accept as tga
@@ -416,3 +426,179 @@ def test_cuda_logdet_accept_refuses_a_basis_beyond_shared_memory(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         tla.logdet_accept(x, U, ld, sz, elig, 0.0, 4)
     assert tla.launches == before
+
+
+def _exemplar_inputs(g, dev, shape_c, r, d, dtype, dyadic=False):
+    """Candidates and references U[0, 1) (dyadic: a/8 and b/8), and a state
+    for each lane at m0 times U[0, 1) (dyadic: quarters of m0): a
+    min-distance vector never exceeds m0."""
+    if dyadic:
+        cand = torch.randint(0, 8, shape_c + (d,), generator=g, device=dev) / 8.0
+        R = torch.randint(0, 8, (r, d), generator=g, device=dev) / 8.0
+    else:
+        cand = torch.rand(shape_c + (d,), generator=g, device=dev)
+        R = torch.rand((r, d), generator=g, device=dev)
+    cand, R = cand.to(dtype), R.to(dtype)
+    m0 = (R.float() ** 2).sum(-1)
+    return cand, R, m0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,L,C,r,d", [
+    ("unbatched", 1, 1000, 256, 256), ("shared", 37, 700, 256, 256),
+    ("per_lane", 37, 128, 256, 256), ("shared", 100, 333, 45, 17),
+    ("per_lane", 1, 65, 33, 70), ("shared", 130, 70, 300, 45)])
+def test_cuda_exemplar_marginals_matches_plain(cuda_device, dtype, mode, L, C,
+                                               r, d):
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    cand, R, m0 = _exemplar_inputs(
+        g, cuda_device, (L, C) if mode == "per_lane" else (C,), r, d, dtype)
+    frac = torch.rand((r,) if mode == "unbatched" else (L, r), generator=g,
+                      device=cuda_device)
+    state = (m0 * frac).contiguous()
+    before = tem.launches
+    got = tem.exemplar_marginals(cand, R, state)
+    torch.cuda.synchronize()
+    assert tem.launches == before + 1
+    tol = ref.exemplar_gain_tol(cand, R)
+    _within(got, ref.exemplar_marginals(cand, R, state),
+            tol if mode != "shared" else tol.expand(L, C))
+    assert torch.equal(got, tem.exemplar_marginals(cand, R, state))
+
+
+def _exemplar_sweep_case(g, dev, L, B, r, d, dtype):
+    cand, R, m0 = _exemplar_inputs(g, dev, (L, B), r, d, dtype, dyadic=True)
+    q = torch.randint(1, 5, (L, r), generator=g, device=dev) / 4.0
+    state = (m0 * q).contiguous()
+    elig = torch.rand((L, B), generator=g, device=dev) < 0.9
+    tau = (ref.exemplar_marginals(cand, R, state).median(dim=1).values
+           * 0.05).contiguous()
+    return cand, R, state, elig, tau
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,B,r,d", [(37, 128, 256, 256), (5, 128, 1024, 64),
+                                     (3, 70, 45, 17), (1, 1, 1, 1)])
+def test_cuda_exemplar_accept_matches_plain(cuda_device, dtype, L, B, r, d):
+    """Dyadic inputs, exact in f32 in any order: masks, states and gains
+    must be equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    cand, R, state, elig, tau = _exemplar_sweep_case(g, cuda_device, L, B, r,
+                                                     d, dtype)
+    bud = torch.randint(1, B + 1, (L,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    before = tea.launches
+    got = tea.exemplar_accept(cand, R, state, elig, tau, bud)
+    torch.cuda.synchronize()
+    assert tea.launches == before + 1
+    want = ref.exemplar_accept(cand, R, state, elig, tau, bud)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    again = tea.exemplar_accept(cand, R, state, elig, tau, bud)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+COST_SWEEPS = ("coverage", "weighted", "saturated", "graph_cut", "facility",
+               "exemplar", "log_det", "mutual_information")
+
+
+def _cost_sweep(name, g, dev, L, B, d, dtype):
+    """(kernel call, plain call, exact) for one sweep on its cardinality
+    test's data; each call takes (cost, cost_budget)."""
+    elig = torch.rand((L, B), generator=g, device=dev) < 0.9
+    bud = torch.full((L,), B, dtype=torch.int32, device=dev)
+    if name == "coverage":
+        x = (torch.rand((L, B, d), generator=g, device=dev) ** 2).to(dtype)
+        state = torch.rand((L, d), generator=g, device=dev) * 3
+        tau = ref.coverage_marginals(x, state).median(dim=1).values * 0.5
+        args = (x, state, None, elig, tau.contiguous(), bud)
+        return (lambda c, cb: tca.coverage_accept(*args, c, cb),
+                lambda c, cb: ref.coverage_accept(*args, c, cb), False)
+    if name in ("weighted", "saturated"):
+        x, state, _, _, cap = _sweep_case(
+            g, dev, L, B, d, dtype, "binary" if name == "weighted" else "dyadic")
+        if name == "weighted":
+            tau = ref.weighted_coverage_marginals(x, state).median(dim=1).values
+            args = (x, state, elig, (tau * 0.5).contiguous(), bud)
+            return (lambda c, cb: twa.weighted_coverage_accept(*args, c, cb),
+                    lambda c, cb: ref.weighted_coverage_accept(*args, c, cb),
+                    True)
+        tau = ref.saturated_coverage_marginals(x, state, cap).median(
+            dim=1).values
+        args = (x, state, cap, None, elig, (tau * 0.5).contiguous(), bud)
+        return (lambda c, cb: tsa.saturated_coverage_accept(*args, c, cb),
+                lambda c, cb: ref.saturated_coverage_accept(*args, c, cb),
+                True)
+    if name == "graph_cut":
+        x, total, state = _graph_cut_case(g, dev, "per_lane", L, B, d, dtype)
+        state = state.expand(L, d).contiguous()
+        tau = ref.graph_cut_marginals(x, total, state).median(dim=1).values
+        args = (x, total, state, elig, (tau * 0.5).contiguous(), bud, 0.5)
+        return (lambda c, cb: tga.graph_cut_accept(*args, c, cb),
+                lambda c, cb: ref.graph_cut_accept(*args, c, cb), True)
+    if name == "facility":
+        cand = ((torch.randint(0, 8, (L, B, d), generator=g, device=dev)
+                 / 8.0) ** 2).to(dtype)
+        R = (torch.randint(0, 8, (256, d), generator=g, device=dev)
+             / 8.0).to(dtype)
+        state = torch.randint(0, 4 * d, (L, 256), generator=g,
+                              device=dev) / 64.0
+        tau = ref.facility_marginals(cand, R, state).median(dim=1).values
+        args = (cand, R, state, elig, (tau * 0.05).contiguous(), bud)
+        return (lambda c, cb: tfa.facility_accept(*args, c, cb),
+                lambda c, cb: ref.facility_accept(*args, c, cb), True)
+    if name == "exemplar":
+        cand, R, state, elig, tau = _exemplar_sweep_case(g, dev, L, B, 256, d,
+                                                         dtype)
+        args = (cand, R, state, elig, tau, bud)
+        return (lambda c, cb: tea.exemplar_accept(*args, c, cb),
+                lambda c, cb: ref.exemplar_accept(*args, c, cb), True)
+    scale = 1.0 if name == "log_det" else 0.5
+    x = (torch.rand((L, B, d), generator=g, device=dev) ** 2).to(dtype)
+    U, ld, sz = _bases(g, dev, L, 16, d, _sizes(dev, L, 16))
+    tau = torch.zeros(L, device=dev)
+    args = (x, U, ld, sz, elig, tau, bud, 1.0, scale)
+    return (lambda c, cb: tla.logdet_accept(*args, c, cb),
+            lambda c, cb: ref.logdet_accept(*args[:7], 1.0, scale=scale,
+                                            cost=c, cost_budget=cb), None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", COST_SWEEPS)
+def test_cuda_sweep_cost_mode_matches_plain(cuda_device, name, dtype):
+    """The knapsack cost mode: per-row dyadic costs and per-lane budgets,
+    some of which bind inside the chunk (the spend test cuts accepts the
+    cardinality rule would take); bitwise repeats."""
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    L, B, d = 37, 128, 256
+    kern, plain, exact = _cost_sweep(name, g, cuda_device, L, B, d, dtype)
+    cost = (4 + torch.randint(0, 12, (L, B), generator=g,
+                              device=cuda_device)) / 8.0
+    cb = torch.where(torch.arange(L, device=cuda_device) % 2 == 0,
+                     torch.tensor(4.0, device=cuda_device),
+                     torch.tensor(1e6, device=cuda_device))
+    got = kern(cost, cb)
+    torch.cuda.synchronize()
+    want = plain(cost, cb)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        if exact or a.dtype == torch.int32:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(
+                a, b, rtol=RTOL if exact is False else LD_RTOL,
+                atol=ATOL if exact is False else LD_ATOL)
+    spent = torch.where(got[0], cost, 0.0).sum(-1)
+    assert bool((spent <= cb).all())
+    free = kern(cost, torch.full_like(cb, 1e6))
+    cut = free[0].sum(-1) - got[0].sum(-1)
+    assert int(cut[0::2].max()) > 0 and int(cut[1::2].abs().max()) == 0
+    again = kern(cost, cb)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the cardinality mode keeps its bits beside the cost mode
+    card = kern(None, None)
+    unit = kern(torch.ones_like(cost), torch.full_like(cb, 1e6))
+    assert all(torch.equal(a, b) for a, b in zip(card, unit))

@@ -264,9 +264,9 @@ def test_graph_cut_scalar_lam_keeps_the_kernel_route(lam, monkeypatch):
     tensors lie on the CPU)."""
     seen = []
     for fn in ("graph_cut_marginals", "graph_cut_accept"):
-        def spy(*args, _fn=getattr(ops, fn), _name=fn):
+        def spy(*args, _fn=getattr(ops, fn), _name=fn, **kw):
             seen.append((_name, args[-1]))
-            return _fn(*args)
+            return _fn(*args, **kw)
         monkeypatch.setattr(ops, fn, spy)
     x, t = torch.rand(8, 4), torch.rand(4)
     oracle = interop.graph_cut(4, t.numpy(), lam, use_kernel=True)

@@ -11,7 +11,7 @@ the kernels' plain versions.  Tolerances are those of the JAX suite.
 import numpy as np
 import pytest
 import torch
-from oracle_contract import (K_CAP, build_facility_location,
+from oracle_contract import (K_CAP, build_exemplar, build_facility_location,
                              build_feature_coverage, build_graph_cut,
                              build_log_det, build_mutual_information,
                              build_saturated_coverage,
@@ -26,14 +26,16 @@ torch.set_num_threads(2)
 
 N, D = 14, 6
 NAMES = ("feature_coverage", "facility_location", "weighted_coverage",
-         "saturated_coverage", "graph_cut", "log_det", "mutual_information")
+         "saturated_coverage", "graph_cut", "log_det", "mutual_information",
+         "exemplar")
 BUILDERS = {"feature_coverage": build_feature_coverage,
             "facility_location": build_facility_location,
             "weighted_coverage": build_weighted_coverage,
             "saturated_coverage": build_saturated_coverage,
             "graph_cut": build_graph_cut,
             "log_det": build_log_det,
-            "mutual_information": build_mutual_information}
+            "mutual_information": build_mutual_information,
+            "exemplar": build_exemplar}
 
 
 def _build(name, seed, use_kernel=False):
@@ -55,6 +57,9 @@ def _build(name, seed, use_kernel=False):
     elif name == "log_det":
         t_oracle = interop.log_det(D, j_oracle.k_max, j_oracle.alpha,
                                    use_kernel=use_kernel)
+    elif name == "exemplar":
+        t_oracle = interop.exemplar(D, np.asarray(j_oracle.reference),
+                                    use_kernel=use_kernel)
     elif name == "mutual_information":
         t_oracle = interop.mutual_information(D, j_oracle.k_max,
                                               j_oracle.noise,

@@ -99,7 +99,7 @@ def test_spec_and_oracle_names_are_checked():
     with pytest.raises(ValueError, match="feature sum"):
         tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="saturated_coverage"),
                          4, "cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(ValueError, match="reference set"):
         tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="exemplar"), 4, "cpu")
     assert tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="log_det"), 4,
                             "cpu").k_max == 4
