@@ -14,8 +14,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    and time kernel, plain version and, where one exists, the PyTorch call
    of the same product: the coverage, facility, weighted and saturated
    coverage, graph cut, log-det and exemplar kernels.
+   facility_marginals and exemplar_marginals also run on dyadic data at
+   the ragged edges of their 128 x 128 tile (C = 1000, 65; r = 45, 100,
+   130, 300; d = 45, 70, 130; L = 1, 37, 100, 130), bit for bit the plain
+   versions; the build prints ptxas's registers and spills and the SASS
+   instruction mix of their tile.
 3. The knapsack cost mode of the seven accept sweeps against their plain
-   versions, with budgets that bind inside the chunk in half the lanes.
+   versions, with budgets that bind inside the chunk in half the lanes;
+   then each sweep's wide instance (d = 2049 and 4096 features, r = 4097
+   and 8192 reference rows, log-det bases (k, d) = (64, 1024) and
+   (256, 256)) in both modes, f32 and bf16.
 4. Drive each oracle's main path at full width through
    DistributedSelector.select: two_round with n = 1,048,576 rows of
    d = 256 (a 1 GiB f32 corpus on the card), k = 64, m = 16 simulated
@@ -35,7 +43,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    on all three engines (the same ids) and with unit costs and budget k
    (the cardinality select's ids); a partition matroid (8 parts, caps 8)
    on FeatureCoverage; the time of the plane split's copy.
-6. Print the kernel table as one JSON line, the card's name and power
+6. Three selects whose fused engine runs a wide instance, each on a
+   1 GiB corpus, against the lazy plain route (the same ids, values within
+   rtol 1e-3): FeatureCoverage on 65,536 x 4096, LogDetDiversity (k = 64)
+   on 262,144 x 1024, FacilityLocation with 8192 reference rows on
+   262,144 x 256.
+7. Print the kernel table as one JSON line, the card's name and power
    limit, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -262,24 +275,31 @@ def phase_facility_kernels(torch, ref, fm, fa):
     def repeat(name, fn, first):
         check(torch.equal(fn(), first), f"{name}: a repeated launch differs")
 
-    # -- facility_marginals: shared at the filter shape, per-lane at the
-    #    lazy chunk shape, two odd shapes, and a grid wider than one CTA's
-    #    lane group (two groups)
+    # -- facility_marginals: shared at the filter shape, unbatched over the
+    #    corpus, per-lane at the lazy chunk shape, two odd shapes, and a grid
+    #    wider than one CTA's lane group (two groups)
     worst = 0.0
-    for label, Lk, C, r, d in (("shared", L, N, R, D), ("per-lane", L, B, R, D),
+    for label, Lk, C, r, d in (("shared", L, N, R, D), ("unbatched", 1, N, R, D),
+                               ("per-lane", L, B, R, D),
                                ("odd shared", 100, 1000, 45, 70),
                                ("odd per-lane", 1, 65, 45, 70),
                                ("odd shared", 130, 1000, 45, 70)):
         per_lane = label.endswith("per-lane")
+        unbatched = label == "unbatched"
         for dtype in (torch.float32, torch.bfloat16):
             if label.startswith("odd") and dtype == torch.bfloat16:
                 continue
             shape = (Lk, C, d) if per_lane else (C, d)
             cand = (torch.rand(shape, generator=g, device=dev) ** 2).to(dtype)
             Rm = torch.rand((r, d), generator=g, device=dev)
-            state = torch.rand((Lk, r), generator=g, device=dev) * d / 4
+            state = torch.rand((r,) if unbatched else (Lk, r), generator=g,
+                               device=dev) * d / 4
             if per_lane or C <= TILE:
                 plain = lambda: ref.facility_marginals(cand, Rm, state)  # noqa: E731
+            elif unbatched:
+                plain = lambda: torch.cat([  # noqa: E731
+                    ref.facility_marginals(cand[t:t + TILE], Rm, state)
+                    for t in range(0, C, TILE)])
             else:
                 # one lane at a time, in row tiles: the plain version's
                 # (L, C, r) temporaries would not fit in device memory
@@ -291,7 +311,7 @@ def phase_facility_kernels(torch, ref, fm, fa):
             torch.cuda.synchronize()
             tol = ref.gemm_gain_tol(cand, Rm)
             err = within(f"facility_marginals {label} {dtype}", got, want,
-                         tol if per_lane else tol.expand(Lk, C))
+                         tol if per_lane or unbatched else tol.expand(Lk, C))
             repeat("facility_marginals", lambda: fm.facility_marginals(
                 cand, Rm, state), got)
             worst = max(worst, err)
@@ -301,19 +321,28 @@ def phase_facility_kernels(torch, ref, fm, fa):
             b_ms, b_by = bound_ms(cand.numel() * cand.element_size()
                                   + r * d * 4 + Lk * r * 4 + Lk * C * 4,
                                   2 * rows_c * r * d + 3 * Lk * C * r)
-            print(f"[kernels] facility_marginals {label} cand{tuple(shape)} "
-                  f"ref({r}, {d}) L={Lk} {str(dtype)[6:]}: max_abs_err={err} "
-                  f"tol_max={tol.max().item()} kernel_ms={ms} plain_ms={pms} "
-                  f"bound_ms={b_ms} ({b_by}) repeat=bitwise")
+            line = (f"[kernels] facility_marginals {label} cand{tuple(shape)} "
+                    f"ref({r}, {d}) L={Lk} {str(dtype)[6:]}: max_abs_err={err} "
+                    f"tol_max={tol.max().item()} kernel_ms={ms} plain_ms={pms} "
+                    f"bound_ms={b_ms} ({b_by}) repeat=bitwise")
+            if not label.startswith("odd"):
+                # one PyTorch call of the product alone (no such call takes
+                # the residual sum as well)
+                cf = cand.float()
+                if per_lane:
+                    lib_ms = cuda_ms(lambda: torch.bmm(
+                        cf, Rm.T.expand(Lk, d, r)), 10)
+                else:
+                    lib_ms = cuda_ms(lambda: torch.matmul(cf, Rm.T), 10)
+                line += f" library_ms={lib_ms} (torch.matmul of the product)"
             if label == "shared" and dtype == torch.float32:
                 rows["facility_marginals"] = dict(ms=ms, plain_ms=pms,
-                                                  bound_ms=b_ms, bound_by=b_by)
-                Xs, Rs = cand, Rm
+                                                  bound_ms=b_ms, bound_by=b_by,
+                                                  library_ms=lib_ms)
+            print(line)
     rows["facility_marginals"]["max_abs_err"] = worst
-    mm = cuda_ms(lambda: torch.matmul(Xs, Rs.T), 10)
-    print(f"[kernels] yardstick: torch.matmul ({N}, {D}) x ({D}, {R}) f32 "
-          f"alone: {mm} ms (allow_tf32="
-          f"{torch.backends.cuda.matmul.allow_tf32})")
+    print(f"[kernels] yardstick: torch.matmul with allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}")
 
     # -- rectified_residual_sum: unbatched over the corpus (local_top), the
     #    shared sample with 37 lanes (dense phase 1), per-lane survivors
@@ -1004,6 +1033,102 @@ def phase_exemplar_kernels(torch, ref, em, ea):
     return rows
 
 
+def sweep_cases(torch, ref, sweeps, g, names, dtype=None, d=D, r=R, k=K,
+                d_ref=D, d_ld=D):
+    """The accept sweeps ``names`` on L = 37 lanes of B = 128 rows, each as
+    (kernel, plain, gains0, lane_tol, close): kernel and plain take
+    (eligible, tau, budget, cost, cost_budget); gains0 are the rows' gains
+    against the starting state; lane_tol the sweep's per-lane tolerance
+    (None: rtol / atol on tau * cost); close(l, a, b, what) compares a
+    lane's states or gains.  Features are d wide (d_ref for the facility
+    and exemplar rows against r reference rows, d_ld for log-det with a
+    k-row basis), rows rounded to ``dtype`` (f32 by default)."""
+    dev = torch.device("cuda")
+    dtype = dtype or torch.float32
+    lam, alpha = 0.5, 1.0
+    LD_RTOL, LD_ATOL = 1e-5, 1e-4
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def feature_close(l, a, b, what):
+        return torch.allclose(a, b, rtol=RTOL, atol=ATOL)
+
+    cases = {}
+    if "coverage_accept" in names:
+        x = (rand(L, B, d) ** 2).to(dtype)
+        st = rand(L, d) * 4
+        cases["coverage_accept"] = (
+            lambda *cc: sweeps["coverage_accept"].coverage_accept(
+                x, st, None, *cc),
+            lambda *cc: ref.coverage_accept(x, st, None, *cc),
+            ref.coverage_marginals(x, st), None, feature_close)
+    if "weighted_coverage_accept" in names:
+        xw, sw = (rand(L, B, d) ** 2).to(dtype), rand(L, d)
+        cases["weighted_coverage_accept"] = (
+            lambda *cc: sweeps["weighted_coverage_accept"]
+            .weighted_coverage_accept(xw, sw, *cc),
+            lambda *cc: ref.weighted_coverage_accept(xw, sw, *cc),
+            ref.weighted_coverage_marginals(xw, sw), None, feature_close)
+    if "saturated_coverage_accept" in names:
+        xs, cap = (rand(L, B, d) ** 2).to(dtype), rand(d) * 4 + 1
+        ss = (rand(L, d) * 1.2 * cap).contiguous()
+        cases["saturated_coverage_accept"] = (
+            lambda *cc: sweeps["saturated_coverage_accept"]
+            .saturated_coverage_accept(xs, ss, cap, None, *cc),
+            lambda *cc: ref.saturated_coverage_accept(xs, ss, cap, None, *cc),
+            ref.saturated_coverage_marginals(xs, ss, cap), None,
+            feature_close)
+    if "graph_cut_accept" in names:
+        xg, t = (rand(L, B, d) ** 2).to(dtype), (rand(d) * N / 3).contiguous()
+        sg = (t * rand(L, 1) * 1.2 / (2 * lam)).contiguous()
+        gc_tol = graph_cut_tol(xg, t + 2 * lam * (sg + xg.float().sum(1)),
+                               lam).amax(-1)
+        cases["graph_cut_accept"] = (
+            lambda *cc: sweeps["graph_cut_accept"].graph_cut_accept(
+                xg, t, sg, *cc[:3], lam, *cc[3:]),
+            lambda *cc: ref.graph_cut_accept(xg, t, sg, *cc[:3], lam,
+                                             *cc[3:]),
+            ref.graph_cut_marginals(xg, t, sg, lam), gc_tol,
+            lambda l, a, b, what: (torch.equal(a, b) if what == "state"
+                                   else bool(((a - b).abs()
+                                              <= gc_tol[l]).all())))
+    if "facility_accept" in names:
+        cf, Rf = (rand(L, B, d_ref) ** 2).to(dtype), rand(r, d_ref)
+        sf = rand(L, r) * d_ref / 4
+        fa_tol = 2 * ref.gemm_gain_tol(cf, Rf).amax(-1)
+        cases["facility_accept"] = (
+            lambda *cc: sweeps["facility_accept"].facility_accept(
+                cf, Rf, sf, *cc),
+            lambda *cc: ref.facility_accept(cf, Rf, sf, *cc),
+            ref.facility_marginals(cf, Rf, sf), fa_tol,
+            lambda l, a, b, what: bool(((a - b).abs() <= fa_tol[l]).all()))
+    if "exemplar_accept" in names:
+        ce, Re = rand(L, B, d_ref).to(dtype), rand(r, d_ref)
+        se = ((Re * Re).sum(-1) * rand(L, r)).contiguous()
+        ex_tol = 2 * ref.exemplar_gain_tol(ce, Re).amax(-1)
+        cases["exemplar_accept"] = (
+            lambda *cc: sweeps["exemplar_accept"].exemplar_accept(
+                ce, Re, se, *cc),
+            lambda *cc: ref.exemplar_accept(ce, Re, se, *cc),
+            ref.exemplar_marginals(ce, Re, se), ex_tol,
+            lambda l, a, b, what: bool(((a - b).abs() <= ex_tol[l]).all()))
+    if "logdet_accept" in names:
+        xl = (rand(L, B, d_ld) ** 2).to(dtype)
+        sizes = ((torch.arange(L, device=dev) * 13) % (k + 1)).to(torch.int32)
+        U, ld, sz = logdet_bases(torch, ref, g, L, k, d_ld, sizes, alpha,
+                                 dtype)
+        cases["logdet_accept"] = (
+            lambda *cc: sweeps["logdet_accept"].logdet_accept(
+                xl, U, ld, sz, *cc[:3], alpha, 1.0, *cc[3:]),
+            lambda *cc: ref.logdet_accept(xl, U, ld, sz, *cc[:3], alpha,
+                                          cost=cc[3], cost_budget=cc[4]),
+            ref.logdet_marginals(xl, U, alpha), None,
+            lambda l, a, b, what: torch.allclose(a, b, rtol=LD_RTOL,
+                                                 atol=LD_ATOL))
+    return cases
+
+
 def phase_cost_sweeps(torch, ref, sweeps, rows):
     """The knapsack cost mode of the seven accept sweeps vs their plain
     versions, at the fused engine's shape (L = 37, B = 128, d = 256, r =
@@ -1015,76 +1140,13 @@ def phase_cost_sweeps(torch, ref, sweeps, rows):
     each sweep's row; repeats must be bitwise."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
-    lam, alpha = 0.5, 1.0
     LD_RTOL, LD_ATOL = 1e-5, 1e-4
     even = torch.arange(L, device=dev) % 2 == 0
 
     def rand(*shape):
         return torch.rand(shape, generator=g, device=dev)
 
-    def feature_close(l, a, b, what):
-        return torch.allclose(a, b, rtol=RTOL, atol=ATOL)
-
-    cases = {}
-    x = rand(L, B, D) ** 2
-    st = rand(L, D) * 4
-    cases["coverage_accept"] = (
-        lambda *cc: sweeps["coverage_accept"].coverage_accept(
-            x, st, None, *cc),
-        lambda *cc: ref.coverage_accept(x, st, None, *cc),
-        ref.coverage_marginals(x, st), None, feature_close)
-    xw, sw = rand(L, B, D) ** 2, rand(L, D)
-    cases["weighted_coverage_accept"] = (
-        lambda *cc: sweeps["weighted_coverage_accept"].weighted_coverage_accept(
-            xw, sw, *cc),
-        lambda *cc: ref.weighted_coverage_accept(xw, sw, *cc),
-        ref.weighted_coverage_marginals(xw, sw), None, feature_close)
-    xs, cap = rand(L, B, D) ** 2, rand(D) * 4 + 1
-    ss = (rand(L, D) * 1.2 * cap).contiguous()
-    cases["saturated_coverage_accept"] = (
-        lambda *cc: sweeps["saturated_coverage_accept"]
-        .saturated_coverage_accept(xs, ss, cap, None, *cc),
-        lambda *cc: ref.saturated_coverage_accept(xs, ss, cap, None, *cc),
-        ref.saturated_coverage_marginals(xs, ss, cap), None, feature_close)
-    xg, t = rand(L, B, D) ** 2, (rand(D) * N / 3).contiguous()
-    sg = (t * rand(L, 1) * 1.2 / (2 * lam)).contiguous()
-    gc_tol = graph_cut_tol(xg, t + 2 * lam * (sg + xg.sum(1)), lam).amax(-1)
-    cases["graph_cut_accept"] = (
-        lambda *cc: sweeps["graph_cut_accept"].graph_cut_accept(
-            xg, t, sg, *cc[:3], lam, *cc[3:]),
-        lambda *cc: ref.graph_cut_accept(xg, t, sg, *cc[:3], lam, *cc[3:]),
-        ref.graph_cut_marginals(xg, t, sg, lam), gc_tol,
-        lambda l, a, b, what: (torch.equal(a, b) if what == "state"
-                               else bool(((a - b).abs() <= gc_tol[l]).all())))
-    cf, Rf = rand(L, B, D) ** 2, rand(R, D)
-    sf = rand(L, R) * D / 4
-    fa_tol = 2 * ref.gemm_gain_tol(cf, Rf).amax(-1)
-    cases["facility_accept"] = (
-        lambda *cc: sweeps["facility_accept"].facility_accept(cf, Rf, sf, *cc),
-        lambda *cc: ref.facility_accept(cf, Rf, sf, *cc),
-        ref.facility_marginals(cf, Rf, sf), fa_tol,
-        lambda l, a, b, what: bool(((a - b).abs() <= fa_tol[l]).all()))
-    ce, Re = rand(L, B, D), rand(R, D)
-    se = ((Re * Re).sum(-1) * rand(L, R)).contiguous()
-    ex_tol = 2 * ref.exemplar_gain_tol(ce, Re).amax(-1)
-    cases["exemplar_accept"] = (
-        lambda *cc: sweeps["exemplar_accept"].exemplar_accept(ce, Re, se, *cc),
-        lambda *cc: ref.exemplar_accept(ce, Re, se, *cc),
-        ref.exemplar_marginals(ce, Re, se), ex_tol,
-        lambda l, a, b, what: bool(((a - b).abs() <= ex_tol[l]).all()))
-    xl = rand(L, B, D) ** 2
-    sizes = ((torch.arange(L, device=dev) * 13) % (K + 1)).to(torch.int32)
-    U, ld, sz = logdet_bases(torch, ref, g, L, K, D, sizes, alpha,
-                             torch.float32)
-    cases["logdet_accept"] = (
-        lambda *cc: sweeps["logdet_accept"].logdet_accept(
-            xl, U, ld, sz, *cc[:3], alpha, 1.0, *cc[3:]),
-        lambda *cc: ref.logdet_accept(xl, U, ld, sz, *cc[:3], alpha,
-                                      cost=cc[3], cost_budget=cc[4]),
-        ref.logdet_marginals(xl, U, alpha), None,
-        lambda l, a, b, what: torch.allclose(a, b, rtol=LD_RTOL,
-                                             atol=LD_ATOL))
-
+    cases = sweep_cases(torch, ref, sweeps, g, tuple(sweeps))
     for name, (kern, plain, gains0, lane_tol, close) in cases.items():
         elig = rand(L, B) < 0.9
         cost = (0.5 + 1.5 * rand(L, B)).contiguous()
@@ -1133,6 +1195,98 @@ def phase_cost_sweeps(torch, ref, sweeps, rows):
     return rows
 
 
+#: the wide shapes of each sweep: past its narrow instance's 2048 features
+#: (the feature sweeps), 4096 reference rows (facility, exemplar) or 227 KiB
+#: of shared memory for the basis (log-det)
+WIDE_SWEEPS = tuple(
+    [(name, dict(d=w), f"d={w}") for name in (
+        "coverage_accept", "weighted_coverage_accept",
+        "saturated_coverage_accept", "graph_cut_accept") for w in (2049, 4096)]
+    + [(name, dict(r=w), f"r={w}") for name in (
+        "facility_accept", "exemplar_accept") for w in (4097, 8192)]
+    + [("logdet_accept", dict(k=64, d_ld=1024), "k=64 d=1024"),
+       ("logdet_accept", dict(k=256, d_ld=256), "k=256 d=256")])
+
+
+def phase_wide_sweeps(torch, ref, sweeps, wrap, la, rows):
+    """Each sweep's wide instance (the state in global memory) against its
+    plain version, at L = 37, B = 128 and the widths of WIDE_SWEEPS, f32
+    and bf16, in the cardinality mode and the knapsack cost mode (half the
+    unbounded spend in even lanes), with the cost-mode tolerances of
+    phase_cost_sweeps and bitwise repeats.  Adds ``wide_ms`` (f32,
+    cardinality, at the widest shape) to each sweep's row."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    LD_RTOL, LD_ATOL = 1e-5, 1e-4
+    even = torch.arange(L, device=dev) % 2 == 0
+    for name, kw, label in WIDE_SWEEPS:
+        if name == "logdet_accept":
+            picked = la.instance(kw["k"], kw["d_ld"]) == "global"
+        elif name in ("facility_accept", "exemplar_accept"):
+            picked = wrap.reference_sweep_per(kw["r"]) == 0
+        else:
+            picked = wrap.feature_sweep_per(kw["d"]) == 0
+        check(picked, f"{name} {label}: the wrapper did not pick the wide "
+              f"instance")
+        for dtype in (torch.float32, torch.bfloat16):
+            kern, plain, gains0, lane_tol, close = sweep_cases(
+                torch, ref, sweeps, g, (name,), dtype, **kw)[name]
+            elig = torch.rand((L, B), generator=g, device=dev) < 0.9
+            budget = torch.where(torch.arange(L, device=dev) % 5 == 0, 3,
+                                 K).to(torch.int32)
+            three = (lambda o: (o[0], o[1], o[4])) if name == "logdet_accept" \
+                else (lambda o: o)
+            for mode in ("cardinality", "cost"):
+                if mode == "cardinality":
+                    # half the lanes' quantiles, so most lanes accept more
+                    # than one row
+                    cost = cb = None
+                    tau = lane_taus(torch, gains0 / 2)
+                    thr = tau
+                else:
+                    cost = (0.5 + 1.5 * torch.rand((L, B), generator=g,
+                                                   device=dev)).contiguous()
+                    tau = lane_taus(torch, gains0 / cost.mean())
+                    free = plain(elig, tau, budget, cost,
+                                 torch.full((L,), 1e9, device=dev))
+                    cb = torch.where(even, 0.5 * torch.where(
+                        free[0], cost, 0.0).sum(-1), 1e9).contiguous()
+                    thr = tau[:, None] * cost
+                got = kern(elig, tau, budget, cost, cb)
+                want = plain(elig, tau, budget, cost, cb)
+                torch.cuda.synchronize()
+                tol = lane_tol
+                if tol is None:
+                    tol = (LD_ATOL + LD_RTOL * thr.abs().reshape(L, -1).amax(-1)
+                           if name == "logdet_accept"
+                           else ATOL + RTOL * thr.abs().reshape(L, -1).amax(-1))
+                ties, err = check_sweep(f"{name} {label} {mode}", three(got),
+                                        three(want), thr, tol, close)
+                if name == "logdet_accept":
+                    same = (got[0] == want[0]).all(-1)
+                    check(torch.equal(got[3][same], want[3][same]),
+                          f"{name} {label}: sizes differ")
+                if cost is not None:
+                    spent = torch.where(got[0], cost, 0.0).sum(-1)
+                    check(bool((spent <= cb * (1 + 1e-6)).all()),
+                          f"{name} {label}: a lane spent beyond its budget")
+                check(all(torch.equal(a, b) for a, b in zip(
+                    got, kern(elig, tau, budget, cost, cb))),
+                    f"{name} {label} {mode}: a repeated launch differs")
+                line = (f"[wide] {name} {label} {str(dtype)[6:]} {mode}: "
+                        f"max_abs_err={err} near_tau_ties={ties} "
+                        f"accepted={int(want[0].sum())} repeat=bitwise")
+                if dtype == torch.float32 and mode == "cardinality":
+                    ms = cuda_ms(lambda: kern(elig, tau, budget, None, None),
+                                 10)
+                    line += f" kernel_ms={ms}"
+                    rows[name]["wide_ms"] = ms
+                    rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                                    err)
+                print(line)
+    return rows
+
+
 def drive(torch, tsel, ops, X, label, reference=None, total=None,
           sel_kw=None, **spec_kw):
     """One select through the public entry point, with the launch counts
@@ -1141,7 +1295,8 @@ def drive(torch, tsel, ops, X, label, reference=None, total=None,
     ms, launch counts by kernel, with each sweep's cost-mode launches under
     "<name>[cost]")."""
     spec = tsel.SelectorSpec(k=K, eps=EPS, chunk=CHUNK, **spec_kw)
-    sel = tsel.DistributedSelector(spec, n_total=N, feat_dim=D, n_machines=M,
+    n, d = X.shape
+    sel = tsel.DistributedSelector(spec, n_total=n, feat_dim=d, n_machines=M,
                                    device="cuda", reference=reference,
                                    total=total, **(sel_kw or {}))
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1166,7 +1321,7 @@ def drive(torch, tsel, ops, X, label, reference=None, total=None,
     check(res.sol_ids.shape == (K,) and (size == K if full else 1 <= size <= K),
           f"{label}: got size {size}")
     check(len(set(ids.tolist())) == size and int(ids.min()) >= 0
-          and int(ids.max()) < N, f"{label}: ids not {size} distinct rows")
+          and int(ids.max()) < n, f"{label}: ids not {size} distinct rows")
     check(value == value and value > 0 and value != float("inf"),
           f"{label}: value {value}")
     nonzero = {k: v for k, v in counts.items() if v}
@@ -1408,6 +1563,142 @@ def saturating_select(torch, tsel, tseq, ops, X, total):
     return counts
 
 
+#: the wide selects: (oracle, n, d, reference rows, the kernels of its
+#: path, its accept sweep); each corpus is 1 GiB of f32 on the card
+WIDE_SELECTS = (
+    ("feature_coverage", 1 << 16, 4096, 0,
+     ("coverage_marginals", "coverage_accept"), "coverage_accept"),
+    ("log_det", 1 << 18, 1024, 0, ("logdet_marginals", "logdet_accept"),
+     "logdet_accept"),
+    ("facility_location", 1 << 18, 256, 8192,
+     ("facility_marginals", "rectified_residual_sum", "facility_accept"),
+     "facility_accept"))
+
+
+def wide_selects(torch, tsel, ops, wrap, la):
+    """Selects whose fused engine runs a sweep's wide instance (the users
+    who hold 1024- to 4096-wide embeddings or a large reference sample):
+    FeatureCoverage on 65,536 x 4096 rows, LogDetDiversity (k_max = 64) on
+    262,144 x 1024, FacilityLocation with 8192 reference rows on 262,144 x
+    256; two_round, k = 64, m = 16.  The fused engine on the kernel route
+    must launch every kernel of its path and pick the lazy plain route's
+    ids, with values within rtol 1e-3.  Returns the kernel launches."""
+    launches = {}
+    for oracle, n, d, r, kernels, accept in WIDE_SELECTS:
+        wide = {"coverage_accept": wrap.feature_sweep_per(d) == 0,
+                "logdet_accept": la.instance(K, d) == "global",
+                "facility_accept": wrap.reference_sweep_per(r) == 0}[accept]
+        check(wide, f"{oracle}: {accept} would not run its wide instance")
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        X = torch.rand((n, d), generator=gen, device="cuda") ** 2
+        reference = (torch.rand((r, d), generator=gen, device="cuda")
+                     if r else None)
+        label = f"{oracle} wide n={n} d={d}" + (f" r={r}" if r else "")
+        res, value, _, counts = drive(torch, tsel, ops, X,
+                                      f"{label} two_round fused kernel",
+                                      reference, oracle=oracle,
+                                      engine="fused", use_kernel=True)
+        for name in kernels:
+            check(counts[name] > 0, f"{label}: {name} never launched")
+            launches[name] = launches.get(name, 0) + counts[name]
+        res_p, value_p, _, counts_p = drive(torch, tsel, ops, X,
+                                            f"{label} two_round lazy plain",
+                                            reference, oracle=oracle,
+                                            engine="lazy", use_kernel=False)
+        check(not any(counts_p.values()),
+              f"plain route launched kernels {counts_p}")
+        check(abs(value - value_p) <= 1e-3 * abs(value_p),
+              f"{label}: fused kernel value {value} vs plain {value_p}")
+        ids = set(res.sol_ids[:int(res.sol_size)].tolist())
+        ids_p = set(res_p.sol_ids[:int(res_p.sol_size)].tolist())
+        check(ids == ids_p, f"{label}: kernel ids {sorted(ids)} differ from "
+              f"plain {sorted(ids_p)}")
+        print(f"[wide] {label}: value={value} plain={value_p} "
+              f"|S|={len(ids)} same ids; {accept} launches={counts[accept]} "
+              f"(wide instance)")
+        del X, reference, res, res_p
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_marginals_ragged(torch, ref, fm, em):
+    """Both tile kernels on dyadic data (facility: cand (a/8)^2, ref b/8,
+    states multiples of 1/64; exemplar: cand a/8, ref b/8, states quarters
+    of m0), where every product, distance and sum is exact in f32, at the
+    ragged edges of the 128 x 128 tile: C = 1000 and 65 rows, r = 45, 100,
+    130 and 300 columns, d = 45, 70 and 130, L = 1, 37, 100 and 130 lanes
+    (130: two lane groups), every lane mode, f32 and bf16.  The kernels
+    must equal the plain versions bit for bit, twice."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    shapes = (("shared", 37, 1000, 45, 45), ("shared", 100, 65, 100, 70),
+              ("shared", 130, 1000, 130, 130), ("shared", 1, 65, 300, 45),
+              ("per-lane", 37, 65, 300, 70), ("per-lane", 100, 1000, 45, 130),
+              ("unbatched", 1, 1000, 130, 70), ("unbatched", 1, 65, 100, 130))
+    for mode, Lk, C, r, d in shapes:
+        shape_c = (Lk, C) if mode == "per-lane" else (C,)
+        st_shape = (r,) if mode == "unbatched" else (Lk, r)
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.randint(0, 8, shape_c + (d,), generator=g, device=dev)
+            Rm = torch.randint(0, 8, (r, d), generator=g, device=dev) / 8.0
+            m0 = (Rm * Rm).sum(-1)
+            for name, kern, plain, cand, state in (
+                    ("facility_marginals", fm.facility_marginals,
+                     ref.facility_marginals, ((a / 8.0) ** 2).to(dtype),
+                     torch.randint(0, 4 * d, st_shape, generator=g,
+                                   device=dev) / 64.0),
+                    ("exemplar_marginals", em.exemplar_marginals,
+                     ref.exemplar_marginals, (a / 8.0).to(dtype),
+                     (m0 * torch.randint(1, 5, st_shape, generator=g,
+                                         device=dev) / 4.0).contiguous())):
+                got = kern(cand, Rm, state)
+                torch.cuda.synchronize()
+                check(torch.equal(got, plain(cand, Rm, state)),
+                      f"{name} {mode} L={Lk} C={C} r={r} d={d} {dtype}: "
+                      f"not bit for bit the plain version on dyadic data")
+                check(torch.equal(got, kern(cand, Rm, state)),
+                      f"{name}: a repeated launch differs")
+    print(f"[kernels] facility_marginals and exemplar_marginals on dyadic "
+          f"data at {len(shapes)} ragged shapes and lane modes, f32 and bf16: "
+          f"bit for bit the plain versions, repeat=bitwise")
+
+
+def print_tile_resources(_build):
+    """What ptxas said of the marginals tile's kernels (registers, stack,
+    spills), and their SASS instruction mix where cuobjdump is at hand."""
+    for name in ("facility_marginals", "exemplar_marginals"):
+        entry, props = None, ""
+        for line in _build.ptxas_report(name).splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "spill" in line:
+                props = line.strip()
+            elif "Used" in line and entry and "5mtile" in entry:
+                print(f"[build] ptxas {name} {entry}: "
+                      f"{line.split(':', 1)[1].strip()}; {props}")
+                entry = None
+        cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+        if not cuobjdump.exists():
+            print("[build] cuobjdump not found: no SASS instruction mix")
+            continue
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(_build.build_all()[name])],
+                              capture_output=True, text=True).stdout
+        for fn in sass.split("Function : ")[1:]:
+            fname = fn.split(None, 1)[0]
+            if "5mtile" not in fname:
+                continue
+            ops = [[t for t in ln.split(";")[0].split()[1:]
+                    if not t.startswith("@")][0].split(".")[0]
+                   for ln in fn.splitlines()
+                   if ln.strip().startswith("/*") and ";" in ln]
+            mix = {op: sum(1 for o in ops if o == op)
+                   for op in ("FFMA", "LDS", "STS", "LDG", "STG", "BAR",
+                              "FADD", "FMNMX")}
+            print(f"[build] sass {name} {fname}: {len(ops)} instructions, "
+                  f"{mix}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1421,7 +1712,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import selector as tsel
     from repro_torch.core import sequential as tseq
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, _wrap, ops, ref
     from repro_torch.kernels import coverage_accept as ca
     from repro_torch.kernels import coverage_marginals as cm
     from repro_torch.kernels import exemplar_accept as ea
@@ -1449,17 +1740,20 @@ def main() -> int:
     _build.build_all()
     print(f"[build] {len(_build.SOURCES)} kernel sources built in "
           f"{time.perf_counter() - t0:.3f} s; card: {card}")
+    print_tile_resources(_build)
 
     rows = phase_coverage_kernels(torch, ref, cm, ca)
     rows.update(phase_facility_kernels(torch, ref, fm, fa))
     rows.update(phase_weighted_saturated_kernels(torch, ref, wm, wa, sm, sa))
     rows.update(phase_graph_cut_logdet_kernels(torch, ref, gm, ga, lm, la))
     rows.update(phase_exemplar_kernels(torch, ref, em, ea))
-    phase_cost_sweeps(torch, ref, {
-        "coverage_accept": ca, "weighted_coverage_accept": wa,
-        "saturated_coverage_accept": sa, "graph_cut_accept": ga,
-        "facility_accept": fa, "exemplar_accept": ea, "logdet_accept": la},
-        rows)
+    phase_marginals_ragged(torch, ref, fm, em)
+    sweeps = {"coverage_accept": ca, "weighted_coverage_accept": wa,
+              "saturated_coverage_accept": sa, "graph_cut_accept": ga,
+              "facility_accept": fa, "exemplar_accept": ea,
+              "logdet_accept": la}
+    phase_cost_sweeps(torch, ref, sweeps, rows)
+    phase_wide_sweeps(torch, ref, sweeps, _wrap, la, rows)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     X = torch.rand((N, D), generator=gen, device="cuda") ** 2
@@ -1534,6 +1828,12 @@ def main() -> int:
     for name, n in partition_select(torch, tsel, ops, X, parts).items():
         launches[name] += n
 
+    # the wide shapes: selects whose sweeps run their wide instances
+    del X, costs, parts
+    torch.cuda.empty_cache()
+    for name, n in wide_selects(torch, tsel, ops, _wrap, la).items():
+        launches[name] += n
+
     table = []
     for name, src, replaces in (
             ("coverage_marginals",
@@ -1591,8 +1891,11 @@ def main() -> int:
                       # one PyTorch call that computes the same function,
                       # where there is one (None: there is none)
                       "library_ms": r.get("library_ms"),
-                      # the accept sweeps' knapsack cost mode
+                      # the accept sweeps' knapsack cost mode, and their
+                      # wide instance at the widest shape of WIDE_SWEEPS
                       **({"cost_ms": r["cost_ms"]} if "cost_ms" in r
+                         else {}),
+                      **({"wide_ms": r["wide_ms"]} if "wide_ms" in r
                          else {})})
     print(json.dumps({"kernels": table}))
     print(smi())

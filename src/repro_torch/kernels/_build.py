@@ -5,7 +5,9 @@ interface (no PyTorch headers, so a build takes seconds), compiled for
 ``sm_90a``.  Libraries land in ``build/repro_torch/<hash>/`` at the root of
 the checkout, keyed on a hash of every source and header plus the flags, so
 an edited source rebuilds and an unchanged one loads at once.  All sources
-build in parallel, one ``nvcc`` each.
+build in parallel, one ``nvcc`` each.  ``ptxas -v`` reports every kernel's
+registers, shared memory and spills; its output is kept beside each
+library (``ptxas_report``).
 
 ``--use_fast_math`` is deliberately absent: it turns ``sqrtf`` and ``logf``
 into approximations, and the kernels must match their plain versions.
@@ -46,7 +48,7 @@ SIGNATURES = {
     },
     "coverage_accept": {
         "coverage_accept_launch": (_P, _I, _P, _P, _P, _P, _P, *_COST, _P,
-                                   _P, _P, _I, _I, _I, _P),
+                                   _P, _P, _I, _I, _I, _I, _P),
     },
     "facility_marginals": {
         "facility_marginals_launch": (_P, _I, _I, _P, _P, _P, _I, _LL, _I, _I,
@@ -55,7 +57,7 @@ SIGNATURES = {
     },
     "facility_accept": {
         "facility_accept_launch": (_P, _I, _P, _P, _P, _P, _P, *_COST, _P, _P,
-                                   _P, _P, _I, _I, _I, _I, _P),
+                                   _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "weighted_coverage_marginals": {
         "weighted_coverage_marginals_launch": (_P, _I, _I, _P, _P, _I, _LL, _I,
@@ -63,7 +65,7 @@ SIGNATURES = {
     },
     "weighted_coverage_accept": {
         "weighted_coverage_accept_launch": (_P, _I, _P, _P, _P, _P, *_COST,
-                                            _P, _P, _P, _I, _I, _I, _P),
+                                            _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "saturated_coverage_marginals": {
         "saturated_coverage_marginals_launch": (_P, _I, _I, _P, _P, _P, _P, _I,
@@ -72,7 +74,7 @@ SIGNATURES = {
     "saturated_coverage_accept": {
         "saturated_coverage_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P,
                                              *_COST, _P, _P, _P, _I, _I, _I,
-                                             _P),
+                                             _I, _P),
     },
     "graph_cut_marginals": {
         "graph_cut_marginals_launch": (_P, _I, _I, _P, _P, _F, _P, _I, _LL,
@@ -80,7 +82,7 @@ SIGNATURES = {
     },
     "graph_cut_accept": {
         "graph_cut_accept_launch": (_P, _I, _P, _P, _F, _P, _P, _P, *_COST,
-                                    _P, _P, _P, _I, _I, _I, _P),
+                                    _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "logdet_marginals": {
         "logdet_marginals_launch": (_P, _I, _I, _P, _P, _I, _I, _LL, _I, _F,
@@ -89,7 +91,7 @@ SIGNATURES = {
     "logdet_accept": {
         "logdet_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P, *_COST, _P,
                                  _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
-                                 _P),
+                                 _I, _P),
     },
     "exemplar_marginals": {
         "exemplar_marginals_launch": (_P, _I, _I, _P, _P, _P, _P, _I, _LL, _I,
@@ -97,7 +99,7 @@ SIGNATURES = {
     },
     "exemplar_accept": {
         "exemplar_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P, *_COST, _P,
-                                   _P, _P, _P, _I, _I, _I, _I, _P),
+                                   _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
 }
 
@@ -136,7 +138,7 @@ def build_all() -> dict:
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -147,10 +149,18 @@ def build_all() -> dict:
         if proc.returncode != 0:
             failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
             continue
+        libs[name].with_suffix(".ptxas.txt").write_text(log)
         os.replace(tmp, libs[name])
     if failed:
         raise RuntimeError("\n".join(failed))
     return libs
+
+
+def ptxas_report(name: str) -> str:
+    """What ``ptxas -v`` said when source ``name`` was built: per kernel,
+    its registers, shared memory, stack frame and spills."""
+    log = build_all()[name].with_suffix(".ptxas.txt")
+    return log.read_text() if log.exists() else ""
 
 
 @functools.lru_cache(maxsize=None)

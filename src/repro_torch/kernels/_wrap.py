@@ -112,6 +112,39 @@ def cost_operands(name, cost, cost_budget, L, B, device, unbatched):
     return cost, cost_budget
 
 
+#: threads of a feature sweep's CTA (csrc/feature_sweep.cuh) and of a
+#: reference sweep's (csrc/reference_tile.cuh)
+FEATURE_SWEEP_THREADS = 128
+REFERENCE_SWEEP_THREADS = 256
+
+#: per-thread widths of the narrow sweep instances, which hold their
+#: slice of the state in registers; the widest is 16
+NARROW_PER = (1, 2, 4, 8, 16)
+
+
+def _per(width, threads):
+    for per in NARROW_PER:
+        if width <= per * threads:
+            return per
+    return 0
+
+
+def feature_sweep_per(d: int) -> int:
+    """The instance of a feature sweep (coverage, weighted and saturated
+    coverage, graph cut) for d features: the features each thread holds in
+    registers (1, 2, 4, 8 or 16, for d <= 2048), or 0 for the wide instance,
+    whose state lives in global memory and takes any d."""
+    return _per(d, FEATURE_SWEEP_THREADS)
+
+
+def reference_sweep_per(r: int) -> int:
+    """The instance of a reference sweep (facility, exemplar) for r
+    reference rows: the columns each thread holds in registers (1, 2, 4, 8
+    or 16, for r <= 4096), or 0 for the wide instance, whose state lives in
+    global memory and takes any r."""
+    return _per(r, REFERENCE_SWEEP_THREADS)
+
+
 def ptr(t):
     """A tensor's device address, or None (a null pointer) for None."""
     return None if t is None else t.data_ptr()

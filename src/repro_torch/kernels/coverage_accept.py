@@ -21,9 +21,6 @@ launches = 0
 #: of those, launches in the knapsack cost mode
 cost_launches = 0
 
-#: widest feature row one CTA holds in registers (128 threads x 16)
-MAX_D = 2048
-
 
 def coverage_accept(x, state, weights, eligible, tau, budget,
                     cost=None, cost_budget=None):
@@ -37,7 +34,6 @@ def coverage_accept(x, state, weights, eligible, tau, budget,
     name = "coverage_accept"
     _wrap.check_rows(name, x)
     d = x.shape[-1]
-    _wrap.check(d <= MAX_D, name, f"d={d} exceeds {MAX_D}")
     x, state, eligible, tau, budget, unbatched = _wrap.sweep_operands(
         name, x, state, eligible, tau, budget, d)
     L, B = x.shape[:2]
@@ -54,7 +50,7 @@ def coverage_accept(x, state, weights, eligible, tau, budget,
                  eligible.data_ptr(), tau.data_ptr(), budget.data_ptr(),
                  _wrap.ptr(cost), _wrap.ptr(cost_budget),
                  mask.data_ptr(), state_out.data_ptr(), gains.data_ptr(),
-                 L, B, d)
+                 L, B, d, _wrap.feature_sweep_per(d))
     launches += 1
     if cost is not None:
         cost_launches += 1

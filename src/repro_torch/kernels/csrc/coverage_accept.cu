@@ -21,7 +21,9 @@
 // 16 features), recomputes sqrt(s) only on an accept, and loads row i + 1
 // while row i is being reduced.  Only L CTAs run, so the card is mostly
 // idle during a sweep: the gap to the byte bound is recorded in PERF.md and
-// left for a later change.
+// left for a later change.  Past 2048 features the wrapper picks the
+// sweep's wide instance, which keeps the state in global memory
+// (feature_sweep.cuh).
 #include "feature_sweep.cuh"
 
 extern "C" int coverage_accept_launch(const void* x, int x_is_bf16,
@@ -30,10 +32,10 @@ extern "C" int coverage_accept_launch(const void* x, int x_is_bf16,
                                       const void* budget, const void* cost,
                                       const void* cost_budget, void* mask,
                                       void* state_out, void* gains, int L,
-                                      int B, int d, void* stream) {
+                                      int B, int d, int per, void* stream) {
   const rules::Coverage rule{static_cast<const float*>(weights)};
   return (int)feature_sweep::launch_any(x, x_is_bf16, state, rule, eligible,
                                         tau, budget, cost, cost_budget, mask,
-                                        state_out, gains, L, B, d,
+                                        state_out, gains, L, B, d, per,
                                         static_cast<cudaStream_t>(stream));
 }

@@ -17,7 +17,8 @@
 //         sum_j max(s_j - d2[i, j], 0)
 //     against the live min-distance vector s, and an accepted row applies
 //     s = min(s, d2[i, :]).  s stays in registers: thread t owns columns
-//     t, t + 256, ..., so an accept is a thread-local min.
+//     t, t + 256, ..., so an accept is a thread-local min (past r = 4096
+//     the wide instance keeps s in global memory).
 // Outputs: mask (L, B) bool, post-sweep state (L, r) f32, and each row's
 // gain at scan time (L, B) f32.
 //
@@ -39,10 +40,10 @@ extern "C" int exemplar_accept_launch(const void* cand, int cand_is_bf16,
                                       const void* cost_budget, void* mask,
                                       void* state_out, void* gains,
                                       void* work, int L, int B, int r, int d,
-                                      void* stream) {
+                                      int per, void* stream) {
   return (int)reftile::launch_sweep(
       cand, cand_is_bf16, ref,
       reftile::Exemplar{static_cast<const float*>(refsq)}, state, eligible,
       tau, budget, cost, cost_budget, mask, state_out, gains, work, L, B, r,
-      d, static_cast<cudaStream_t>(stream));
+      d, per, static_cast<cudaStream_t>(stream));
 }

@@ -21,16 +21,18 @@
 // column tile) for up to kMaxLaneGroup lanes, not once per lane as the
 // vmapped Pallas kernel computes it.
 //
-// Design: reference_tile.cuh's lane-group tile walk with its Exemplar
-// rule, shared with facility_marginals.cu.  A CTA owns 64 candidate rows
-// and up to 128 lanes; it takes the rows' squared norms once (row_sq), then
-// walks the r columns in 64-wide product tiles of sims::tile<TC,
-// /*kRectify=*/false>, forms d2 = max((refsq_j - 2 acc) + sq_i, 0) once per
+// Design: the register-blocked SIMT tile of marginals_tile.cuh with its
+// Exemplar rule, shared with facility_marginals.cu.  A CTA owns 128
+// candidate rows and up to 128 lanes; it takes the rows' squared norms
+// once (reftile::row_sq), then walks the r columns in 128-wide product
+// tiles (the same fmaf chains as sims::tile, so exemplar_accept sees the
+// same distances), forms d2 = max((refsq_j - 2 acc) + sq_i, 0) once per
 // (row, column) for all lanes, and adds max(s_lj - d2, 0) into the
-// per-(lane, row) sum one thread owns, with no float atomics, so a repeated
-// launch gives the same bits.  Ragged rows (past C) and columns (past r)
-// are masked, not padded (the JAX kernel pads the state with -inf).
-#include "reference_tile.cuh"
+// 4-lane x 4-row blocks of sums one thread owns, with no float atomics,
+// so a repeated launch gives the same bits.  Ragged rows (past C) and
+// columns (past r) are masked, not padded (the JAX kernel pads the state
+// with -inf).
+#include "marginals_tile.cuh"
 
 // cand (C, d) shared or (L, C, d) per lane, f32 or bf16; ref (r, d) f32;
 // refsq (r,) f32 = ||ref_j||^2; state (L, r) f32; out (L, C) f32.
@@ -39,7 +41,7 @@ extern "C" int exemplar_marginals_launch(const void* cand, int cand_is_bf16,
                                          const void* refsq, const void* state,
                                          void* out, int L, long long C, int r,
                                          int d, void* stream) {
-  return (int)reftile::launch_marginals(
+  return (int)mtile::launch(
       cand, cand_is_bf16, cand_per_lane, ref,
       reftile::Exemplar{static_cast<const float*>(refsq)}, state, out, L, C,
       r, d, static_cast<cudaStream_t>(stream));

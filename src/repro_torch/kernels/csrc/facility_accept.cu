@@ -24,7 +24,8 @@
 // f32 workspace (4.8 MB for 37 lanes at B = 128, r = 256, resident in the
 // 50 MB L2), phase 1 writes the lane's block there, and phase 2 streams it
 // back one row ahead of the sweep.  The state stays in registers: thread t
-// owns columns t, t + 256, ..., so an accept is a thread-local max.  The
+// owns columns t, t + 256, ..., so an accept is a thread-local max (past
+// r = 4096 the wide instance keeps the state in global memory).  The
 // kernel is reference_tile.cuh's sweep with its Facility rule, shared with
 // exemplar_accept.cu.
 //
@@ -44,9 +45,9 @@ extern "C" int facility_accept_launch(const void* cand, int cand_is_bf16,
                                       const void* cost_budget, void* mask,
                                       void* state_out, void* gains,
                                       void* work, int L, int B, int r, int d,
-                                      void* stream) {
+                                      int per, void* stream) {
   return (int)reftile::launch_sweep(
       cand, cand_is_bf16, ref, reftile::Facility{nullptr}, state, eligible,
       tau, budget, cost, cost_budget, mask, state_out, gains, work, L, B, r,
-      d, static_cast<cudaStream_t>(stream));
+      d, per, static_cast<cudaStream_t>(stream));
 }

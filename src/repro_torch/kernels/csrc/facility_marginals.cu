@@ -29,12 +29,14 @@
 //    operations.
 //
 // What the designs do about it:
-//  * facility_marginals: the lane-group tile walk of reference_tile.cuh
-//    (shared with exemplar_marginals.cu) with its Facility rule: a CTA owns
-//    64 candidate rows and up to 128 lanes, computes each 64-column tile of
-//    rectified similarities once for all of them, and sums the lanes'
-//    residuals in per-(lane, row) sums that one thread owns, with no float
-//    atomics (a repeated launch gives the same bits).
+//  * facility_marginals: the register-blocked SIMT tile of
+//    marginals_tile.cuh (shared with exemplar_marginals.cu) with its
+//    Facility rule: a CTA owns 128 candidate rows and up to 128 lanes,
+//    computes each 128-column tile of rectified similarities once for all
+//    of them (an 8 x 8 block of fmaf chains per thread, d staged 16 deep
+//    and double-buffered), and sums the lanes' residuals in 4-lane x
+//    4-row blocks that one thread owns, with no float atomics (a repeated
+//    launch gives the same bits).
 //  * rectified_residual_sum: a CTA owns up to kMaxLanes lanes and walks row
 //    tiles; one warp reads an aux row once (coalesced, 16 bytes a thread
 //    when r % 4 == 0, so enough loads are in flight to stream at the
@@ -47,7 +49,7 @@
 
 #include <type_traits>
 
-#include "reference_tile.cuh"
+#include "marginals_tile.cuh"
 
 namespace {
 
@@ -140,7 +142,7 @@ extern "C" int facility_marginals_launch(const void* cand, int cand_is_bf16,
                                          const void* state, void* out, int L,
                                          long long C, int r, int d,
                                          void* stream) {
-  return (int)reftile::launch_marginals(cand, cand_is_bf16, cand_per_lane, ref,
+  return (int)mtile::launch(cand, cand_is_bf16, cand_per_lane, ref,
                                         reftile::Facility{nullptr}, state, out,
                                         L, C, r, d,
                                         static_cast<cudaStream_t>(stream));

@@ -21,17 +21,18 @@
 // keeps each thread's slice of s and of pre = t - 2 lam s in registers, so
 // a row costs four rounded operations per feature and one block
 // reduction, an accept recomputes pre for its features with no barrier,
-// and row i + 1 is loaded while row i is being reduced.
+// and row i + 1 is loaded while row i is being reduced (past 2048
+// features the wide instance keeps s in global memory).
 #include "feature_sweep.cuh"
 
 extern "C" int graph_cut_accept_launch(
     const void* x, int x_is_bf16, const void* state, const void* total,
     float lam, const void* eligible, const void* tau, const void* budget,
     const void* cost, const void* cost_budget, void* mask, void* state_out,
-    void* gains, int L, int B, int d, void* stream) {
+    void* gains, int L, int B, int d, int per, void* stream) {
   const rules::GraphCut rule{static_cast<const float*>(total), lam};
   return (int)feature_sweep::launch_any(x, x_is_bf16, state, rule, eligible,
                                         tau, budget, cost, cost_budget, mask,
-                                        state_out, gains, L, B, d,
+                                        state_out, gains, L, B, d, per,
                                         static_cast<cudaStream_t>(stream));
 }

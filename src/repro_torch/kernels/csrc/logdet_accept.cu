@@ -40,6 +40,15 @@
 // sums the v_j^2 in the same order, so all hold the bit-identical gain and
 // take the same decision; no atomics, so a repeated launch gives the same
 // bits.  Only L of the card's 132 SMs are busy.
+//
+// The wide instance (kWide, picked by the wrapper when U and the two staged
+// rows outgrow the 227 KiB a block may use: k = 64 at d = 1024, or
+// k = d = 256): U lives in the lane's (k, d) slice of U_out, copied there
+// from U_in first and appended in place (37 x 64 x 1024 x 4 B = 9.7 MB,
+// resident in the 50 MB L2), rows are read from x where they lie, and only
+// the k + 1 dot products stay in shared memory.  The same warps compute
+// the same sums in the same order, so the wide instance gives the bits the
+// narrow one would; __syncthreads also orders the global appends.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -57,7 +66,19 @@ __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-template <typename T, bool kCost>
+// Row i of a lane: staged in shared memory (narrow) or read from x where
+// it lies (wide), widened to f32 either way.
+template <typename T, bool kWide>
+struct Row {
+  const float* staged;
+  const T* row;
+  __device__ __forceinline__ float operator[](int f) const {
+    if constexpr (kWide) return load_f(row + f);
+    else return staged[f];
+  }
+};
+
+template <typename T, bool kCost, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 kernel(const T* __restrict__ x, const float* __restrict__ U_in,
        const float* __restrict__ logdet_in, const int* __restrict__ size_in,
@@ -68,15 +89,18 @@ kernel(const T* __restrict__ x, const float* __restrict__ U_in,
        float* __restrict__ logdet_out, int* __restrict__ size_out,
        float* __restrict__ gains, int B, int k, int d, Params p) {
   extern __shared__ float smem[];
-  float* Us = smem;              // [k][d]
-  float* xs = Us + k * d;        // [2][d]: row i and row i + 1
-  float* dots = xs + 2 * d;      // [k + 1]: <U_j, x_i>, then ||x_i||^2
   const int l = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const T* xl = x + (long long)l * B * d;
   const long long u0 = (long long)l * k * d;
+  // narrow: U [k][d], then rows i and i + 1 [2][d], in shared memory;
+  // wide: U is the lane's slice of U_out.  dots [k + 1]: <U_j, x_i>, then
+  // ||x_i||^2
+  float* Us = kWide ? U_out + u0 : smem;
+  float* xs = kWide ? nullptr : smem + k * d;
+  float* dots = kWide ? smem : xs + 2 * d;
   for (int t = threadIdx.x; t < k * d; t += kThreads) Us[t] = U_in[u0 + t];
-  if (B > 0)
+  if (!kWide && B > 0)
     for (int f = threadIdx.x; f < d; f += kThreads) xs[f] = load_f(xl + f);
   const int size0 = size_in[l];
   const float tau_l = tau[l];
@@ -86,7 +110,8 @@ kernel(const T* __restrict__ x, const float* __restrict__ U_in,
   const float cbud = kCost ? cost_budget[l] : 0.0f;
   float spent = 0.0f;
   for (int i = 0; i < B; ++i) {
-    const float* xc = xs + (i & 1) * d;
+    const Row<T, kWide> xc{kWide ? nullptr : xs + (i & 1) * d,
+                           xl + (long long)i * d};
     // row i staged, the last append written, the last row's dots read
     __syncthreads();
     const int live = min(max(size0 + n_acc, 0), k);
@@ -102,7 +127,7 @@ kernel(const T* __restrict__ x, const float* __restrict__ U_in,
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       if (lane == 0) dots[task < live ? task : k] = s;
     }
-    if (i + 1 < B)
+    if (!kWide && i + 1 < B)
       for (int f = threadIdx.x; f < d; f += kThreads)
         xs[((i + 1) & 1) * d + f] = load_f(xl + (long long)(i + 1) * d + f);
     __syncthreads();
@@ -143,15 +168,17 @@ kernel(const T* __restrict__ x, const float* __restrict__ U_in,
       gains[(long long)l * B + i] = g;
     }
   }
-  __syncthreads();
-  for (int t = threadIdx.x; t < k * d; t += kThreads) U_out[u0 + t] = Us[t];
+  if (!kWide) {
+    __syncthreads();
+    for (int t = threadIdx.x; t < k * d; t += kThreads) U_out[u0 + t] = Us[t];
+  }
   if (threadIdx.x == 0) {
     logdet_out[l] = ld;
     size_out[l] = size0 + n_acc;
   }
 }
 
-template <typename T, bool kCost>
+template <typename T, bool kCost, bool kWide>
 cudaError_t launch_mode(const void* x, const void* U, const void* logdet,
                         const void* size, const void* eligible,
                         const void* tau, const void* budget, const void* cost,
@@ -161,11 +188,11 @@ cudaError_t launch_mode(const void* x, const void* U, const void* logdet,
                         cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel<T, kCost>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel<T, kCost, kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kernel<T, kCost><<<L, kThreads, smem, stream>>>(
+  kernel<T, kCost, kWide><<<L, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(U),
       static_cast<const float*>(logdet), static_cast<const int*>(size),
       static_cast<const unsigned char*>(eligible),
@@ -179,7 +206,7 @@ cudaError_t launch_mode(const void* x, const void* U, const void* logdet,
 
 // cost (L, B) f32 and cost_budget (L,) f32 select the knapsack cost mode,
 // nullptr the cardinality mode.
-template <typename T>
+template <typename T, bool kWide>
 cudaError_t launch(const void* x, const void* U, const void* logdet,
                    const void* size, const void* eligible, const void* tau,
                    const void* budget, const void* cost,
@@ -188,35 +215,59 @@ cudaError_t launch(const void* x, const void* U, const void* logdet,
                    int B, int k, int d, const Params& p, size_t smem,
                    cudaStream_t stream) {
   return cost
-      ? launch_mode<T, true>(x, U, logdet, size, eligible, tau, budget, cost,
-                             cost_budget, mask, U_out, logdet_out, size_out,
-                             gains, L, B, k, d, p, smem, stream)
-      : launch_mode<T, false>(x, U, logdet, size, eligible, tau, budget,
-                              cost, cost_budget, mask, U_out, logdet_out,
-                              size_out, gains, L, B, k, d, p, smem, stream);
+      ? launch_mode<T, true, kWide>(x, U, logdet, size, eligible, tau, budget,
+                                    cost, cost_budget, mask, U_out,
+                                    logdet_out, size_out, gains, L, B, k, d,
+                                    p, smem, stream)
+      : launch_mode<T, false, kWide>(x, U, logdet, size, eligible, tau,
+                                     budget, cost, cost_budget, mask, U_out,
+                                     logdet_out, size_out, gains, L, B, k, d,
+                                     p, smem, stream);
+}
+
+template <typename T>
+cudaError_t launch_dtype(const void* x, const void* U, const void* logdet,
+                         const void* size, const void* eligible,
+                         const void* tau, const void* budget,
+                         const void* cost, const void* cost_budget,
+                         void* mask, void* U_out, void* logdet_out,
+                         void* size_out, void* gains, int L, int B, int k,
+                         int d, const Params& p, int wide, size_t smem,
+                         cudaStream_t stream) {
+  return wide
+      ? launch<T, true>(x, U, logdet, size, eligible, tau, budget, cost,
+                        cost_budget, mask, U_out, logdet_out, size_out, gains,
+                        L, B, k, d, p, smem, stream)
+      : launch<T, false>(x, U, logdet, size, eligible, tau, budget, cost,
+                         cost_budget, mask, U_out, logdet_out, size_out,
+                         gains, L, B, k, d, p, smem, stream);
 }
 
 }  // namespace
 
+// wide: the instance the wrapper picked (logdet_accept.instance): 0 keeps
+// U in shared memory, 1 in U_out.
 extern "C" int logdet_accept_launch(
     const void* x, int x_is_bf16, const void* U, const void* logdet,
     const void* size, const void* eligible, const void* tau,
     const void* budget, const void* cost, const void* cost_budget,
     void* mask, void* U_out, void* logdet_out, void* size_out, void* gains,
-    int L, int B, int k, int d, float alpha, float scale, float eps,
+    int L, int B, int k, int d, float alpha, float scale, float eps, int wide,
     void* stream) {
   if (L <= 0) return (int)cudaSuccess;
-  // U, two staged rows and the k + 1 dot products; the wrapper refuses a
-  // (k, d) beyond the 227 KiB a block may use (logdet_accept.SMEM_BYTES)
-  const long long smem = ((long long)k * d + 2LL * d + k + 1) * 4;
+  // narrow: U, two staged rows and the k + 1 dot products; wide: the dot
+  // products alone
+  const long long smem =
+      ((wide ? 0LL : (long long)k * d + 2LL * d) + k + 1) * 4;
   if (k <= 0 || d <= 0 || smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   const Params p{alpha, scale, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(x_is_bf16
-      ? launch<__nv_bfloat16>(x, U, logdet, size, eligible, tau, budget,
-                              cost, cost_budget, mask, U_out, logdet_out,
-                              size_out, gains, L, B, k, d, p, (size_t)smem, s)
-      : launch<float>(x, U, logdet, size, eligible, tau, budget, cost,
-                      cost_budget, mask, U_out, logdet_out, size_out, gains,
-                      L, B, k, d, p, (size_t)smem, s));
+      ? launch_dtype<__nv_bfloat16>(x, U, logdet, size, eligible, tau, budget,
+                                    cost, cost_budget, mask, U_out,
+                                    logdet_out, size_out, gains, L, B, k, d, p,
+                                    wide, (size_t)smem, s)
+      : launch_dtype<float>(x, U, logdet, size, eligible, tau, budget, cost,
+                            cost_budget, mask, U_out, logdet_out, size_out,
+                            gains, L, B, k, d, p, wide, (size_t)smem, s));
 }

@@ -1,8 +1,10 @@
 // The reference-set kernels of FacilityLocation and ExemplarClustering
-// (facility_marginals.cu, facility_accept.cu, exemplar_marginals.cu,
-// exemplar_accept.cu): a candidate block against a replicated (r, d)
-// reference set through the product tile of sims_tile.cuh, with the oracle's
-// epilogue and residual supplied by a Rule.
+// (facility_accept.cu and exemplar_accept.cu, and, through
+// marginals_tile.cuh, facility_marginals.cu and exemplar_marginals.cu): a
+// candidate block against a replicated (r, d) reference set, with the
+// oracle's epilogue and residual supplied by a Rule.  The sweep's product
+// is the tile of sims_tile.cuh; the marginals have their own Hopper tile
+// with the same fmaf chains (marginals_tile.cuh).
 //
 //   marginals:  out[l, i] = sum_j Rule::residual(s[l, j], v(i, j))
 //   sweep:      gain_i    = sum_j Rule::residual(s_j, v(i, j)),
@@ -25,22 +27,15 @@
 // widened to f32, is computed by row_sq in one fixed order, so the
 // marginals and the sweep see the same bits for the same row.
 //
-// Designs (the notes on what bounds each kernel are in the .cu files):
-//  * marginals: a CTA owns 64 candidate rows and a group of up to
-//    kMaxLaneGroup lanes (one lane when the block is per lane) and walks
-//    the r columns in 64-wide tiles.  Each tile's values land in shared
-//    memory beside the lanes' 64-column state slice; the threads then
-//    re-map onto (lane, 4 rows) quads that add the tile's residuals into a
-//    per-(lane, row) sum the same thread owns for the whole kernel, so each
-//    output is written once, with no float atomics, and a repeated launch
-//    gives the same bits.  A wider grid is split into lane groups, each
-//    recomputing the product.
-//  * sweep: one CTA per lane.  Phase 1 writes the lane's (B, r) value block
-//    to an (L, B, r) f32 workspace the wrapper allocates (a (B, r) block
-//    outgrows shared memory at r = 1024); phase 2 is a Step on run_sweep
-//    (accept_sweep.cuh) that streams the block back one row ahead of the
-//    sweep, with the state in registers: thread t owns columns t, t + 256,
-//    ..., so an accept is a thread-local update.
+// The sweep (the notes on what bounds it are in the .cu files): one CTA per
+// lane.  Phase 1 writes the lane's (B, r) value block to an (L, B, r) f32
+// workspace the wrapper allocates (a (B, r) block outgrows shared memory at
+// r = 1024); phase 2 is a Step on run_sweep (accept_sweep.cuh) that reads
+// the block back row by row.  Thread t owns columns t, t + 256, ..., so an
+// accept is a thread-local update.  Two instances of phase 2, picked by
+// the wrapper from r: the narrow one (r <= 4096) holds the state in
+// registers and loads row i + 1 while row i is reduced; the wide one holds
+// it in the lane's row of state_out, so no r is refused.
 // Ragged rows (past C or B) and columns (past r) are masked, not padded (the
 // JAX kernels pad the state with -inf or +inf).
 #pragma once
@@ -54,9 +49,6 @@
 namespace reftile {
 
 constexpr int kThreads = sims::kThreads;
-constexpr int kMaxLaneGroup = 128;
-constexpr int kQuadRows = sims::kTileRows / 4;   // a quad is rows i + 16m
-constexpr int kSPitch = sims::kTileCols + 1;     // padded rows: no bank conflicts
 constexpr int kSqParts = kThreads / sims::kTileRows;  // row_sq: 4 x 64 rows
 
 // sq[i] = ||cand[row0 + i]||^2 for the kTileRows rows of a tile (0 past C).
@@ -137,12 +129,6 @@ struct RowNorms<false> {
   __device__ float at(int) const { return 0.0f; }
 };
 
-// Bytes of dynamic shared memory the Rule's row norms take (none without).
-template <class Rule>
-__host__ __device__ constexpr size_t norms_bytes() {
-  return Rule::kRowNorms ? sizeof(RowNorms<true>) : 0;
-}
-
 // acc[m][n] of a sims::tile at (row0, col0) as the Rule's values v(i, j),
 // for the thread's kMicro x kMicro micro block (columns past r take column
 // r - 1's norm; the callers never read them).
@@ -162,126 +148,6 @@ __device__ __forceinline__ void tile_values(const Rule& rule, const TC* x,
     for (int m = 0; m < sims::kMicro; ++m)
       v[m][n] = rule.value(v[m][n], c, rn.at(mr + m));
   }
-}
-
-// ------------------------------------------------------------- marginals
-template <class Rule>
-size_t marginals_smem_bytes(int lanes) {
-  return sizeof(sims::Stage) + norms_bytes<Rule>() +
-         sizeof(float) * ((size_t)sims::kTileRows * kSPitch +   // value tile
-                          (size_t)lanes * kSPitch +             // state slice
-                          (size_t)lanes * sims::kTileRows);     // sums
-}
-
-template <class Rule, typename TC>
-__global__ void __launch_bounds__(kThreads)
-marginals_kernel(const TC* __restrict__ cand, int cand_per_lane,
-                 const float* __restrict__ ref, Rule rule,
-                 const float* __restrict__ state, float* __restrict__ out,
-                 int L, long long C, int r, int d, int group) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  sims::Stage& stage = *reinterpret_cast<sims::Stage*>(smem_raw);
-  auto& rn = *reinterpret_cast<RowNorms<Rule::kRowNorms>*>(
-      smem_raw + sizeof(sims::Stage));
-  float* S = reinterpret_cast<float*>(smem_raw + sizeof(sims::Stage) +
-                                      norms_bytes<Rule>());
-  float* st = S + sims::kTileRows * kSPitch;   // [nl][kSPitch]
-  float* sums = st + group * kSPitch;          // [nl][kTileRows]
-
-  int l0, nl;
-  const TC* x = cand;
-  if (cand_per_lane) {
-    l0 = blockIdx.y;
-    nl = 1;
-    x = cand + (long long)l0 * C * d;
-  } else {
-    l0 = blockIdx.y * group;
-    nl = min(group, L - l0);
-  }
-  const long long row0 = (long long)blockIdx.x * sims::kTileRows;
-  const int tid = threadIdx.x;
-  for (int t = tid; t < nl * sims::kTileRows; t += kThreads) sums[t] = 0.0f;
-  rn.take(x, C, d, row0);
-
-  const int mr = sims::micro_row(), mc = sims::micro_col();
-  for (int col0 = 0; col0 < r; col0 += sims::kTileCols) {
-    float v[sims::kMicro][sims::kMicro];
-    tile_values(rule, x, C, ref, r, d, row0, col0, stage, rn, v);
-#pragma unroll
-    for (int m = 0; m < sims::kMicro; ++m)
-#pragma unroll
-      for (int n = 0; n < sims::kMicro; ++n)
-        S[(mr + m) * kSPitch + mc + n] = v[m][n];
-    const int nc = min(sims::kTileCols, r - col0);
-    for (int t = tid; t < nl * sims::kTileCols; t += kThreads) {
-      const int l = t / sims::kTileCols, c = t % sims::kTileCols;
-      st[l * kSPitch + c] =
-          c < nc ? __ldg(state + (long long)(l0 + l) * r + col0 + c) : 0.0f;
-    }
-    __syncthreads();
-    for (int q = tid; q < nl * kQuadRows; q += kThreads) {
-      const int l = q / kQuadRows, i = q % kQuadRows;
-      const float* sl = st + l * kSPitch;
-      float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int c = 0; c < nc; ++c) {
-        const float s = sl[c];
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-          p[m] += Rule::residual(s, S[(i + kQuadRows * m) * kSPitch + c]);
-      }
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        sums[l * sims::kTileRows + i + kQuadRows * m] += p[m];
-    }
-    __syncthreads();   // S and st are rewritten by the next column tile
-  }
-  for (int t = tid; t < nl * sims::kTileRows; t += kThreads) {
-    const int l = t / sims::kTileRows, i = t % sims::kTileRows;
-    const long long row = row0 + i;
-    if (row < C) out[(long long)(l0 + l) * C + row] = sums[t];
-  }
-}
-
-template <class Rule, typename TC>
-cudaError_t launch_marginals_dtype(const void* cand, int cand_per_lane,
-                                   const void* ref, const Rule& rule,
-                                   const void* state, void* out, int L,
-                                   long long C, int r, int d,
-                                   cudaStream_t stream) {
-  const int group = cand_per_lane ? 1 : (L < kMaxLaneGroup ? L : kMaxLaneGroup);
-  const size_t smem = marginals_smem_bytes<Rule>(group);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        marginals_kernel<Rule, TC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const long long row_tiles = (C + sims::kTileRows - 1) / sims::kTileRows;
-  const int lane_blocks = cand_per_lane ? L : (L + group - 1) / group;
-  if (row_tiles > 0x7fffffffLL || lane_blocks > 65535) return cudaErrorInvalidValue;
-  dim3 grid((unsigned)row_tiles, lane_blocks);
-  marginals_kernel<Rule, TC><<<grid, kThreads, smem, stream>>>(
-      static_cast<const TC*>(cand), cand_per_lane,
-      static_cast<const float*>(ref), rule, static_cast<const float*>(state),
-      static_cast<float*>(out), L, C, r, d, group);
-  return cudaGetLastError();
-}
-
-// Launch the marginals of cand (C, d) shared or (L, C, d) per lane, f32 or
-// bf16, against ref (r, d) f32 and state (L, r) f32 into out (L, C) f32.
-template <class Rule>
-cudaError_t launch_marginals(const void* cand, int cand_is_bf16,
-                             int cand_per_lane, const void* ref,
-                             const Rule& rule, const void* state, void* out,
-                             int L, long long C, int r, int d,
-                             cudaStream_t stream) {
-  if (L <= 0 || C <= 0) return cudaSuccess;
-  if (r <= 0 || d < 0) return cudaErrorInvalidValue;
-  return cand_is_bf16
-      ? launch_marginals_dtype<Rule, __nv_bfloat16>(
-            cand, cand_per_lane, ref, rule, state, out, L, C, r, d, stream)
-      : launch_marginals_dtype<Rule, float>(cand, cand_per_lane, ref, rule,
-                                            state, out, L, C, r, d, stream);
 }
 
 // ----------------------------------------------------------------- sweep
@@ -317,6 +183,32 @@ struct Step {
   }
 };
 
+// The wide instance's Step (r > 16 * kThreads = 4096): the state lives in
+// this lane's row of state_out (global memory), each thread still owning
+// columns t, t + 256, ..., so an accept needs no barrier.  It sums the same
+// residuals in the same order as the narrow Step (whose columns past r add
+// exactly 0), so it gives the bits the narrow one would.
+template <class Rule>
+struct WideStep {
+  const float* block;  // this lane's (B, r) value block in the workspace
+  float* s;            // this lane's (r,) state, in global memory
+  int r, i;            // i: the row last scored
+
+  __device__ float partial(int row) {
+    i = row;
+    const float* v = block + (long long)row * r;
+    float p = 0.0f;
+    for (int c = threadIdx.x; c < r; c += kThreads) p += Rule::residual(s[c], v[c]);
+    return p;
+  }
+
+  __device__ void accept() {
+    const float* v = block + (long long)i * r;
+    for (int c = threadIdx.x; c < r; c += kThreads) s[c] = Rule::update(s[c], v[c]);
+  }
+};
+
+// kPer: columns per thread of the narrow instance, or 0 for the wide one.
 template <class Rule, typename TC, int kPer, bool kCost>
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const TC* __restrict__ cand, const float* __restrict__ ref,
@@ -352,24 +244,36 @@ sweep_kernel(const TC* __restrict__ cand, const float* __restrict__ ref,
   __syncthreads();   // the block is visible to every thread of the CTA
 
   // phase 2: the sweep
-  Step<Rule, kPer> step;
-  step.block = block;
-  step.B = B;
-  step.r = r;
+  const float* cost_l = kCost ? cost + (long long)l * B : nullptr;
+  const float cbud = kCost ? cost_budget[l] : 0.0f;
+  if constexpr (kPer == 0) {
+    WideStep<Rule> step{block, state_out + (long long)l * r, r, 0};
+    for (int c = threadIdx.x; c < r; c += kThreads)
+      step.s[c] = state[(long long)l * r + c];
+    run_sweep<kThreads, kCost>(step, B, eligible + (long long)l * B, tau[l],
+                               budget[l], cost_l, cbud,
+                               mask + (long long)l * B,
+                               gains + (long long)l * B);
+  } else {
+    Step<Rule, kPer> step;
+    step.block = block;
+    step.B = B;
+    step.r = r;
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int c = threadIdx.x + j * kThreads;
-    step.s[j] = c < r ? state[(long long)l * r + c] : 0.0f;
-  }
-  step.load_row(0, step.next);
-  run_sweep<kThreads, kCost>(
-      step, B, eligible + (long long)l * B, tau[l], budget[l],
-      kCost ? cost + (long long)l * B : nullptr, kCost ? cost_budget[l] : 0.0f,
-      mask + (long long)l * B, gains + (long long)l * B);
+    for (int j = 0; j < kPer; ++j) {
+      const int c = threadIdx.x + j * kThreads;
+      step.s[j] = c < r ? state[(long long)l * r + c] : 0.0f;
+    }
+    step.load_row(0, step.next);
+    run_sweep<kThreads, kCost>(step, B, eligible + (long long)l * B, tau[l],
+                               budget[l], cost_l, cbud,
+                               mask + (long long)l * B,
+                               gains + (long long)l * B);
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int c = threadIdx.x + j * kThreads;
-    if (c < r) state_out[(long long)l * r + c] = step.s[j];
+    for (int j = 0; j < kPer; ++j) {
+      const int c = threadIdx.x + j * kThreads;
+      if (c < r) state_out[(long long)l * r + c] = step.s[j];
+    }
   }
 }
 
@@ -402,6 +306,9 @@ cudaError_t launch_sweep_per(const void* cand, const void* ref,
   return cudaGetLastError();
 }
 
+// per: the instance the wrapper picked (kernels/_wrap.py,
+// reference_sweep_per): columns per thread of the narrow instance (1, 2,
+// 4, 8 or 16, with r <= per * kThreads), or 0 for the wide instance.
 template <class Rule, typename TC>
 cudaError_t launch_sweep_dtype(const void* cand, const void* ref,
                                const Rule& rule, const void* state,
@@ -409,27 +316,32 @@ cudaError_t launch_sweep_dtype(const void* cand, const void* ref,
                                const void* budget, const void* cost,
                                const void* cost_budget, void* mask,
                                void* state_out, void* gains, void* work,
-                               int L, int B, int r, int d,
+                               int L, int B, int r, int d, int per,
                                cudaStream_t stream) {
+  if (per > 0 && r > per * kThreads) return cudaErrorInvalidValue;
 #define REPRO_SWEEP_CASE(P)                                                  \
-  if (r <= (P) * kThreads)                                                   \
+  case P:                                                                    \
     return launch_sweep_per<Rule, TC, P>(cand, ref, rule, state, eligible,   \
                                          tau, budget, cost, cost_budget,     \
                                          mask, state_out, gains, work, L, B, \
                                          r, d, stream);
-  REPRO_SWEEP_CASE(1)
-  REPRO_SWEEP_CASE(2)
-  REPRO_SWEEP_CASE(4)
-  REPRO_SWEEP_CASE(8)
-  REPRO_SWEEP_CASE(16)
+  switch (per) {
+    REPRO_SWEEP_CASE(0)
+    REPRO_SWEEP_CASE(1)
+    REPRO_SWEEP_CASE(2)
+    REPRO_SWEEP_CASE(4)
+    REPRO_SWEEP_CASE(8)
+    REPRO_SWEEP_CASE(16)
+  }
 #undef REPRO_SWEEP_CASE
-  return cudaErrorInvalidValue;  // r > 4096: the wrappers refuse it first
+  return cudaErrorInvalidValue;
 }
 
 // Launch L lane sweeps, one CTA each: cand (L, B, d) f32 or bf16, ref (r, d)
 // f32, state (L, r) f32, eligible (L, B) bool, tau (L,) f32, budget (L,)
 // int32; cost (L, B) f32 and cost_budget (L,) f32 select the knapsack cost
-// mode, nullptr the cardinality mode; work (L, B, r) f32 scratch.
+// mode, nullptr the cardinality mode; work (L, B, r) f32 scratch; per the
+// instance (see launch_sweep_dtype).
 template <class Rule>
 cudaError_t launch_sweep(const void* cand, int cand_is_bf16, const void* ref,
                          const Rule& rule, const void* state,
@@ -437,15 +349,15 @@ cudaError_t launch_sweep(const void* cand, int cand_is_bf16, const void* ref,
                          const void* budget, const void* cost,
                          const void* cost_budget, void* mask,
                          void* state_out, void* gains, void* work, int L,
-                         int B, int r, int d, cudaStream_t stream) {
+                         int B, int r, int d, int per, cudaStream_t stream) {
   if (L <= 0 || r <= 0) return cudaSuccess;
   return cand_is_bf16
       ? launch_sweep_dtype<Rule, __nv_bfloat16>(
             cand, ref, rule, state, eligible, tau, budget, cost, cost_budget,
-            mask, state_out, gains, work, L, B, r, d, stream)
+            mask, state_out, gains, work, L, B, r, d, per, stream)
       : launch_sweep_dtype<Rule, float>(
             cand, ref, rule, state, eligible, tau, budget, cost, cost_budget,
-            mask, state_out, gains, work, L, B, r, d, stream);
+            mask, state_out, gains, work, L, B, r, d, per, stream);
 }
 
 }  // namespace reftile

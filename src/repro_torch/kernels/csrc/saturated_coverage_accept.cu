@@ -18,19 +18,20 @@
 // block reductions (accept_sweep.cuh).  The design (feature_sweep.cuh with
 // rules::SaturatedCoverage) keeps each thread's slice of s, min(s, cap),
 // cap and w in registers, recomputes min(s, cap) only on an accept, and
-// loads row i + 1 while row i is being reduced.
+// loads row i + 1 while row i is being reduced (past 2048 features the
+// wide instance keeps s in global memory).
 #include "feature_sweep.cuh"
 
 extern "C" int saturated_coverage_accept_launch(
     const void* x, int x_is_bf16, const void* state, const void* cap,
     const void* weights, const void* eligible, const void* tau,
     const void* budget, const void* cost, const void* cost_budget,
-    void* mask, void* state_out, void* gains, int L, int B, int d,
+    void* mask, void* state_out, void* gains, int L, int B, int d, int per,
     void* stream) {
   const rules::SaturatedCoverage rule{static_cast<const float*>(cap),
                                       static_cast<const float*>(weights)};
   return (int)feature_sweep::launch_any(x, x_is_bf16, state, rule, eligible,
                                         tau, budget, cost, cost_budget, mask,
-                                        state_out, gains, L, B, d,
+                                        state_out, gains, L, B, d, per,
                                         static_cast<cudaStream_t>(stream));
 }

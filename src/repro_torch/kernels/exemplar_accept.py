@@ -15,7 +15,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, _wrap
-from repro_torch.kernels.facility_accept import MAX_R
 
 #: kernel launches since the last reset (set to 0 to reset)
 launches = 0
@@ -41,7 +40,7 @@ def exemplar_accept(cand, ref, state, eligible, tau, budget, cost=None,
     _wrap.check(ref.dim() == 2 and ref.shape[1] == d, name,
                 f"ref must be (r, {d}), got {tuple(ref.shape)}")
     r = ref.shape[0]
-    _wrap.check(1 <= r <= MAX_R, name, f"r={r} outside [1, {MAX_R}]")
+    _wrap.check(r >= 1, name, "ref has no rows")
     cand, state, eligible, tau, budget, unbatched = _wrap.sweep_operands(
         name, cand, state, eligible, tau, budget, r)
     L, B = cand.shape[:2]
@@ -60,7 +59,7 @@ def exemplar_accept(cand, ref, state, eligible, tau, budget, cost=None,
                  tau.data_ptr(), budget.data_ptr(), _wrap.ptr(cost),
                  _wrap.ptr(cost_budget), mask.data_ptr(),
                  state_out.data_ptr(), gains.data_ptr(), work.data_ptr(), L,
-                 B, r, d)
+                 B, r, d, _wrap.reference_sweep_per(r))
     launches += 1
     if cost is not None:
         cost_launches += 1

@@ -16,7 +16,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, _wrap
-from repro_torch.kernels.coverage_accept import MAX_D
 
 #: kernel launches since the last reset (set to 0 to reset)
 launches = 0
@@ -37,7 +36,6 @@ def graph_cut_accept(x, total, state, eligible, tau, budget, lam=0.5,
     name = "graph_cut_accept"
     _wrap.check_rows(name, x)
     d = x.shape[-1]
-    _wrap.check(d <= MAX_D, name, f"d={d} exceeds {MAX_D}")
     x, state, eligible, tau, budget, unbatched = _wrap.sweep_operands(
         name, x, state, eligible, tau, budget, d)
     L, B = x.shape[:2]
@@ -54,7 +52,7 @@ def graph_cut_accept(x, total, state, eligible, tau, budget, lam=0.5,
                  eligible.data_ptr(), tau.data_ptr(), budget.data_ptr(),
                  _wrap.ptr(cost), _wrap.ptr(cost_budget),
                  mask.data_ptr(), state_out.data_ptr(), gains.data_ptr(),
-                 L, B, d)
+                 L, B, d, _wrap.feature_sweep_per(d))
     launches += 1
     if cost is not None:
         cost_launches += 1

@@ -5,9 +5,11 @@ The port of ``repro.kernels.logdet_accept`` (a Pallas TPU kernel), in both
 of its modes (cardinality, and the knapsack cost mode of
 ``cost``/``cost_budget``): one launch sweeps the (B, d) tile of every
 lane, one CTA per lane, in stream order against the lane's whitened basis
-U (k, d), which stays in shared memory; an accepted row is the rank-1
-Gram-Schmidt append U[size] = (x - v^T U) / d with logdet += gain, and an
-append at size == k writes no row.  alpha and scale are launch arguments
+U (k, d); an accepted row is the rank-1 Gram-Schmidt append
+U[size] = (x - v^T U) / d with logdet += gain, and an append at size == k
+writes no row.  U stays in shared memory while it fits (the narrow
+instance); past that the wide instance keeps it in the (L, k, d) output,
+resident in L2 (``instance``).  alpha and scale are launch arguments
 (scale = 0.5 is mutual information).  This wrapper only launches;
 ``kernels.ops`` routes CPU tensors to the plain version in ``kernels.ref``.
 """
@@ -30,9 +32,17 @@ SMEM_LIMIT = 227 * 1024
 
 
 def smem_bytes(k: int, d: int) -> int:
-    """Shared memory of one lane's sweep: U (k, d), two staged rows and
-    k + 1 dot products, float32 (the same sum as csrc/logdet_accept.cu)."""
+    """Shared memory of one lane's sweep in the narrow instance: U (k, d),
+    two staged rows and k + 1 dot products, float32 (the same sum as
+    csrc/logdet_accept.cu)."""
     return (k * d + 2 * d + k + 1) * 4
+
+
+def instance(k: int, d: int) -> str:
+    """The instance of the sweep for a (k, d) basis: "shared" keeps U and
+    the staged rows in shared memory while they fit, "global" keeps U in
+    the output tensor and only the k + 1 dot products in shared memory."""
+    return "shared" if smem_bytes(k, d) <= SMEM_LIMIT else "global"
 
 
 def logdet_accept(x, U, logdet, size, eligible, tau, budget, alpha=1.0,
@@ -43,8 +53,7 @@ def logdet_accept(x, U, logdet, size, eligible, tau, budget, alpha=1.0,
     or (L,) int32; cost (B,) or (L, B) and cost_budget () or (L,) float32,
     or both None (the knapsack cost mode, or the cardinality mode).  Returns
     (mask bool, U float32, logdet float32, size int32, gains float32),
-    batched like x.  Raises ValueError when U does
-    not fit in shared memory."""
+    batched like x."""
     global launches, cost_launches
     name = "logdet_accept"
     _wrap.check_rows(name, x)
@@ -60,9 +69,9 @@ def logdet_accept(x, U, logdet, size, eligible, tau, budget, alpha=1.0,
                 f"U must be float32 ({L}, k >= 1, {d}), got {U.dtype} "
                 f"{tuple(U.shape)}")
     k = U.shape[1]
-    _wrap.check(smem_bytes(k, d) <= SMEM_LIMIT, name,
-                f"the basis (k={k}, d={d}) needs {smem_bytes(k, d)} bytes of "
-                f"shared memory, more than the {SMEM_LIMIT} a block may use")
+    wide = instance(k, d) == "global"
+    _wrap.check(not wide or (k + 1) * 4 <= SMEM_LIMIT, name,
+                f"k={k}: the k + 1 dot products outgrow shared memory")
     _wrap.check(logdet.dtype == torch.float32 and logdet.shape == (L,), name,
                 f"logdet must be float32 ({L},), got {logdet.dtype} "
                 f"{tuple(logdet.shape)}")
@@ -96,7 +105,7 @@ def logdet_accept(x, U, logdet, size, eligible, tau, budget, alpha=1.0,
                  _wrap.ptr(cost_budget), mask.data_ptr(),
                  U_out.data_ptr(), ld_out.data_ptr(), size_out.data_ptr(),
                  gains.data_ptr(), L, B, k, d, float(alpha), float(scale),
-                 float(LOGDET_EPS))
+                 float(LOGDET_EPS), int(wide))
     launches += 1
     if cost is not None:
         cost_launches += 1

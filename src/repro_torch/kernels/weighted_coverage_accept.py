@@ -17,7 +17,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, _wrap
-from repro_torch.kernels.coverage_accept import MAX_D
 
 #: kernel launches since the last reset (set to 0 to reset)
 launches = 0
@@ -38,7 +37,6 @@ def weighted_coverage_accept(x, state, eligible, tau, budget,
     name = "weighted_coverage_accept"
     _wrap.check_rows(name, x)
     U = x.shape[-1]
-    _wrap.check(U <= MAX_D, name, f"U={U} exceeds {MAX_D}")
     x, state, eligible, tau, budget, unbatched = _wrap.sweep_operands(
         name, x, state, eligible, tau, budget, U)
     L, B = x.shape[:2]
@@ -52,7 +50,7 @@ def weighted_coverage_accept(x, state, eligible, tau, budget,
                  state.data_ptr(), eligible.data_ptr(), tau.data_ptr(),
                  budget.data_ptr(), _wrap.ptr(cost), _wrap.ptr(cost_budget),
                  mask.data_ptr(), state_out.data_ptr(), gains.data_ptr(),
-                 L, B, U)
+                 L, B, U, _wrap.feature_sweep_per(U))
     launches += 1
     if cost is not None:
         cost_launches += 1

@@ -28,12 +28,18 @@ distance and gain is exact: masks, states and gains must be equal.  The
 cost mode of every sweep runs on the same data as its cardinality test,
 with dyadic costs (multiples of 1/8 in [0.5, 2)) and budgets that bind
 inside the chunk in some lanes, so the spend and every tau * cost are
-exact; it is held to the same tolerance as the cardinality mode.
+exact; it is held to the same tolerance as the cardinality mode.  The
+wide instances of the sweeps (d > 2048 features, r > 4096 reference rows, a
+log-det basis beyond shared memory) are held to the same rules, and, forced
+at narrow shapes, must give the narrow instances' bits.  The facility and
+exemplar marginals must equal their plain versions bit for bit on dyadic
+data at ragged shapes of their 128 x 128 tile.
 """
 
 import pytest
 import torch
 
+from repro_torch.kernels import _wrap
 from repro_torch.kernels import coverage_accept as tca
 from repro_torch.kernels import coverage_marginals as tcm
 from repro_torch.kernels import exemplar_accept as tea
@@ -108,7 +114,9 @@ def _within(got, want, tol):
 @pytest.mark.parametrize("mode,L,C,r,d", [
     ("unbatched", 1, 1000, 256, 256), ("shared", 37, 700, 256, 256),
     ("per_lane", 37, 128, 256, 256), ("shared", 100, 333, 45, 17),
-    ("per_lane", 1, 65, 33, 70), ("shared", 130, 70, 70, 8)])
+    ("per_lane", 1, 65, 33, 70), ("shared", 130, 70, 70, 8),
+    ("shared", 37, 1000, 130, 130), ("per_lane", 100, 65, 300, 45),
+    ("unbatched", 1, 1000, 100, 70), ("shared", 130, 1000, 300, 130)])
 def test_cuda_facility_marginals_matches_plain(cuda_device, dtype, mode, L, C,
                                                r, d):
     g = torch.Generator(device=cuda_device).manual_seed(2)
@@ -149,7 +157,8 @@ def test_cuda_rectified_residual_sum_matches_plain(cuda_device, mode, L, C, r):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,B,r,d", [(37, 128, 256, 256), (5, 128, 1024, 64),
-                                     (3, 70, 45, 17), (1, 1, 1, 1)])
+                                     (3, 70, 45, 17), (1, 1, 1, 1),
+                                     (3, 64, 4097, 16), (2, 40, 8192, 8)])
 def test_cuda_facility_accept_matches_plain(cuda_device, dtype, L, B, r, d):
     """Dyadic inputs (cand (a/8)^2, ref b/8), exact in f32 in any order, so
     masks, states and gains must be equal."""
@@ -416,16 +425,43 @@ def test_cuda_logdet_accept_matches_plain(cuda_device, dtype, scale, L, B, d,
 
 
 @pytest.mark.cuda
-def test_cuda_logdet_accept_refuses_a_basis_beyond_shared_memory(cuda_device):
-    x = torch.rand((2, 8, 256), device=cuda_device)
-    U = torch.zeros((2, 256, 256), device=cuda_device)
-    ld = torch.zeros(2, device=cuda_device)
-    sz = torch.zeros(2, dtype=torch.int32, device=cuda_device)
-    elig = torch.ones((2, 8), dtype=torch.bool, device=cuda_device)
-    before = tla.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        tla.logdet_accept(x, U, ld, sz, elig, 0.0, 4)
-    assert tla.launches == before
+@pytest.mark.parametrize("mode", ["cardinality", "cost"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,d", [(64, 1024), (256, 256)])
+def test_cuda_logdet_accept_takes_a_basis_beyond_shared_memory(
+        cuda_device, dtype, mode, k, d):
+    """A basis that outgrows shared memory (the wide instance, U in the
+    output tensor) against the plain sweep, as the narrow test holds it;
+    appends run into k_max."""
+    assert tla.instance(k, d) == "global"
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    L, B = 5, 64
+    x = (torch.rand((L, B, d), generator=g, device=cuda_device) ** 2
+         ).to(dtype)
+    sizes = _sizes(cuda_device, L, k)
+    sizes[1] = k - 3
+    U, ld, sz = _bases(g, cuda_device, L, k, d, sizes)
+    elig = torch.rand((L, B), generator=g, device=cuda_device) < 0.9
+    tau = torch.where(torch.arange(L, device=cuda_device) % 4 == 3,
+                      float("inf"), 0.0)
+    bud = torch.full((L,), B, dtype=torch.int32, device=cuda_device)
+    cost = cb = None
+    if mode == "cost":
+        cost = (4 + torch.randint(0, 12, (L, B), generator=g,
+                                  device=cuda_device)) / 8.0
+        cb = torch.full((L,), 1e6, device=cuda_device)
+        cb[2] = 4.0
+    got = tla.logdet_accept(x, U, ld, sz, elig, tau, bud, 1.0, 1.0, cost, cb)
+    torch.cuda.synchronize()
+    want = ref.logdet_accept(x, U, ld, sz, elig, tau, bud, 1.0, cost=cost,
+                             cost_budget=cb)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+    for a, b in zip((got[1], got[2], got[4]), (want[1], want[2], want[4])):
+        torch.testing.assert_close(a, b, rtol=LD_RTOL, atol=LD_ATOL)
+    assert bool((want[3] > k).any())   # appends past k_max were dropped
+    again = tla.logdet_accept(x, U, ld, sz, elig, tau, bud, 1.0, 1.0, cost,
+                              cb)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def _exemplar_inputs(g, dev, shape_c, r, d, dtype, dyadic=False):
@@ -448,7 +484,9 @@ def _exemplar_inputs(g, dev, shape_c, r, d, dtype, dyadic=False):
 @pytest.mark.parametrize("mode,L,C,r,d", [
     ("unbatched", 1, 1000, 256, 256), ("shared", 37, 700, 256, 256),
     ("per_lane", 37, 128, 256, 256), ("shared", 100, 333, 45, 17),
-    ("per_lane", 1, 65, 33, 70), ("shared", 130, 70, 300, 45)])
+    ("per_lane", 1, 65, 33, 70), ("shared", 130, 70, 300, 45),
+    ("shared", 37, 1000, 130, 130), ("per_lane", 100, 65, 100, 45),
+    ("unbatched", 1, 65, 300, 70), ("shared", 130, 1000, 45, 130)])
 def test_cuda_exemplar_marginals_matches_plain(cuda_device, dtype, mode, L, C,
                                                r, d):
     g = torch.Generator(device=cuda_device).manual_seed(13)
@@ -480,7 +518,8 @@ def _exemplar_sweep_case(g, dev, L, B, r, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,B,r,d", [(37, 128, 256, 256), (5, 128, 1024, 64),
-                                     (3, 70, 45, 17), (1, 1, 1, 1)])
+                                     (3, 70, 45, 17), (1, 1, 1, 1),
+                                     (3, 64, 4097, 16), (2, 40, 8192, 8)])
 def test_cuda_exemplar_accept_matches_plain(cuda_device, dtype, L, B, r, d):
     """Dyadic inputs, exact in f32 in any order: masks, states and gains
     must be equal."""
@@ -602,3 +641,145 @@ def test_cuda_sweep_cost_mode_matches_plain(cuda_device, name, dtype):
     card = kern(None, None)
     unit = kern(torch.ones_like(cost), torch.full_like(cb, 1e6))
     assert all(torch.equal(a, b) for a, b in zip(card, unit))
+
+
+def _cost_operands(g, dev, L, B, mode):
+    """(cost, cost_budget) of a sweep's mode: dyadic costs in [0.5, 2) with
+    a budget of 4 in even lanes (it binds inside the chunk), or None."""
+    if mode == "cardinality":
+        return None, None
+    cost = (4 + torch.randint(0, 12, (L, B), generator=g, device=dev)) / 8.0
+    cb = torch.where(torch.arange(L, device=dev) % 2 == 0,
+                     torch.tensor(4.0, device=dev),
+                     torch.tensor(1e6, device=dev))
+    return cost, cb
+
+
+def _same_sweep(got, want, exact):
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        if exact or a.dtype == torch.int32:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(
+                a, b, rtol=RTOL if exact is False else LD_RTOL,
+                atol=ATOL if exact is False else LD_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cardinality", "cost"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2049, 4096])
+@pytest.mark.parametrize("name", ["coverage", "weighted", "saturated",
+                                  "graph_cut"])
+def test_cuda_feature_sweep_wide_matches_plain(cuda_device, name, d, dtype,
+                                               mode):
+    """Past 2048 features the wrapper picks the wide instance (the state in
+    global memory), held to the narrow tests' rules; bitwise repeats."""
+    assert _wrap.feature_sweep_per(d) == 0
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    L, B = 5, 64
+    kern, plain, exact = _cost_sweep(name, g, cuda_device, L, B, d, dtype)
+    cost, cb = _cost_operands(g, cuda_device, L, B, mode)
+    got = kern(cost, cb)
+    torch.cuda.synchronize()
+    _same_sweep(got, plain(cost, cb), exact)
+    assert all(torch.equal(a, b) for a, b in zip(got, kern(cost, cb)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cardinality", "cost"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [4097, 8192])
+@pytest.mark.parametrize("name", ["facility", "exemplar"])
+def test_cuda_reference_sweep_wide_matches_plain(cuda_device, name, r, dtype,
+                                                 mode):
+    """Past 4096 reference rows the wrapper picks the wide instance (the
+    state in global memory); dyadic data, so everything must be equal."""
+    assert _wrap.reference_sweep_per(r) == 0
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    # d = 8 keeps every sum of up to 8192 dyadic residuals exact
+    L, B, d = 3, 48, 8
+    bud = torch.full((L,), B, dtype=torch.int32, device=cuda_device)
+    if name == "facility":
+        cand = ((torch.randint(0, 8, (L, B, d), generator=g,
+                               device=cuda_device) / 8.0) ** 2).to(dtype)
+        R = (torch.randint(0, 8, (r, d), generator=g, device=cuda_device)
+             / 8.0).to(dtype)
+        state = torch.randint(0, 4 * d, (L, r), generator=g,
+                              device=cuda_device) / 64.0
+        elig = torch.rand((L, B), generator=g, device=cuda_device) < 0.9
+        tau = (ref.facility_marginals(cand, R, state).median(dim=1).values
+               * 0.05).contiguous()
+        kern, plain = tfa.facility_accept, ref.facility_accept
+    else:
+        cand, R, state, elig, tau = _exemplar_sweep_case(
+            g, cuda_device, L, B, r, d, dtype)
+        kern, plain = tea.exemplar_accept, ref.exemplar_accept
+    cost, cb = _cost_operands(g, cuda_device, L, B, mode)
+    got = kern(cand, R, state, elig, tau, bud, cost, cb)
+    torch.cuda.synchronize()
+    _same_sweep(got, plain(cand, R, state, elig, tau, bud, cost, cb), True)
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, kern(cand, R, state, elig, tau, bud, cost, cb)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cardinality", "cost"])
+@pytest.mark.parametrize("d", [45, 256, 2048])
+@pytest.mark.parametrize("name", COST_SWEEPS)
+def test_cuda_wide_instance_gives_the_narrow_bits(cuda_device, monkeypatch,
+                                                  name, d, mode):
+    """Each wide instance, forced at a width its narrow sibling takes, sums
+    the same terms in the same order: masks, states and gains must be the
+    narrow instance's bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    L, B = 9, 96
+    kern, _, _ = _cost_sweep(name, g, cuda_device, L, B, d, torch.float32)
+    cost, cb = _cost_operands(g, cuda_device, L, B, mode)
+    narrow = kern(cost, cb)
+    if name in ("facility", "exemplar"):
+        monkeypatch.setattr(_wrap, "reference_sweep_per", lambda r: 0)
+    elif name in ("log_det", "mutual_information"):
+        monkeypatch.setattr(tla, "instance", lambda k, d: "global")
+    else:
+        monkeypatch.setattr(_wrap, "feature_sweep_per", lambda d: 0)
+    wide = kern(cost, cb)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(narrow, wide))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,L,C,r,d", [
+    ("shared", 37, 1000, 256, 256), ("shared", 130, 1000, 130, 70),
+    ("shared", 100, 65, 300, 130), ("unbatched", 1, 1000, 45, 45),
+    ("per_lane", 37, 128, 100, 130), ("per_lane", 1, 65, 300, 45)])
+@pytest.mark.parametrize("name", ["facility", "exemplar"])
+def test_cuda_reference_marginals_dyadic_bitwise(cuda_device, name, dtype,
+                                                 mode, L, C, r, d):
+    """On dyadic data every product, distance and sum is exact in f32, so
+    the marginals must equal the plain version bit for bit at every ragged
+    edge of the 128 x 128 tile (rows past C, columns past r, d not a
+    multiple of 16 or of 4, lane groups past 128)."""
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    shape_c = (L, C) if mode == "per_lane" else (C,)
+    st_shape = (r,) if mode == "unbatched" else (L, r)
+    if name == "facility":
+        cand = ((torch.randint(0, 8, shape_c + (d,), generator=g,
+                               device=cuda_device) / 8.0) ** 2).to(dtype)
+        R = (torch.randint(0, 8, (r, d), generator=g, device=cuda_device)
+             / 8.0)
+        state = torch.randint(0, 4 * d, st_shape, generator=g,
+                              device=cuda_device) / 64.0
+        kern, plain = tfm.facility_marginals, ref.facility_marginals
+    else:
+        cand, R, m0 = _exemplar_inputs(g, cuda_device, shape_c, r, d, dtype,
+                                       dyadic=True)
+        q = torch.randint(1, 5, st_shape, generator=g, device=cuda_device)
+        state = (m0 * q / 4.0).contiguous()
+        kern, plain = tem.exemplar_marginals, ref.exemplar_marginals
+    got = kern(cand, R, state)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(cand, R, state))
+    assert torch.equal(got, kern(cand, R, state))
