@@ -13,7 +13,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    bf16) and at odd ones, every lane mode, each launch repeated bitwise,
    and time kernel, plain version and, where one exists, the PyTorch call
    of the same product: the coverage, facility, weighted and saturated
-   coverage, graph cut, log-det and exemplar kernels.
+   coverage, graph cut, log-det and exemplar kernels.  log-det runs at the
+   lanes' sizes (974 of 2368 basis rows live), full and, unbatched, at
+   size 0, each call with sizes bit for bit the call without them, its
+   bound and library call over the live rows and over every row;
+   graph_cut_marginals' shared tile runs on dyadic data at 42 shapes
+   (L = 2 .. 130, d = 3, 45, 256), bit for bit the plain version.
    facility_marginals and exemplar_marginals also run on dyadic data at
    the ragged edges of their 128 x 128 tile (C = 1000, 65; r = 45, 100,
    130, 300; d = 45, 70, 130; L = 1, 37, 100, 130), bit for bit the plain
@@ -702,6 +707,34 @@ def phase_graph_cut_logdet_kernels(torch, ref, gm, ga, lm, la):
             print(line)
     rows["graph_cut_marginals"]["max_abs_err"] = worst
 
+    # -- graph_cut_marginals' shared-x tile on dyadic data (rows a/8, a
+    #    dyadic total, states with 2 lam s a quarter-multiple of it, lam
+    #    0.5: every product and sum is exact) at lane counts around its
+    #    8-lane groups and 64-lane tiles, features below, off and on its
+    #    32-deep slices, rows past its 256-row items: bit for bit the plain
+    #    version, twice
+    n_dyadic = 0
+    for Lk in (2, 8, 37, 40, 64, 65, 130):
+        for d, C in ((3, 1001), (45, 257), (256, 1000)):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = (torch.randint(0, 9, (C, d), generator=g, device=dev)
+                     / 8.0).to(dtype)
+                t = torch.randint(0, 64, (d,), generator=g, device=dev) / 2.0
+                state = (t * torch.randint(0, 6, (Lk, 1), generator=g,
+                                           device=dev) / 4.0).contiguous()
+                got = gm.graph_cut_marginals(x, t, state, lam)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref.graph_cut_marginals(x, t, state,
+                                                               lam))
+                      and torch.equal(got, gm.graph_cut_marginals(
+                          x, t, state, lam)),
+                      f"graph_cut_marginals L={Lk} C={C} d={d} {dtype}: not "
+                      f"bit for bit the plain version on dyadic data")
+                n_dyadic += 1
+    print(f"[kernels] graph_cut_marginals on dyadic data at {n_dyadic} "
+          f"shapes (L = 2 .. 130, d = 3, 45, 256), f32 and bf16: bit for "
+          f"bit the plain version, repeat=bitwise")
+
     # -- graph_cut_accept at the fused engine's shape and odd shapes
     worst = 0.0
     for label, Lk, Bk, d in (("path", L, B, D), ("odd L=1", 1, 70, 45),
@@ -756,72 +789,105 @@ def phase_graph_cut_logdet_kernels(torch, ref, gm, ga, lm, la):
     def ld_close(a, b):
         return torch.allclose(a, b, rtol=LD_RTOL, atol=LD_ATOL)
 
-    # -- logdet_marginals: shared at the filter shape, unbatched over the
-    #    corpus, per-lane at the lazy chunk shape; odd shapes with k = 1, 7
-    #    and 100 (more than one 64-column tile per lane); scale 1 and 0.5
+    # -- logdet_marginals: shared at the filter shape at the lanes' sizes
+    #    (974 of 2368 basis rows live) and full, unbatched over the corpus
+    #    full and empty (the singleton passes), per-lane at the lazy chunk
+    #    shape; odd shapes with k = 1, 7 and 100 (a lane's rows cross the
+    #    128-column tiles) and 300 lanes (two lane groups); scale 1 and 0.5.
+    #    Every call passes the lanes' sizes, and must give the bits of the
+    #    same call without them (the rows past size are zero).
     worst = 0.0
-    for label, Lk, C, d, k in (("shared", L, N, D, K), ("unbatched", 1, N, D, K),
-                               ("per-lane", L, B, D, K),
-                               ("odd shared", 130, 1000, 70, 7),
-                               ("odd shared", 130, 1000, 45, 1),
-                               ("odd shared", 5, 1000, 70, 100),
-                               ("odd per-lane", 3, 65, 45, 7),
-                               ("odd unbatched", 1, 1000, 45, 1)):
+    for label, Lk, C, d, k, kind in (
+            ("shared", L, N, D, K, "lanes"), ("shared full", L, N, D, K, "full"),
+            ("unbatched", 1, N, D, K, "full"),
+            ("unbatched empty", 1, N, D, K, "empty"),
+            ("per-lane", L, B, D, K, "lanes"),
+            ("odd shared", 130, 1000, 70, 7, "lanes"),
+            ("odd shared", 130, 1000, 45, 1, "lanes"),
+            ("odd shared", 5, 1000, 70, 100, "lanes"),
+            ("odd shared", 300, 1000, 45, 7, "lanes"),
+            ("odd per-lane", 3, 65, 45, 7, "lanes"),
+            ("odd unbatched", 1, 1000, 45, 1, "full")):
         per_lane = label.endswith("per-lane")
+        unbatched = "unbatched" in label
         for dtype in (torch.float32, torch.bfloat16):
             scale = 1.0 if dtype == torch.float32 else 0.5
             shape = (Lk, C, d) if per_lane else (C, d)
             x = (torch.rand(shape, generator=g, device=dev) ** 2).to(dtype)
-            nb = 2 if label.endswith("unbatched") else Lk
-            U, _, _ = logdet_bases(torch, ref, g, nb, k, d,
-                                   lane_sizes(nb, k), alpha, dtype)
-            if label.endswith("unbatched"):
-                U = U[1].contiguous()   # a full basis
-            if label == "shared":
+            sizes = {"lanes": lane_sizes(Lk, k),
+                     "full": torch.full((Lk,), k, dtype=torch.int32,
+                                        device=dev),
+                     "empty": torch.zeros(Lk, dtype=torch.int32,
+                                          device=dev)}[kind]
+            U, _, sz = logdet_bases(torch, ref, g, Lk, k, d, sizes, alpha,
+                                    dtype)
+            if unbatched:
+                U, sz = U[0].contiguous(), sz[0]
+            if label.startswith("shared"):
                 # one lane at a time: the plain version's (L, C, k)
                 # projection would take 10 GB
                 plain = lambda: torch.stack([  # noqa: E731
-                    ref.logdet_marginals(x, U[l], alpha, scale=scale)
+                    ref.logdet_marginals(x, U[l], alpha, scale=scale,
+                                         size=sz[l])
                     for l in range(Lk)])
             else:
                 plain = lambda: ref.logdet_marginals(  # noqa: E731
-                    x, U, alpha, scale=scale)
-            got = lm.logdet_marginals(x, U, alpha, scale)
+                    x, U, alpha, scale=scale, size=sz)
+            got = lm.logdet_marginals(x, U, alpha, scale, sz)
             want = plain()
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             check(ld_close(got, want), f"logdet_marginals {label} k={k} "
                   f"{dtype}: max abs err {err}")
-            check(torch.equal(lm.logdet_marginals(x, U, alpha, scale), got),
+            check(torch.equal(lm.logdet_marginals(x, U, alpha, scale, sz),
+                              got),
                   f"logdet_marginals {label}: a repeated launch differs")
+            check(torch.equal(lm.logdet_marginals(x, U, alpha, scale), got),
+                  f"logdet_marginals {label}: the call without sizes gives "
+                  f"other bits")
             worst = max(worst, err)
+            n_live = int(sz.clamp(0, k).sum())
             line = (f"[kernels] logdet_marginals {label} x{tuple(shape)} "
-                    f"L={Lk} k={k} {str(dtype)[6:]} scale={scale}: "
-                    f"max_abs_err={err} gains=[{want.min().item()}, "
-                    f"{want.max().item()}] repeat=bitwise")
+                    f"L={Lk} k={k} live_rows={n_live} {str(dtype)[6:]} "
+                    f"scale={scale}: max_abs_err={err} gains=["
+                    f"{want.min().item()}, {want.max().item()}] "
+                    f"repeat=bitwise without_sizes=bitwise")
             if not label.startswith("odd"):
-                ms = cuda_ms(lambda: lm.logdet_marginals(x, U, alpha, scale),
-                             5)
+                ms = cuda_ms(lambda: lm.logdet_marginals(x, U, alpha, scale,
+                                                         sz), 5)
                 pms = cuda_ms(plain, 2)
                 rows_c = Lk * C if per_lane or U.dim() == 3 else C
-                b_ms, b_by = bound_ms(
-                    x.numel() * x.element_size() + U.numel() * 4
-                    + got.numel() * 4,
-                    2 * rows_c * d * k + 2 * (Lk if per_lane else 1) * C * d
-                    + 2 * rows_c * k + 6 * rows_c)
+                x_ops = 2 * (Lk if per_lane else 1) * C * d + 6 * rows_c
+                x_bytes = x.numel() * x.element_size() + got.numel() * 4
+                # the rows the kernel multiplies, and every row of U
+                b_ms, b_by = bound_ms(x_bytes + n_live * d * 4,
+                                      2 * C * n_live * (d + 1) + x_ops)
+                b_all, b_all_by = bound_ms(
+                    x_bytes + U.numel() * 4,
+                    2 * rows_c * k * (d + 1) + x_ops)
                 xf = x.float()
                 lib = {"shared": lambda: torch.matmul(
                            xf, U.reshape(-1, d).T),
                        "unbatched": lambda: torch.matmul(xf, U.T),
                        "per-lane": lambda: torch.bmm(
-                           xf, U.transpose(1, 2))}[label]
-                lib_ms = cuda_ms(lib, 5)
+                           xf, U.transpose(1, 2))}[label.split()[0]]
+                lib_all = cuda_ms(lib, 5)
+                lib_live = None
+                if not per_lane and n_live:
+                    # the live rows gathered once, outside the timing
+                    live = (torch.arange(k, device=dev)
+                            < sz.reshape(-1, 1)).reshape(-1)
+                    Uc = U.reshape(-1, d)[live].contiguous()
+                    lib_live = cuda_ms(lambda: torch.matmul(xf, Uc.T), 5)
                 line += (f" kernel_ms={ms} plain_ms={pms} bound_ms={b_ms} "
-                         f"({b_by}) library_ms={lib_ms}")
+                         f"({b_by}, live rows) bound_all_rows_ms={b_all} "
+                         f"({b_all_by}) library_ms={lib_live} (live rows) "
+                         f"library_all_rows_ms={lib_all}")
                 if label == "shared" and dtype == torch.float32:
                     rows["logdet_marginals"] = dict(
                         ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=lib_ms)
+                        library_ms=lib_live, bound_all_rows_ms=b_all,
+                        library_all_rows_ms=lib_all)
             print(line)
     rows["logdet_marginals"]["max_abs_err"] = worst
     print(f"[kernels] yardstick: torch.matmul / mv / bmm with allow_tf32="
@@ -1891,12 +1957,13 @@ def main() -> int:
                       # one PyTorch call that computes the same function,
                       # where there is one (None: there is none)
                       "library_ms": r.get("library_ms"),
-                      # the accept sweeps' knapsack cost mode, and their
-                      # wide instance at the widest shape of WIDE_SWEEPS
-                      **({"cost_ms": r["cost_ms"]} if "cost_ms" in r
-                         else {}),
-                      **({"wide_ms": r["wide_ms"]} if "wide_ms" in r
-                         else {})})
+                      # the accept sweeps' knapsack cost mode and their
+                      # wide instance at the widest shape of WIDE_SWEEPS;
+                      # log-det's bound and library call over every row of
+                      # U, the rows past each lane's size too
+                      **{key: r[key] for key in (
+                          "cost_ms", "wide_ms", "bound_all_rows_ms",
+                          "library_all_rows_ms") if key in r}})
     print(json.dumps({"kernels": table}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -521,7 +521,7 @@ class _WhitenedBasis(SubmodularOracle):
         U = state[0]
         if self.use_kernel:
             return ops.logdet_marginals(aux.contiguous(), U.contiguous(),
-                                        self.alpha, self.scale)
+                                        self.alpha, self.scale, state[2])
         return ref.logdet_marginals(aux, U, self.alpha, scale=self.scale)
 
     def chunk_accept(self, state, cand_feats, eligible, tau, budget,

@@ -85,8 +85,8 @@ SIGNATURES = {
                                     _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "logdet_marginals": {
-        "logdet_marginals_launch": (_P, _I, _I, _P, _P, _I, _I, _LL, _I, _F,
-                                    _F, _F, _F, _P),
+        "logdet_marginals_launch": (_P, _I, _I, _P, _P, _P, _I, _I, _LL, _I,
+                                    _F, _F, _F, _F, _P),
     },
     "logdet_accept": {
         "logdet_accept_launch": (_P, _I, _P, _P, _P, _P, _P, _P, *_COST, _P,

@@ -1,0 +1,221 @@
+#!/usr/bin/env python3
+"""Compare two builds of the tile-based marginals kernels on one card.
+
+    PYTHONPATH=src python3 -m repro_torch.kernels.ab_compare BASE_CSRC
+                    (from the root of a checkout, on a machine with a
+                     CUDA card and nvcc)
+
+BASE_CSRC is the ``src/repro_torch/kernels/csrc`` directory of another
+checkout (for example the parent commit, unpacked with ``git archive``
+into a directory that ``.gitignore`` lists).  The script builds
+facility_marginals.cu, exemplar_marginals.cu, logdet_marginals.cu and
+graph_cut_marginals.cu from both trees, in parallel, in a temporary
+directory, and runs both builds on the same inputs at the filter shape
+(L = 37 lanes, C = 2^20 rows, d = r = 256, k_max = 64, f32 and bf16):
+
+* facility and exemplar marginals, and log-det at the lane sizes
+  chip_smoke.py uses (974 of 2368 basis rows live), with all 64 rows live,
+  and unbatched at size 0 (the singleton passes): the two builds must give
+  the same bits (a log-det build that takes sizes is run with them and
+  without them, both must give the base's bits);
+* graph cut: both builds within ``graph_cut_tol`` of the plain version
+  (they may sum in different orders), and the largest difference printed.
+
+Each case is timed in turns, base, new, new, base (CUDA events over
+back-to-back launches), so the two builds meet the same clock and power
+state.  Where cuobjdump is at hand it also says whether the two builds of
+the facility and exemplar tile kernels compiled to the same SASS.  Last it
+prints the card's name and power limit.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.tile_probe import cuda_ms, smi
+
+NAMES = ("facility_marginals", "exemplar_marginals", "logdet_marginals",
+         "graph_cut_marginals")
+#: the log-det entry point before it took sizes: no ``size`` pointer
+LOGDET_NO_SIZE = tuple(a for i, a in enumerate(
+    _build.SIGNATURES["logdet_marginals"]["logdet_marginals_launch"])
+    if i != 4)
+
+
+def build(tmp: Path, trees: dict) -> dict:
+    """{(tree, name): the loaded library}, every nvcc started at once."""
+    procs = {}
+    for tree, csrc in trees.items():
+        src = tmp / tree
+        shutil.copytree(csrc, src)
+        for name in NAMES:
+            cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                   str(src / f"lib{name}.so"), str(src / f"{name}.cu")]
+            procs[tree, name] = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+    libs = {}
+    for (tree, name), proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc {tree} {name} failed:\n{log}")
+        lib = ctypes.CDLL(str(tmp / tree / f"lib{name}.so"))
+        for fn_name, argtypes in _build.SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            sized = "const void* size" in (tmp / tree / f"{name}.cu").read_text()
+            fn.argtypes = list(argtypes if name != "logdet_marginals" or sized
+                               else LOGDET_NO_SIZE)
+            fn.restype = ctypes.c_int
+            fn.sized = sized
+        libs[tree, name] = lib
+    return libs
+
+
+def tile_sass(lib_path: Path) -> dict:
+    """{kernel name: its SASS} of the marginals tile's kernels in a
+    library (empty without cuobjdump)."""
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        return {}
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True).stdout
+    return {fn.split(None, 1)[0]: fn for fn in sass.split("Function : ")[1:]
+            if "5mtile" in fn.split(None, 1)[0]}
+
+
+def lane_sizes(L, k, dev):
+    s = (torch.arange(L, device=dev) * 13) % (k + 1)
+    s[:2] = torch.tensor([0, k], device=dev)
+    return s.to(torch.int32)
+
+
+def main() -> int:
+    if len(sys.argv) != 2 or not Path(sys.argv[1]).is_dir():
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("ab_compare: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    N, D, R, L, K = 1 << 20, 256, 256, 37, 64
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    X32 = torch.rand((N, D), generator=g, device=dev) ** 2
+    Rm = torch.rand((R, D), generator=g, device=dev)
+    refsq = (Rm * Rm).sum(-1)
+    out = torch.empty((L, N), device=dev)
+    rows = torch.stack([torch.rand((L, D), generator=g, device=dev) ** 2
+                        for _ in range(K)])
+    U_lanes, _, sz_lanes = ref.logdet_basis(rows, lane_sizes(L, K, dev))
+    U_full, _, sz_full = ref.logdet_basis(
+        rows, torch.full((L,), K, dtype=torch.int32, device=dev))
+    U_empty = torch.zeros((K, D), device=dev)
+    sz_empty = torch.zeros((), dtype=torch.int32, device=dev)
+    t = X32.sum(0)
+    st_gc = (t * torch.rand((L, 1), generator=g, device=dev) * 1.2).contiguous()
+    st_fl = (torch.rand((L, R), generator=g, device=dev) * D / 4).contiguous()
+    st_ex = (refsq * torch.rand((L, R), generator=g, device=dev)).contiguous()
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build(Path(tmp), {"base": Path(sys.argv[1]),
+                                 "new": _build.CSRC})
+        for name in ("facility_marginals", "exemplar_marginals"):
+            base, new = (tile_sass(Path(tmp) / tree / f"lib{name}.so")
+                         for tree in ("base", "new"))
+            if base:
+                print(f"[ab] {name}: {len(base)} tile kernels, SASS of the "
+                      f"two builds identical: {base == new}", flush=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            X = X32.to(dtype)
+            bf = int(dtype == torch.bfloat16)
+            tag = str(dtype)[6:]
+
+            def fl(tree):
+                return lambda: libs[tree, "facility_marginals"].\
+                    facility_marginals_launch(
+                        X.data_ptr(), bf, 0, Rm.data_ptr(), st_fl.data_ptr(),
+                        out.data_ptr(), L, N, R, D, stream)
+
+            def ex(tree):
+                return lambda: libs[tree, "exemplar_marginals"].\
+                    exemplar_marginals_launch(
+                        X.data_ptr(), bf, 0, Rm.data_ptr(), refsq.data_ptr(),
+                        st_ex.data_ptr(), out.data_ptr(), L, N, R, D, stream)
+
+            def ld(tree, U, size, use_size=True):
+                fn = libs[tree, "logdet_marginals"].logdet_marginals_launch
+                lanes = U.shape[0] if U.dim() == 3 else 1
+                head = (X.data_ptr(), bf, 0, U.data_ptr())
+                tail = (out.data_ptr(), lanes, K, N, D, 1.0, 1.0, 1.0, 1e-12,
+                        stream)
+                if fn.sized:
+                    sp = size.data_ptr() if use_size else None
+                    return lambda: fn(*head, sp, *tail)
+                return lambda: fn(*head, *tail)
+
+            def gc(tree):
+                return lambda: libs[tree, "graph_cut_marginals"].\
+                    graph_cut_marginals_launch(
+                        X.data_ptr(), bf, 0, st_gc.data_ptr(), t.data_ptr(),
+                        0.5, out.data_ptr(), L, N, D, stream)
+
+            cases = (("facility_marginals", fl("base"), fl("new"), (), 10),
+                     ("exemplar_marginals", ex("base"), ex("new"), (), 10),
+                     ("logdet_marginals lane sizes",
+                      ld("base", U_lanes, sz_lanes),
+                      ld("new", U_lanes, sz_lanes),
+                      (ld("new", U_lanes, sz_lanes, False),), 5),
+                     ("logdet_marginals full", ld("base", U_full, sz_full),
+                      ld("new", U_full, sz_full),
+                      (ld("new", U_full, sz_full, False),), 3),
+                     ("logdet_marginals unbatched size 0",
+                      ld("base", U_empty, sz_empty),
+                      ld("new", U_empty, sz_empty),
+                      (ld("new", U_empty, sz_empty, False),), 10),
+                     ("graph_cut_marginals", gc("base"), gc("new"), (), 10))
+            for label, base, new, others, iters in cases:
+                results = []
+                for fn in (base, new, *others):
+                    out.fill_(float("nan"))
+                    check(fn())
+                    torch.cuda.synchronize()
+                    results.append(out.clone())
+                if label.startswith("graph_cut"):
+                    want = ref.graph_cut_marginals(X, t, st_gc, 0.5)
+                    coef = t - st_gc
+                    tol = 2.0 * (D + 2) * 2.0 ** -24 * (
+                        X.float().abs() @ coef.abs().T + 0.5 * (
+                            X.float() ** 2).sum(-1, keepdim=True)).T
+                    same = " ".join(
+                        f"{tree} within tol {bool(((r - want).abs() <= tol).all())}"
+                        for tree, r in zip(("base", "new"), results))
+                    same += (f"; max |new - base| "
+                             f"{(results[1] - results[0]).abs().max().item()}")
+                    del want, tol
+                else:
+                    rows_ = 1 if "unbatched" in label else L
+                    same = "bits equal to base: " + " ".join(
+                        str(torch.equal(r[:rows_], results[0][:rows_]))
+                        for r in results[1:])
+                times = [cuda_ms(fn, iters) for fn in (base, new, new, base)]
+                print(f"[ab] {label} {tag}: {same}; ms base {times[0]} new "
+                      f"{times[1]} new {times[2]} base {times[3]}",
+                      flush=True)
+    print(smi("name,power.limit"))
+    return 0
+
+
+def check(err):
+    if err != 0:
+        raise RuntimeError(f"CUDA error {err} at launch")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,9 @@
 //     out[l, i] = sum_j Rule::residual(s[l, j], v(i, j)),
 //
 // with v(i, j) the Rule's value of acc = <cand_i, ref_j> (reference_tile.cuh:
-// Facility max(acc, 0); Exemplar max((refsq_j - 2 acc) + sq_i, 0)).
+// Facility max(acc, 0); Exemplar max((refsq_j - 2 acc) + sq_i, 0)).  Its
+// product loop (product() below) is also the product of logdet_marginals.cu,
+// whose columns are the lanes' live basis rows: one GEMM loop for the three.
 //
 // What bounds it: at the filter shape (L = 37, C = 2^20, d = r = 256, f32)
 // the product is C r d = 6.9e10 FMAs, 2.05 ms at the card's FFMA peak, and
@@ -132,16 +134,30 @@ __device__ __forceinline__ int stage_at(int k, int row) {
   return stage_group(k, row >> 2) | (row & 3);
 }
 
-// acc[m][n] = sum_k cand[row0 + micro_at(ty, m)][k] *
-// ref[col0 + micro_at(tx, n)][k], one fmaf chain over k in order.  Every
-// thread of the CTA must call it; it ends with a barrier, so the stage may
-// be overwritten at once.
-template <typename TC, bool kVec>
+// The columns of a product tile, two ways:
+//  * RefRows: rows col0 .. col0 + 127 of one row-major (r, d) f32 matrix
+//    (the facility and exemplar reference set);
+//  * RowPair: any rows gathered from memory (logdet_marginals.cu takes the
+//    lanes' live basis rows): thread t stages the tile's columns q = t / 4
+//    and q + 64, whose f32 rows (d values) it passes as b0 and b1 (nullptr:
+//    a column past the edge, read as 0).
+struct RefRows {
+  const float* __restrict__ ref;
+  int r;
+};
+struct RowPair {
+  const float* __restrict__ b0;
+  const float* __restrict__ b1;
+};
+
+// acc[m][n] = sum_k cand[row0 + micro_at(ty, m)][k] * col_n[k], one fmaf
+// chain over k in order, where col_n is the row of the tile's column
+// micro_at(tx, n) (Cols above).  Every thread of the CTA must call it; it
+// ends with a barrier, so the stage may be overwritten at once.
+template <typename TC, bool kVec, typename Cols>
 __device__ __forceinline__ void product(const TC* __restrict__ cand,
-                                        long long C,
-                                        const float* __restrict__ ref, int r,
-                                        int d, long long row0, int col0,
-                                        Stage& st,
+                                        long long C, const Cols& cols, int d,
+                                        long long row0, int col0, Stage& st,
                                         float acc[kMicro][kMicro]) {
 #pragma unroll
   for (int m = 0; m < kMicro; ++m)
@@ -152,9 +168,14 @@ __device__ __forceinline__ void product(const TC* __restrict__ cand,
   // 64 contiguous bytes (32 for bf16 rows)
   const int q = threadIdx.x >> 2, kq = (threadIdx.x & 3) << 2;
   const TC* arow = cand + (row0 + q) * d;
-  const float* brow = ref + (long long)(col0 + q) * d;
   const bool a_ok = row0 + q < C, a2_ok = row0 + q + 64 < C;
-  const bool b_ok = col0 + q < r, b2_ok = col0 + q + 64 < r;
+  const float* brow = nullptr;
+  bool b_ok = false, b2_ok = false;
+  if constexpr (std::is_same<Cols, RefRows>::value) {
+    brow = cols.ref + (long long)(col0 + q) * d;
+    b_ok = col0 + q < cols.r;
+    b2_ok = col0 + q + 64 < cols.r;
+  }
   const int ty = grid_row(), tx = grid_col();
   // the next slice's staging loads: cand's while the first half of the
   // current slice's FMAs run, ref's during the second half, so only eight
@@ -175,8 +196,14 @@ __device__ __forceinline__ void product(const TC* __restrict__ cand,
     pf[1] = load4<TC, kVec>(a2_ok ? arow + 64LL * d : nullptr, k0 + kq, d);
   };
   auto fetch_b = [&](int k0) {
-    pf[0] = load4<float, kVec>(b_ok ? brow : nullptr, k0 + kq, d);
-    pf[1] = load4<float, kVec>(b2_ok ? brow + 64LL * d : nullptr, k0 + kq, d);
+    if constexpr (std::is_same<Cols, RefRows>::value) {
+      pf[0] = load4<float, kVec>(b_ok ? brow : nullptr, k0 + kq, d);
+      pf[1] = load4<float, kVec>(b2_ok ? brow + 64LL * d : nullptr, k0 + kq,
+                                 d);
+    } else {
+      pf[0] = load4<float, kVec>(cols.b0, k0 + kq, d);
+      pf[1] = load4<float, kVec>(cols.b1, k0 + kq, d);
+    }
   };
   // fragments of step kk: rows micro_at(ty, 0..7), columns micro_at(tx, 0..7)
   float fa[kMicro], fb[kMicro];
@@ -297,7 +324,7 @@ kernel(const TC* __restrict__ cand, int cand_per_lane,
     // the value tile
     {
       float v[kMicro][kMicro];
-      product<TC, kVec>(x, C, ref, r, d, row0, col0, stage, v);
+      product<TC, kVec>(x, C, RefRows{ref, r}, d, row0, col0, stage, v);
 #pragma unroll
       for (int n = 0; n < kMicro; ++n) {
         const int c = micro_at(tx, n);

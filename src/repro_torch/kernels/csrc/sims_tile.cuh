@@ -1,21 +1,20 @@
-// One rectified similarity tile for the facility-location kernels (the
-// Hopper counterpart of the jnp.dot in _fm_kernel and _fa_kernel,
-// src/repro/kernels/facility_marginals.py and facility_accept.py).
+// One similarity tile of the sims_tile users: the rectified product of
+// facility_accept.cu and exemplar_accept.cu (through reference_tile.cuh,
+// the Hopper counterpart of the jnp.dot in _fa_kernel and _ea_kernel,
+// src/repro/kernels/facility_accept.py and exemplar_accept.py) and, with
+// kRectify = false, weighted_coverage_marginals.cu's product of the
+// candidates with the lanes' remaining-weight vectors:
 //
 //     tile[i][j] = max( sum_k cand[row0 + i][k] * ref[col0 + j][k], 0 )
 //
-// (kRectify = false drops the max: weighted_coverage_marginals.cu takes
-// the lanes' remaining-weight vectors as the ref rows.  The ref operand is
-// a row-major (r, d) f32 pointer, or any value with a ref_at overload
-// found by argument-dependent lookup: graph_cut_marginals.cu forms its
-// coefficient rows as it stages them.)
 // for a kTileRows x kTileCols block, computed by one CTA of kThreads
 // threads with a plain f32 FFMA loop: d is staged through shared memory
 // kDepth columns at a time (cand transposed to [k][row], ref to [k][col]),
 // and each thread keeps a kMicro x kMicro block of sums in registers.
 // bf16 operands are widened to f32 as they are staged; a bf16 x bf16
 // product is exact in f32, which is what preferred_element_type=f32 gives
-// on the TPU.  Tensor cores (wgmma) and TMA are left for a later change.
+// on the TPU.  (The marginals of facility, exemplar and log-det moved to
+// marginals_tile.cuh's 128 x 128 tile, graph cut to its own skinny tile.)
 //
 // Every sum runs over k = 0, 1, ..., d - 1 in that order as one fmaf
 // chain, so a tile is bit-for-bit the same wherever and whenever it is
@@ -49,19 +48,13 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
 __device__ __forceinline__ int micro_row() { return (threadIdx.x >> 4) * kMicro; }
 __device__ __forceinline__ int micro_col() { return (threadIdx.x & 15) * kMicro; }
 
-// Element (col, k) of a row-major (r, d) f32 ref operand.
-__device__ __forceinline__ float ref_at(const float* __restrict__ ref,
-                                        int col, int k, int d) {
-  return ref[(long long)col * d + k];
-}
-
-// acc[m][n] = tile[micro_row() + m][micro_col() + n].  cand is (C, d)
-// row-major; ref is read as ref_at(ref, col, k, d) for col < r, k < d.
-// Every thread of the CTA must call it; it ends with a barrier, so the
-// stage may be reused at once.
-template <typename TC, bool kRectify = true, typename TR = const float*>
+// acc[m][n] = tile[micro_row() + m][micro_col() + n].  cand is (C, d) and
+// ref (r, d), both row-major.  Every thread of the CTA must call it; it
+// ends with a barrier, so the stage may be reused at once.
+template <typename TC, bool kRectify = true>
 __device__ __forceinline__ void tile(const TC* __restrict__ cand, long long C,
-                                     TR ref, int r, int d, long long row0,
+                                     const float* __restrict__ ref, int r,
+                                     int d, long long row0,
                                      int col0, Stage& st,
                                      float acc[kMicro][kMicro]) {
 #pragma unroll
@@ -79,7 +72,7 @@ __device__ __forceinline__ void tile(const TC* __restrict__ cand, long long C,
     for (int j = 0; j < 4; ++j) {
       const int k = k0 + sk + j;
       st.a[sk + j][sr] = (row < C && k < d) ? to_f(cand[row * d + k]) : 0.0f;
-      st.b[sk + j][sr] = (col < r && k < d) ? ref_at(ref, col, k, d) : 0.0f;
+      st.b[sk + j][sr] = (col < r && k < d) ? ref[(long long)col * d + k] : 0.0f;
     }
     __syncthreads();
 #pragma unroll

@@ -184,12 +184,13 @@ def graph_cut_accept(x, total, state, eligible, tau, budget, lam=0.5,
     return fn(x, total, state, eligible, tau, budget, lam, cost, cost_budget)
 
 
-def logdet_marginals(x, U, alpha=1.0, scale=1.0):
+def logdet_marginals(x, U, alpha=1.0, scale=1.0, size=None):
     """(C, d) | (L, C, d), (k, d) | (L, k, d) -> (C,) | (L, C) log-det
-    (scale 1) or mutual-information (scale 0.5) marginals."""
+    (scale 1) or mutual-information (scale 0.5) marginals; ``size`` (one
+    integer per lane, or None for k) counts each lane's live rows of U."""
     if _on_card(x):
-        return _lm.logdet_marginals(x, U, alpha, scale)
-    return ref.logdet_marginals(x, U, alpha, scale=scale)
+        return _lm.logdet_marginals(x, U, alpha, scale, size)
+    return ref.logdet_marginals(x, U, alpha, scale=scale, size=size)
 
 
 def logdet_accept(x, U, logdet, size, eligible, tau, budget, alpha=1.0,

@@ -166,7 +166,8 @@ def graph_cut_marginals(x, total, state, lam=0.5):
     return lin - lam * (x * x).sum(-1)
 
 
-def logdet_marginals(x, U, alpha=1.0, eps=LOGDET_EPS, scale=1.0):
+def logdet_marginals(x, U, alpha=1.0, eps=LOGDET_EPS, scale=1.0,
+                     size=None):
     """LogDetDiversity (scale 1) and MutualInformationGaussian (scale 0.5)
     marginal gains.
 
@@ -178,9 +179,19 @@ def logdet_marginals(x, U, alpha=1.0, eps=LOGDET_EPS, scale=1.0):
                                       - alpha^2 ||U_l x_i||^2, eps))
 
     A (C, d) ``x`` with an (L, k, d) basis is shared by every lane.
+    ``size`` (one integer per lane, 0-d for an unbatched call; None: k)
+    counts each lane's live rows: the rows of U at or past it are taken as
+    zero, as the CUDA kernel never reads them.  Where they are zero already
+    (the oracle's state) the gains are those of ``size=None``.
     """
     x = x.float()
-    proj = torch.matmul(x, U.float().transpose(-1, -2))
+    U = U.float()
+    if size is not None:
+        size = torch.as_tensor(size, device=U.device)
+        live = (torch.arange(U.shape[-2], device=U.device)
+                < size.reshape(U.shape[:-2] + (1,)))
+        U = torch.where(live.unsqueeze(-1), U, 0.0)
+    proj = torch.matmul(x, U.transpose(-1, -2))
     resid = (1.0 + alpha * (x * x).sum(-1)
              - (alpha * alpha) * (proj * proj).sum(-1))
     gains = torch.log(torch.clamp_min(resid, eps))

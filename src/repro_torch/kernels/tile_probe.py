@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""What holds back the marginals tile (csrc/marginals_tile.cuh) on a card.
+"""What holds back the marginals tiles on a card: the facility / exemplar /
+log-det product of csrc/marginals_tile.cuh and graph cut's skinny tile.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.tile_probe
                     (from the root of a checkout, on a machine with a
@@ -17,10 +18,19 @@ kernel sources, in a temporary directory:
 
 and times each (CUDA events over back-to-back launches) at the filter shape
 (L = 37 lanes, C = 2^20 rows, d = r = 256, f32), one lane over the corpus,
-and the per-lane chunk (37, 128, 256).  Then it runs the shipped kernel at
-the filter shape for three seconds while sampling the SM clock, power
-draw and throttle reasons with nvidia-smi, and prints the card's name and
-power limit.  Imports nothing of JAX.
+and the per-lane chunk (37, 128, 256).  Then it builds
+graph_cut_marginals.cu three times the same way:
+
+* ``shipped``;
+* ``no_fma``: the product loop runs over no feature, so the kernel
+  streams x through its ring, sums the norms and stores the gains;
+* ``no_copy``: no cp.async is started, so the product runs on whatever the
+  ring holds (wrong sums: the arithmetic's time without the loads);
+
+and times each at the filter shape, f32 and bf16.  Last it runs the
+shipped facility kernel at the filter shape for three seconds while
+sampling the SM clock, power draw and throttle reasons with nvidia-smi,
+and prints the card's name and power limit.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -39,39 +49,52 @@ import torch
 from repro_torch.kernels import _build
 
 #: (name, [(text, replacement)]) patches of marginals_tile.cuh
-VARIANTS = (
+TILE_VARIANTS = (
     ("shipped", []),
     ("no_epilogue", [("for (int c0 = part * part_cols; c0 < c_end; c0 += 4)",
                       "for (int c0 = part * part_cols; c0 < 0; c0 += 4)")]),
     ("half_lds", [("      fragments(buf, kk, fa, fb);",
                    "      if ((kk & 1) == 0) fragments(buf, kk, fa, fb);")]),
 )
+#: (name, [(text, replacement)]) patches of graph_cut_marginals.cu
+GC_VARIANTS = (
+    ("shipped", []),
+    ("no_fma", [("    for (int kk = 0; kk < kDepth; kk += 4) {\n"
+                 "      const int off =",
+                 "    for (int kk = 0; kk < 0; kk += 4) {\n"
+                 "      const int off =")]),
+    ("no_copy", [("        cp_async16(to, ok ? x + row * d + k : x, "
+                  "ok ? 16 : 0);", "        (void)ok;")]),
+)
 
 
-def build(tmp: Path):
-    """{variant: its facility_marginals_launch}, built in parallel."""
+def build(tmp: Path, source: str, patched: str, variants) -> dict:
+    """{variant: its ``source``_launch}, each built from a copy of the
+    sources with ``patched`` patched, all in parallel."""
     procs = {}
-    for name, patch in VARIANTS:
-        src = tmp / name
+    for name, patch in variants:
+        src = tmp / f"{source}_{name}"
         shutil.copytree(_build.CSRC, src)
-        tile = src / "marginals_tile.cuh"
-        text = tile.read_text()
+        target = src / patched
+        text = target.read_text()
         for old, new in patch:
             if old not in text:
-                raise RuntimeError(f"{name}: the tile no longer has {old!r}")
+                raise RuntimeError(f"{name}: {patched} no longer has "
+                                   f"{old!r}")
             text = text.replace(old, new)
-        tile.write_text(text)
+        target.write_text(text)
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-               str(src / "lib.so"), str(src / "facility_marginals.cu")]
+               str(src / "lib.so"), str(src / f"{source}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     fns = {}
-    argtypes = _build.SIGNATURES["facility_marginals"]["facility_marginals_launch"]
+    argtypes = _build.SIGNATURES[source][f"{source}_launch"]
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name} failed:\n{log}")
-        fn = ctypes.CDLL(str(tmp / name / "lib.so")).facility_marginals_launch
+        lib = ctypes.CDLL(str(tmp / f"{source}_{name}" / "lib.so"))
+        fn = getattr(lib, f"{source}_launch")
         fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
         fns[name] = fn
     return fns
@@ -113,7 +136,8 @@ def main() -> int:
     Xp = torch.rand((L, 128, D), generator=g, device=dev) ** 2
     Rm = torch.rand((R, D), generator=g, device=dev)
     with tempfile.TemporaryDirectory() as tmp:
-        fns = build(Path(tmp))
+        fns = build(Path(tmp), "facility_marginals", "marginals_tile.cuh",
+                    TILE_VARIANTS)
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         shapes = (("filter", X, 0, L), ("one lane", X, 0, 1),
                   ("per-lane chunk", Xp, 1, L))
@@ -129,8 +153,22 @@ def main() -> int:
                 ms = cuda_ms(call, 50 if per_lane else 10)
                 print(f"[probe] {label} cand{tuple(cand.shape)} L={lanes} "
                       f"{name}: {ms} ms")
-        st = (torch.rand((L, R), generator=g, device=dev) * D / 4).contiguous()
+        gc_fns = build(Path(tmp), "graph_cut_marginals",
+                       "graph_cut_marginals.cu", GC_VARIANTS)
+        t = X.sum(0)
+        st = (t * torch.rand((L, 1), generator=g, device=dev)).contiguous()
         out = torch.empty((L, N), device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            Xd = X.to(dtype)
+            for name, fn in gc_fns.items():
+                call = lambda: fn(Xd.data_ptr(),  # noqa: E731
+                                  int(dtype == torch.bfloat16), 0,
+                                  st.data_ptr(), t.data_ptr(), 0.5,
+                                  out.data_ptr(), L, N, D, stream)
+                ms = cuda_ms(call, 10)
+                print(f"[probe] graph_cut filter x{tuple(Xd.shape)} "
+                      f"{str(dtype)[6:]} L={L} {name}: {ms} ms")
+        st = (torch.rand((L, R), generator=g, device=dev) * D / 4).contiguous()
         shipped = fns["shipped"]
         samples, stop = [], threading.Event()
 

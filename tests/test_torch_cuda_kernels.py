@@ -33,7 +33,11 @@ wide instances of the sweeps (d > 2048 features, r > 4096 reference rows, a
 log-det basis beyond shared memory) are held to the same rules, and, forced
 at narrow shapes, must give the narrow instances' bits.  The facility and
 exemplar marginals must equal their plain versions bit for bit on dyadic
-data at ragged shapes of their 128 x 128 tile.
+data at ragged shapes of their 128 x 128 tile.  The log-det marginals with
+each lane's size (only its live basis rows multiplied) must give the bits
+of the same call without sizes, and the graph-cut marginals' shared-x
+tile must equal the plain version bit for bit on dyadic data at lane
+counts around its 8-lane groups and 64-lane tiles.
 """
 
 import pytest
@@ -354,6 +358,26 @@ def test_cuda_graph_cut_accept_matches_plain(cuda_device, dtype, L, B, d):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,C", [(3, 1001), (45, 257), (256, 1000)])
+@pytest.mark.parametrize("L", [2, 8, 37, 40, 64, 65, 130])
+def test_cuda_graph_cut_marginals_skinny_tile_dyadic(cuda_device, dtype, L,
+                                                     d, C):
+    """The shared-x tile (L >= 2) at lane counts around its 8-wide lane
+    groups and 64-lane tiles, features below, off and on its 32-deep
+    slices, and rows past its 256-row items (C odd: scalar stores): on
+    dyadic data every sum is exact, so the gains equal the plain version's
+    bit for bit, and a repeated launch gives the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    x, total, state = _graph_cut_case(g, cuda_device, "shared", L, C, d,
+                                      dtype)
+    got = tgm.graph_cut_marginals(x, total, state, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.graph_cut_marginals(x, total, state, 0.5))
+    assert torch.equal(got, tgm.graph_cut_marginals(x, total, state, 0.5))
+
+
 def _bases(g, dev, L, k, d, sizes):
     """Lane bases (U, logdet, size) holding ``sizes`` rows of U[0, 1)^2,
     appended one by one with the plain append."""
@@ -392,6 +416,48 @@ def test_cuda_logdet_marginals_matches_plain(cuda_device, dtype, scale, mode,
         got, ref.logdet_marginals(x, U, 1.0, scale=scale), rtol=LD_RTOL,
         atol=LD_ATOL)
     assert torch.equal(got, tlm.logdet_marginals(x, U, 1.0, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,L,C,d,k", [
+    ("unbatched", 1, 5000, 256, 64), ("shared", 37, 3000, 256, 64),
+    ("per_lane", 37, 128, 256, 64), ("shared", 130, 333, 70, 7),
+    ("shared", 100, 200, 45, 1), ("shared", 4, 300, 70, 100),
+    ("per_lane", 3, 65, 45, 7), ("shared", 130, 300, 70, 100),
+    ("shared", 300, 200, 45, 7)])
+def test_cuda_logdet_marginals_size_gives_the_same_bits(cuda_device, dtype,
+                                                        mode, L, C, d, k):
+    """The kernel multiplies only each lane's first size rows; where the
+    rows past size are zero (the oracle's state) that must give the bits of
+    the call without sizes, at sizes 0, 1, k - 1, k, k + 1 (clamped to k)
+    and a lane mix.  A lane's rows may cross the 128-column tiles (k = 100,
+    the mix) and more than 256 lanes split into groups (L = 300)."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    x = (torch.rand((L, C, d) if mode == "per_lane" else (C, d), generator=g,
+                    device=cuda_device) ** 2).to(dtype)
+    full = torch.full((L,), k, dtype=torch.int32, device=cuda_device)
+    U_full = _bases(g, cuda_device, L, k, d, full)[0]
+    mix = (torch.arange(L, device=cuda_device) * 37 % (k + 3) - 1
+           ).to(torch.int32)              # -1 .. k + 1
+    rows = torch.arange(k, device=cuda_device)
+    for sizes in (*(torch.full_like(full, s) for s in (0, 1, k - 1, k, k + 1)),
+                  mix):
+        # the basis of each lane's first size rows: U_full cut at size
+        U = torch.where((rows < sizes.clamp(0, k)[:, None])[..., None],
+                        U_full, 0.0)
+        size = sizes
+        if mode == "unbatched":
+            U, size = U[-1].contiguous(), sizes[-1]
+        before = tlm.launches
+        got = tlm.logdet_marginals(x, U, 1.0, 1.0, size)
+        torch.cuda.synchronize()
+        assert tlm.launches == before + 1
+        assert torch.equal(got, tlm.logdet_marginals(x, U, 1.0, 1.0))
+        assert torch.equal(got, tlm.logdet_marginals(x, U, 1.0, 1.0, size))
+        torch.testing.assert_close(
+            got, ref.logdet_marginals(x, U, 1.0, size=size), rtol=LD_RTOL,
+            atol=LD_ATOL)
 
 
 @pytest.mark.cuda
