@@ -17,8 +17,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    lanes' sizes (974 of 2368 basis rows live), full and, unbatched, at
    size 0, each call with sizes bit for bit the call without them, its
    bound and library call over the live rows and over every row;
-   graph_cut_marginals' shared tile runs on dyadic data at 42 shapes
-   (L = 2 .. 130, d = 3, 45, 256), bit for bit the plain version.
+   graph_cut_marginals' and weighted_coverage_marginals' shared skinny
+   tile runs on dyadic data at 42 shapes each (L = 2 .. 130, d = 3, 45,
+   256), bit for bit the plain version; logdet_accept's narrow instance
+   gives the bits of the first port's row loop (its wide instance, forced
+   at the same shape) in 28 cases (lane sizes 0, 1, k - 1, k, appends into
+   k_max, budget 3, both modes, B = 1, 70, 128, 300, L = 1, 37, 130, k = 7
+   on d = 45).
    facility_marginals and exemplar_marginals also run on dyadic data at
    the ragged edges of their 128 x 128 tile (C = 1000, 65; r = 45, 100,
    130, 300; d = 45, 70, 130; L = 1, 37, 100, 130), bit for bit the plain
@@ -36,7 +41,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    the plain route, then multi_epoch (E = 2) and bf16 storage on the fused
    engine; check the routes' and engines' agreement, the (1/2 - eps)
    guarantee against sequential greedy, and that every kernel of the path
-   launched.  FeatureCoverage; FacilityLocation and ExemplarClustering
+   launched; each kernel's launches are also split by the rows a lane each
+   launch took (more than a chunk, a chunk, one row).  FeatureCoverage; FacilityLocation and ExemplarClustering
    with a 256-row reference set; WeightedCoverage; SaturatedCoverage
    (total = X.sum(0), alpha = 0.25, and once more at alpha = 2^-16, where
    the cap binds); GraphCut (lam = 0.5); LogDetDiversity (alpha = 1) and
@@ -88,11 +94,22 @@ RTOL = ATOL = 1e-5     # coverage-family kernels: sums over d in another
 SAT_ALPHA = 2.0 ** -16  # the saturating select: cap ~ 5.3 per feature
 KNAP_BUDGET = K * 1.25 / 2  # knapsack budget (the JAX CLI's default): 40
 N_PARTS, PART_CAP = 8, 8    # partition matroid: parts, cap of each
+#: a launch's shape class by its rows a lane (kernels._wrap.SHAPES): more
+#: than the engines' chunk, up to it, one row
+SHAPES = ("filter", "chunk", "row")
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def add_launches(launches, counts, names):
+    """Add the launches of kernels ``names`` in one select's ``counts``, and
+    their split by shape ("<name>@<shape>"), to ``launches``."""
+    for name in names:
+        for key in (name, *(f"{name}@{shape}" for shape in SHAPES)):
+            launches[key] = launches.get(key, 0) + counts.get(key, 0)
 
 
 def smi():
@@ -535,6 +552,33 @@ def phase_weighted_saturated_kernels(torch, ref, wm, wa, sm, sa):
     print(f"[kernels] yardstick: torch.matmul / mv / bmm with allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}")
 
+    # -- weighted_coverage_marginals' shared-x route (graph cut's skinny
+    #    tile) on dyadic data (rows a/8, states b/8: every product and sum
+    #    exact) at lane counts around its 8-lane groups and 64-lane tiles,
+    #    features below, off and on its 32-deep slices, rows past its
+    #    256-row items: bit for bit the plain version, twice
+    n_dyadic = 0
+    for Lk in (2, 8, 37, 40, 64, 65, 130):
+        for d, C in ((3, 1001), (45, 257), (256, 1000)):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = (torch.randint(0, 9, (C, d), generator=g, device=dev)
+                     / 8.0).to(dtype)
+                state = torch.randint(0, 17, (Lk, d), generator=g,
+                                      device=dev) / 8.0
+                got = wm.weighted_coverage_marginals(x, state)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref.weighted_coverage_marginals(
+                          x, state))
+                      and torch.equal(got, wm.weighted_coverage_marginals(
+                          x, state)),
+                      f"weighted_coverage_marginals L={Lk} C={C} d={d} "
+                      f"{dtype}: not bit for bit the plain version on dyadic "
+                      f"data")
+                n_dyadic += 1
+    print(f"[kernels] weighted_coverage_marginals on dyadic data at "
+          f"{n_dyadic} shapes (L = 2 .. 130, d = 3, 45, 256), f32 and bf16: "
+          f"bit for bit the plain version, repeat=bitwise")
+
     # -- accept sweeps at the fused engine's shape and two odd shapes
     for name in ("weighted_coverage_accept", "saturated_coverage_accept"):
         worst = 0.0
@@ -956,6 +1000,69 @@ def phase_graph_cut_logdet_kernels(torch, ref, gm, ga, lm, la):
                     rows["logdet_accept"] = dict(ms=ms, plain_ms=pms,
                                                  bound_ms=b_ms, bound_by=b_by)
             print(line)
+
+    # -- logdet_accept's narrow instance (projections formed up front, a
+    #    walk that reduces only on accept) against the first port's row
+    #    loop, the wide instance forced at the same shape: the same bits in
+    #    mask, basis, logdet, size and gains; and against the plain sweep
+    #    with the tie rule.  Lanes start at sizes 0, 1, k - 1 and k, every
+    #    fourth takes tau = 0 (every eligible row, into k_max), every fifth
+    #    budget 3, even lanes a cost budget of 6 in the cost mode; at the
+    #    path shape, B = 70 and B = 1, 130 lanes and one, k = 7 on d = 45,
+    #    and 300 rows (three row blocks), both modes, f32 and bf16
+    n_loop, instance = 0, la.instance
+    for label, Lk, Bk, d, k in (("path", L, B, D, K), ("B=70", L, 70, D, K),
+                                ("B=1", L, 1, D, K), ("L=130", 130, B, D, K),
+                                ("L=1", 1, B, D, K), ("k=7", 9, B, 45, 7),
+                                ("B=300", 9, 300, 45, 7)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for mode in ("cardinality", "cost"):
+                x = (torch.rand((Lk, Bk, d), generator=g, device=dev) ** 2
+                     ).to(dtype)
+                lanes = torch.arange(Lk, device=dev)
+                sizes = torch.tensor([0, 1, k - 1, k],
+                                     device=dev)[lanes % 4].to(torch.int32)
+                U, ld, sz = logdet_bases(torch, ref, g, Lk, k, d, sizes,
+                                         alpha, dtype)
+                elig = torch.rand((Lk, Bk), generator=g, device=dev) < 0.9
+                tau = lane_taus(torch, ref.logdet_marginals(x, U, alpha,
+                                                            size=sz))
+                tau[lanes % 4 == 3] = 0.0
+                budget = torch.where(lanes % 5 == 2, 3, Bk).to(torch.int32)
+                cost = cb = None
+                if mode == "cost":
+                    cost = (0.5 + 1.5 * torch.rand((Lk, Bk), generator=g,
+                                                   device=dev)).contiguous()
+                    cb = torch.where(lanes % 2 == 0, 6.0, 1e9).to(dev)
+                args = (x, U, ld, sz, elig, tau, budget, alpha, 1.0, cost,
+                        cb)
+                got = la.logdet_accept(*args)
+                la.instance = lambda k, d: "global"
+                try:
+                    loop = la.logdet_accept(*args)
+                finally:
+                    la.instance = instance
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, loop)),
+                      f"logdet_accept {label} {mode} {dtype}: the narrow "
+                      f"instance does not give the row loop's bits")
+                want = ref.logdet_accept(x, U, ld, sz, elig, tau, budget,
+                                         alpha, cost=cost, cost_budget=cb)
+                thr = tau if cost is None else tau[:, None] * cost
+                near = LD_ATOL + LD_RTOL * thr.abs().reshape(Lk, -1).amax(-1)
+                ties, err = check_sweep(
+                    f"logdet_accept {label} {mode}", (got[0], got[1], got[4]),
+                    (want[0], want[1], want[4]), thr, near,
+                    lambda l, a, b, what: ld_close(a, b))
+                worst = max(worst, err)
+                n_loop += 1
+                print(f"[kernels] logdet_accept {label} x({Lk}, {Bk}, {d}) "
+                      f"k={k} {str(dtype)[6:]} {mode}: the row loop's bits; "
+                      f"max_abs_err={err} near_tau_ties={ties} "
+                      f"accepted={int(got[0].sum())} "
+                      f"lanes_past_k_max={int((got[3] > k).sum())}")
+    print(f"[kernels] logdet_accept: the narrow instance gives the row "
+          f"loop's bits in all {n_loop} cases")
     rows["logdet_accept"]["max_abs_err"] = worst
     return rows
 
@@ -1359,7 +1466,7 @@ def drive(torch, tsel, ops, X, label, reference=None, total=None,
     set to 0 just before and read just after.  ``sel_kw`` are the
     selector's per-element constraint data.  Returns (result, value, wall
     ms, launch counts by kernel, with each sweep's cost-mode launches under
-    "<name>[cost]")."""
+    "<name>[cost]" and each kernel's split by shape under "<name>@<shape>")."""
     spec = tsel.SelectorSpec(k=K, eps=EPS, chunk=CHUNK, **spec_kw)
     n, d = X.shape
     sel = tsel.DistributedSelector(spec, n_total=n, feat_dim=d, n_machines=M,
@@ -1375,6 +1482,9 @@ def drive(torch, tsel, ops, X, label, reference=None, total=None,
     counts = ops.launch_counts()
     counts.update({f"{name}[cost]": n
                    for name, n in ops.cost_launch_counts().items()})
+    counts.update({f"{name}@{shape}": n
+                   for name, split in ops.shape_launch_counts().items()
+                   for shape, n in split.items()})
     size = int(res.sol_size)
     ids = res.sol_ids.cpu()[:size]
     # facility location over all-positive similarities, weighted coverage
@@ -1390,7 +1500,7 @@ def drive(torch, tsel, ops, X, label, reference=None, total=None,
           and int(ids.max()) < n, f"{label}: ids not {size} distinct rows")
     check(value == value and value > 0 and value != float("inf"),
           f"{label}: value {value}")
-    nonzero = {k: v for k, v in counts.items() if v}
+    nonzero = {k: v for k, v in counts.items() if v and "@" not in k}
     print(f"[main] {label}: value={value} |S|={size} "
           f"n_dropped={int(res.n_dropped)} tau_fallback={int(res.tau_fallback)} "
           f"wall_ms={wall} launches={nonzero}")
@@ -1417,7 +1527,7 @@ def main_path(torch, tsel, tseq, ops, X, oracle, kernels, accept_kernel,
     the fused engine.  Returns the launches of each of ``kernels`` summed
     over the kernel-route selects; ``results``, when given, receives each
     select's (result, value) by label."""
-    launches = dict.fromkeys(kernels, 0)
+    launches = {}
     results = {} if results is None else results
 
     def run(label, **kw):
@@ -1430,7 +1540,7 @@ def main_path(torch, tsel, tseq, ops, X, oracle, kernels, accept_kernel,
             want = fused if name == accept_kernel else True
             check((counts[name] > 0) == want,
                   f"{oracle} {label}: {name} launched {counts[name]} times")
-            launches[name] += counts[name]
+        add_launches(launches, counts, kernels)
         return res, value
 
     runs = {e: run(f"two_round {e} kernel", engine=e, use_kernel=True)
@@ -1519,8 +1629,7 @@ def knapsack_selects(torch, tsel, ops, X, stats, costs, card_fc):
         check(n > 0 and counts[f"{accept_kernel}[cost]"] == n,
               f"{label}: {accept_kernel} launched {n} times, "
               f"{counts[f'{accept_kernel}[cost]']} in the cost mode")
-        for name in kernels:
-            launches[name] = launches.get(name, 0) + counts[name]
+        add_launches(launches, counts, kernels)
         ids = res.sol_ids[:int(res.sol_size)].long().cpu()
         spent = float(costs64[ids].sum())
         check(spent <= KNAP_BUDGET, f"{label}: chosen costs sum to {spent}")
@@ -1581,7 +1690,9 @@ def partition_select(torch, tsel, ops, X, parts):
           f"{label}: per-part counts {per_part.tolist()} beyond {PART_CAP}")
     print(f"[partition] value={value} lazy={value_l} |S|={int(res.sol_size)} "
           f"per-part counts={per_part.tolist()} caps={PART_CAP}")
-    return {"coverage_marginals": counts["coverage_marginals"]}
+    launches = {}
+    add_launches(launches, counts, ("coverage_marginals",))
+    return launches
 
 
 def plane_split(torch, X, costs):
@@ -1666,7 +1777,7 @@ def wide_selects(torch, tsel, ops, wrap, la):
                                       engine="fused", use_kernel=True)
         for name in kernels:
             check(counts[name] > 0, f"{label}: {name} never launched")
-            launches[name] = launches.get(name, 0) + counts[name]
+        add_launches(launches, counts, kernels)
         res_p, value_p, _, counts_p = drive(torch, tsel, ops, X,
                                             f"{label} two_round lazy plain",
                                             reference, oracle=oracle,
@@ -1847,9 +1958,8 @@ def main() -> int:
         torch, tsel, tseq, ops, X, "saturated_coverage",
         ("saturated_coverage_marginals", "saturated_coverage_accept"),
         "saturated_coverage_accept", total=total))
-    counts = saturating_select(torch, tsel, tseq, ops, X, total)
-    for name in ("saturated_coverage_marginals", "saturated_coverage_accept"):
-        launches[name] += counts[name]
+    add_launches(launches, saturating_select(torch, tsel, tseq, ops, X, total),
+                 ("saturated_coverage_marginals", "saturated_coverage_accept"))
 
     # GraphCut with the same total and the JAX default lam = 0.5, then
     # LogDetDiversity at alpha = 1 and MutualInformationGaussian at noise 1
@@ -1900,6 +2010,7 @@ def main() -> int:
     for name, n in wide_selects(torch, tsel, ops, _wrap, la).items():
         launches[name] += n
 
+    check(SHAPES == _wrap.SHAPES, f"shape classes {_wrap.SHAPES}")
     table = []
     for name, src, replaces in (
             ("coverage_marginals",
@@ -1948,9 +2059,17 @@ def main() -> int:
              "src/repro_torch/kernels/csrc/exemplar_accept.cu",
              "src/repro/kernels/exemplar_accept.py:69")):
         check(launches[name] > 0, f"{name} never launched on the main path")
+        by_shape = {shape: launches[f"{name}@{shape}"] for shape in SHAPES}
+        check(sum(by_shape.values()) == launches[name],
+              f"{name}: launches by shape {by_shape} do not sum to "
+              f"{launches[name]}")
+        print(f"[main] {name} launches on the main path by rows a lane: "
+              f"{by_shape} (filter: more than a chunk of {CHUNK}; chunk: up "
+              f"to {CHUNK}; row: one row)")
         r = rows[name]
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "launches": launches[name],
+                      "launches_by_shape": by_shape,
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],

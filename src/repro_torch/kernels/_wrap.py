@@ -145,6 +145,32 @@ def reference_sweep_per(r: int) -> int:
     return _per(r, REFERENCE_SWEEP_THREADS)
 
 
+#: rows a lane of the lazy and fused engines' chunk
+#: (core.threshold.DEFAULT_CHUNK)
+CHUNK_ROWS = 128
+
+#: the shape classes of a launch, by its rows a lane: more than a chunk
+#: (the filter over the corpus, the singleton passes, the sample), a chunk
+#: (the lazy and fused engines' chunks and sweeps), or one row (the
+#: partition matroid's row scan)
+SHAPES = ("filter", "chunk", "row")
+
+#: launches per entry point and shape class since the last reset
+shape_launches: dict = {}
+
+
+def shape_of(rows: int) -> str:
+    """The shape class of a launch over ``rows`` rows a lane."""
+    return "row" if rows == 1 else "chunk" if rows <= CHUNK_ROWS else "filter"
+
+
+def count_shape(name: str, rows: int) -> None:
+    """Count one launch of entry point ``name`` over ``rows`` rows a lane
+    under its shape class (beside the wrapper's own count)."""
+    counts = shape_launches.setdefault(name, dict.fromkeys(SHAPES, 0))
+    counts[shape_of(rows)] += 1
+
+
 def ptr(t):
     """A tensor's device address, or None (a null pointer) for None."""
     return None if t is None else t.data_ptr()

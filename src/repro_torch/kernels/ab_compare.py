@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Compare two builds of the tile-based marginals kernels on one card.
+"""Compare two builds of the redesigned kernels on one card.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.ab_compare BASE_CSRC
                     (from the root of a checkout, on a machine with a
@@ -8,10 +8,12 @@
 BASE_CSRC is the ``src/repro_torch/kernels/csrc`` directory of another
 checkout (for example the parent commit, unpacked with ``git archive``
 into a directory that ``.gitignore`` lists).  The script builds
-facility_marginals.cu, exemplar_marginals.cu, logdet_marginals.cu and
-graph_cut_marginals.cu from both trees, in parallel, in a temporary
-directory, and runs both builds on the same inputs at the filter shape
-(L = 37 lanes, C = 2^20 rows, d = r = 256, k_max = 64, f32 and bf16):
+facility_marginals.cu, exemplar_marginals.cu, logdet_marginals.cu,
+graph_cut_marginals.cu, weighted_coverage_marginals.cu and logdet_accept.cu
+from both trees, in parallel, in a temporary directory, and runs both
+builds on the same inputs at the filter shape (L = 37 lanes, C = 2^20
+rows, d = r = 256, k_max = 64, f32 and bf16) and, for the sweep, at the
+fused engine's chunk (B = 128):
 
 * facility and exemplar marginals, and log-det at the lane sizes
   chip_smoke.py uses (974 of 2368 basis rows live), with all 64 rows live,
@@ -19,13 +21,22 @@ directory, and runs both builds on the same inputs at the filter shape
   the same bits (a log-det build that takes sizes is run with them and
   without them, both must give the base's bits);
 * graph cut: both builds within ``graph_cut_tol`` of the plain version
-  (they may sum in different orders), and the largest difference printed.
+  (they may sum in different orders), and the largest difference printed;
+* weighted coverage: the same bits;
+* logdet_accept at chip_smoke.py's path case (lane sizes 0 .. k, every
+  third lane at k - 2 with tau = 0 so its appends run into k_max, tau a
+  quantile of each lane's first gains from 0.05 to 0.95, budget 3 in
+  every fifth lane), in the cardinality mode and in the knapsack cost mode
+  (costs U[0.5, 2), tau over the mean cost, even lanes' budgets half the
+  unbounded spend): mask, basis, logdet, size and gains, the same bits.
 
 Each case is timed in turns, base, new, new, base (CUDA events over
 back-to-back launches), so the two builds meet the same clock and power
 state.  Where cuobjdump is at hand it also says whether the two builds of
-the facility and exemplar tile kernels compiled to the same SASS.  Last it
-prints the card's name and power limit.  Imports nothing of JAX.
+the facility and exemplar tile kernels, and of graph cut's skinny tile
+kernels (compared by body: the tile moved into a header, so their names
+differ), compiled to the same SASS.  Last it prints the card's name and
+power limit.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,7 +54,8 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.tile_probe import cuda_ms, smi
 
 NAMES = ("facility_marginals", "exemplar_marginals", "logdet_marginals",
-         "graph_cut_marginals")
+         "graph_cut_marginals", "weighted_coverage_marginals",
+         "logdet_accept")
 #: the log-det entry point before it took sizes: no ``size`` pointer
 LOGDET_NO_SIZE = tuple(a for i, a in enumerate(
     _build.SIGNATURES["logdet_marginals"]["logdet_marginals_launch"])
@@ -79,16 +91,17 @@ def build(tmp: Path, trees: dict) -> dict:
     return libs
 
 
-def tile_sass(lib_path: Path) -> dict:
-    """{kernel name: its SASS} of the marginals tile's kernels in a
-    library (empty without cuobjdump)."""
+def tile_sass(lib_path: Path, marker: str) -> dict:
+    """{kernel name: its SASS body} of the kernels of a library whose
+    mangled name holds ``marker`` (empty without cuobjdump)."""
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     if not cuobjdump.exists():
         return {}
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True).stdout
-    return {fn.split(None, 1)[0]: fn for fn in sass.split("Function : ")[1:]
-            if "5mtile" in fn.split(None, 1)[0]}
+    return {fn.split(None, 1)[0]: fn.split("\n", 1)[1]
+            for fn in sass.split("Function : ")[1:]
+            if marker in fn.split(None, 1)[0]}
 
 
 def lane_sizes(L, k, dev):
@@ -123,15 +136,20 @@ def main() -> int:
     st_gc = (t * torch.rand((L, 1), generator=g, device=dev) * 1.2).contiguous()
     st_fl = (torch.rand((L, R), generator=g, device=dev) * D / 4).contiguous()
     st_ex = (refsq * torch.rand((L, R), generator=g, device=dev)).contiguous()
+    st_wc = torch.rand((L, D), generator=g, device=dev) * 2
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), {"base": Path(sys.argv[1]),
                                  "new": _build.CSRC})
-        for name in ("facility_marginals", "exemplar_marginals"):
-            base, new = (tile_sass(Path(tmp) / tree / f"lib{name}.so")
+        for name, marker in (("facility_marginals", "5mtile"),
+                             ("exemplar_marginals", "5mtile"),
+                             ("graph_cut_marginals", "lanes_tile_kernel")):
+            base, new = (tile_sass(Path(tmp) / tree / f"lib{name}.so", marker)
                          for tree in ("base", "new"))
             if base:
                 print(f"[ab] {name}: {len(base)} tile kernels, SASS of the "
-                      f"two builds identical: {base == new}", flush=True)
+                      f"two builds identical: "
+                      f"{sorted(base.values()) == sorted(new.values())}",
+                      flush=True)
         for dtype in (torch.float32, torch.bfloat16):
             X = X32.to(dtype)
             bf = int(dtype == torch.bfloat16)
@@ -166,6 +184,12 @@ def main() -> int:
                         X.data_ptr(), bf, 0, st_gc.data_ptr(), t.data_ptr(),
                         0.5, out.data_ptr(), L, N, D, stream)
 
+            def wc(tree):
+                return lambda: libs[tree, "weighted_coverage_marginals"].\
+                    weighted_coverage_marginals_launch(
+                        X.data_ptr(), bf, 0, st_wc.data_ptr(), out.data_ptr(),
+                        L, N, D, stream)
+
             cases = (("facility_marginals", fl("base"), fl("new"), (), 10),
                      ("exemplar_marginals", ex("base"), ex("new"), (), 10),
                      ("logdet_marginals lane sizes",
@@ -179,7 +203,9 @@ def main() -> int:
                       ld("base", U_empty, sz_empty),
                       ld("new", U_empty, sz_empty),
                       (ld("new", U_empty, sz_empty, False),), 10),
-                     ("graph_cut_marginals", gc("base"), gc("new"), (), 10))
+                     ("graph_cut_marginals", gc("base"), gc("new"), (), 10),
+                     ("weighted_coverage_marginals", wc("base"), wc("new"),
+                      (), 10))
             for label, base, new, others, iters in cases:
                 results = []
                 for fn in (base, new, *others):
@@ -208,8 +234,82 @@ def main() -> int:
                 print(f"[ab] {label} {tag}: {same}; ms base {times[0]} new "
                       f"{times[1]} new {times[2]} base {times[3]}",
                       flush=True)
+        compare_logdet_accept(libs, g, dev, stream)
     print(smi("name,power.limit"))
     return 0
+
+
+def lane_taus(gains):
+    """Per-lane thresholds from "accept most rows" to "accept few" (the
+    quantiles of chip_smoke.py's sweeps)."""
+    q = torch.linspace(0.05, 0.95, gains.shape[0], device=gains.device)
+    return torch.stack([gains[l].quantile(q[l])
+                        for l in range(gains.shape[0])]).contiguous()
+
+
+def compare_logdet_accept(libs, g, dev, stream):
+    """Both builds of logdet_accept at chip_smoke.py's path case, both
+    modes, f32 and bf16: the same bits in every output, timed in turns."""
+    L, B, D, K = 37, 128, 256, 64
+    lanes = torch.arange(L, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.rand((L, B, D), generator=g, device=dev) ** 2).to(dtype)
+        sizes = lane_sizes(L, K, dev)
+        sizes[2::3] = K - 2
+        rows = torch.stack([(torch.rand((L, D), generator=g, device=dev) ** 2
+                             ).to(dtype).float() for _ in range(K)])
+        U, ld, sz = ref.logdet_basis(rows, sizes)
+        elig = torch.rand((L, B), generator=g, device=dev) < 0.9
+        gains0 = ref.logdet_marginals(x, U, 1.0, size=sz)
+        budget = torch.where(lanes % 5 == 0, 3, K).to(torch.int32)
+        for mode in ("cardinality", "cost"):
+            cost = cb = None
+            if mode == "cardinality":
+                tau = lane_taus(gains0)
+            else:
+                cost = (0.5 + 1.5 * torch.rand((L, B), generator=g,
+                                               device=dev)).contiguous()
+                tau = lane_taus(gains0 / cost.mean())
+            tau[2::3] = 0.0
+            if cost is not None:
+                free = ref.logdet_accept(x, U, ld, sz, elig, tau, budget,
+                                         1.0, cost=cost, cost_budget=1e9)
+                spent = torch.where(free[0], cost, 0.0).sum(-1)
+                cb = torch.where(lanes % 2 == 0, 0.5 * spent,
+                                 1e9).contiguous()
+            outs = {tree: (torch.empty((L, B), dtype=torch.bool, device=dev),
+                           torch.empty((L, K, D), device=dev),
+                           torch.empty(L, device=dev),
+                           torch.empty(L, dtype=torch.int32, device=dev),
+                           torch.empty((L, B), device=dev))
+                    for tree in ("base", "new")}
+
+            def la(tree):
+                fn = libs[tree, "logdet_accept"].logdet_accept_launch
+                o = outs[tree]
+                return lambda: fn(
+                    x.data_ptr(), int(dtype == torch.bfloat16), U.data_ptr(),
+                    ld.data_ptr(), sz.data_ptr(), elig.data_ptr(),
+                    tau.data_ptr(), budget.data_ptr(),
+                    None if cost is None else cost.data_ptr(),
+                    None if cb is None else cb.data_ptr(),
+                    *(t.data_ptr() for t in o), L, B, K, D, 1.0, 1.0,
+                    ref.LOGDET_EPS, 0, stream)
+
+            base, new = la("base"), la("new")
+            for tree, fn in (("base", base), ("new", new)):
+                for t in outs[tree]:
+                    t.zero_()
+                check(fn())
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b)
+                       for a, b in zip(outs["base"], outs["new"]))
+            accepted = int(outs["new"][0].sum())
+            times = [cuda_ms(fn, 50) for fn in (base, new, new, base)]
+            print(f"[ab] logdet_accept {mode} {str(dtype)[6:]} x({L}, {B}, "
+                  f"{D}) k={K} accepted={accepted}: mask, U, logdet, size "
+                  f"and gains equal to base: {same}; ms base {times[0]} new "
+                  f"{times[1]} new {times[2]} base {times[3]}", flush=True)
 
 
 def check(err):

@@ -1,9 +1,9 @@
-// One similarity tile of the sims_tile users: the rectified product of
-// facility_accept.cu and exemplar_accept.cu (through reference_tile.cuh,
-// the Hopper counterpart of the jnp.dot in _fa_kernel and _ea_kernel,
-// src/repro/kernels/facility_accept.py and exemplar_accept.py) and, with
-// kRectify = false, weighted_coverage_marginals.cu's product of the
-// candidates with the lanes' remaining-weight vectors:
+// One similarity tile of the sims_tile users, the accept sweeps of
+// facility_accept.cu and exemplar_accept.cu through reference_tile.cuh:
+// the product of the chunk's candidates with the reference rows (the
+// Hopper counterpart of the jnp.dot in _fa_kernel and _ea_kernel,
+// src/repro/kernels/facility_accept.py and exemplar_accept.py), rectified
+// for facility (kRectify) and not for exemplar:
 //
 //     tile[i][j] = max( sum_k cand[row0 + i][k] * ref[col0 + j][k], 0 )
 //
@@ -14,7 +14,8 @@
 // bf16 operands are widened to f32 as they are staged; a bf16 x bf16
 // product is exact in f32, which is what preferred_element_type=f32 gives
 // on the TPU.  (The marginals of facility, exemplar and log-det moved to
-// marginals_tile.cuh's 128 x 128 tile, graph cut to its own skinny tile.)
+// marginals_tile.cuh's 128 x 128 tile, graph cut and weighted coverage to
+// skinny_tile.cuh.)
 //
 // Every sum runs over k = 0, 1, ..., d - 1 in that order as one fmaf
 // chain, so a tile is bit-for-bit the same wherever and whenever it is

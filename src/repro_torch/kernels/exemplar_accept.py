@@ -61,6 +61,7 @@ def exemplar_accept(cand, ref, state, eligible, tau, budget, cost=None,
                  state_out.data_ptr(), gains.data_ptr(), work.data_ptr(), L,
                  B, r, d, _wrap.reference_sweep_per(r))
     launches += 1
+    _wrap.count_shape(name, eligible.shape[-1])
     if cost is not None:
         cost_launches += 1
     if unbatched:

@@ -46,6 +46,7 @@ def facility_marginals(cand, ref, state):
                  int(cand.dtype == torch.bfloat16), int(per_lane),
                  ref.data_ptr(), state.data_ptr(), out.data_ptr(), L, C, r, d)
     launches[name] += 1
+    _wrap.count_shape(name, C)
     return out
 
 
@@ -70,4 +71,5 @@ def rectified_residual_sum(aux, state):
                  aux.device, aux.data_ptr(), int(per_lane), state.data_ptr(),
                  out.data_ptr(), L, C, r)
     launches[name] += 1
+    _wrap.count_shape(name, C)
     return out

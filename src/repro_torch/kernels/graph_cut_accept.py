@@ -54,6 +54,7 @@ def graph_cut_accept(x, total, state, eligible, tau, budget, lam=0.5,
                  mask.data_ptr(), state_out.data_ptr(), gains.data_ptr(),
                  L, B, d, _wrap.feature_sweep_per(d))
     launches += 1
+    _wrap.count_shape(name, eligible.shape[-1])
     if cost is not None:
         cost_launches += 1
     if unbatched:

@@ -7,9 +7,11 @@ of its modes (cardinality, and the knapsack cost mode of
 lane, one CTA per lane, in stream order against the lane's whitened basis
 U (k, d); an accepted row is the rank-1 Gram-Schmidt append
 U[size] = (x - v^T U) / d with logdet += gain, and an append at size == k
-writes no row.  U stays in shared memory while it fits (the narrow
-instance); past that the wide instance keeps it in the (L, k, d) output,
-resident in L2 (``instance``).  alpha and scale are launch arguments
+writes no row.  While U and a block of rows fit in shared memory (the
+narrow instance) the kernel forms every row's projections onto the basis
+at once and walks the rows with scalar work, reducing only on accept;
+past that the wide instance keeps U in the (L, k, d) output, resident in
+L2, and scores row by row (``instance``).  alpha and scale are launch arguments
 (scale = 0.5 is mutual information).  This wrapper only launches;
 ``kernels.ops`` routes CPU tensors to the plain version in ``kernels.ref``.
 """
@@ -30,18 +32,44 @@ cost_launches = 0
 #: dynamic shared memory one block may use on the H100
 SMEM_LIMIT = 227 * 1024
 
+#: rows of the chunk one block of the narrow instance holds: at most
+#: MAX_ROWS (one thread each in the walk), at least MIN_ROWS, a multiple of
+#: MIN_ROWS
+MAX_ROWS, MIN_ROWS = 128, 8
+
+
+def _pad(d: int) -> int:
+    return (d + 31) // 32 * 32
+
+
+def _fixed(k: int, d: int) -> int:
+    return k * _pad(d) + (k + 3) // 4 * 4 + 20
+
+
+def rows_per_block(k: int, d: int) -> int:
+    """Rows of the chunk one block of the narrow instance holds for a
+    (k, d) basis: the most that fit beside U, or 0 (the wide instance)."""
+    per_row = _pad(d) + (k | 1) + 4
+    rows = max((SMEM_LIMIT // 4 - _fixed(k, d)) // per_row, 0)
+    return min(rows // MIN_ROWS * MIN_ROWS, MAX_ROWS)
+
 
 def smem_bytes(k: int, d: int) -> int:
     """Shared memory of one lane's sweep in the narrow instance: U (k, d),
-    two staged rows and k + 1 dot products, float32 (the same sum as
-    csrc/logdet_accept.cu)."""
-    return (k * d + 2 * d + k + 1) * 4
+    an append's k coefficients, and a block of ``rows_per_block`` rows (at
+    least MIN_ROWS) with its (rows, k) dot matrix and four floats a row
+    (||x||^2, the sum of squares, the gain, the cost), d padded to 32 and
+    k to odd (to 4 for the coefficients), float32, and twenty words of
+    ballots (the same sum as csrc/logdet_accept.cu)."""
+    rows = max(rows_per_block(k, d), MIN_ROWS)
+    return 4 * (_fixed(k, d) + rows * (_pad(d) + (k | 1) + 4))
 
 
 def instance(k: int, d: int) -> str:
-    """The instance of the sweep for a (k, d) basis: "shared" keeps U and
-    the staged rows in shared memory while they fit, "global" keeps U in
-    the output tensor and only the k + 1 dot products in shared memory."""
+    """The instance of the sweep for a (k, d) basis: "shared" keeps U, a
+    block of rows and its dot products in shared memory while they fit,
+    "global" keeps U in the output tensor and only the k + 1 dot products
+    of the row being scored in shared memory."""
     return "shared" if smem_bytes(k, d) <= SMEM_LIMIT else "global"
 
 
@@ -107,6 +135,7 @@ def logdet_accept(x, U, logdet, size, eligible, tau, budget, alpha=1.0,
                  gains.data_ptr(), L, B, k, d, float(alpha), float(scale),
                  float(LOGDET_EPS), int(wide))
     launches += 1
+    _wrap.count_shape(name, eligible.shape[-1])
     if cost is not None:
         cost_launches += 1
     if unbatched:

@@ -71,4 +71,5 @@ def logdet_marginals(x, U, alpha=1.0, scale=1.0, size=None):
                  float(alpha), float(alpha * alpha), float(scale),
                  float(LOGDET_EPS))
     launches += 1
+    _wrap.count_shape(name, C)
     return out

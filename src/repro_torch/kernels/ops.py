@@ -14,6 +14,7 @@ budget), or the cardinality mode.
 
 from __future__ import annotations
 
+from repro_torch.kernels import _wrap
 from repro_torch.kernels import coverage_accept as _ca
 from repro_torch.kernels import coverage_marginals as _cm
 from repro_torch.kernels import exemplar_accept as _ea
@@ -65,6 +66,16 @@ def cost_launch_counts() -> dict:
             if hasattr(mod, "cost_launches")}
 
 
+def shape_launch_counts() -> dict:
+    """Launches per entry point since the last reset, split by the rows a
+    lane each took (``_wrap.SHAPES``): {"filter": more than a chunk,
+    "chunk": up to a chunk, "row": one row}; they sum to
+    ``launch_counts``."""
+    return {name: dict(_wrap.shape_launches.get(
+                name, dict.fromkeys(_wrap.SHAPES, 0)))
+            for name in launch_counts()}
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch counts to 0."""
     for mod in _COUNTED.values():
@@ -73,6 +84,7 @@ def reset_launch_counts() -> None:
             mod.cost_launches = 0
     for name in _fm.launches:
         _fm.launches[name] = 0
+    _wrap.shape_launches.clear()
 
 
 def coverage_marginals(x, state, weights=None):

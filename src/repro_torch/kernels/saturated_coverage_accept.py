@@ -57,6 +57,7 @@ def saturated_coverage_accept(x, state, cap, weights, eligible, tau, budget,
                  mask.data_ptr(), state_out.data_ptr(), gains.data_ptr(),
                  L, B, d, _wrap.feature_sweep_per(d))
     launches += 1
+    _wrap.count_shape(name, eligible.shape[-1])
     if cost is not None:
         cost_launches += 1
     if unbatched:

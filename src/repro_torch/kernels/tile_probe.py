@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""What holds back the marginals tiles on a card: the facility / exemplar /
-log-det product of csrc/marginals_tile.cuh and graph cut's skinny tile.
+"""What holds back the tiled kernels on a card: the facility / exemplar /
+log-det product of csrc/marginals_tile.cuh, the skinny tile of graph cut
+and weighted coverage (csrc/skinny_tile.cuh), and the log-det accept
+sweep's narrow instance.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.tile_probe
                     (from the root of a checkout, on a machine with a
@@ -19,15 +21,33 @@ kernel sources, in a temporary directory:
 and times each (CUDA events over back-to-back launches) at the filter shape
 (L = 37 lanes, C = 2^20 rows, d = r = 256, f32), one lane over the corpus,
 and the per-lane chunk (37, 128, 256).  Then it builds
-graph_cut_marginals.cu three times the same way:
+graph_cut_marginals.cu and weighted_coverage_marginals.cu three times each
+from patched copies of skinny_tile.cuh:
 
 * ``shipped``;
 * ``no_fma``: the product loop runs over no feature, so the kernel
-  streams x through its ring, sums the norms and stores the gains;
+  streams x through its ring (graph cut: sums the norms) and stores the
+  gains;
 * ``no_copy``: no cp.async is started, so the product runs on whatever the
   ring holds (wrong sums: the arithmetic's time without the loads);
 
-and times each at the filter shape, f32 and bf16.  Last it runs the
+and times each at the filter shape, f32 and bf16.  Then it builds
+logdet_accept.cu six times:
+
+* ``shipped``;
+* ``no_loads``: neither U nor the rows are staged;
+* ``no_phase1``: no projection onto the basis at the block's start is
+  formed;
+* ``no_catch_up``: a window's rows meet none of the rows appended since;
+* ``no_append``: an accepted row's append sums no basis row;
+* ``no_later_dots``: the new basis row's dots with the window's later
+  rows are taken as 0 (their fold and scoring still run);
+
+and times each at the fused engine's chunk (L = 37, B = 128, d = 256,
+k = 64, f32, lane sizes 0 .. 64 as chip_smoke.py's path case) with tau =
+-inf and budget k: every eligible row is accepted whatever the gains, so
+every variant takes the same decisions (and each lane's appends run until
+its size reaches k) even where its sums are wrong.  Last it runs the
 shipped facility kernel at the filter shape for three seconds while
 sampling the SM clock, power draw and throttle reasons with nvidia-smi,
 and prints the card's name and power limit.  Imports nothing of JAX.
@@ -46,7 +66,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 #: (name, [(text, replacement)]) patches of marginals_tile.cuh
 TILE_VARIANTS = (
@@ -56,8 +76,8 @@ TILE_VARIANTS = (
     ("half_lds", [("      fragments(buf, kk, fa, fb);",
                    "      if ((kk & 1) == 0) fragments(buf, kk, fa, fb);")]),
 )
-#: (name, [(text, replacement)]) patches of graph_cut_marginals.cu
-GC_VARIANTS = (
+#: (name, [(text, replacement)]) patches of skinny_tile.cuh
+SKINNY_VARIANTS = (
     ("shipped", []),
     ("no_fma", [("    for (int kk = 0; kk < kDepth; kk += 4) {\n"
                  "      const int off =",
@@ -65,6 +85,25 @@ GC_VARIANTS = (
                  "      const int off =")]),
     ("no_copy", [("        cp_async16(to, ok ? x + row * d + k : x, "
                   "ok ? 16 : 0);", "        (void)ok;")]),
+)
+
+#: (name, [(text, replacement)]) patches of logdet_accept.cu
+LA_VARIANTS = (
+    ("shipped", []),
+    ("no_loads", [("  stage_rows(Us, U_in + u0, k, d, dp, vec_u);",
+                   "  (void)vec_u;"),
+                  ("    stage_rows(xs, xl + (long long)b0 * d, nb, d, dp, "
+                   "vec_x);", "    (void)vec_x;")]),
+    ("no_phase1", [("    project(0, nb, 0, live0);\n", "")]),
+    ("no_catch_up", [("          project(upto, next, live0, live);\n",
+                      "")]),
+    ("no_append", [("        for (; j + 4 <= live; j += 4) {",
+                    "        for (; j + 4 <= 0; j += 4) {"),
+                   ("        for (; j < live; ++j) s = fmaf(",
+                    "        for (; j < 0; ++j) s = fmaf(")]),
+    ("no_later_dots", [("          dot_chains<1, 1>(xr, ur, m, d, v);",
+                        "          v[0][0] = v[0][1] = v[0][2] = v[0][3] = "
+                        "0.0f;")]),
 )
 
 
@@ -125,6 +164,101 @@ def smi(query):
                           text=True, check=True).stdout.strip()
 
 
+#: the phases the ``laps`` build of logdet_accept.cu times with clock64 on
+#: thread 0 of each CTA (it writes its sums over U_out[l, 0, :8])
+LAPS = ("stage", "phase 1", "catch-up", "score", "pass", "append",
+        "later dots", "decide")
+LAPS_PATCH = [
+    ("  int par = 0;  // which set of ballots the walk writes next\n",
+     "  int par = 0;  // which set of ballots the walk writes next\n"
+     "  long long tp[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+     "  long long tc = clock64();\n"
+     "#define LAP(i) { const long long t_ = clock64(); tp[i] += t_ - tc; "
+     "tc = t_; }\n"),
+    ("    __syncthreads();  // U and the rows staged\n",
+     "    __syncthreads();  // U and the rows staged\n    LAP(0)\n"),
+    ("    extend(0, nb, 0, live0);\n", "    extend(0, nb, 0, live0);\n"
+     "    LAP(1)\n"),
+    ("          extend(upto, next, live0, live);\n",
+     "          extend(upto, next, live0, live);\n          LAP(2)\n"),
+    ("        __syncthreads();\n      }\n      if (full) {",
+     "        __syncthreads();\n      }\n      LAP(3)\n      if (full) {"),
+    ("        }\n        break;\n", "        }\n        LAP(4)\n"
+     "        break;\n"),
+    ("      if (first >= upto) {", "      LAP(7)\n      if (first >= upto) {"),
+    ("      __syncthreads();\n      // the new basis row against the window's",
+     "      __syncthreads();\n      LAP(5)\n"
+     "      // the new basis row against the window's"),
+    ("        __syncthreads();\n        scored = true;\n",
+     "        __syncthreads();\n        LAP(6)\n        scored = true;\n"),
+    ("  if (tid == 0) {\n    logdet_out[l] = ld;",
+     "  __syncthreads();\n  if (tid == 0)\n    for (int i = 0; i < 8; ++i) "
+     "U_out[u0 + i] = (float)tp[i];\n  if (tid == 0) {\n"
+     "    logdet_out[l] = ld;"),
+]
+
+
+def probe_logdet_accept(fns, g, dev, stream):
+    """Time each variant of the log-det sweep at the fused engine's chunk
+    with tau = -inf (the decisions depend on eligibility alone); then run
+    the ``laps`` build there and at chip_smoke.py's path case (quantile
+    taus, every third lane at size k - 2 with tau = 0, budget 3 in every
+    fifth) and print the phase cycles of the slowest lane and the mean."""
+    L, B, D, K = 37, 128, 256, 64
+    lanes = torch.arange(L, device=dev)
+    x = torch.rand((L, B, D), generator=g, device=dev) ** 2
+    sizes = (lanes * 13) % (K + 1)
+    sizes[:2] = torch.tensor([0, K], device=dev)
+    rows = torch.stack([torch.rand((L, D), generator=g, device=dev) ** 2
+                        for _ in range(K)])
+    U, ld, sz = ref.logdet_basis(rows, sizes.to(torch.int32))
+    elig = torch.rand((L, B), generator=g, device=dev) < 0.9
+    tau = torch.full((L,), float("-inf"), device=dev)
+    budget = torch.full((L,), K, dtype=torch.int32, device=dev)
+    outs = (torch.empty((L, B), dtype=torch.bool, device=dev),
+            torch.empty((L, K, D), device=dev), torch.empty(L, device=dev),
+            torch.empty(L, dtype=torch.int32, device=dev),
+            torch.empty((L, B), device=dev))
+
+    def call(fn, U, ld, sz, tau, budget):
+        return lambda: fn(x.data_ptr(), 0, U.data_ptr(), ld.data_ptr(),
+                          sz.data_ptr(), elig.data_ptr(), tau.data_ptr(),
+                          budget.data_ptr(), None, None,
+                          *(o.data_ptr() for o in outs), L, B, K, D, 1.0,
+                          1.0, ref.LOGDET_EPS, 0, stream)
+
+    def laps(label):
+        cyc = outs[1][:, 0, :len(LAPS)].double()
+        slow = int(cyc.sum(-1).argmax())
+        for who, row in ((f"slowest lane {slow}", cyc[slow]),
+                         ("mean over lanes", cyc.mean(0))):
+            parts = ", ".join(f"{n} {float(c):.0f}" for n, c in zip(LAPS, row))
+            print(f"[probe] logdet_accept laps {label} {who}: cycles "
+                  f"{float(row.sum()):.0f} ({parts}); accepted "
+                  f"{int(outs[0][slow].sum())}, size {int(sz[slow])} -> "
+                  f"{int(outs[3][slow])}")
+
+    for name, fn in fns.items():
+        ms = cuda_ms(call(fn, U, ld, sz, tau, budget), 50)
+        appends = int((outs[3].clamp(max=K) - sz).sum())
+        print(f"[probe] logdet_accept x({L}, {B}, {D}) k={K} tau=-inf "
+              f"{name}: {ms} ms (accepted {int(outs[0].sum())}, appends "
+              f"{appends})")
+    laps("tau=-inf")
+    sizes[2::3] = K - 2
+    U, ld, sz = ref.logdet_basis(rows, sizes.to(torch.int32))
+    gains0 = ref.logdet_marginals(x, U, 1.0, size=sz)
+    q = torch.linspace(0.05, 0.95, L, device=dev)
+    tau = torch.stack([gains0[l].quantile(q[l]) for l in range(L)])
+    tau[2::3] = 0.0
+    budget = torch.where(lanes % 5 == 0, 3, K).to(torch.int32)
+    for name in ("shipped", "laps"):
+        ms = cuda_ms(call(fns[name], U, ld, sz, tau, budget), 50)
+        print(f"[probe] logdet_accept x({L}, {B}, {D}) k={K} path taus "
+              f"{name}: {ms} ms (accepted {int(outs[0].sum())})")
+    laps("path taus")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("tile_probe: no CUDA device", file=sys.stderr)
@@ -153,21 +287,36 @@ def main() -> int:
                 ms = cuda_ms(call, 50 if per_lane else 10)
                 print(f"[probe] {label} cand{tuple(cand.shape)} L={lanes} "
                       f"{name}: {ms} ms")
-        gc_fns = build(Path(tmp), "graph_cut_marginals",
-                       "graph_cut_marginals.cu", GC_VARIANTS)
+        gc_fns = build(Path(tmp), "graph_cut_marginals", "skinny_tile.cuh",
+                       SKINNY_VARIANTS)
+        wc_fns = build(Path(tmp), "weighted_coverage_marginals",
+                       "skinny_tile.cuh", SKINNY_VARIANTS)
         t = X.sum(0)
         st = (t * torch.rand((L, 1), generator=g, device=dev)).contiguous()
+        st_wc = torch.rand((L, D), generator=g, device=dev) * 2
         out = torch.empty((L, N), device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             Xd = X.to(dtype)
+            bf = int(dtype == torch.bfloat16)
             for name, fn in gc_fns.items():
-                call = lambda: fn(Xd.data_ptr(),  # noqa: E731
-                                  int(dtype == torch.bfloat16), 0,
+                call = lambda: fn(Xd.data_ptr(), bf, 0,  # noqa: E731
                                   st.data_ptr(), t.data_ptr(), 0.5,
                                   out.data_ptr(), L, N, D, stream)
                 ms = cuda_ms(call, 10)
                 print(f"[probe] graph_cut filter x{tuple(Xd.shape)} "
                       f"{str(dtype)[6:]} L={L} {name}: {ms} ms")
+            for name, fn in wc_fns.items():
+                call = lambda: fn(Xd.data_ptr(), bf, 0,  # noqa: E731
+                                  st_wc.data_ptr(), out.data_ptr(), L, N, D,
+                                  stream)
+                ms = cuda_ms(call, 10)
+                print(f"[probe] weighted_coverage filter x{tuple(Xd.shape)} "
+                      f"{str(dtype)[6:]} L={L} {name}: {ms} ms")
+            del Xd
+        probe_logdet_accept(build(Path(tmp), "logdet_accept",
+                                  "logdet_accept.cu",
+                                  LA_VARIANTS + (("laps", LAPS_PATCH),)),
+                            g, dev, stream)
         st = (torch.rand((L, R), generator=g, device=dev) * D / 4).contiguous()
         shipped = fns["shipped"]
         samples, stop = [], threading.Event()

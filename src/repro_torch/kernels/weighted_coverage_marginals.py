@@ -37,4 +37,5 @@ def weighted_coverage_marginals(x, state):
                  x.device, x.data_ptr(), int(x.dtype == torch.bfloat16),
                  int(per_lane), state.data_ptr(), out.data_ptr(), L, C, U)
     launches += 1
+    _wrap.count_shape(name, C)
     return out

@@ -35,9 +35,12 @@ at narrow shapes, must give the narrow instances' bits.  The facility and
 exemplar marginals must equal their plain versions bit for bit on dyadic
 data at ragged shapes of their 128 x 128 tile.  The log-det marginals with
 each lane's size (only its live basis rows multiplied) must give the bits
-of the same call without sizes, and the graph-cut marginals' shared-x
-tile must equal the plain version bit for bit on dyadic data at lane
-counts around its 8-lane groups and 64-lane tiles.
+of the same call without sizes, and the graph-cut and weighted-coverage
+marginals' shared-x tile must equal the plain version bit for bit on
+dyadic data at lane counts around its 8-lane groups and 64-lane tiles.
+The log-det sweep's narrow instance must give the bits of its row-by-row
+wide instance, forced at the same shape, and hold to the plain sweep with
+its tolerance, masks parting only at a gain next to its threshold.
 """
 
 import pytest
@@ -215,6 +218,39 @@ def test_cuda_weighted_coverage_marginals_matches_plain(cuda_device, dtype,
     assert twm.launches == before + 1
     torch.testing.assert_close(got, ref.weighted_coverage_marginals(x, state),
                                rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, twm.weighted_coverage_marginals(x, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", ["dyadic", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,C", [(3, 1001), (45, 257), (256, 1000)])
+@pytest.mark.parametrize("L", [2, 8, 37, 40, 64, 65, 130])
+def test_cuda_weighted_coverage_marginals_skinny_tile(cuda_device, L, d, C,
+                                                      dtype, data):
+    """The shared-x route (L >= 2, graph cut's skinny tile) at lane counts
+    around its 8-wide lane groups and 64-lane tiles, features below, off
+    and on its 32-deep slices, and odd C: on dyadic data (rows a/8, states
+    b/8: every product and sum exact) bit for bit the plain version, on
+    random data within rtol/atol 1e-5; a repeated launch gives the same
+    bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    if data == "dyadic":
+        x = (torch.randint(0, 9, (C, d), generator=g, device=cuda_device)
+             / 8.0).to(dtype)
+        state = torch.randint(0, 17, (L, d), generator=g,
+                              device=cuda_device) / 8.0
+    else:
+        x = (torch.rand((C, d), generator=g, device=cuda_device) ** 2
+             ).to(dtype)
+        state = torch.rand((L, d), generator=g, device=cuda_device) * 2
+    got = twm.weighted_coverage_marginals(x, state)
+    torch.cuda.synchronize()
+    want = ref.weighted_coverage_marginals(x, state)
+    if data == "dyadic":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     assert torch.equal(got, twm.weighted_coverage_marginals(x, state))
 
 
@@ -528,6 +564,74 @@ def test_cuda_logdet_accept_takes_a_basis_beyond_shared_memory(
     again = tla.logdet_accept(x, U, ld, sz, elig, tau, bud, 1.0, 1.0, cost,
                               cb)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cardinality", "cost"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,B,d,k", [(37, 128, 256, 64), (37, 70, 256, 64),
+                                     (12, 1, 256, 64), (1, 128, 256, 64),
+                                     (130, 128, 256, 64), (9, 128, 45, 7),
+                                     (9, 300, 45, 7), (5, 96, 2048, 16)])
+def test_cuda_logdet_accept_walk_gives_the_loops_bits(cuda_device,
+                                                      monkeypatch, L, B, d,
+                                                      k, dtype, mode):
+    """The narrow instance (projections formed for every row up front, a
+    walk that reduces only on accept) against the row-by-row loop of the
+    wide instance, forced at the same shape: masks, bases, logdets, sizes
+    and gains bit for bit.  Lanes start at sizes 0, 1, k - 1 and k; a
+    quarter take tau = 0 and accept every eligible row into k_max, the rest
+    a quantile of their first gains, so accepts and rejects interleave;
+    some budgets are 3; in the cost mode some spends bind.  B = 300 and
+    d = 2048 run several row blocks.  Against the plain sweep: masks may
+    part only at a gain within 1e-4 + 1e-5 |tau| of its threshold, gains
+    to rtol 1e-5 / atol 1e-4 up to there."""
+    assert tla.instance(k, d) == "shared"
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    x = (torch.rand((L, B, d), generator=g, device=cuda_device) ** 2
+         ).to(dtype)
+    lanes = torch.arange(L, device=cuda_device)
+    sizes = torch.tensor([0, 1, k - 1, k], device=cuda_device)[lanes % 4]
+    U, ld, sz = _bases(g, cuda_device, L, k, d, sizes.to(torch.int32))
+    elig = torch.rand((L, B), generator=g, device=cuda_device) < 0.9
+    first = ref.logdet_marginals(x, U, 1.0, size=sz)
+    q = torch.linspace(0.1, 0.9, L, device=cuda_device)
+    tau = torch.stack([first[l].float().quantile(q[l]) for l in range(L)])
+    tau = torch.where(lanes % 4 == 3, 0.0, tau).contiguous()
+    bud = torch.where(lanes % 5 == 2, 3, B).to(torch.int32)
+    cost = cb = None
+    if mode == "cost":
+        cost = (4 + torch.randint(0, 12, (L, B), generator=g,
+                                  device=cuda_device)) / 8.0
+        cb = torch.where(lanes % 2 == 0, 6.0, 1e6).to(cuda_device)
+    args = (x, U, ld, sz, elig, tau, bud, 1.0, 1.0, cost, cb)
+    got = tla.logdet_accept(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, tla.logdet_accept(*args)))
+    with monkeypatch.context() as mp:
+        mp.setattr(tla, "instance", lambda k, d: "global")
+        loop = tla.logdet_accept(*args)
+    for a, b in zip(got, loop):
+        assert torch.equal(a, b)
+    want = ref.logdet_accept(x, U, ld, sz, elig, tau, bud, 1.0, cost=cost,
+                             cost_budget=cb)
+    near = LD_ATOL + LD_RTOL * tau.abs()
+    for l in range(L):
+        diff = (got[0][l] != want[0][l]).nonzero()
+        upto = B
+        if len(diff):
+            i = int(diff[0])
+            t = float(tau[l] * (cost[l, i] if cost is not None else 1.0))
+            assert abs(float(want[4][l, i]) - t) <= float(near[l])
+            upto = i + 1
+        else:
+            assert torch.equal(got[3][l], want[3][l])
+            torch.testing.assert_close(got[1][l], want[1][l], rtol=LD_RTOL,
+                                       atol=LD_ATOL)
+        torch.testing.assert_close(got[4][l, :upto], want[4][l, :upto],
+                                   rtol=LD_RTOL, atol=LD_ATOL)
+    if L >= 4 and B > k:
+        assert bool((want[3] > k).any())   # appends past k_max were dropped
 
 
 def _exemplar_inputs(g, dev, shape_c, r, d, dtype, dyadic=False):

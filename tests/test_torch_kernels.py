@@ -193,3 +193,73 @@ def test_build_refuses_without_nvcc_and_hashes_the_sources(monkeypatch):
     monkeypatch.setattr(_build, "nvcc_path", lambda: "/nonexistent/nvcc")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
+
+
+class _StubLibrary:
+    """Every entry point returns cudaSuccess and launches nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args: 0
+
+
+@pytest.fixture
+def stubbed_launch(monkeypatch):
+    """The wrappers on CPU tensors with their launch stubbed out: their own
+    checks and counting run as on the card (there is no card here)."""
+    from repro_torch.kernels import _wrap
+    monkeypatch.setattr(_build, "library", lambda name: _StubLibrary())
+    monkeypatch.setattr(_wrap, "check_rows", lambda *args, **kw: None)
+    monkeypatch.setattr(_wrap, "launch",
+                        lambda name, fn, device, *args: fn(*args, None))
+    ops.reset_launch_counts()
+    yield
+    ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("rows,shape", [(1, "row"), (2, "chunk"),
+                                        (128, "chunk"), (129, "filter"),
+                                        (4096, "filter")])
+def test_launch_counts_split_by_rows_a_lane(stubbed_launch, rows, shape):
+    """A launch counts under the rows a lane it took: one row (the
+    partition matroid's scan), up to the engines' chunk, or more (the
+    filter, the singleton passes)."""
+    from repro_torch.core.threshold import DEFAULT_CHUNK
+    from repro_torch.kernels import _wrap
+    assert _wrap.CHUNK_ROWS == DEFAULT_CHUNK
+    state = torch.rand(3, 8)
+    tcm.coverage_marginals(torch.rand(rows, 8), state)       # shared x
+    tcm.coverage_marginals(torch.rand(3, rows, 8), state)    # per-lane x
+    want = dict.fromkeys(_wrap.SHAPES, 0)
+    want[shape] = 2
+    assert ops.shape_launch_counts()["coverage_marginals"] == want
+
+
+def test_launch_count_split_sums_to_the_counts(stubbed_launch):
+    """The split covers every entry point and sums to launch_counts; the
+    plain route (CPU tensors through ops) counts nothing; a reset clears
+    both."""
+    from repro_torch.kernels import logdet_accept as tla
+    from repro_torch.kernels import weighted_coverage_marginals as twm
+    L, B, d, k = 3, 128, 8, 4
+    state = torch.rand(L, d)
+    ops.coverage_marginals(torch.rand(300, d), state)
+    ops.weighted_coverage_marginals(torch.rand(300, d), state)
+    assert set(ops.launch_counts().values()) == {0}
+    tcm.coverage_marginals(torch.rand(300, d), state)
+    tcm.coverage_marginals(torch.rand(1, d), state)
+    twm.weighted_coverage_marginals(torch.rand(L, 5, d), state)
+    tla.logdet_accept(torch.rand(L, B, d), torch.zeros(L, k, d),
+                      torch.zeros(L), torch.zeros(L, dtype=torch.int32),
+                      torch.ones(L, B, dtype=torch.bool), torch.zeros(L),
+                      torch.full((L,), k, dtype=torch.int32))
+    split, counts = ops.shape_launch_counts(), ops.launch_counts()
+    assert set(split) == set(counts)
+    for name, n in counts.items():
+        assert sum(split[name].values()) == n
+    assert split["coverage_marginals"] == {"filter": 1, "chunk": 0, "row": 1}
+    assert split["weighted_coverage_marginals"]["chunk"] == 1
+    assert split["logdet_accept"]["chunk"] == 1
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts().values()) == {0}
+    assert all(set(s.values()) == {0}
+               for s in ops.shape_launch_counts().values())
