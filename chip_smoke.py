@@ -28,7 +28,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    the ragged edges of their 128 x 128 tile (C = 1000, 65; r = 45, 100,
    130, 300; d = 45, 70, 130; L = 1, 37, 100, 130), bit for bit the plain
    versions; the build prints ptxas's registers and spills and the SASS
-   instruction mix of their tile.
+   instruction mix of their tile.  facility_accept and exemplar_accept are
+   also timed at tau = -inf, where every eligible row is accepted, and
+   coverage_marginals and saturated_coverage_marginals at the shapes of
+   their "filter" launches (one lane over the corpus, the gathered sample
+   of 98,560 rows, a lane's 34,048 gathered survivors, a chunk).
 3. The knapsack cost mode of the seven accept sweeps against their plain
    versions, with budgets that bind inside the chunk in half the lanes;
    then each sweep's wide instance (d = 2049 and 4096 features, r = 4097
@@ -42,7 +46,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    engine; check the routes' and engines' agreement, the (1/2 - eps)
    guarantee against sequential greedy, and that every kernel of the path
    launched; each kernel's launches are also split by the rows a lane each
-   launch took (more than a chunk, a chunk, one row).  FeatureCoverage; FacilityLocation and ExemplarClustering
+   launch took (more than a chunk, a chunk, one row), and the "filter"
+   launches of coverage_marginals and saturated_coverage_marginals by
+   lanes, shared or per-lane x and rows.  FeatureCoverage; FacilityLocation and ExemplarClustering
    with a 256-row reference set; WeightedCoverage; SaturatedCoverage
    (total = X.sum(0), alpha = 0.25, and once more at alpha = 2^-16, where
    the cap binds); GraphCut (lam = 0.5); LogDetDiversity (alpha = 1) and
@@ -97,6 +103,14 @@ N_PARTS, PART_CAP = 8, 8    # partition matroid: parts, cap of each
 #: a launch's shape class by its rows a lane (kernels._wrap.SHAPES): more
 #: than the engines' chunk, up to it, one row
 SHAPES = ("filter", "chunk", "row")
+#: the kernels whose filter-class launches split by lanes, x and rows
+#: (kernels.ops.filter_launch_counts), and the shapes they are timed at:
+#: (label, lanes, rows a lane, per-lane x) for one lane over the corpus
+#: (the singleton passes), the gathered sample (shared x), a lane's
+#: gathered survivors (per-lane x) and a chunk
+FILTER_SPLIT_KERNELS = ("coverage_marginals", "saturated_coverage_marginals")
+FILTER_SHAPES = (("one lane", 1, N, False), ("sample", L, S_ROWS, False),
+                 ("survivors", L, F_ROWS, True), ("chunk", L, B, True))
 
 
 def check(cond, msg):
@@ -106,9 +120,11 @@ def check(cond, msg):
 
 def add_launches(launches, counts, names):
     """Add the launches of kernels ``names`` in one select's ``counts``, and
-    their split by shape ("<name>@<shape>"), to ``launches``."""
+    their split by shape ("<name>@<shape>") and of the filter class by
+    lanes, x and rows ("<name>@filter/<key>"), to ``launches``."""
     for name in names:
-        for key in (name, *(f"{name}@{shape}" for shape in SHAPES)):
+        split = [key for key in counts if key.startswith(f"{name}@filter/")]
+        for key in (name, *(f"{name}@{shape}" for shape in SHAPES), *split):
             launches[key] = launches.get(key, 0) + counts.get(key, 0)
 
 
@@ -181,6 +197,21 @@ def check_sweep(name, got, want, tau, near_tol, close):
               f"{name} lane {l}: gains differ")
         err = max(err, (kg[l, :upto] - pg[l, :upto]).abs().max().item())
     return ties, err
+
+
+def all_accept_ms(torch, sweep, cand, ref, state, eligible):
+    """A reference sweep's ms with tau = -inf and the budget B, where every
+    eligible row is accepted: its slowest walk."""
+    Lk, Bk = eligible.shape
+    tau = torch.full((Lk,), float("-inf"), device=cand.device)
+    budget = torch.full((Lk,), Bk, dtype=torch.int32, device=cand.device)
+    mask = sweep(cand, ref, state, eligible, tau, budget)[0]
+    check(torch.equal(mask, eligible), "tau = -inf did not accept every "
+          "eligible row")
+    ms = cuda_ms(lambda: sweep(cand, ref, state, eligible, tau, budget), 50)
+    print(f"[kernels] {sweep.__name__} x{tuple(cand.shape)} tau=-inf, "
+          f"budget {Bk}: accepted={int(mask.sum())} kernel_ms={ms}")
+    return ms
 
 
 def lane_taus(torch, gains):
@@ -449,10 +480,59 @@ def phase_facility_kernels(torch, ref, fm, fa):
                   f"accepted={n_acc} kernel_ms={ms} plain_ms={pms} "
                   f"bound_ms={b_ms} ({b_by}) repeat=bitwise")
             if label == "path" and dtype == torch.float32:
-                rows["facility_accept"] = dict(ms=ms, plain_ms=pms,
-                                               bound_ms=b_ms, bound_by=b_by)
+                rows["facility_accept"] = dict(
+                    ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                    all_accept_ms=all_accept_ms(
+                        torch, fa.facility_accept, cand, Rm, state, elig))
     rows["facility_accept"]["max_abs_err"] = worst
     return rows
+
+
+def phase_filter_shapes(torch, ref, cm, sm, rows):
+    """coverage_marginals and saturated_coverage_marginals at the shapes of
+    FILTER_SHAPES, f32, each within RTOL/ATOL of its plain version (a lane
+    at a time where the plain temporaries would not fit) and timed; the
+    times go into each kernel's row as ``filter_shapes_ms``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    X = torch.rand((N, D), generator=g, device=dev) ** 2
+    Xs = torch.rand((L, F_ROWS, D), generator=g, device=dev) ** 2
+    # saturated states straddle the cap (0, below, at, above it), as in
+    # phase_weighted_saturated_kernels
+    cap = torch.rand(D, generator=g, device=dev) * 2 + 0.25
+    frac = torch.tensor([0.0, 0.5, 0.9, 1.0, 1.5], device=dev)
+    for name, kernel, plain in (
+            ("coverage_marginals", cm.coverage_marginals,
+             ref.coverage_marginals),
+            ("saturated_coverage_marginals",
+             lambda x, st: sm.saturated_coverage_marginals(x, st, cap),
+             lambda x, st: ref.saturated_coverage_marginals(x, st, cap))):
+        times = {}
+        for label, lanes, C, per_lane in FILTER_SHAPES:
+            x = (Xs[:, :C] if C < F_ROWS else Xs) if per_lane else X[:C]
+            x = x.contiguous()
+            state = (torch.rand((lanes, D), generator=g, device=dev) * 4
+                     if name == "coverage_marginals"
+                     else frac[torch.randint(0, 5, (lanes, D), generator=g,
+                                             device=dev)] * cap)
+            if lanes == 1:
+                state = state[0]
+            got = kernel(x, state)
+            torch.cuda.synchronize()
+            for l in range(lanes):
+                want = plain(x[l] if per_lane else x,
+                             state if lanes == 1 else state[l])
+                check(torch.allclose(got if lanes == 1 else got[l], want,
+                                     rtol=RTOL, atol=ATOL),
+                      f"{name} {label}: lane {l} differs from plain")
+            ms = cuda_ms(lambda: kernel(x, state), 10 if C > B else 50)
+            b_ms, b_by = bound_ms(x.numel() * 4 + lanes * D * 4
+                                  + lanes * C * 4, 5 * lanes * C * D)
+            times[f"{label} ({lanes}, {C}, {D})"] = ms
+            print(f"[kernels] {name} {label} x{tuple(x.shape)} L={lanes} "
+                  f"f32: kernel_ms={ms} bound_ms={b_ms} ({b_by})")
+        rows[name]["filter_shapes_ms"] = times
+    del X, Xs
 
 
 def phase_weighted_saturated_kernels(torch, ref, wm, wa, sm, sa):
@@ -1198,9 +1278,11 @@ def phase_exemplar_kernels(torch, ref, em, ea):
                 line += (f" kernel_ms={ms} plain_ms={pms} bound_ms={b_ms} "
                          f"({b_by})")
                 if dtype == torch.float32:
-                    rows["exemplar_accept"] = dict(ms=ms, plain_ms=pms,
-                                                   bound_ms=b_ms,
-                                                   bound_by=b_by)
+                    rows["exemplar_accept"] = dict(
+                        ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                        all_accept_ms=all_accept_ms(
+                            torch, ea.exemplar_accept, cand, Rm, state,
+                            elig))
             print(line)
     rows["exemplar_accept"]["max_abs_err"] = worst
     return rows
@@ -1485,6 +1567,9 @@ def drive(torch, tsel, ops, X, label, reference=None, total=None,
     counts.update({f"{name}@{shape}": n
                    for name, split in ops.shape_launch_counts().items()
                    for shape, n in split.items()})
+    counts.update({f"{name}@filter/{key}": n
+                   for name, split in ops.filter_launch_counts().items()
+                   for key, n in split.items()})
     size = int(res.sol_size)
     ids = res.sol_ids.cpu()[:size]
     # facility location over all-positive similarities, weighted coverage
@@ -1922,6 +2007,7 @@ def main() -> int:
     rows = phase_coverage_kernels(torch, ref, cm, ca)
     rows.update(phase_facility_kernels(torch, ref, fm, fa))
     rows.update(phase_weighted_saturated_kernels(torch, ref, wm, wa, sm, sa))
+    phase_filter_shapes(torch, ref, cm, sm, rows)
     rows.update(phase_graph_cut_logdet_kernels(torch, ref, gm, ga, lm, la))
     rows.update(phase_exemplar_kernels(torch, ref, em, ea))
     phase_marginals_ragged(torch, ref, fm, em)
@@ -1976,7 +2062,7 @@ def main() -> int:
     for name, n in main_path(torch, tsel, tseq, ops, X, "mutual_information",
                              ld_kernels, "logdet_accept",
                              results=by_mi).items():
-        launches[name] += n
+        launches[name] = launches.get(name, 0) + n
     for label, (res, value) in by_ld.items():
         res_mi, value_mi = by_mi[label]
         check(torch.equal(res_mi.sol_ids, res.sol_ids)
@@ -2000,15 +2086,15 @@ def main() -> int:
     for name, n in knapsack_selects(
             torch, tsel, ops, X, dict(reference=reference, total=total),
             costs, by_fc["two_round fused kernel"][0]).items():
-        launches[name] += n
+        launches[name] = launches.get(name, 0) + n
     for name, n in partition_select(torch, tsel, ops, X, parts).items():
-        launches[name] += n
+        launches[name] = launches.get(name, 0) + n
 
     # the wide shapes: selects whose sweeps run their wide instances
     del X, costs, parts
     torch.cuda.empty_cache()
     for name, n in wide_selects(torch, tsel, ops, _wrap, la).items():
-        launches[name] += n
+        launches[name] = launches.get(name, 0) + n
 
     check(SHAPES == _wrap.SHAPES, f"shape classes {_wrap.SHAPES}")
     table = []
@@ -2067,6 +2153,16 @@ def main() -> int:
               f"{by_shape} (filter: more than a chunk of {CHUNK}; chunk: up "
               f"to {CHUNK}; row: one row)")
         r = rows[name]
+        prefix = f"{name}@filter/"
+        filter_split = {key[len(prefix):]: n for key, n in launches.items()
+                        if key.startswith(prefix) and n}
+        if name in FILTER_SPLIT_KERNELS:
+            check(sum(filter_split.values()) == by_shape["filter"],
+                  f"{name}: filter launches split {filter_split} do not sum "
+                  f"to {by_shape['filter']}")
+            print(f"[main] {name} filter launches by lanes, x and rows: "
+                  f"{filter_split}")
+            r["launches_filter_split"] = filter_split
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "launches": launches[name],
                       "launches_by_shape": by_shape,
@@ -2082,7 +2178,9 @@ def main() -> int:
                       # U, the rows past each lane's size too
                       **{key: r[key] for key in (
                           "cost_ms", "wide_ms", "bound_all_rows_ms",
-                          "library_all_rows_ms") if key in r}})
+                          "library_all_rows_ms", "all_accept_ms",
+                          "launches_filter_split", "filter_shapes_ms")
+                         if key in r}})
     print(json.dumps({"kernels": table}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -158,17 +158,30 @@ SHAPES = ("filter", "chunk", "row")
 #: launches per entry point and shape class since the last reset
 shape_launches: dict = {}
 
+#: launches of the "filter" class per entry point since the last reset,
+#: split by lanes, shared or per-lane x and rows a lane (for the wrappers
+#: that pass their lanes to ``count_shape``)
+filter_launches: dict = {}
+
 
 def shape_of(rows: int) -> str:
     """The shape class of a launch over ``rows`` rows a lane."""
     return "row" if rows == 1 else "chunk" if rows <= CHUNK_ROWS else "filter"
 
 
-def count_shape(name: str, rows: int) -> None:
+def count_shape(name: str, rows: int, lanes=None, per_lane=False) -> None:
     """Count one launch of entry point ``name`` over ``rows`` rows a lane
-    under its shape class (beside the wrapper's own count)."""
+    under its shape class (beside the wrapper's own count); a launch of the
+    "filter" class that gives its ``lanes`` is also counted under its lanes,
+    x (shared or per-lane) and rows."""
     counts = shape_launches.setdefault(name, dict.fromkeys(SHAPES, 0))
-    counts[shape_of(rows)] += 1
+    shape = shape_of(rows)
+    counts[shape] += 1
+    if shape == "filter" and lanes is not None:
+        key = (f"{'1 lane' if lanes == 1 else f'{lanes} lanes'}, "
+               f"{'per-lane' if per_lane else 'shared'} x, {rows} rows")
+        split = filter_launches.setdefault(name, {})
+        split[key] = split.get(key, 0) + 1
 
 
 def ptr(t):

@@ -9,11 +9,11 @@ BASE_CSRC is the ``src/repro_torch/kernels/csrc`` directory of another
 checkout (for example the parent commit, unpacked with ``git archive``
 into a directory that ``.gitignore`` lists).  The script builds
 facility_marginals.cu, exemplar_marginals.cu, logdet_marginals.cu,
-graph_cut_marginals.cu, weighted_coverage_marginals.cu and logdet_accept.cu
-from both trees, in parallel, in a temporary directory, and runs both
-builds on the same inputs at the filter shape (L = 37 lanes, C = 2^20
-rows, d = r = 256, k_max = 64, f32 and bf16) and, for the sweep, at the
-fused engine's chunk (B = 128):
+graph_cut_marginals.cu, weighted_coverage_marginals.cu, logdet_accept.cu,
+facility_accept.cu and exemplar_accept.cu from both trees, in parallel, in
+a temporary directory, and runs both builds on the same inputs at the
+filter shape (L = 37 lanes, C = 2^20 rows, d = r = 256, k_max = 64, f32
+and bf16) and, for the sweeps, at the fused engine's chunk (B = 128):
 
 * facility and exemplar marginals, and log-det at the lane sizes
   chip_smoke.py uses (974 of 2368 basis rows live), with all 64 rows live,
@@ -28,7 +28,12 @@ fused engine's chunk (B = 128):
   quantile of each lane's first gains from 0.05 to 0.95, budget 3 in
   every fifth lane), in the cardinality mode and in the knapsack cost mode
   (costs U[0.5, 2), tau over the mean cost, even lanes' budgets half the
-  unbounded spend): mask, basis, logdet, size and gains, the same bits.
+  unbounded spend): mask, basis, logdet, size and gains, the same bits;
+* facility_accept and exemplar_accept at chip_smoke.py's path case, at
+  r = 1024, 4097 and 8192 (the wide instance) and at chip_smoke.py's odd
+  shapes, f32 and bf16, with chip_smoke.py's taus, in the knapsack cost
+  mode and at tau = -inf: mask, state and gains the same bits (a
+  difference raises).
 
 Each case is timed in turns, base, new, new, base (CUDA events over
 back-to-back launches), so the two builds meet the same clock and power
@@ -50,12 +55,12 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, _wrap, ref
 from repro_torch.kernels.tile_probe import cuda_ms, smi
 
 NAMES = ("facility_marginals", "exemplar_marginals", "logdet_marginals",
          "graph_cut_marginals", "weighted_coverage_marginals",
-         "logdet_accept")
+         "logdet_accept", "facility_accept", "exemplar_accept")
 #: the log-det entry point before it took sizes: no ``size`` pointer
 LOGDET_NO_SIZE = tuple(a for i, a in enumerate(
     _build.SIGNATURES["logdet_marginals"]["logdet_marginals_launch"])
@@ -119,8 +124,8 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    N, D, R, L, K = 1 << 20, 256, 256, 37, 64
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    N, D, R, L, K = 1 << 20, 256, 256, 37, 64
     X32 = torch.rand((N, D), generator=g, device=dev) ** 2
     Rm = torch.rand((R, D), generator=g, device=dev)
     refsq = (Rm * Rm).sum(-1)
@@ -235,6 +240,7 @@ def main() -> int:
                       f"{times[1]} new {times[2]} base {times[3]}",
                       flush=True)
         compare_logdet_accept(libs, g, dev, stream)
+        compare_reference_sweeps(libs, g, dev, stream)
     print(smi("name,power.limit"))
     return 0
 
@@ -310,6 +316,112 @@ def compare_logdet_accept(libs, g, dev, stream):
                   f"{D}) k={K} accepted={accepted}: mask, U, logdet, size "
                   f"and gains equal to base: {same}; ms base {times[0]} new "
                   f"{times[1]} new {times[2]} base {times[3]}", flush=True)
+
+
+#: (label, L, B, r, d, dtypes) of the reference sweeps' comparison: the
+#: path case, r = 1024, the wide instance and chip_smoke.py's odd shapes
+REFERENCE_SHAPES = {
+    "facility_accept": (("path", 37, 128, 256, 256, ("f32", "bf16")),
+                        ("r=1024", 37, 128, 1024, 256, ("f32", "bf16")),
+                        ("wide r=4097", 37, 128, 4097, 256, ("f32",)),
+                        ("wide r=8192", 37, 128, 8192, 256, ("f32",)),
+                        ("odd L=1", 1, 70, 45, 70, ("f32",)),
+                        ("odd L=100", 100, 128, 45, 70, ("f32",))),
+    "exemplar_accept": (("path", 37, 128, 256, 256, ("f32", "bf16")),
+                        ("r=1024", 37, 128, 1024, 256, ("f32", "bf16")),
+                        ("wide r=4097", 37, 128, 4097, 256, ("f32",)),
+                        ("wide r=8192", 37, 128, 8192, 256, ("f32",)),
+                        ("odd L=1", 1, 70, 100, 70, ("f32",)),
+                        ("odd L=100", 100, 128, 300, 45, ("f32",))),
+}
+
+
+def compare_reference_sweeps(libs, g, dev, stream):
+    """Both builds of facility_accept and exemplar_accept at the shapes of
+    REFERENCE_SHAPES, f32 and bf16, each in three rules: chip_smoke.py's
+    taus (quantiles of each lane's first gains, budget 3 in every fifth
+    lane), the knapsack cost mode (costs U[0.5, 2), tau over the mean cost,
+    a cost budget of 2 in even lanes) and tau = -inf with the budget B
+    (every eligible row accepted): mask, state and gains the same bits,
+    timed in turns."""
+    for name, shapes in REFERENCE_SHAPES.items():
+        marginals = getattr(ref, name.replace("accept", "marginals"))
+        for label, L, B, r, d, dtypes in shapes:
+            lanes = torch.arange(L, device=dev)
+            Rm = torch.rand((r, d), generator=g, device=dev)
+            refsq = (Rm * Rm).sum(-1)
+            if name == "facility_accept":
+                state = torch.rand((L, r), generator=g, device=dev) * d / 4
+            else:
+                state = refsq * torch.rand((L, r), generator=g, device=dev)
+            elig = torch.rand((L, B), generator=g, device=dev) < 0.9
+            cost = (0.5 + 1.5 * torch.rand((L, B), generator=g, device=dev)
+                    ).contiguous()
+            for tag in dtypes:
+                dtype = torch.float32 if tag == "f32" else torch.bfloat16
+                cand = (torch.rand((L, B, d), generator=g, device=dev) ** 2
+                        ).to(dtype)
+                gains0 = marginals(cand, Rm, state)
+                for rule in ("path taus", "cost", "tau=-inf"):
+                    cost_p = cb = None
+                    budget = torch.where(lanes % 5 == 0, 3, 64)
+                    if rule == "path taus":
+                        tau = lane_taus(gains0)
+                    elif rule == "cost":
+                        tau = lane_taus(gains0 / cost.mean())
+                        cost_p = cost
+                        cb = torch.where(lanes % 2 == 0, 2.0, 1e9)
+                        cb = cb.to(torch.float32).contiguous()
+                    else:
+                        tau = torch.full((L,), float("-inf"), device=dev)
+                        budget = torch.full((L,), B, device=dev)
+                    budget = budget.to(torch.int32).contiguous()
+                    outs = {tree: (torch.empty((L, B), dtype=torch.bool,
+                                               device=dev),
+                                   torch.empty((L, r), device=dev),
+                                   torch.empty((L, B), device=dev),
+                                   torch.empty((L, B, r), device=dev))
+                            for tree in ("base", "new")}
+                    extra = (refsq.data_ptr(),) if name == "exemplar_accept" \
+                        else ()
+
+                    def sweep(tree):
+                        fn = getattr(libs[tree, name], f"{name}_launch")
+                        o = outs[tree]
+                        return lambda: fn(
+                            cand.data_ptr(), int(dtype == torch.bfloat16),
+                            Rm.data_ptr(), *extra, state.data_ptr(),
+                            elig.data_ptr(), tau.data_ptr(),
+                            budget.data_ptr(),
+                            None if cost_p is None else cost_p.data_ptr(),
+                            None if cb is None else cb.data_ptr(),
+                            *(t.data_ptr() for t in o), L, B, r, d,
+                            _wrap.reference_sweep_per(r), stream)
+
+                    base, new = sweep("base"), sweep("new")
+                    for tree, fn in (("base", base), ("new", new)):
+                        for t in outs[tree]:
+                            t.zero_()
+                        check(fn())
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(a, b) for a, b in
+                               zip(outs["base"][:3], outs["new"][:3]))
+                    check_same(same, f"{name} {label} {tag} {rule}")
+                    acc = outs["new"][0].sum(-1)
+                    iters = 50 if r <= 1024 else 5
+                    times = [cuda_ms(fn, iters)
+                             for fn in (base, new, new, base)]
+                    print(f"[ab] {name} {label} x({L}, {B}, {d}) r={r} {tag} "
+                          f"{rule}: accepts per lane min {int(acc.min())} "
+                          f"max {int(acc.max())}; mask, state and gains "
+                          f"equal to base: {same}; ms base {times[0]} new "
+                          f"{times[1]} new {times[2]} base {times[3]}",
+                          flush=True)
+
+
+def check_same(same, what):
+    if not same:
+        raise RuntimeError(f"ab_compare: {what}: the two builds differ")
 
 
 def check(err):

@@ -39,5 +39,5 @@ def coverage_marginals(x, state, weights=None):
                  None if weights is None else weights.data_ptr(),
                  out.data_ptr(), L, C, d)
     launches += 1
-    _wrap.count_shape(name, C)
+    _wrap.count_shape(name, C, L, per_lane)
     return out

@@ -35,8 +35,10 @@
 //     float partial(int i)  this thread's share of row i's gain, against
 //                           the current state
 //     void  accept()        apply the row just scored to the state
-// The feature sweeps (feature_sweep.cuh), facility_accept.cu and
-// exemplar_accept.cu run on it with their own Steps.
+// The feature sweeps (feature_sweep.cuh) and the wide instance of
+// facility_accept.cu and exemplar_accept.cu run on it with their own
+// Steps; their narrow instance batches this loop's reduction tree over a
+// window of rows (reference_tile.cuh, walk_kernel).
 #pragma once
 
 #include <cuda_runtime.h>

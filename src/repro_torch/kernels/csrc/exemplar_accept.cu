@@ -3,29 +3,32 @@
 // Replaces the TPU kernel src/repro/kernels/exemplar_accept.py,
 // exemplar_accept (body _ea_kernel, on run_sweep in _accept_common.py), in
 // both of its modes: cardinality (cost=None) and knapsack cost
-// (accept_sweep.cuh).  One launch serves L lanes, one CTA each, in place of
-// the JAX engines' vmap over the tau grid.
+// (accept_sweep.cuh).  One call serves L lanes, in place of the JAX
+// engines' vmap over the tau grid.
 //
-// Per lane, two phases (reference_tile.cuh's sweep with its Exemplar rule,
-// shared with facility_accept.cu):
-//  1. the (B, r) block d2 = max((refsq_j - 2 <cand_i, ref_j>) + sq_i, 0) of
-//     the lane's chunk, from the same product tiles and epilogue as
-//     exemplar_marginals.cu, written to an (L, B, r) f32 workspace the
-//     wrapper allocates (a (B, r) block outgrows shared memory at
-//     r = 1024);
-//  2. the sweep over its rows in order (run_sweep): row i's gain is
-//         sum_j max(s_j - d2[i, j], 0)
-//     against the live min-distance vector s, and an accepted row applies
-//     s = min(s, d2[i, :]).  s stays in registers: thread t owns columns
+// Two launches (reference_tile.cuh's sweep with its Exemplar rule, shared
+// with facility_accept.cu):
+//  1. product_kernel: the (L, B, r) block d2 = max((refsq_j - 2 <cand_i,
+//     ref_j>) + sq_i, 0) into an (L, B, r) f32 workspace the wrapper
+//     allocates, one CTA a 64 x 64 tile over the whole card, from the same
+//     fmaf chains and epilogue as exemplar_marginals.cu; sq_i = ||cand_i||^2
+//     is summed from the staged cand slices in row_sq's order, so it has
+//     the marginals' bits and costs no pass of its own;
+//  2. walk_kernel: one CTA a lane walks its block in stream order: row i's
+//     gain is sum_j max(s_j - d2[i, j], 0) against the live min-distance
+//     vector s, and an accepted row applies s = min(s, d2[i, :]).  A pass
+//     scores a window of rows at once and a ballot takes the first that
+//     passes (after an accept close by, the row loop runs until two rows
+//     in a row are rejected); s stays in registers: thread t owns columns
 //     t, t + 256, ..., so an accept is a thread-local min (past r = 4096
-//     the wide instance keeps s in global memory).
+//     the wide instance keeps the row loop with s in global memory).
 // Outputs: mask (L, B) bool, post-sweep state (L, r) f32, and each row's
 // gain at scan time (L, B) f32.
 //
-// What bounds it on the H100: at (37, 128, 256), r = 256, the product is
-// 2LBrd ~ 6.2e8 FLOP (9.3 us at 67 TFLOP/s) and the bytes ~1.5 us; but only
-// L CTAs run, and phase 2 is the chain of B dependent block reductions
-// (accept_sweep.cuh).  Both are far above the bound, as for facility_accept.
+// What bounds it on the H100: as for facility_accept.cu, the product's
+// 296 CTAs on 132 SMs (~42 us on an NVIDIA H100 80GB HBM3 at 700 W,
+// PERF.md; torch.matmul of it ~25 us) and the walk's chain of passes,
+// one barrier a pass.
 #include "reference_tile.cuh"
 
 // cand (L, B, d) f32 or bf16; ref (r, d) f32; refsq (r,) f32; state (L, r)

@@ -47,11 +47,11 @@
 //    overlap the other's FMAs.
 //
 // Numbers it keeps: every product is one fmaf chain over k = 0, 1, ...,
-// d - 1, with the k past d staged as 0 in 16-deep slices, exactly as
-// sims::tile computes it, so the marginals see the similarity and distance
-// bits of facility_accept and exemplar_accept; no TF32, no tensor cores;
-// bf16 candidates are widened as they are staged; Exemplar's row norms come
-// from reftile::row_sq.  Each (lane, row) sum adds its residuals part by
+// d - 1, with the k past d staged as 0 in 16-deep slices (sims::tile
+// stages 32-deep ones: a zero adds exactly 0 either way), so the marginals
+// see the similarity and distance bits of facility_accept and
+// exemplar_accept; no TF32, no tensor cores; bf16 candidates are widened
+// as they are staged; Exemplar's row norms come from reftile::row_sq.  Each (lane, row) sum adds its residuals part by
 // part in column order, the parts in a fixed tree.  Rows past C, columns past r and lanes past L are masked (their
 // states read as 0, their sums never written), not padded in memory.
 #pragma once
@@ -69,7 +69,7 @@ namespace mtile {
 constexpr int kThreads = 256;  // a 16 x 16 thread grid, 8 x 8 sums each
 constexpr int kRows = 128;     // candidate rows per CTA
 constexpr int kCols = 128;     // reference columns per tile
-constexpr int kDepth = 16;     // k per staged slice (as sims::tile)
+constexpr int kDepth = 16;     // k per staged slice
 constexpr int kMicro = 8;
 constexpr int kMaxLaneGroup = 128;
 

@@ -1,13 +1,14 @@
 """CUDA kernel: fused ExemplarClustering chunk-accept sweep
-(csrc/exemplar_accept.cu on the shared sweep in csrc/accept_sweep.cuh).
+(csrc/exemplar_accept.cu on csrc/reference_tile.cuh).
 
 The port of ``repro.kernels.exemplar_accept`` (a Pallas TPU kernel), in
 both of its modes (cardinality, and the knapsack cost mode of
-``cost``/``cost_budget``): one launch sweeps the (B, d) chunk of every
-lane, one CTA per lane; each CTA first computes its (B, r) squared-distance
-block into a workspace this wrapper allocates, then sweeps it in stream
-order against the live min-distance vector.  This wrapper only launches;
-``kernels.ops`` routes CPU tensors to the plain version in ``kernels.ref``.
+``cost``/``cost_budget``): one call sweeps the (B, d) chunk of every lane.
+It launches the (L, B, r) squared-distance product over the whole card
+into a workspace this wrapper allocates, then one CTA per lane walks its
+block in stream order against the live min-distance vector, a window of
+rows a pass.  This wrapper only launches; ``kernels.ops`` routes CPU
+tensors to the plain version in ``kernels.ref``.
 """
 
 from __future__ import annotations

@@ -76,6 +76,14 @@ def shape_launch_counts() -> dict:
             for name in launch_counts()}
 
 
+def filter_launch_counts() -> dict:
+    """The "filter" class launches of ``shape_launch_counts`` since the last
+    reset, split by lanes, shared or per-lane x and rows a lane:
+    {name: {"<lanes>, <x> x, <rows> rows": launches}}, for the entry points
+    that split them (coverage_marginals, saturated_coverage_marginals)."""
+    return {name: dict(split) for name, split in _wrap.filter_launches.items()}
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch counts to 0."""
     for mod in _COUNTED.values():
@@ -85,6 +93,7 @@ def reset_launch_counts() -> None:
     for name in _fm.launches:
         _fm.launches[name] = 0
     _wrap.shape_launches.clear()
+    _wrap.filter_launches.clear()
 
 
 def coverage_marginals(x, state, weights=None):

@@ -44,5 +44,5 @@ def saturated_coverage_marginals(x, state, cap, weights=None):
                  None if weights is None else weights.data_ptr(),
                  out.data_ptr(), L, C, d)
     launches += 1
-    _wrap.count_shape(name, C)
+    _wrap.count_shape(name, C, L, per_lane)
     return out

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """What holds back the tiled kernels on a card: the facility / exemplar /
 log-det product of csrc/marginals_tile.cuh, the skinny tile of graph cut
-and weighted coverage (csrc/skinny_tile.cuh), and the log-det accept
-sweep's narrow instance.
+and weighted coverage (csrc/skinny_tile.cuh), the log-det accept sweep's
+narrow instance, and the facility and exemplar accept sweeps.
 
-    PYTHONPATH=src python3 -m repro_torch.kernels.tile_probe
+    PYTHONPATH=src python3 -m repro_torch.kernels.tile_probe [OTHER_CSRC]
                     (from the root of a checkout, on a machine with a
                      CUDA card and nvcc)
 
@@ -47,10 +47,19 @@ and times each at the fused engine's chunk (L = 37, B = 128, d = 256,
 k = 64, f32, lane sizes 0 .. 64 as chip_smoke.py's path case) with tau =
 -inf and budget k: every eligible row is accepted whatever the gains, so
 every variant takes the same decisions (and each lane's appends run until
-its size reaches k) even where its sums are wrong.  Last it runs the
-shipped facility kernel at the filter shape for three seconds while
-sampling the SM clock, power draw and throttle reasons with nvidia-smi,
-and prints the card's name and power limit.  Imports nothing of JAX.
+its size reaches k) even where its sums are wrong.  Then it times
+``torch.matmul`` of the facility and exemplar sweeps' product at the
+fused engine's chunk (L = 37, B = 128, d = r = 256) and builds
+facility_accept.cu and exemplar_accept.cu of this tree (and of
+OTHER_CSRC, the ``csrc`` directory of another checkout) as they are, with clock64
+laps of their phases (REFTILE_LAPS: the patch whose anchors the tree's
+reference_tile.cuh holds) and, for the product-and-walk design, with
+either launch alone (the product also at 33 lanes, two CTAs an SM); it times each at chip_smoke.py's path case and at tau = -inf
+with the budget B, and prints the laps of the slowest lane and their
+mean and the accepts per lane.  Last it runs the shipped facility kernel
+at the filter shape for three seconds while sampling the SM clock, power
+draw and throttle reasons with nvidia-smi, and prints the card's name and
+power limit.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -107,13 +116,14 @@ LA_VARIANTS = (
 )
 
 
-def build(tmp: Path, source: str, patched: str, variants) -> dict:
+def build(tmp: Path, source: str, patched: str, variants,
+          csrc: Path = _build.CSRC) -> dict:
     """{variant: its ``source``_launch}, each built from a copy of the
-    sources with ``patched`` patched, all in parallel."""
+    sources of ``csrc`` with ``patched`` patched, all in parallel."""
     procs = {}
     for name, patch in variants:
         src = tmp / f"{source}_{name}"
-        shutil.copytree(_build.CSRC, src)
+        shutil.copytree(csrc, src)
         target = src / patched
         text = target.read_text()
         for old, new in patch:
@@ -259,12 +269,171 @@ def probe_logdet_accept(fns, g, dev, stream):
     laps("path taus")
 
 
+#: clock64 laps of the reference sweeps (facility_accept.cu and
+#: exemplar_accept.cu on reference_tile.cuh): (design, [(text,
+#: replacement)]) for each design of the sweep, and the names of its laps.
+#: Thread 0 of each CTA writes its laps' cycles over gains[l, :n], so the
+#: laps build's gains are not the sweep's.  The probe takes the patch whose
+#: anchors the tree's reference_tile.cuh holds.
+REFTILE_LAPS = (
+    # one CTA a lane: the lane's product, then the row chain
+    ("row loop", ("phase 1 (product)", "phase 2 (rows)"), [
+        ("  const int l = blockIdx.x;\n",
+         "  const int l = blockIdx.x;\n  const long long lap0 = clock64();\n"),
+        ("  __syncthreads();   // the block is visible to every thread of "
+         "the CTA\n",
+         "  __syncthreads();   // the block is visible to every thread of "
+         "the CTA\n  const long long lap1 = clock64();\n"),
+        ("\n}\n\ntemplate <class Rule, typename TC, int kPer>\n"
+         "cudaError_t launch_sweep_per(",
+         "\n  __syncthreads();\n  if (threadIdx.x == 0) {\n"
+         "    gains[(long long)l * B] = (float)(lap1 - lap0);\n"
+         "    gains[(long long)l * B + 1] = (float)(clock64() - lap1);\n"
+         "  }\n}\n\ntemplate <class Rule, typename TC, int kPer>\n"
+         "cudaError_t launch_sweep_per("),
+    ], ()),
+    # the product over the whole card, then the windowed walk: the walk's
+    # wide passes and row loop (cycles, then passes and rows) and the rest of it
+    # (state in and out); "product only" and "walk only" drop the other
+    # launch (the walk then reads the block the last launch left)
+    ("walk", ("wide passes", "row loop", "wide pass count",
+              "row loop rows", "prologue and epilogue"), [
+        ("  const long long l = blockIdx.x;\n  W walk;\n",
+         "  const long long l = blockIdx.x;\n  W walk;\n"
+         "  const long long lap0 = clock64();\n"
+         "  long long lw = 0, ln = 0, nw = 0, nn = 0;\n"),
+        ("    if (f < kCloseRows) cur = walk.rows(cur);\n",
+         "    if (f < kCloseRows) {\n      const long long t_ = clock64();\n"
+         "      const int c0_ = cur;\n      cur = walk.rows(cur);\n"
+         "      ln += clock64() - t_;\n      nn += cur - c0_;\n    }\n"),
+        ("    const int f = walk.template pass<kWide>(cur);\n",
+         "    const long long t_ = clock64();\n"
+         "    const int f = walk.template pass<kWide>(cur);\n"
+         "    lw += clock64() - t_;\n    ++nw;\n"),
+        ("    if (c < r) state_out[l * r + c] = walk.s[j];\n  }\n}\n",
+         "    if (c < r) state_out[l * r + c] = walk.s[j];\n  }\n"
+         "  if (threadIdx.x == 0) {\n    gains[l * B] = (float)lw;\n"
+         "    gains[l * B + 1] = (float)ln;\n    gains[l * B + 2] = (float)nw;\n"
+         "    gains[l * B + 3] = (float)nn;\n"
+         "    gains[l * B + 4] = (float)(clock64() - lap0 - lw - ln);\n  }\n}\n"),
+    ], (("product only", [("  switch (per) {\n    REPRO_WALK_CASE(0)",
+                           "  if (per >= 0) return cudaSuccess;\n"
+                           "  switch (per) {\n    REPRO_WALK_CASE(0)")]),
+        ("walk only", [("  if (tiles > 0) {\n", "  if (tiles < 0) {\n")]))),
+)
+
+
+def reference_sweep_laps(tmp: Path, csrc: Path):
+    """(design, lap names, {source: {variant: launch fn}}) for the tree
+    ``csrc``: facility_accept and exemplar_accept built as they are
+    (``shipped``) and with the design's clock64 laps (``laps``)."""
+    text = (csrc / "reference_tile.cuh").read_text()
+    for design, names, patch, others in REFTILE_LAPS:
+        if all(old in text for old, _ in patch):
+            break
+    else:
+        raise RuntimeError(f"{csrc}: no laps patch fits reference_tile.cuh")
+    fns = {}
+    for source in ("facility_accept", "exemplar_accept"):
+        sub = tmp / f"{csrc.name}_{design.replace(' ', '_')}_{source}"
+        sub.mkdir(parents=True)
+        fns[source] = build(sub, source, "reference_tile.cuh",
+                            (("shipped", []), ("laps", patch), *others), csrc)
+    return design, names, fns
+
+
+def probe_reference_sweeps(tmp: Path, trees: dict, g, dev, stream):
+    """Time facility_accept and exemplar_accept of each tree ({label: csrc})
+    at chip_smoke.py's path case (L = 37, B = 128, r = d = 256, f32,
+    quantile taus, budget 3 in every fifth lane) and with tau = -inf and
+    budget B (every eligible row accepted), and print each laps build's
+    cycles per phase (slowest lane and mean) and the accepts per lane."""
+    L, B, R, D = 37, 128, 256, 256
+    lanes = torch.arange(L, device=dev)
+    cand = torch.rand((L, B, D), generator=g, device=dev) ** 2
+    Rm = torch.rand((R, D), generator=g, device=dev)
+    refsq = (Rm * Rm).sum(-1)
+    elig = torch.rand((L, B), generator=g, device=dev) < 0.9
+    states = {"facility_accept": torch.rand((L, R), generator=g, device=dev)
+              * D / 4,
+              "exemplar_accept": refsq * torch.rand((L, R), generator=g,
+                                                    device=dev)}
+    marg = {"facility_accept": ref.facility_marginals,
+            "exemplar_accept": ref.exemplar_marginals}
+    q = torch.linspace(0.05, 0.95, L, device=dev)
+    mask = torch.empty((L, B), dtype=torch.bool, device=dev)
+    st_out = torch.empty((L, R), device=dev)
+    gains = torch.empty((L, B), device=dev)
+    work = torch.empty((L, B, R), device=dev)
+    bmm = cuda_ms(lambda: torch.matmul(cand, Rm.T), 50)
+    print(f"[probe] torch.matmul of the sweeps' product ({L}, {B}, {D}) x "
+          f"({D}, {R}): {bmm} ms", flush=True)
+    for label, csrc in trees.items():
+        design, names, fns = reference_sweep_laps(tmp, csrc)
+        for source, variants in fns.items():
+            state = states[source].contiguous()
+            g0 = marg[source](cand, Rm, state)
+            cases = (("path taus", torch.stack(
+                         [g0[l].quantile(q[l]) for l in range(L)]),
+                      torch.where(lanes % 5 == 0, 3, 64)),
+                     ("tau=-inf", torch.full((L,), float("-inf"),
+                                             device=dev),
+                      torch.full((L,), B)))
+            for case, tau, budget in cases:
+                tau = tau.contiguous()
+                budget = budget.to(device=dev, dtype=torch.int32)
+                extra = ((refsq.data_ptr(),) if source == "exemplar_accept"
+                         else ())
+
+                def call(fn):
+                    return lambda: fn(
+                        cand.data_ptr(), 0, Rm.data_ptr(), *extra,
+                        state.data_ptr(), elig.data_ptr(), tau.data_ptr(),
+                        budget.data_ptr(), None, None, mask.data_ptr(),
+                        st_out.data_ptr(), gains.data_ptr(), work.data_ptr(),
+                        L, B, R, D, 1, stream)
+
+                ms = {v: cuda_ms(call(fn), 50) for v, fn in variants.items()}
+                call(variants["laps"])()  # decides as shipped
+                torch.cuda.synchronize()
+                acc = mask.sum(-1)
+                cyc = gains[:, :len(names)].double()
+                slow = int(cyc.sum(-1).argmax())
+                laps = "; ".join(
+                    f"{who}: " + ", ".join(f"{n} {float(c):.0f}"
+                                           for n, c in zip(names, row))
+                    for who, row in ((f"slowest lane {slow}", cyc[slow]),
+                                     ("mean", cyc.mean(0))))
+                times = ", ".join(f"{v} {t} ms" for v, t in ms.items())
+                if "product only" in variants and case == "path taus":
+                    # 264 CTAs: two on every SM of the card
+                    n = 33
+                    lanes_ms = cuda_ms(lambda: variants["product only"](
+                        cand[:n].data_ptr(), 0, Rm.data_ptr(), *extra,
+                        state.data_ptr(), elig.data_ptr(), tau.data_ptr(),
+                        budget.data_ptr(), None, None, mask.data_ptr(),
+                        st_out.data_ptr(), gains.data_ptr(),
+                        work.data_ptr(), n, B, R, D, 1, stream), 50)
+                    times += f", product only at L={n} {lanes_ms} ms"
+                print(f"[probe] {label} ({design}) {source} x({L}, {B}, {D}) "
+                      f"r={R} {case}: {times}; accepts per lane min "
+                      f"{int(acc.min())} mean {float(acc.float().mean()):.2f}"
+                      f" max {int(acc.max())}; cycles {laps}", flush=True)
+
+
 def main() -> int:
+    if len(sys.argv) > 2 or (len(sys.argv) == 2
+                             and not Path(sys.argv[1]).is_dir()):
+        print(__doc__, file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("tile_probe: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    trees = {"this tree": _build.CSRC}
+    if len(sys.argv) == 2:
+        trees = {"base": Path(sys.argv[1]), **trees}
     N, D, R, L = 1 << 20, 256, 256, 37
     X = torch.rand((N, D), generator=g, device=dev) ** 2
     Xp = torch.rand((L, 128, D), generator=g, device=dev) ** 2
@@ -317,6 +486,7 @@ def main() -> int:
                                   "logdet_accept.cu",
                                   LA_VARIANTS + (("laps", LAPS_PATCH),)),
                             g, dev, stream)
+        probe_reference_sweeps(Path(tmp), trees, g, dev, stream)
         st = (torch.rand((L, R), generator=g, device=dev) * D / 4).contiguous()
         shipped = fns["shipped"]
         samples, stop = [], threading.Event()

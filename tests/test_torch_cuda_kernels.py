@@ -161,14 +161,42 @@ def test_cuda_rectified_residual_sum_matches_plain(cuda_device, mode, L, C, r):
     assert torch.equal(got, tfm.rectified_residual_sum(aux, state))
 
 
+#: the reference sweeps' shapes: the path case, r = 1024, ragged ones, the
+#: walk's window edges (B = 4, 5, 31, 32, 33) and the wide instance
+REFERENCE_SWEEP_SHAPES = [(37, 128, 256, 256), (5, 128, 1024, 64),
+                          (3, 70, 45, 17), (1, 1, 1, 1), (3, 64, 4097, 16),
+                          (2, 40, 8192, 8), (37, 32, 256, 64),
+                          (37, 33, 256, 64), (5, 31, 300, 16),
+                          (4, 5, 45, 17), (3, 4, 2500, 8),
+                          (2, 33, 4097, 8)]
+
+
+def _reference_sweep_rule(g, dev, L, B, tau, rule):
+    """(tau, budget, cost, cost_budget) of a reference sweep's case: the
+    median-derived tau with budgets 1..B ("median"); tau = -inf with the
+    budget B, so every eligible row is accepted ("-inf"); or the median's
+    tau in the knapsack cost mode ("cost": dyadic costs, a budget of 4 in
+    even lanes, so the spend is exact and binds inside the chunk)."""
+    bud = torch.randint(1, B + 1, (L,), generator=g, device=dev,
+                        dtype=torch.int32)
+    if rule == "-inf":
+        return (torch.full((L,), float("-inf"), device=dev),
+                torch.full((L,), B, dtype=torch.int32, device=dev), None,
+                None)
+    cost, cb = _cost_operands(g, dev, L, B,
+                              "cost" if rule == "cost" else "cardinality")
+    return tau, bud, cost, cb
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["median", "-inf", "cost"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L,B,r,d", [(37, 128, 256, 256), (5, 128, 1024, 64),
-                                     (3, 70, 45, 17), (1, 1, 1, 1),
-                                     (3, 64, 4097, 16), (2, 40, 8192, 8)])
-def test_cuda_facility_accept_matches_plain(cuda_device, dtype, L, B, r, d):
+@pytest.mark.parametrize("L,B,r,d", REFERENCE_SWEEP_SHAPES)
+def test_cuda_facility_accept_matches_plain(cuda_device, dtype, L, B, r, d,
+                                            rule):
     """Dyadic inputs (cand (a/8)^2, ref b/8), exact in f32 in any order, so
-    masks, states and gains must be equal."""
+    masks, states and gains must be equal, in both modes and at tau =
+    -inf."""
     g = torch.Generator(device=cuda_device).manual_seed(4)
     cand = ((torch.randint(0, 8, (L, B, d), generator=g, device=cuda_device)
              / 8.0) ** 2).to(dtype)
@@ -178,17 +206,17 @@ def test_cuda_facility_accept_matches_plain(cuda_device, dtype, L, B, r, d):
                           device=cuda_device) / 64.0
     elig = torch.rand((L, B), generator=g, device=cuda_device) < 0.9
     g0 = ref.facility_marginals(cand, R, state)
-    tau = (g0.median(dim=1).values * 0.05).contiguous()
-    bud = torch.randint(1, B + 1, (L,), generator=g, device=cuda_device,
-                        dtype=torch.int32)
+    tau, bud, cost, cb = _reference_sweep_rule(
+        g, cuda_device, L, B, (g0.median(dim=1).values * 0.05).contiguous(),
+        rule)
     before = tfa.launches
-    got = tfa.facility_accept(cand, R, state, elig, tau, bud)
+    got = tfa.facility_accept(cand, R, state, elig, tau, bud, cost, cb)
     torch.cuda.synchronize()
     assert tfa.launches == before + 1
-    want = ref.facility_accept(cand, R, state, elig, tau, bud)
+    want = ref.facility_accept(cand, R, state, elig, tau, bud, cost, cb)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    again = tfa.facility_accept(cand, R, state, elig, tau, bud)
+    again = tfa.facility_accept(cand, R, state, elig, tau, bud, cost, cb)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -686,26 +714,26 @@ def _exemplar_sweep_case(g, dev, L, B, r, d, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["median", "-inf", "cost"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L,B,r,d", [(37, 128, 256, 256), (5, 128, 1024, 64),
-                                     (3, 70, 45, 17), (1, 1, 1, 1),
-                                     (3, 64, 4097, 16), (2, 40, 8192, 8)])
-def test_cuda_exemplar_accept_matches_plain(cuda_device, dtype, L, B, r, d):
+@pytest.mark.parametrize("L,B,r,d", REFERENCE_SWEEP_SHAPES)
+def test_cuda_exemplar_accept_matches_plain(cuda_device, dtype, L, B, r, d,
+                                            rule):
     """Dyadic inputs, exact in f32 in any order: masks, states and gains
-    must be equal."""
+    must be equal, in both modes and at tau = -inf."""
     g = torch.Generator(device=cuda_device).manual_seed(14)
     cand, R, state, elig, tau = _exemplar_sweep_case(g, cuda_device, L, B, r,
                                                      d, dtype)
-    bud = torch.randint(1, B + 1, (L,), generator=g, device=cuda_device,
-                        dtype=torch.int32)
+    tau, bud, cost, cb = _reference_sweep_rule(g, cuda_device, L, B, tau,
+                                               rule)
     before = tea.launches
-    got = tea.exemplar_accept(cand, R, state, elig, tau, bud)
+    got = tea.exemplar_accept(cand, R, state, elig, tau, bud, cost, cb)
     torch.cuda.synchronize()
     assert tea.launches == before + 1
-    want = ref.exemplar_accept(cand, R, state, elig, tau, bud)
+    want = ref.exemplar_accept(cand, R, state, elig, tau, bud, cost, cb)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    again = tea.exemplar_accept(cand, R, state, elig, tau, bud)
+    again = tea.exemplar_accept(cand, R, state, elig, tau, bud, cost, cb)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

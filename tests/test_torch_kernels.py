@@ -263,3 +263,34 @@ def test_launch_count_split_sums_to_the_counts(stubbed_launch):
     assert set(ops.launch_counts().values()) == {0}
     assert all(set(s.values()) == {0}
                for s in ops.shape_launch_counts().values())
+
+
+@pytest.mark.parametrize("name", ["coverage_marginals",
+                                  "saturated_coverage_marginals"])
+def test_filter_launches_split_by_lanes_and_x(stubbed_launch, name):
+    """The "filter" class of coverage_marginals and
+    saturated_coverage_marginals splits by lanes, shared or per-lane x and
+    rows a lane, and the split sums to the class; other classes and a reset
+    leave it empty."""
+    from repro_torch.kernels import saturated_coverage_marginals as tsm
+    d = 8
+    cap = torch.rand(d)
+
+    def launch(x, state):
+        if name == "coverage_marginals":
+            return tcm.coverage_marginals(x, state)
+        return tsm.saturated_coverage_marginals(x, state, cap)
+
+    launch(torch.rand(1000, d), torch.rand(d))          # one lane
+    launch(torch.rand(1000, d), torch.rand(1, d))       # one lane, batched
+    launch(torch.rand(300, d), torch.rand(37, d))       # shared x
+    launch(torch.rand(300, d), torch.rand(37, d))
+    launch(torch.rand(37, 200, d), torch.rand(37, d))   # per-lane x
+    launch(torch.rand(37, 128, d), torch.rand(37, d))   # a chunk
+    split = ops.filter_launch_counts()[name]
+    assert split == {"1 lane, shared x, 1000 rows": 2,
+                     "37 lanes, shared x, 300 rows": 2,
+                     "37 lanes, per-lane x, 200 rows": 1}
+    assert sum(split.values()) == ops.shape_launch_counts()[name]["filter"]
+    ops.reset_launch_counts()
+    assert ops.filter_launch_counts() == {}
