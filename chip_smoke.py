@@ -32,7 +32,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    also timed at tau = -inf, where every eligible row is accepted, and
    coverage_marginals and saturated_coverage_marginals at the shapes of
    their "filter" launches (one lane over the corpus, the gathered sample
-   of 98,560 rows, a lane's 34,048 gathered survivors, a chunk).
+   of 98,560 rows, a lane's 34,048 gathered survivors, a chunk) and at the
+   partition matroid's one row, each launch repeated bitwise; both also
+   run every instance of their lane walk (csrc/lane_rows.cuh: the shared-x
+   warp tiles of 4 x 8, 8 x 4, 16 x 2 and 32 x 1 rows x lanes, one-lane
+   and per-lane tiles of 16, 8 and 1 rows), f32 and bf16, against the plain
+   version and bitwise on a second launch, and the build prints ptxas's
+   registers and spills of every lane walk kernel.
 3. The knapsack cost mode of the seven accept sweeps against their plain
    versions, with budgets that bind inside the chunk in half the lanes;
    then each sweep's wide instance (d = 2049 and 4096 features, r = 4097
@@ -78,6 +84,7 @@ import json
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -107,10 +114,27 @@ SHAPES = ("filter", "chunk", "row")
 #: (kernels.ops.filter_launch_counts), and the shapes they are timed at:
 #: (label, lanes, rows a lane, per-lane x) for one lane over the corpus
 #: (the singleton passes), the gathered sample (shared x), a lane's
-#: gathered survivors (per-lane x) and a chunk
+#: gathered survivors (per-lane x), a chunk and one row (the partition
+#: matroid's row scan)
 FILTER_SPLIT_KERNELS = ("coverage_marginals", "saturated_coverage_marginals")
 FILTER_SHAPES = (("one lane", 1, N, False), ("sample", L, S_ROWS, False),
-                 ("survivors", L, F_ROWS, True), ("chunk", L, B, True))
+                 ("survivors", L, F_ROWS, True), ("chunk", L, B, True),
+                 ("one row", L, 1, True))
+#: the lane walk's (csrc/lane_rows.cuh) instances, each at a shape that
+#: runs it: (label, lanes, rows a lane, per-lane x); a shared-x launch of
+#: L >= 2 lanes over at least 32 rows runs a warp tile of 32 / J rows x J
+#: lanes for each lane group J in the binary digits of L (8s first), any
+#: other launch tiles of R rows of one lane (R = 16 where the tiles fill
+#: the card, else 8, or 1 for fewer than 8 rows)
+WALK_INSTANCES = (("shared 4 rows x 8 lanes", 8, 1000, False),
+                  ("shared 8 rows x 4 lanes", 4, 1000, False),
+                  ("shared 16 rows x 2 lanes", 2, 1000, False),
+                  ("shared 32 rows x 1 lane (L = 9)", 9, 1000, False),
+                  ("one lane, 16-row tiles", 1, N, False),
+                  ("per-lane, 16-row tiles", L, F_ROWS, True),
+                  ("per-lane, 8-row tiles", L, B, True),
+                  ("per-lane, 1-row tiles", L, 7, True),
+                  ("shared, fewer rows than a tile", 9, 31, False))
 
 
 def check(cond, msg):
@@ -525,13 +549,56 @@ def phase_filter_shapes(torch, ref, cm, sm, rows):
                 check(torch.allclose(got if lanes == 1 else got[l], want,
                                      rtol=RTOL, atol=ATOL),
                       f"{name} {label}: lane {l} differs from plain")
+            check(torch.equal(kernel(x, state), got),
+                  f"{name} {label}: a repeated launch differs")
             ms = cuda_ms(lambda: kernel(x, state), 10 if C > B else 50)
             b_ms, b_by = bound_ms(x.numel() * 4 + lanes * D * 4
                                   + lanes * C * 4, 5 * lanes * C * D)
             times[f"{label} ({lanes}, {C}, {D})"] = ms
             print(f"[kernels] {name} {label} x{tuple(x.shape)} L={lanes} "
-                  f"f32: kernel_ms={ms} bound_ms={b_ms} ({b_by})")
+                  f"f32: kernel_ms={ms} bound_ms={b_ms} ({b_by}) "
+                  f"repeat=bitwise")
         rows[name]["filter_shapes_ms"] = times
+        # every instance of the walk, f32 and bf16, weighted and not: within
+        # RTOL/ATOL of the plain version and bit for bit on a second launch
+        for label, lanes, C, per_lane in WALK_INSTANCES:
+            for dtype in (torch.float32, torch.bfloat16):
+                weighted = dtype == torch.bfloat16
+                w = (torch.rand(D, generator=g, device=dev) + 0.5
+                     if weighted else None)
+                x = (Xs[:lanes, :C] if per_lane else X[:C]).contiguous(
+                    ).to(dtype)
+                state = (torch.rand((lanes, D), generator=g, device=dev) * 4
+                         if name == "coverage_marginals"
+                         else frac[torch.randint(0, 5, (lanes, D),
+                                                 generator=g, device=dev)]
+                         * cap)
+                if name == "coverage_marginals":
+                    call = lambda: cm.coverage_marginals(  # noqa: E731
+                        x, state, w)
+                    want = [ref.coverage_marginals(
+                        x[l] if per_lane else x, state[l], w)
+                        for l in range(lanes)]
+                else:
+                    call = lambda: sm.saturated_coverage_marginals(  # noqa: E731
+                        x, state, cap, w)
+                    want = [ref.saturated_coverage_marginals(
+                        x[l] if per_lane else x, state[l], cap, w)
+                        for l in range(lanes)]
+                got = call()
+                torch.cuda.synchronize()
+                err = max((got[l] - want[l]).abs().max().item()
+                          for l in range(lanes))
+                check(all(torch.allclose(got[l], want[l], rtol=RTOL,
+                                         atol=ATOL) for l in range(lanes)),
+                      f"{name} {label} {dtype}: max abs err {err}")
+                check(torch.equal(call(), got),
+                      f"{name} {label} {dtype}: a repeated launch differs")
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                                err)
+            print(f"[kernels] {name} walk instance {label} "
+                  f"x({lanes}, {C}, {D}) f32 and bf16 (weighted): within "
+                  f"rtol/atol {RTOL} of plain, repeat=bitwise")
     del X, Xs
 
 
@@ -1586,7 +1653,9 @@ def drive(torch, tsel, ops, X, label, reference=None, total=None,
     check(value == value and value > 0 and value != float("inf"),
           f"{label}: value {value}")
     nonzero = {k: v for k, v in counts.items() if v and "@" not in k}
-    print(f"[main] {label}: value={value} |S|={size} "
+    # the chosen ids in order, as one checksum, to set a run beside another
+    ids_crc = zlib.crc32(ids.to(torch.int64).numpy().tobytes())
+    print(f"[main] {label}: value={value} |S|={size} ids_crc32={ids_crc} "
           f"n_dropped={int(res.n_dropped)} tau_fallback={int(res.tau_fallback)} "
           f"wall_ms={wall} launches={nonzero}")
     print(sel.round_log.summary())
@@ -1926,19 +1995,27 @@ def phase_marginals_ragged(torch, ref, fm, em):
 
 
 def print_tile_resources(_build):
-    """What ptxas said of the marginals tile's kernels (registers, stack,
-    spills), and their SASS instruction mix where cuobjdump is at hand."""
-    for name in ("facility_marginals", "exemplar_marginals"):
+    """What ptxas said of the marginals tile's kernels and of the lane
+    walk's instances (registers, stack, spills), and the tile's SASS
+    instruction mix where cuobjdump is at hand."""
+    for name, marker in (("coverage_marginals", "lane_rows"),
+                         ("saturated_coverage_marginals", "lane_rows"),
+                         ("weighted_coverage_marginals", "lane_rows"),
+                         ("graph_cut_marginals", "lane_rows"),
+                         ("facility_marginals", "5mtile"),
+                         ("exemplar_marginals", "5mtile")):
         entry, props = None, ""
         for line in _build.ptxas_report(name).splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
             elif "spill" in line:
                 props = line.strip()
-            elif "Used" in line and entry and "5mtile" in entry:
+            elif "Used" in line and entry and marker in entry:
                 print(f"[build] ptxas {name} {entry}: "
                       f"{line.split(':', 1)[1].strip()}; {props}")
                 entry = None
+        if marker != "5mtile":
+            continue
         cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
         if not cuobjdump.exists():
             print("[build] cuobjdump not found: no SASS instruction mix")

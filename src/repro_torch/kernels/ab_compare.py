@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare two builds of the redesigned kernels on one card.
 
-    PYTHONPATH=src python3 -m repro_torch.kernels.ab_compare BASE_CSRC
+    PYTHONPATH=src python3 -m repro_torch.kernels.ab_compare
+        [--only lane_walk] [--log FILE] BASE_CSRC
                     (from the root of a checkout, on a machine with a
                      CUDA card and nvcc)
 
@@ -10,42 +11,56 @@ checkout (for example the parent commit, unpacked with ``git archive``
 into a directory that ``.gitignore`` lists).  The script builds
 facility_marginals.cu, exemplar_marginals.cu, logdet_marginals.cu,
 graph_cut_marginals.cu, weighted_coverage_marginals.cu, logdet_accept.cu,
-facility_accept.cu and exemplar_accept.cu from both trees, in parallel, in
-a temporary directory, and runs both builds on the same inputs at the
-filter shape (L = 37 lanes, C = 2^20 rows, d = r = 256, k_max = 64, f32
-and bf16) and, for the sweeps, at the fused engine's chunk (B = 128):
+facility_accept.cu, exemplar_accept.cu, coverage_marginals.cu and
+saturated_coverage_marginals.cu from both trees (``--only lane_walk``: the
+four kernels of the lane walk), in parallel, in a temporary directory, and
+runs both builds on the same inputs at the filter shape (L = 37 lanes,
+C = 2^20 rows, d = r = 256, k_max = 64, f32 and bf16) and, for the
+sweeps, at the fused engine's chunk (B = 128):
 
 * facility and exemplar marginals, and log-det at the lane sizes
   chip_smoke.py uses (974 of 2368 basis rows live), with all 64 rows live,
   and unbatched at size 0 (the singleton passes): the two builds must give
   the same bits (a log-det build that takes sizes is run with them and
   without them, both must give the base's bits);
-* graph cut: both builds within ``graph_cut_tol`` of the plain version
-  (they may sum in different orders), and the largest difference printed;
-* weighted coverage: the same bits;
+* graph cut and weighted coverage on their skinny tile: the same bits;
 * logdet_accept at chip_smoke.py's path case (lane sizes 0 .. k, every
   third lane at k - 2 with tau = 0 so its appends run into k_max, tau a
   quantile of each lane's first gains from 0.05 to 0.95, budget 3 in
-  every fifth lane), in the cardinality mode and in the knapsack cost mode
-  (costs U[0.5, 2), tau over the mean cost, even lanes' budgets half the
-  unbounded spend): mask, basis, logdet, size and gains, the same bits;
+  every fifth lane), in the cardinality mode and in the knapsack cost
+  mode (costs U[0.5, 2), tau over the mean cost, even lanes' budgets half
+  the unbounded spend): mask, basis, logdet, size and gains, the same
+  bits;
 * facility_accept and exemplar_accept at chip_smoke.py's path case, at
   r = 1024, 4097 and 8192 (the wide instance) and at chip_smoke.py's odd
   shapes, f32 and bf16, with chip_smoke.py's taus, in the knapsack cost
   mode and at tau = -inf: mask, state and gains the same bits (a
-  difference raises).
+  difference raises);
+* the lane walk (csrc/lane_rows.cuh): coverage and saturated coverage
+  marginals at every main-path shape (the corpus filter, the sample, one
+  lane, the survivors, a chunk, the partition matroid's one row) and at
+  every combination of d = 3, 45, 257, 2049, C = 1, 31, 33 and L = 1, 2,
+  9, 130, both x modes, f32 and bf16, with weights and without, saturated
+  states straddling the cap; weighted coverage and graph cut on the same
+  shapes where they take the walk (one lane, per-lane x): the same bits,
+  a repeated launch the same bits again (a difference raises); and
+  lane_rows::sqrt_rn against sqrtf on all 2^32 floats (a difference
+  raises).  ``--log FILE`` sends every case's line there, and stdout
+  keeps the main shapes, the odd shapes where the new build was slower
+  and a count.
 
 Each case is timed in turns, base, new, new, base (CUDA events over
 back-to-back launches), so the two builds meet the same clock and power
 state.  Where cuobjdump is at hand it also says whether the two builds of
-the facility and exemplar tile kernels, and of graph cut's skinny tile
-kernels (compared by body: the tile moved into a header, so their names
-differ), compiled to the same SASS.  Last it prints the card's name and
-power limit.  Imports nothing of JAX.
+the facility and exemplar tile kernels, and of the skinny tile kernels of
+graph cut and weighted coverage (compared by body), compiled to the same
+SASS.  Last it prints the card's name and power limit.  Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import shutil
 import subprocess
@@ -60,20 +75,21 @@ from repro_torch.kernels.tile_probe import cuda_ms, smi
 
 NAMES = ("facility_marginals", "exemplar_marginals", "logdet_marginals",
          "graph_cut_marginals", "weighted_coverage_marginals",
-         "logdet_accept", "facility_accept", "exemplar_accept")
+         "logdet_accept", "facility_accept", "exemplar_accept",
+         "coverage_marginals", "saturated_coverage_marginals")
 #: the log-det entry point before it took sizes: no ``size`` pointer
 LOGDET_NO_SIZE = tuple(a for i, a in enumerate(
     _build.SIGNATURES["logdet_marginals"]["logdet_marginals_launch"])
     if i != 4)
 
 
-def build(tmp: Path, trees: dict) -> dict:
+def build(tmp: Path, trees: dict, names=NAMES) -> dict:
     """{(tree, name): the loaded library}, every nvcc started at once."""
     procs = {}
     for tree, csrc in trees.items():
         src = tmp / tree
         shutil.copytree(csrc, src)
-        for name in NAMES:
+        for name in names:
             cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
                    str(src / f"lib{name}.so"), str(src / f"{name}.cu")]
             procs[tree, name] = subprocess.Popen(
@@ -97,14 +113,19 @@ def build(tmp: Path, trees: dict) -> dict:
 
 
 def tile_sass(lib_path: Path, marker: str) -> dict:
-    """{kernel name: its SASS body} of the kernels of a library whose
-    mangled name holds ``marker`` (empty without cuobjdump)."""
+    """{kernel name: its SASS body, one line an instruction or encoding
+    with cuobjdump's column padding dropped} of the kernels of a library
+    whose mangled name holds ``marker`` (empty without cuobjdump).  The
+    padding follows the longest instruction anywhere in the library, so it
+    moves when another kernel of the library changes."""
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     if not cuobjdump.exists():
         return {}
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True).stdout
-    return {fn.split(None, 1)[0]: fn.split("\n", 1)[1]
+    return {fn.split(None, 1)[0]: "\n".join(
+                " ".join(line.split())
+                for line in fn.split("\n", 1)[1].splitlines())
             for fn in sass.split("Function : ")[1:]
             if marker in fn.split(None, 1)[0]}
 
@@ -116,7 +137,15 @@ def lane_sizes(L, k, dev):
 
 
 def main() -> int:
-    if len(sys.argv) != 2 or not Path(sys.argv[1]).is_dir():
+    args, only, log_path = sys.argv[1:], None, None
+    while args[:1] in (["--only"], ["--log"]) and len(args) >= 2:
+        if args[0] == "--only":
+            only = args[1]
+        else:
+            log_path = args[1]
+        args = args[2:]
+    if len(args) != 1 or not Path(args[0]).is_dir() or \
+            only not in (None, "lane_walk"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -125,6 +154,46 @@ def main() -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build(Path(tmp), {"base": Path(args[0]), "new": _build.CSRC},
+                     LANE_WALK_KERNELS if only else NAMES)
+        for name, marker in (("facility_marginals", "5mtile"),
+                             ("exemplar_marginals", "5mtile"),
+                             ("graph_cut_marginals", "lanes_tile_kernel"),
+                             ("weighted_coverage_marginals",
+                              "lanes_tile_kernel")):
+            if (("base", name)) not in libs:
+                continue
+            base, new = (tile_sass(Path(tmp) / tree / f"lib{name}.so", marker)
+                         for tree in ("base", "new"))
+            if base:
+                moved = sum(a != b for x, y in zip(sorted(base.values()),
+                                                   sorted(new.values()))
+                            for a, b in zip(x.splitlines(), y.splitlines()))
+                print(f"[ab] {name}: {len(base)} tile kernels, SASS of the "
+                      f"two builds identical: "
+                      f"{sorted(base.values()) == sorted(new.values())} "
+                      f"({moved} lines differ)", flush=True)
+        bad = check_roots(Path(tmp) / "new", dev)
+        print(f"[ab] lane walk: sqrt_rn against sqrtf on all 2^32 floats: "
+              f"{bad} differ", flush=True)
+        check_same(bad == 0, "lane walk: sqrt_rn is not sqrtf")
+        if only is None:
+            compare_marginals(libs, g, dev, stream)
+            compare_logdet_accept(libs, g, dev, stream)
+            compare_reference_sweeps(libs, g, dev, stream)
+        with (open(log_path, "w") if log_path
+              else contextlib.nullcontext(sys.stdout)) as log:
+            differ = compare_lane_walk(libs, g, dev, stream, log)
+    print(smi("name,power.limit"))
+    check_same(not differ, "lane walk: " + "; ".join(differ))
+    return 0
+
+
+def compare_marginals(libs, g, dev, stream):
+    """Both builds of the tiled marginals at the filter shape (and log-det
+    at its lane sizes, full and unbatched at size 0), f32 and bf16: the
+    same bits, timed in turns."""
     N, D, R, L, K = 1 << 20, 256, 256, 37, 64
     X32 = torch.rand((N, D), generator=g, device=dev) ** 2
     Rm = torch.rand((R, D), generator=g, device=dev)
@@ -142,107 +211,231 @@ def main() -> int:
     st_fl = (torch.rand((L, R), generator=g, device=dev) * D / 4).contiguous()
     st_ex = (refsq * torch.rand((L, R), generator=g, device=dev)).contiguous()
     st_wc = torch.rand((L, D), generator=g, device=dev) * 2
-    with tempfile.TemporaryDirectory() as tmp:
-        libs = build(Path(tmp), {"base": Path(sys.argv[1]),
-                                 "new": _build.CSRC})
-        for name, marker in (("facility_marginals", "5mtile"),
-                             ("exemplar_marginals", "5mtile"),
-                             ("graph_cut_marginals", "lanes_tile_kernel")):
-            base, new = (tile_sass(Path(tmp) / tree / f"lib{name}.so", marker)
-                         for tree in ("base", "new"))
-            if base:
-                print(f"[ab] {name}: {len(base)} tile kernels, SASS of the "
-                      f"two builds identical: "
-                      f"{sorted(base.values()) == sorted(new.values())}",
-                      flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        X = X32.to(dtype)
+        bf = int(dtype == torch.bfloat16)
+        tag = str(dtype)[6:]
+
+        def fl(tree):
+            return lambda: libs[tree, "facility_marginals"].\
+                facility_marginals_launch(
+                    X.data_ptr(), bf, 0, Rm.data_ptr(), st_fl.data_ptr(),
+                    out.data_ptr(), L, N, R, D, stream)
+
+        def ex(tree):
+            return lambda: libs[tree, "exemplar_marginals"].\
+                exemplar_marginals_launch(
+                    X.data_ptr(), bf, 0, Rm.data_ptr(), refsq.data_ptr(),
+                    st_ex.data_ptr(), out.data_ptr(), L, N, R, D, stream)
+
+        def ld(tree, U, size, use_size=True):
+            fn = libs[tree, "logdet_marginals"].logdet_marginals_launch
+            lanes = U.shape[0] if U.dim() == 3 else 1
+            head = (X.data_ptr(), bf, 0, U.data_ptr())
+            tail = (out.data_ptr(), lanes, K, N, D, 1.0, 1.0, 1.0, 1e-12,
+                    stream)
+            if fn.sized:
+                sp = size.data_ptr() if use_size else None
+                return lambda: fn(*head, sp, *tail)
+            return lambda: fn(*head, *tail)
+
+        def gc(tree):
+            return lambda: libs[tree, "graph_cut_marginals"].\
+                graph_cut_marginals_launch(
+                    X.data_ptr(), bf, 0, st_gc.data_ptr(), t.data_ptr(),
+                    0.5, out.data_ptr(), L, N, D, stream)
+
+        def wc(tree):
+            return lambda: libs[tree, "weighted_coverage_marginals"].\
+                weighted_coverage_marginals_launch(
+                    X.data_ptr(), bf, 0, st_wc.data_ptr(), out.data_ptr(),
+                    L, N, D, stream)
+
+        cases = (("facility_marginals", fl("base"), fl("new"), (), 10),
+                 ("exemplar_marginals", ex("base"), ex("new"), (), 10),
+                 ("logdet_marginals lane sizes",
+                  ld("base", U_lanes, sz_lanes),
+                  ld("new", U_lanes, sz_lanes),
+                  (ld("new", U_lanes, sz_lanes, False),), 5),
+                 ("logdet_marginals full", ld("base", U_full, sz_full),
+                  ld("new", U_full, sz_full),
+                  (ld("new", U_full, sz_full, False),), 3),
+                 ("logdet_marginals unbatched size 0",
+                  ld("base", U_empty, sz_empty),
+                  ld("new", U_empty, sz_empty),
+                  (ld("new", U_empty, sz_empty, False),), 10),
+                 ("graph_cut_marginals", gc("base"), gc("new"), (), 10),
+                 ("weighted_coverage_marginals", wc("base"), wc("new"),
+                  (), 10))
+        for label, base, new, others, iters in cases:
+            results = []
+            for fn in (base, new, *others):
+                out.fill_(float("nan"))
+                check(fn())
+                torch.cuda.synchronize()
+                results.append(out.clone())
+            rows_ = 1 if "unbatched" in label else L
+            same = "bits equal to base: " + " ".join(
+                str(torch.equal(r[:rows_], results[0][:rows_]))
+                for r in results[1:])
+            times = [cuda_ms(fn, iters) for fn in (base, new, new, base)]
+            print(f"[ab] {label} {tag}: {same}; ms base {times[0]} new "
+                  f"{times[1]} new {times[2]} base {times[3]}",
+                  flush=True)
+
+
+#: the lane walk's (lane_rows.cuh) main-path launches: (label, L, C, d,
+#: per-lane x): the corpus filter, chip_smoke.py's FILTER_SHAPES and the
+#: partition matroid's one-row scan
+LANE_WALK_MAIN = (("filter", 37, 1 << 20, 256, False),
+                  ("sample", 37, 98_560, 256, False),
+                  ("one lane", 1, 1 << 20, 256, False),
+                  ("survivors", 37, 34_048, 256, True),
+                  ("chunk", 37, 128, 256, True),
+                  ("one row", 37, 1, 256, True))
+#: the odd shapes, every combination of these, both x modes
+LANE_WALK_ODD = {"d": (3, 45, 257, 2049), "C": (1, 31, 33),
+                 "L": (1, 2, 9, 130)}
+#: the kernels that run the lane walk: coverage and saturated coverage on
+#: every route, weighted coverage and graph cut on the walk's routes (one
+#: lane, per-lane x)
+LANE_WALK_KERNELS = ("coverage_marginals", "saturated_coverage_marginals",
+                     "weighted_coverage_marginals", "graph_cut_marginals")
+
+
+def compare_lane_walk(libs, g, dev, stream, log):
+    """Both builds of the lane walk's kernels at LANE_WALK_MAIN and every
+    odd shape of LANE_WALK_ODD, f32 and bf16, coverage and saturated
+    coverage with weights and without (saturated states straddle the cap:
+    0, below it, at it, above it): the same bits, and a repeated launch of
+    the new build the same bits again; each case timed in turns.  Lines go
+    to ``log`` (a file, or stdout); stdout gets the main shapes, every odd
+    shape where the new build is slower, and a count.  Returns the cases
+    that differ."""
+    cases = [(label, L, C, d, per) for label, L, C, d, per in LANE_WALK_MAIN]
+    for d in LANE_WALK_ODD["d"]:
+        for C in LANE_WALK_ODD["C"]:
+            for L in LANE_WALK_ODD["L"]:
+                for per in (False, True):
+                    cases.append(("odd", L, C, d, per))
+    frac = torch.tensor([0.0, 0.5, 0.9, 1.0, 1.5], device=dev)
+    big = {}
+    differ, slower, n = [], [], 0
+    for label, L, C, d, per in cases:
+        x_shape = (L, C, d) if per else (C, d)
+        key = (x_shape, d)
+        if label != "odd":
+            if key not in big:
+                big.clear()
+                big[key] = torch.rand(x_shape, generator=g, device=dev) ** 2
+            x32 = big[key]
+        else:
+            x32 = torch.rand(x_shape, generator=g, device=dev) ** 2
         for dtype in (torch.float32, torch.bfloat16):
-            X = X32.to(dtype)
+            x = x32.to(dtype)
             bf = int(dtype == torch.bfloat16)
-            tag = str(dtype)[6:]
+            for name in LANE_WALK_KERNELS:
+                lane_route = per or L == 1
+                if name in LANE_WALK_KERNELS[2:] and not lane_route:
+                    continue
+                for weighted in ((False, True) if name in
+                                 LANE_WALK_KERNELS[:2] else (False,)):
+                    w = (torch.rand(d, generator=g, device=dev) + 0.5
+                         if weighted else None)
+                    if name == "coverage_marginals":
+                        st = torch.rand((L, d), generator=g, device=dev) * 4
+                        st[:, ::7] = 0.0
+                        ops = (_wrap.ptr(w),)
+                    elif name == "saturated_coverage_marginals":
+                        cap = torch.rand(d, generator=g, device=dev) * 2 + 0.25
+                        st = frac[torch.randint(0, 5, (L, d), generator=g,
+                                                device=dev)] * cap
+                        ops = (cap.data_ptr(), _wrap.ptr(w))
+                    elif name == "weighted_coverage_marginals":
+                        st = torch.rand((L, d), generator=g, device=dev) * 2
+                        ops = ()
+                    else:
+                        t = torch.rand(d, generator=g, device=dev) * C / 3
+                        st = (t * torch.rand((L, 1), generator=g, device=dev)
+                              * 1.2)
+                        ops = (t.data_ptr(), 0.5)
+                    st = st.contiguous()
+                    outs = {tree: torch.full((L, C), float("nan"), device=dev)
+                            for tree in ("base", "new", "again")}
 
-            def fl(tree):
-                return lambda: libs[tree, "facility_marginals"].\
-                    facility_marginals_launch(
-                        X.data_ptr(), bf, 0, Rm.data_ptr(), st_fl.data_ptr(),
-                        out.data_ptr(), L, N, R, D, stream)
+                    def walk(tree, into):
+                        fn = getattr(libs[tree, name], f"{name}_launch")
+                        o = outs[into]
+                        return lambda: fn(x.data_ptr(), bf, int(per),
+                                          st.data_ptr(), *ops, o.data_ptr(),
+                                          L, C, d, stream)
 
-            def ex(tree):
-                return lambda: libs[tree, "exemplar_marginals"].\
-                    exemplar_marginals_launch(
-                        X.data_ptr(), bf, 0, Rm.data_ptr(), refsq.data_ptr(),
-                        st_ex.data_ptr(), out.data_ptr(), L, N, R, D, stream)
-
-            def ld(tree, U, size, use_size=True):
-                fn = libs[tree, "logdet_marginals"].logdet_marginals_launch
-                lanes = U.shape[0] if U.dim() == 3 else 1
-                head = (X.data_ptr(), bf, 0, U.data_ptr())
-                tail = (out.data_ptr(), lanes, K, N, D, 1.0, 1.0, 1.0, 1e-12,
-                        stream)
-                if fn.sized:
-                    sp = size.data_ptr() if use_size else None
-                    return lambda: fn(*head, sp, *tail)
-                return lambda: fn(*head, *tail)
-
-            def gc(tree):
-                return lambda: libs[tree, "graph_cut_marginals"].\
-                    graph_cut_marginals_launch(
-                        X.data_ptr(), bf, 0, st_gc.data_ptr(), t.data_ptr(),
-                        0.5, out.data_ptr(), L, N, D, stream)
-
-            def wc(tree):
-                return lambda: libs[tree, "weighted_coverage_marginals"].\
-                    weighted_coverage_marginals_launch(
-                        X.data_ptr(), bf, 0, st_wc.data_ptr(), out.data_ptr(),
-                        L, N, D, stream)
-
-            cases = (("facility_marginals", fl("base"), fl("new"), (), 10),
-                     ("exemplar_marginals", ex("base"), ex("new"), (), 10),
-                     ("logdet_marginals lane sizes",
-                      ld("base", U_lanes, sz_lanes),
-                      ld("new", U_lanes, sz_lanes),
-                      (ld("new", U_lanes, sz_lanes, False),), 5),
-                     ("logdet_marginals full", ld("base", U_full, sz_full),
-                      ld("new", U_full, sz_full),
-                      (ld("new", U_full, sz_full, False),), 3),
-                     ("logdet_marginals unbatched size 0",
-                      ld("base", U_empty, sz_empty),
-                      ld("new", U_empty, sz_empty),
-                      (ld("new", U_empty, sz_empty, False),), 10),
-                     ("graph_cut_marginals", gc("base"), gc("new"), (), 10),
-                     ("weighted_coverage_marginals", wc("base"), wc("new"),
-                      (), 10))
-            for label, base, new, others, iters in cases:
-                results = []
-                for fn in (base, new, *others):
-                    out.fill_(float("nan"))
-                    check(fn())
+                    base, new = walk("base", "base"), walk("new", "new")
+                    for fn in (base, new, walk("new", "again")):
+                        check(fn())
                     torch.cuda.synchronize()
-                    results.append(out.clone())
-                if label.startswith("graph_cut"):
-                    want = ref.graph_cut_marginals(X, t, st_gc, 0.5)
-                    coef = t - st_gc
-                    tol = 2.0 * (D + 2) * 2.0 ** -24 * (
-                        X.float().abs() @ coef.abs().T + 0.5 * (
-                            X.float() ** 2).sum(-1, keepdim=True)).T
-                    same = " ".join(
-                        f"{tree} within tol {bool(((r - want).abs() <= tol).all())}"
-                        for tree, r in zip(("base", "new"), results))
-                    same += (f"; max |new - base| "
-                             f"{(results[1] - results[0]).abs().max().item()}")
-                    del want, tol
-                else:
-                    rows_ = 1 if "unbatched" in label else L
-                    same = "bits equal to base: " + " ".join(
-                        str(torch.equal(r[:rows_], results[0][:rows_]))
-                        for r in results[1:])
-                times = [cuda_ms(fn, iters) for fn in (base, new, new, base)]
-                print(f"[ab] {label} {tag}: {same}; ms base {times[0]} new "
-                      f"{times[1]} new {times[2]} base {times[3]}",
-                      flush=True)
-        compare_logdet_accept(libs, g, dev, stream)
-        compare_reference_sweeps(libs, g, dev, stream)
-    print(smi("name,power.limit"))
-    return 0
+                    same = (torch.equal(outs["base"], outs["new"])
+                            and torch.equal(outs["new"], outs["again"]))
+                    n += 1
+                    iters = 10 if L * C * d >= 1 << 28 else 50
+                    times = [cuda_ms(fn, iters) for fn in (base, new, new,
+                                                           base)]
+                    what = (f"{name} {label} x{tuple(x_shape)} L={L} "
+                            f"{str(dtype)[6:]} weighted={weighted}")
+                    line = (f"[ab] {what}: bits equal to base and repeat "
+                            f"bitwise: {same}; ms base {times[0]} new "
+                            f"{times[1]} new {times[2]} base {times[3]}")
+                    print(line, file=log, flush=True)
+                    is_slower = min(times[1:3]) > max(times[0], times[3])
+                    if log is not sys.stdout and (label != "odd"
+                                                  or is_slower or not same):
+                        print(line, flush=True)
+                    if not same:
+                        differ.append(what)
+                    if is_slower:
+                        slower.append(what)
+    print(f"[ab] lane walk: {n} cases, {n - len(differ)} bit for bit the "
+          f"base build (repeat bitwise), {len(slower)} where the new build "
+          f"was slower in both turns", flush=True)
+    return differ
+
+
+#: a kernel that holds lane_rows::sqrt_rn against sqrtf on every float
+ROOTS_CHECK = r"""
+#include "lane_rows.cuh"
+__global__ void roots_check(unsigned long long* bad) {
+  unsigned long long n = 0;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x
+           + threadIdx.x; i < (1ull << 32);
+       i += (unsigned long long)gridDim.x * blockDim.x) {
+    float q[1] = {__uint_as_float((unsigned)i)};
+    const float want = sqrtf(q[0]);
+    lane_rows::sqrt_rn<1>(q);
+    n += __float_as_uint(q[0]) != __float_as_uint(want);
+  }
+  atomicAdd(bad, n);
+}
+extern "C" int roots_check_launch(void* bad) {
+  roots_check<<<4096, 256>>>(static_cast<unsigned long long*>(bad));
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def check_roots(csrc: Path, dev) -> int:
+    """Build ROOTS_CHECK against the lane walk in ``csrc`` and run it over
+    all 2^32 bit patterns: the floats where sqrt_rn and sqrtf differ."""
+    src = csrc / "roots_check.cu"
+    src.write_text(ROOTS_CHECK)
+    lib = csrc / "libroots_check.so"
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).roots_check_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    check(fn(bad.data_ptr()))
+    torch.cuda.synchronize()
+    return int(bad.item())
 
 
 def lane_taus(gains):

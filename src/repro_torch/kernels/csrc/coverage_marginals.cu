@@ -9,20 +9,26 @@
 // or one (C, d) block per lane, (L, C, d) (the lazy chunks, phase 2).
 //
 // What bounds it on the H100: at the full-width filter shape (L = 37,
-// C = 1,048,576, d = 256, f32 x) the kernel reads 1 GiB of x once and does
-// L*C*d ~ 9.9e9 IEEE square roots.  1 GiB at 3.35 TB/s is 0.32 ms; the
-// square roots (plus an add, a subtract, a multiply and an add each) are
-// ~5e10 operations, 0.74 ms at 67 TFLOP/s of f32, and more in practice
-// because a correctly rounded sqrtf is an SFU reciprocal square root plus
-// a Newton step.  So it is bound by operations, not bytes.
+// C = 1,048,576, d = 256, f32 x) the kernel reads 1 GiB of x once (0.32 ms
+// at 3.35 TB/s) and forms L*C*d ~ 9.93e9 terms.  Counted as the bound of
+// the kernel table counts them (an add, a square root, a subtract, a
+// multiply and an add a term: ~5e10 operations over 67 TFLOP/s of f32),
+// that is 0.74 ms.  The card's real floor is higher.  A correctly rounded
+// sqrtf is one SFU reciprocal square root (MUFU.RSQ, 16 a clock an SM) plus
+// a Newton step of four FP32 instructions: 9.93e9 MUFU at 132 SMs x 16 x
+// 1.98 GHz is 2.38 ms, and the nine instructions a term issue in no less
+// than 9 x 9.93e9 / (132 x 128 x 1.98e9) = 2.67 ms.  So it is bound by
+// instruction issue and the SFU, not by bytes.
 //
-// What the design does about it: the lane-blocked row walk of lane_rows.cuh
-// with the rules::Coverage term.  sqrt(s) is computed once per lane and
-// feature per CTA (into shared memory), not once per row, so each (lane,
-// row, feature) costs exactly one square root, the minimum the formula
-// needs; a shared x row is read from device memory once per block of up to
-// 8 lanes.  No --use_fast_math: parity with the plain version needs IEEE
-// sqrtf.
+// What the design does about it: the register tile of lane_rows.cuh with
+// the rules::Coverage term.  sqrt(s) is computed once per lane and feature
+// per CTA (into shared memory), not once per row, so each (lane, row,
+// feature) costs exactly one square root, the minimum the formula needs.
+// A warp tile's 32 roots share one range test and branch
+// (lane_rows::sqrt_rn), where sqrtf has one a root with two convergence
+// barriers, and a thread's (s, pre) pair and x value are each loaded once
+// for 4 to 8 terms.  No --use_fast_math: parity with the plain version
+// needs IEEE sqrtf.
 #include "lane_rows.cuh"
 
 extern "C" int coverage_marginals_launch(const void* x, int x_is_bf16,

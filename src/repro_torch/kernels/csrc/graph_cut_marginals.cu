@@ -32,9 +32,9 @@
 //    staged slices, gains stored straight from registers (the header says
 //    how).  weighted_coverage_marginals.cu runs the same tile with its own
 //    coefficient rows and no norm term.
-//  * Per-lane x, or one lane: the lane-blocked row walk of lane_rows.cuh
-//    with rules::GraphCut (pre = t - 2 lam s once per lane and feature),
-//    one warp per row streaming x once.
+//  * Per-lane x, or one lane: the lane walk of lane_rows.cuh with
+//    rules::GraphCut (pre = t - 2 lam s once per lane and feature), a warp
+//    tile of 16, 8 or 1 rows of one lane streaming x once.
 //
 // Numbers it keeps: every sum is one fixed-order fmaf chain over features
 // 0 .. d - 1 (the projection per (row, lane), ||x_i||^2 per row), with no

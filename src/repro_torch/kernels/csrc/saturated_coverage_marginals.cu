@@ -13,15 +13,17 @@
 // What bounds it on the H100: at the full-width filter shape (L = 37,
 // C = 1,048,576, d = 256, f32 x) it reads 1 GiB of x once (0.32 ms at
 // 3.35 TB/s) and does an add, a min, a subtract and a multiply-add per
-// (lane, row, feature), 5 operations counted as coverage's are:
-// ~5e10 operations, 0.74 ms at 67 TFLOP/s of f32.  Bound by operations.
+// (lane, row, feature), 5 operations counted as coverage's are: ~5e10
+// operations, 0.74 ms at 67 TFLOP/s of f32.  Those are four FP32
+// instructions a term, so the issue floor is 4 x 9.93e9 / (132 x 128 x
+// 1.98e9) = 1.19 ms; the walk's loads and reductions come on top.
 //
-// What the design does about it: the lane-blocked row walk of lane_rows.cuh
-// with the rules::SaturatedCoverage term.  min(s, cap) is computed once per
-// lane and feature per CTA into shared memory, in place of coverage's
-// sqrt(s), so each (lane, row, feature) costs the four instructions the
-// formula needs; a shared x row is read from device memory once per block
-// of up to 8 lanes.  Padding is never materialised: the walk masks d and C.
+// What the design does about it: the register tile of lane_rows.cuh with
+// the rules::SaturatedCoverage term.  min(s, cap) is computed once per lane
+// and feature per CTA into shared memory, in place of coverage's sqrt(s),
+// so each (lane, row, feature) costs the four instructions the formula
+// needs, and a thread's (s, pre) pair and x value are each loaded once for
+// 4 to 8 terms.  Padding is never materialised: the walk masks d and C.
 #include "lane_rows.cuh"
 
 extern "C" int saturated_coverage_marginals_launch(

@@ -29,9 +29,9 @@
 //    registers, and the sums are the gains.  Every sum is one fmaf chain
 //    over u = 0..U-1 from 0, as the first port's was, so a repeated launch
 //    gives the same bits and the gains keep the first port's bits.
-//  * Per-lane x, or one lane: the lane-blocked row walk of lane_rows.cuh
-//    with the rules::WeightedCoverage term, one warp per row streaming x
-//    once.
+//  * Per-lane x, or one lane: the lane walk of lane_rows.cuh with the
+//    rules::WeightedCoverage term, a warp tile of 16, 8 or 1 rows of one
+//    lane streaming x once.
 #include "lane_rows.cuh"
 #include "skinny_tile.cuh"
 

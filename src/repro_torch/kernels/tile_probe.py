@@ -2,11 +2,16 @@
 """What holds back the tiled kernels on a card: the facility / exemplar /
 log-det product of csrc/marginals_tile.cuh, the skinny tile of graph cut
 and weighted coverage (csrc/skinny_tile.cuh), the log-det accept sweep's
-narrow instance, and the facility and exemplar accept sweeps.
+narrow instance, the facility and exemplar accept sweeps, and the lane
+walk of coverage and saturated coverage (csrc/lane_rows.cuh).
 
-    PYTHONPATH=src python3 -m repro_torch.kernels.tile_probe [OTHER_CSRC]
+    PYTHONPATH=src python3 -m repro_torch.kernels.tile_probe
+        [--only lane_walk] [--sass-dir DIR] [OTHER_CSRC]
                     (from the root of a checkout, on a machine with a
                      CUDA card and nvcc)
+
+``--only lane_walk`` runs the lane walk's probe alone; ``--sass-dir``
+writes the lane walk kernels' SASS there.
 
 Builds facility_marginals.cu three times from patched copies of the
 kernel sources, in a temporary directory:
@@ -56,7 +61,16 @@ laps of their phases (REFTILE_LAPS: the patch whose anchors the tree's
 reference_tile.cuh holds) and, for the product-and-walk design, with
 either launch alone (the product also at 33 lanes, two CTAs an SM); it times each at chip_smoke.py's path case and at tau = -inf
 with the budget B, and prints the laps of the slowest lane and their
-mean and the accepts per lane.  Last it runs the shipped facility kernel
+mean and the accepts per lane.  Then it builds coverage_marginals.cu and
+saturated_coverage_marginals.cu of each tree as they are (``shipped``),
+with coverage's term without its square root (``no_sqrt``), with the term
+x alone (``x_only``: the walk's loads, loop and reductions) and with
+clock64 laps (LANE_ROWS_LAPS, by the design the tree's lane_rows.cuh
+holds: staging cycles a CTA, term-loop and reduction cycles of each warp
+tile or row), prints ptxas's registers and spills and the SASS mix of the
+walk's kernels, and times each at LANE_WALK_SHAPES (the corpus filter, the
+sample, one lane, the survivors, a chunk, one row; f32).  Last it runs the
+shipped facility kernel
 at the filter shape for three seconds while sampling the SM clock, power
 draw and throttle reasons with nvidia-smi, and prints the card's name and
 power limit.  Imports nothing of JAX.
@@ -116,23 +130,29 @@ LA_VARIANTS = (
 )
 
 
-def build(tmp: Path, source: str, patched: str, variants,
-          csrc: Path = _build.CSRC) -> dict:
+def build(tmp: Path, source: str, patched, variants,
+          csrc: Path = _build.CSRC, logs: dict | None = None) -> dict:
     """{variant: its ``source``_launch}, each built from a copy of the
-    sources of ``csrc`` with ``patched`` patched, all in parallel."""
+    sources of ``csrc`` with the file ``patched`` (or each (text,
+    replacement) applied to the one of a tuple of files that holds the
+    text) patched, all in parallel.  ``logs``, when given, receives each
+    variant's ``ptxas -v`` report; the loaded library is the launch
+    function's ``lib``."""
+    files = (patched,) if isinstance(patched, str) else tuple(patched)
     procs = {}
     for name, patch in variants:
         src = tmp / f"{source}_{name}"
         shutil.copytree(csrc, src)
-        target = src / patched
-        text = target.read_text()
+        texts = {f: (src / f).read_text() for f in files}
         for old, new in patch:
-            if old not in text:
-                raise RuntimeError(f"{name}: {patched} no longer has "
-                                   f"{old!r}")
-            text = text.replace(old, new)
-        target.write_text(text)
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+            holders = [f for f in files if old in texts[f]]
+            if not holders:
+                raise RuntimeError(f"{name}: {', '.join(files)} no longer "
+                                   f"has {old!r}")
+            texts[holders[0]] = texts[holders[0]].replace(old, new)
+        for f, text in texts.items():
+            (src / f).write_text(text)
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
                str(src / "lib.so"), str(src / f"{source}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
@@ -142,9 +162,12 @@ def build(tmp: Path, source: str, patched: str, variants,
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name} failed:\n{log}")
+        if logs is not None:
+            logs[name] = log
         lib = ctypes.CDLL(str(tmp / f"{source}_{name}" / "lib.so"))
         fn = getattr(lib, f"{source}_launch")
         fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        fn.lib = lib
         fns[name] = fn
     return fns
 
@@ -421,9 +444,298 @@ def probe_reference_sweeps(tmp: Path, trees: dict, g, dev, stream):
                       f" max {int(acc.max())}; cycles {laps}", flush=True)
 
 
+#: clock64 laps of the lane walk (lane_rows.cuh), the walk of
+#: coverage_marginals.cu and saturated_coverage_marginals.cu: (design, lap
+#: names, [(text, replacement)]) for each design of the walk; the probe
+#: takes the patch whose anchors the tree's lane_rows.cuh holds.  Thread 0
+#: of each CTA adds its staging cycles and a count of CTAs, lane 0 of each
+#: warp its term-loop and reduction cycles and its count of rows (row walk)
+#: or of 32-output tiles (register tile), into ``lane_rows::laps`` with
+#: atomics; the laps build exports ``lane_rows_laps(dst, reset)``, which
+#: copies the five sums out and, when ``reset``, clears them.
+LANE_LAPS_GETTER = (
+    "}  // namespace lane_rows\n",
+    "}  // namespace lane_rows\n\n"
+    "extern \"C\" int lane_rows_laps(unsigned long long* dst, int reset) {\n"
+    "  cudaError_t e = cudaMemcpyFromSymbol(dst, lane_rows::laps,\n"
+    "                                       sizeof(lane_rows::laps));\n"
+    "  if (e == cudaSuccess && reset) {\n"
+    "    unsigned long long z[5] = {0, 0, 0, 0, 0};\n"
+    "    e = cudaMemcpyToSymbol(lane_rows::laps, z, sizeof(z));\n"
+    "  }\n  return (int)e;\n}\n")
+#: the register tile's CTA-end: its shared lap sums into ``laps``
+LAPS_OUT = ("  __syncthreads();\n  if (threadIdx.x == 0)\n"
+            "    for (int i = 0; i < 3; ++i) atomicAdd(&laps[2 + i], "
+            "lap_sm[i]);\n")
+LANE_ROWS_LAPS = (
+    # one warp a row against every lane of its CTA's block, a butterfly
+    # per lane (the first port's walk)
+    ("row walk", [
+        ("namespace lane_rows {\n",
+         "namespace lane_rows {\n\n__device__ unsigned long long laps[5];\n"),
+        ("  extern __shared__ float smem[];\n",
+         "  extern __shared__ float smem[];\n"
+         "  const long long lap0 = clock64();\n"
+         "  long long lt = 0, lr = 0, nrow = 0;\n"),
+        ("  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n",
+         "  if (threadIdx.x == 0) {\n"
+         "    atomicAdd(&laps[0], (unsigned long long)(clock64() - lap0));\n"
+         "    atomicAdd(&laps[1], 1ull);\n  }\n"
+         "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"),
+        ("      float acc[kMaxLanes];\n",
+         "      const long long t0_ = clock64();\n"
+         "      float acc[kMaxLanes];\n"),
+        ("#pragma unroll\n      for (int j = 0; j < kMaxLanes; ++j) {\n"
+         "        float v = acc[j];\n",
+         "      const long long t1_ = clock64();\n      lt += t1_ - t0_;\n"
+         "#pragma unroll\n      for (int j = 0; j < kMaxLanes; ++j) {\n"
+         "        float v = acc[j];\n"),
+        ("        if (lane == 0 && j < nl) out[(long long)(l0 + j) * C + row]"
+         " = v;\n      }\n",
+         "        if (lane == 0 && j < nl) out[(long long)(l0 + j) * C + row]"
+         " = v;\n      }\n      lr += clock64() - t1_;\n      ++nrow;\n"),
+        ("    }\n  }\n}\n\n// Launch the walk",
+         "    }\n  }\n  if (lane == 0) {\n"
+         "    atomicAdd(&laps[2], (unsigned long long)lt);\n"
+         "    atomicAdd(&laps[3], (unsigned long long)lr);\n"
+         "    atomicAdd(&laps[4], (unsigned long long)nrow);\n  }\n}\n\n"
+         "// Launch the walk"),
+        LANE_LAPS_GETTER,
+    ]),
+    # a warp's register tile of 32 outputs, one reduce-scatter:
+    # laps summed in shared memory, added to ``laps`` once a CTA
+    ("register tile", [
+        ("namespace lane_rows {\n",
+         "namespace lane_rows {\n\n__device__ unsigned long long laps[5];\n"
+         "__shared__ unsigned long long lap_sm[3];\n"),
+        ("  float acc[N];  // acc[j * R + r]\n",
+         "  const long long t0_ = clock64();\n"
+         "  float acc[N];  // acc[j * R + r]\n"),
+        ("  const float v = Scatter<N, 16>::run(acc, lane);\n",
+         "  const long long t1_ = clock64();\n"
+         "  const float v = Scatter<N, 16>::run(acc, lane);\n"),
+        ("    if (r >= first) ob[j * C + r] = v;\n  }\n}\n",
+         "    if (r >= first) ob[j * C + r] = v;\n  }\n"
+         "  if (lane == 0) {\n"
+         "    atomicAdd(&lap_sm[0], (unsigned long long)(t1_ - t0_));\n"
+         "    atomicAdd(&lap_sm[1], (unsigned long long)(clock64() - t1_));\n"
+         "    atomicAdd(&lap_sm[2], 1ull);\n  }\n}\n"),
+        ("  stage(state, rule, l0, nl, d, sp, op);\n",
+         "  const long long lap0 = clock64();\n"
+         "  if (threadIdx.x == 0) lap_sm[0] = lap_sm[1] = lap_sm[2] = 0;\n"
+         "  stage(state, rule, l0, nl, d, sp, op);\n"
+         "  if (threadIdx.x == 0) {\n"
+         "    atomicAdd(&laps[0], (unsigned long long)(clock64() - lap0));\n"
+         "    atomicAdd(&laps[1], 1ull);\n  }\n"),
+        ("  stage(state, rule, l, 1, d, sp, op);\n",
+         "  const long long lap0 = clock64();\n"
+         "  if (threadIdx.x == 0) lap_sm[0] = lap_sm[1] = lap_sm[2] = 0;\n"
+         "  stage(state, rule, l, 1, d, sp, op);\n"
+         "  if (threadIdx.x == 0) {\n"
+         "    atomicAdd(&laps[0], (unsigned long long)(clock64() - lap0));\n"
+         "    atomicAdd(&laps[1], 1ull);\n  }\n"),
+        ("      default: tile<32, 1, T, Rule>(xb, first, spl, op, d, lane, ob, "
+         "C);\n    }\n  }\n}\n",
+         "      default: tile<32, 1, T, Rule>(xb, first, spl, op, d, lane, ob, "
+         "C);\n    }\n  }\n" + LAPS_OUT + "}\n"),
+        ("                        out + (long long)l * C + start, C);\n  }\n}\n",
+         "                        out + (long long)l * C + start, C);\n  }\n"
+         + LAPS_OUT + "}\n"),
+        LANE_LAPS_GETTER,
+    ]),
+)
+#: patches of each design: the Coverage term without its square root (what
+#: the SFU and the IEEE fix-up cost), and a term that is x alone (the
+#: walk's x loads, loop and reductions, no state or operand loads), for
+#: {design: (no_sqrt, {source: x_only})}
+WALK_PROBES = {
+    "row walk": (
+        [("    return (sqrtf(s + x) - pre) * ops[0];",
+          "    return ((s + x) - pre) * ops[0];")],
+        {"coverage_marginals": [("    return (sqrtf(s + x) - pre) * ops[0];",
+                                 "    return x;")],
+         "saturated_coverage_marginals": [
+             ("    return (fminf(s + x, ops[0]) - pre) * ops[1];",
+              "    return x;")]}),
+    "register tile": (
+        [("      sqrt_rn<N>(q);\n", "")],
+        dict.fromkeys(
+            ("coverage_marginals", "saturated_coverage_marginals"),
+            [("          acc[j * R + r] += Rule::root_term(q[j * R + r], "
+              "p[j].y, ops);", "          acc[j * R + r] += xv[r];"),
+             ("          acc[j * R + r] += Rule::term(p[j].x, p[j].y, xv[r], "
+              "ops);", "          acc[j * R + r] += xv[r];")])),
+}
+#: (label, lanes, rows a lane, per-lane x) of the lane walk's launches on
+#: the main path: chip_smoke.py's FILTER_SHAPES, the corpus filter and the
+#: partition matroid's one-row scan
+LANE_WALK_SHAPES = (("filter", 37, 1 << 20, False),
+                    ("sample", 37, 98_560, False),
+                    ("one lane", 1, 1 << 20, False),
+                    ("survivors", 37, 34_048, True),
+                    ("chunk", 37, 128, True),
+                    ("one row", 37, 1, True))
+#: SASS opcodes counted in the lane walk's kernels
+SASS_OPS = ("FADD", "FFMA", "FMUL", "FMNMX", "MUFU", "LDS", "LDG", "STG",
+            "SHFL", "SEL", "FSEL", "IMAD", "IADD3", "ISETP", "BRA", "CALL")
+
+
+def sass_functions(lib_path: Path, marker: str) -> dict:
+    """{kernel name: its SASS} of the kernels of a library whose mangled
+    name holds ``marker`` (empty without cuobjdump)."""
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        return {}
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True).stdout
+    return {fn.split(None, 1)[0]: fn for fn in sass.split("Function : ")[1:]
+            if marker in fn.split(None, 1)[0]}
+
+
+def sass_mix(fn_sass: str) -> dict:
+    """Counts of SASS_OPS (by the opcode before its first dot) in one
+    kernel's SASS, and the total under "all"."""
+    ops = [[t for t in ln.split(";")[0].split()[1:]
+            if not t.startswith("@")][0].split(".")[0]
+           for ln in fn_sass.splitlines()
+           if ln.strip().startswith("/*") and ";" in ln]
+    return {"all": len(ops), **{op: ops.count(op) for op in SASS_OPS}}
+
+
+def under_load(what, launch, seconds=3.0):
+    """Run ``launch`` back to back for ``seconds`` while sampling the SM
+    clock, power draw and throttle reasons with nvidia-smi; print them."""
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            samples.append(smi("clocks.sm,power.draw,"
+                               "clocks_throttle_reasons.active"))
+            time.sleep(0.25)
+
+    thread = threading.Thread(target=sample)
+    thread.start()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            launch()
+        torch.cuda.synchronize()
+    stop.set()
+    thread.join()
+    for s in samples[2:-1]:
+        print(f"[probe] under {what}: sm clock, power, throttle reasons = "
+              f"{s}", flush=True)
+
+
+def probe_lane_walk(tmp: Path, trees: dict, g, dev, stream,
+                    sass_dir: Path | None = None):
+    """Time coverage_marginals and saturated_coverage_marginals of each
+    tree ({label: csrc}) at LANE_WALK_SHAPES (f32), as built (``shipped``),
+    without coverage's square root (``no_sqrt``), with the term x alone
+    (``x_only``) and with clock64 laps (``laps``: staging cycles a CTA,
+    term-loop and reduction cycles a row or tile of each warp); print each
+    build's registers and spills (ptxas) and the lane walk kernels' SASS
+    mix, and write their SASS under ``sass_dir`` when given."""
+    N = max(C for _, _, C, per in LANE_WALK_SHAPES if not per)
+    F = max(C for _, _, C, per in LANE_WALK_SHAPES if per)
+    Lmax = max(lanes for _, lanes, _, _ in LANE_WALK_SHAPES)
+    D = 256
+    X = torch.rand((N, D), generator=g, device=dev) ** 2
+    Xs = torch.rand((Lmax, F, D), generator=g, device=dev) ** 2
+    cap = torch.rand(D, generator=g, device=dev) * 2 + 0.25
+    frac = torch.tensor([0.0, 0.5, 0.9, 1.0, 1.5], device=dev)
+    laps = (ctypes.c_ulonglong * 5)()
+    for label, csrc in trees.items():
+        text = (csrc / "lane_rows.cuh").read_text()
+        for design, patch in LANE_ROWS_LAPS:
+            if all(old in text for old, _ in patch):
+                break
+        else:
+            raise RuntimeError(f"{csrc}: no laps patch fits lane_rows.cuh")
+        for source in ("coverage_marginals", "saturated_coverage_marginals"):
+            no_sqrt, x_only = WALK_PROBES[design]
+            variants = [("shipped", []), ("x_only", x_only[source]),
+                        ("laps", patch)]
+            if source == "coverage_marginals":
+                variants.insert(1, ("no_sqrt", no_sqrt))
+            sub = tmp / f"lane_{label.replace(' ', '_')}_{source}"
+            sub.mkdir(parents=True)
+            logs = {}
+            fns = build(sub, source, ("lane_rows.cuh", "feature_rules.cuh"),
+                        variants, csrc, logs)
+            entry = None
+            for line in logs["shipped"].splitlines():
+                if "Compiling entry function" in line:
+                    entry = line.split("'")[1]
+                elif "Used" in line and entry and "lane_rows" in entry:
+                    print(f"[probe] {label} ({design}) {source} ptxas "
+                          f"{entry}: {line.split(':', 1)[1].strip()}")
+                elif "spill" in line and entry and "lane_rows" in entry:
+                    print(f"[probe] {label} {source} ptxas {entry}: "
+                          f"{line.strip()}")
+            lib_path = sub / f"{source}_shipped" / "lib.so"
+            for name, fn_sass in sass_functions(lib_path,
+                                                "lane_rows").items():
+                print(f"[probe] {label} {source} sass {name}: "
+                      f"{sass_mix(fn_sass)}")
+                if sass_dir is not None:
+                    sass_dir.mkdir(parents=True, exist_ok=True)
+                    tag = label.replace(" ", "_")
+                    with (sass_dir / f"{tag}_{source}.sass").open("a") as f:
+                        f.write("Function : " + fn_sass)
+            get = fns["laps"].lib.lane_rows_laps
+            get.argtypes, get.restype = [ctypes.c_void_p, ctypes.c_int], \
+                ctypes.c_int
+            for shape, lanes, C, per_lane in LANE_WALK_SHAPES:
+                x = Xs[:lanes, :C].contiguous() if per_lane else X[:C]
+                if source == "coverage_marginals":
+                    st = torch.rand((lanes, D), generator=g, device=dev) * 4
+                    extra = ()
+                else:
+                    st = frac[torch.randint(0, 5, (lanes, D), generator=g,
+                                            device=dev)] * cap
+                    extra = (cap.data_ptr(),)
+                st = st.contiguous()
+                out = torch.empty((lanes, C), device=dev)
+
+                def call(fn):
+                    return lambda: fn(x.data_ptr(), 0, int(per_lane),
+                                      st.data_ptr(), *extra, None,
+                                      out.data_ptr(), lanes, C, D, stream)
+
+                iters = 10 if lanes * C > 1 << 20 else 50
+                ms = {v: cuda_ms(call(fn), iters) for v, fn in fns.items()}
+                if shape == "filter" and label == "this tree":
+                    under_load(f"the {source} filter launches",
+                               call(fns["shipped"]), 2.0)
+                get(ctypes.addressof(laps), 1)
+                call(fns["laps"])()
+                torch.cuda.synchronize()
+                get(ctypes.addressof(laps), 1)
+                stage, ctas, term, red, items = (int(v) for v in laps)
+                times = ", ".join(f"{v} {t} ms" for v, t in ms.items())
+                print(f"[probe] {label} ({design}) {source} {shape} "
+                      f"x{tuple(x.shape)} L={lanes}: {times}; laps: staging "
+                      f"{stage / max(ctas, 1):.0f} cycles a CTA ({ctas} "
+                      f"CTAs), term loop {term / max(items, 1):.0f} and "
+                      f"reductions and stores {red / max(items, 1):.0f} "
+                      f"cycles an item ({items} items; term loop "
+                      f"{100 * term / max(term + red, 1):.1f} % of the "
+                      f"warps' cycles)", flush=True)
+                del out
+    del X, Xs
+
+
 def main() -> int:
-    if len(sys.argv) > 2 or (len(sys.argv) == 2
-                             and not Path(sys.argv[1]).is_dir()):
+    args, only, sass_dir = sys.argv[1:], None, None
+    while args[:1] in (["--only"], ["--sass-dir"]) and len(args) >= 2:
+        if args[0] == "--only":
+            only = args[1]
+        else:
+            sass_dir = Path(args[1])
+        args = args[2:]
+    if len(args) > 1 or (args and not Path(args[0]).is_dir()) or \
+            only not in (None, "lane_walk"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -432,8 +744,14 @@ def main() -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     trees = {"this tree": _build.CSRC}
-    if len(sys.argv) == 2:
-        trees = {"base": Path(sys.argv[1]), **trees}
+    if args:
+        trees = {"base": Path(args[0]), **trees}
+    if only == "lane_walk":
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        with tempfile.TemporaryDirectory() as tmp:
+            probe_lane_walk(Path(tmp), trees, g, dev, stream, sass_dir)
+        print(smi("name,power.limit"))
+        return 0
     N, D, R, L = 1 << 20, 256, 256, 37
     X = torch.rand((N, D), generator=g, device=dev) ** 2
     Xp = torch.rand((L, 128, D), generator=g, device=dev) ** 2
@@ -487,29 +805,12 @@ def main() -> int:
                                   LA_VARIANTS + (("laps", LAPS_PATCH),)),
                             g, dev, stream)
         probe_reference_sweeps(Path(tmp), trees, g, dev, stream)
+        probe_lane_walk(Path(tmp), trees, g, dev, stream, sass_dir)
         st = (torch.rand((L, R), generator=g, device=dev) * D / 4).contiguous()
         shipped = fns["shipped"]
-        samples, stop = [], threading.Event()
-
-        def sample():
-            while not stop.is_set():
-                samples.append(smi("clocks.sm,power.draw,"
-                                   "clocks_throttle_reasons.active"))
-                time.sleep(0.25)
-
-        thread = threading.Thread(target=sample)
-        thread.start()
-        t0 = time.perf_counter()
-        while time.perf_counter() - t0 < 3.0:
-            for _ in range(20):
-                shipped(X.data_ptr(), 0, 0, Rm.data_ptr(), st.data_ptr(),
-                        out.data_ptr(), L, N, R, D, stream)
-            torch.cuda.synchronize()
-        stop.set()
-        thread.join()
-        for s in samples[2:-1]:
-            print(f"[probe] under the filter launches: sm clock, power, "
-                  f"throttle reasons = {s}")
+        under_load("the facility filter launches", lambda: shipped(
+            X.data_ptr(), 0, 0, Rm.data_ptr(), st.data_ptr(),
+            out.data_ptr(), L, N, R, D, stream))
     print(smi("name,power.limit"))
     return 0
 

@@ -40,7 +40,12 @@ marginals' shared-x tile must equal the plain version bit for bit on
 dyadic data at lane counts around its 8-lane groups and 64-lane tiles.
 The log-det sweep's narrow instance must give the bits of its row-by-row
 wide instance, forced at the same shape, and hold to the plain sweep with
-its tolerance, masks parting only at a gain next to its threshold.
+its tolerance, masks parting only at a gain next to its threshold.  Every
+instance of the lane walk (csrc/lane_rows.cuh: shared-x warp tiles of
+4 x 8, 8 x 4, 16 x 2 and 32 x 1 rows x lanes, one-lane and per-lane tiles
+of 16, 8 and 1 rows, a shared block shorter than a row tile) holds to the
+plain versions of its four kernels with their tolerances, and a repeated
+launch gives the same bits.
 """
 
 import pytest
@@ -305,6 +310,69 @@ def test_cuda_saturated_coverage_marginals_matches_plain(cuda_device, dtype,
         got, ref.saturated_coverage_marginals(x, state, cap, w),
         rtol=RTOL, atol=ATOL)
     assert torch.equal(got, tsm.saturated_coverage_marginals(x, state, cap, w))
+
+
+#: (L, C, d, per-lane x) running each instance of the lane walk: shared x
+#: with lane groups of 8; 4; 2; 8 and 1; the 37-lane grid (8, 8, 8, 8, 4,
+#: 1) with a ragged last row tile; shared x shorter than a row tile; one
+#: lane over 16-row tiles (ragged); per-lane 8-row tiles; per-lane rows of
+#: one
+WALK_CASES = ((8, 1000, 45, False), (4, 1000, 257, False),
+              (2, 70, 3, False), (9, 1000, 256, False),
+              (37, 1001, 256, False), (9, 31, 45, False),
+              (1, 70000, 45, False), (37, 130, 256, True),
+              (37, 7, 257, True))
+
+
+#: weighted coverage and graph cut take the walk for one lane or per-lane
+#: x only (shared x with L >= 2 runs their skinny tile)
+WALK_PARAMS = [(name, *case) for name in ("coverage", "saturated",
+                                          "weighted", "graph_cut")
+               for case in WALK_CASES
+               if name in ("coverage", "saturated") or case[3] or case[0] == 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,L,C,d,per_lane", WALK_PARAMS)
+def test_cuda_lane_walk_instances_match_plain(cuda_device, name, L, C, d,
+                                              per_lane, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(L * 7 + d)
+    shape = (L, C, d) if per_lane else (C, d)
+    x = (torch.rand(shape, generator=g, device=cuda_device) ** 2).to(dtype)
+    state = torch.rand((L, d), generator=g, device=cuda_device) * 3
+    w = torch.rand(d, generator=g, device=cuda_device) + 0.5
+    cap = torch.rand(d, generator=g, device=cuda_device) * 2 + 0.25
+    if name == "coverage":
+        kernel = lambda: tcm.coverage_marginals(x, state, w)  # noqa: E731
+        want = ref.coverage_marginals(x, state, w)
+    elif name == "saturated":
+        f = torch.tensor([0.0, 0.5, 0.9, 1.0, 1.5], device=cuda_device)
+        state = f[torch.randint(0, 5, (L, d), generator=g,
+                                device=cuda_device)] * cap
+        kernel = lambda: tsm.saturated_coverage_marginals(  # noqa: E731
+            x, state, cap, w)
+        want = ref.saturated_coverage_marginals(x, state, cap, w)
+    elif name == "weighted":
+        kernel = lambda: twm.weighted_coverage_marginals(x, state)  # noqa: E731
+        want = ref.weighted_coverage_marginals(x, state)
+    else:
+        # dyadic rows, total and states, as in the graph-cut tests above:
+        # every sum is exact, so the gains equal the plain version's
+        x = (torch.randint(0, 9, shape, generator=g, device=cuda_device)
+             / 8.0).to(dtype)
+        t = torch.randint(0, 64, (d,), generator=g, device=cuda_device) / 2.0
+        state = (t * torch.randint(0, 6, (L, 1), generator=g,
+                                   device=cuda_device) / 4.0).contiguous()
+        kernel = lambda: tgm.graph_cut_marginals(x, t, state, 0.5)  # noqa: E731
+        want = ref.graph_cut_marginals(x, t, state, 0.5)
+    got = kernel()
+    torch.cuda.synchronize()
+    if name == "graph_cut":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, kernel())
 
 
 def _sweep_case(g, dev, L, B, d, dtype, kind):
