@@ -223,18 +223,19 @@ def check_sweep(name, got, want, tau, near_tol, close):
     return ties, err
 
 
-def all_accept_ms(torch, sweep, cand, ref, state, eligible):
-    """A reference sweep's ms with tau = -inf and the budget B, where every
-    eligible row is accepted: its slowest walk."""
+def all_accept_ms(torch, name, sweep, eligible):
+    """A sweep's ms with tau = -inf and the budget B, where every eligible
+    row is accepted: its slowest walk.  ``sweep(tau, budget)`` launches it
+    on its path-case operands with these eligible rows."""
     Lk, Bk = eligible.shape
-    tau = torch.full((Lk,), float("-inf"), device=cand.device)
-    budget = torch.full((Lk,), Bk, dtype=torch.int32, device=cand.device)
-    mask = sweep(cand, ref, state, eligible, tau, budget)[0]
-    check(torch.equal(mask, eligible), "tau = -inf did not accept every "
-          "eligible row")
-    ms = cuda_ms(lambda: sweep(cand, ref, state, eligible, tau, budget), 50)
-    print(f"[kernels] {sweep.__name__} x{tuple(cand.shape)} tau=-inf, "
-          f"budget {Bk}: accepted={int(mask.sum())} kernel_ms={ms}")
+    tau = torch.full((Lk,), float("-inf"), device=eligible.device)
+    budget = torch.full((Lk,), Bk, dtype=torch.int32, device=eligible.device)
+    mask = sweep(tau, budget)[0]
+    check(torch.equal(mask, eligible), f"{name}: tau = -inf did not accept "
+          f"every eligible row")
+    ms = cuda_ms(lambda: sweep(tau, budget), 50)
+    print(f"[kernels] {name} ({Lk}, {Bk}) tau=-inf, budget {Bk}: "
+          f"accepted={int(mask.sum())} kernel_ms={ms}")
     return ms
 
 
@@ -507,7 +508,9 @@ def phase_facility_kernels(torch, ref, fm, fa):
                 rows["facility_accept"] = dict(
                     ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
                     all_accept_ms=all_accept_ms(
-                        torch, fa.facility_accept, cand, Rm, state, elig))
+                        torch, "facility_accept",
+                        lambda tau, budget: fa.facility_accept(
+                            cand, Rm, state, elig, tau, budget), elig))
     rows["facility_accept"]["max_abs_err"] = worst
     return rows
 
@@ -1348,8 +1351,9 @@ def phase_exemplar_kernels(torch, ref, em, ea):
                     rows["exemplar_accept"] = dict(
                         ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
                         all_accept_ms=all_accept_ms(
-                            torch, ea.exemplar_accept, cand, Rm, state,
-                            elig))
+                            torch, "exemplar_accept",
+                            lambda tau, budget: ea.exemplar_accept(
+                                cand, Rm, state, elig, tau, budget), elig))
             print(line)
     rows["exemplar_accept"]["max_abs_err"] = worst
     return rows
@@ -1451,6 +1455,11 @@ def sweep_cases(torch, ref, sweeps, g, names, dtype=None, d=D, r=R, k=K,
     return cases
 
 
+#: the four sweeps of csrc/feature_sweep.cuh
+FEATURE_SWEEPS = ("coverage_accept", "weighted_coverage_accept",
+                  "saturated_coverage_accept", "graph_cut_accept")
+
+
 def phase_cost_sweeps(torch, ref, sweeps, rows):
     """The knapsack cost mode of the seven accept sweeps vs their plain
     versions, at the fused engine's shape (L = 37, B = 128, d = 256, r =
@@ -1459,7 +1468,8 @@ def phase_cost_sweeps(torch, ref, sweeps, rows):
     spend test cuts accepts inside the chunk), unbounded in odd lanes.
     Masks may part only at a row whose gain is within the sweep's tolerance
     of tau * cost.  Adds ``cost_ms`` (and the accepts the budget cut) to
-    each sweep's row; repeats must be bitwise."""
+    each sweep's row, and for the four feature sweeps ``all_accept_ms`` on
+    the same rows (tau = -inf, budget B); repeats must be bitwise."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
     LD_RTOL, LD_ATOL = 1e-5, 1e-4
@@ -1506,6 +1516,10 @@ def phase_cost_sweeps(torch, ref, sweeps, rows):
         pms = cuda_ms(lambda: plain(elig, tau, budget, cost, cb), 2)
         rows[name]["cost_ms"] = ms
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        if name in FEATURE_SWEEPS:
+            rows[name]["all_accept_ms"] = all_accept_ms(
+                torch, name, lambda tau, budget: kern(elig, tau, budget, None,
+                                                      None), elig)
         print(f"[kernels] {name} cost mode x({L}, {B}, {D}) f32: "
               f"max_abs_err={err} near_tau_ties={ties} "
               f"accepted={int(want[0].sum())} (cardinality "
@@ -1995,13 +2009,14 @@ def phase_marginals_ragged(torch, ref, fm, em):
 
 
 def print_tile_resources(_build):
-    """What ptxas said of the marginals tile's kernels and of the lane
-    walk's instances (registers, stack, spills), and the tile's SASS
-    instruction mix where cuobjdump is at hand."""
+    """What ptxas said of the marginals tile's kernels, of the lane walk's
+    instances and of the feature walk's (registers, stack, spills), and the
+    tile's SASS instruction mix where cuobjdump is at hand."""
     for name, marker in (("coverage_marginals", "lane_rows"),
                          ("saturated_coverage_marginals", "lane_rows"),
                          ("weighted_coverage_marginals", "lane_rows"),
                          ("graph_cut_marginals", "lane_rows"),
+                         *((n, "walk_kernel") for n in FEATURE_SWEEPS),
                          ("facility_marginals", "5mtile"),
                          ("exemplar_marginals", "5mtile")):
         entry, props = None, ""

@@ -137,6 +137,28 @@ def feature_sweep_per(d: int) -> int:
     return _per(d, FEATURE_SWEEP_THREADS)
 
 
+#: the narrow feature-sweep instances that keep the row loop (one row a
+#: barrier, csrc/feature_sweep.cuh's loop_kernel) in place of the windowed
+#: walk, by (sweep, dtype of x): the features a thread where the walk
+#: measured more than 5 % slower than the row loop in some rule on an H100
+#: (``ab_compare.py --only feature_sweeps``, which times both): graph cut,
+#: whose lanes accept about every other row, up to 256 features and in
+#: f32 at 8 (its cost mode), and weighted coverage's f32 sweep at 16
+FEATURE_SWEEP_LOOPS = {
+    ("graph_cut_accept", torch.float32): (1, 2, 8),
+    ("graph_cut_accept", torch.bfloat16): (1, 2),
+    ("weighted_coverage_accept", torch.float32): (16,),
+}
+
+
+def feature_sweep_instance(name: str, dtype, d: int) -> int:
+    """The instance feature sweep ``name`` launches for d features of x in
+    ``dtype``: feature_sweep_per(d) for the walk (or 0, the wide instance),
+    negated for the row loop where FEATURE_SWEEP_LOOPS keeps it."""
+    per = feature_sweep_per(d)
+    return -per if per in FEATURE_SWEEP_LOOPS.get((name, dtype), ()) else per
+
+
 def reference_sweep_per(r: int) -> int:
     """The instance of a reference sweep (facility, exemplar) for r
     reference rows: the columns each thread holds in registers (1, 2, 4, 8

@@ -2,7 +2,7 @@
 """Compare two builds of the redesigned kernels on one card.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.ab_compare
-        [--only lane_walk] [--log FILE] BASE_CSRC
+        [--only lane_walk | --only feature_sweeps] [--log FILE] BASE_CSRC
                     (from the root of a checkout, on a machine with a
                      CUDA card and nvcc)
 
@@ -11,9 +11,14 @@ checkout (for example the parent commit, unpacked with ``git archive``
 into a directory that ``.gitignore`` lists).  The script builds
 facility_marginals.cu, exemplar_marginals.cu, logdet_marginals.cu,
 graph_cut_marginals.cu, weighted_coverage_marginals.cu, logdet_accept.cu,
-facility_accept.cu, exemplar_accept.cu, coverage_marginals.cu and
-saturated_coverage_marginals.cu from both trees (``--only lane_walk``: the
-four kernels of the lane walk), in parallel, in a temporary directory, and
+facility_accept.cu, exemplar_accept.cu, coverage_marginals.cu,
+saturated_coverage_marginals.cu and the four feature sweeps
+(coverage_accept.cu, weighted_coverage_accept.cu,
+saturated_coverage_accept.cu, graph_cut_accept.cu) from both trees
+(``--only lane_walk``: the four kernels of the lane walk; ``--only
+feature_sweeps``: the four feature sweeps, and the reference sweeps and
+the lane walk's kernels for their SASS), in parallel, in a temporary
+directory, and
 runs both builds on the same inputs at the filter shape (L = 37 lanes,
 C = 2^20 rows, d = r = 256, k_max = 64, f32 and bf16) and, for the
 sweeps, at the fused engine's chunk (B = 128):
@@ -44,18 +49,31 @@ sweeps, at the fused engine's chunk (B = 128):
   states straddling the cap; weighted coverage and graph cut on the same
   shapes where they take the walk (one lane, per-lane x): the same bits,
   a repeated launch the same bits again (a difference raises); and
-  lane_rows::sqrt_rn against sqrtf on all 2^32 floats (a difference
-  raises).  ``--log FILE`` sends every case's line there, and stdout
-  keeps the main shapes, the odd shapes where the new build was slower
-  and a count.
+  rules::sqrt_rn against sqrtf on all 2^32 floats (a difference
+  raises);
+* the four feature sweeps (csrc/feature_sweep.cuh) at chip_smoke.py's
+  path case (L = 37, B = 128, d = 256), its odd shapes (L = 1, B = 70,
+  d = 45; L = 130, d = 70) and d = 1, 127, 129, 512, 1000 and 2048, f32
+  and bf16, coverage and saturated coverage with weights and without, in
+  four rules: the path taus, the knapsack cost mode, tau = -inf with the
+  budget B, and budgets 0, 1 and 3 with every fourth lane ineligible; the
+  new build at the instance the wrapper picks and at the other narrow one
+  (the walk or the row loop): mask, state and gains the same bits, a
+  repeated launch the same bits again (a difference raises), and the
+  cases where the new build is more than 5 % slower than the base build.
+``--log FILE`` sends every lane-walk and feature-sweep case's line there,
+and stdout keeps the main shapes, the odd shapes where the new build was
+slower and a count.
 
 Each case is timed in turns, base, new, new, base (CUDA events over
-back-to-back launches), so the two builds meet the same clock and power
-state.  Where cuobjdump is at hand it also says whether the two builds of
-the facility and exemplar tile kernels, and of the skinny tile kernels of
-graph cut and weighted coverage (compared by body), compiled to the same
-SASS.  Last it prints the card's name and power limit.  Imports nothing
-of JAX.
+back-to-back launches; the feature sweeps base, new, other, other, new,
+base), so the builds meet the same clock and power state.  Where
+cuobjdump is at hand it also says whether the two builds of the kernels
+of SASS_KEPT (the facility and exemplar tile, the skinny tile of graph cut
+and weighted coverage, the reference sweeps' walk and the lane walk) and
+SASS_RENAMED (the feature sweeps' row loop against the base build's
+narrow kernel) compiled to the same SASS, compared by body.  Last it prints
+the card's name and power limit.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -71,12 +89,34 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build, _wrap, ref
-from repro_torch.kernels.tile_probe import cuda_ms, smi
+from repro_torch.kernels.tile_probe import (
+    FEATURE_PATH, FEATURE_SWEEPS, cuda_ms, feature_sweep_call,
+    feature_sweep_case, feature_sweep_rules, smi)
 
 NAMES = ("facility_marginals", "exemplar_marginals", "logdet_marginals",
          "graph_cut_marginals", "weighted_coverage_marginals",
          "logdet_accept", "facility_accept", "exemplar_accept",
-         "coverage_marginals", "saturated_coverage_marginals")
+         "coverage_marginals", "saturated_coverage_marginals",
+         *FEATURE_SWEEPS)
+#: (library, marker) of the kernels whose SASS the two builds must share:
+#: the facility / exemplar tile and the skinny tile, and the walks that
+#: take their warp sums from warp_scatter.cuh (the reference sweeps' walk,
+#: the lane walk)
+SASS_KEPT = (("facility_marginals", "5mtile"),
+             ("exemplar_marginals", "5mtile"),
+             ("graph_cut_marginals", "lanes_tile_kernel"),
+             ("weighted_coverage_marginals", "lanes_tile_kernel"),
+             ("facility_accept", "walk_kernel"),
+             ("exemplar_accept", "walk_kernel"),
+             ("coverage_marginals", "lane_rows"),
+             ("saturated_coverage_marginals", "lane_rows"),
+             ("weighted_coverage_marginals", "lane_rows"),
+             ("graph_cut_marginals", "lane_rows"))
+#: (library, base marker, new marker) of kernels kept under a new name: the
+#: feature sweeps' row loop, the first port's narrow instance
+SASS_RENAMED = tuple((name, "13feature_sweep6kernel",
+                      "13feature_sweep11loop_kernel")
+                     for name in FEATURE_SWEEPS)
 #: the log-det entry point before it took sizes: no ``size`` pointer
 LOGDET_NO_SIZE = tuple(a for i, a in enumerate(
     _build.SIGNATURES["logdet_marginals"]["logdet_marginals_launch"])
@@ -145,7 +185,7 @@ def main() -> int:
             log_path = args[1]
         args = args[2:]
     if len(args) != 1 or not Path(args[0]).is_dir() or \
-            only not in (None, "lane_walk"):
+            only not in (None, "lane_walk", "feature_sweeps"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -155,38 +195,43 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     with tempfile.TemporaryDirectory() as tmp:
+        names = {None: NAMES, "lane_walk": LANE_WALK_KERNELS,
+                 "feature_sweeps": FEATURE_SWEEPS + tuple(
+                     dict.fromkeys(n for n, _ in SASS_KEPT[4:]))}[only]
         libs = build(Path(tmp), {"base": Path(args[0]), "new": _build.CSRC},
-                     LANE_WALK_KERNELS if only else NAMES)
-        for name, marker in (("facility_marginals", "5mtile"),
-                             ("exemplar_marginals", "5mtile"),
-                             ("graph_cut_marginals", "lanes_tile_kernel"),
-                             ("weighted_coverage_marginals",
-                              "lanes_tile_kernel")):
+                     names)
+        for name, marker, new_marker in (
+                *((n, m, m) for n, m in SASS_KEPT), *SASS_RENAMED):
             if (("base", name)) not in libs:
                 continue
-            base, new = (tile_sass(Path(tmp) / tree / f"lib{name}.so", marker)
-                         for tree in ("base", "new"))
+            base, new = (tile_sass(Path(tmp) / tree / f"lib{name}.so", m)
+                         for tree, m in (("base", marker),
+                                         ("new", new_marker)))
             if base:
                 moved = sum(a != b for x, y in zip(sorted(base.values()),
                                                    sorted(new.values()))
                             for a, b in zip(x.splitlines(), y.splitlines()))
-                print(f"[ab] {name}: {len(base)} tile kernels, SASS of the "
-                      f"two builds identical: "
+                print(f"[ab] {name}: {len(base)} {new_marker} kernels, SASS "
+                      f"of the two builds identical: "
                       f"{sorted(base.values()) == sorted(new.values())} "
                       f"({moved} lines differ)", flush=True)
         bad = check_roots(Path(tmp) / "new", dev)
-        print(f"[ab] lane walk: sqrt_rn against sqrtf on all 2^32 floats: "
+        print(f"[ab] rules::sqrt_rn against sqrtf on all 2^32 floats: "
               f"{bad} differ", flush=True)
-        check_same(bad == 0, "lane walk: sqrt_rn is not sqrtf")
+        check_same(bad == 0, "sqrt_rn is not sqrtf")
         if only is None:
             compare_marginals(libs, g, dev, stream)
             compare_logdet_accept(libs, g, dev, stream)
             compare_reference_sweeps(libs, g, dev, stream)
         with (open(log_path, "w") if log_path
               else contextlib.nullcontext(sys.stdout)) as log:
-            differ = compare_lane_walk(libs, g, dev, stream, log)
+            differ = []
+            if only != "feature_sweeps":
+                differ += compare_lane_walk(libs, g, dev, stream, log)
+            if only != "lane_walk":
+                differ += compare_feature_sweeps(libs, g, dev, stream, log)
     print(smi("name,power.limit"))
-    check_same(not differ, "lane walk: " + "; ".join(differ))
+    check_same(not differ, "; ".join(differ))
     return 0
 
 
@@ -400,9 +445,121 @@ def compare_lane_walk(libs, g, dev, stream, log):
     return differ
 
 
-#: a kernel that holds lane_rows::sqrt_rn against sqrtf on every float
+#: the feature sweeps' comparison: (label, L, B, d): the path case,
+#: chip_smoke.py's odd shapes, and d across the narrow instances (kPer = 1,
+#: 2, 4, 8, 16) and their edges
+FEATURE_SHAPES = (("path", *FEATURE_PATH), ("odd L=1", 1, 70, 45),
+                  ("odd L=130", 130, 128, 70), ("d=1", 37, 128, 1),
+                  ("d=127", 37, 128, 127), ("d=129", 37, 128, 129),
+                  ("d=512", 37, 128, 512), ("d=1000", 37, 128, 1000),
+                  ("d=2048", 37, 128, 2048))
+#: how much slower than the base build a case may be
+FEATURE_SLACK = 1.05
+
+
+def compare_feature_sweeps(libs, g, dev, stream, log):
+    """Both builds of the four feature sweeps at FEATURE_SHAPES, f32 and
+    bf16, coverage and saturated coverage with weights and without, in the
+    three rules of feature_sweep_rules and a fourth (the path taus with
+    budgets 0, 1 and 3 in turn and every fourth lane ineligible throughout):
+    mask, state and gains the same bits, and a repeated launch of the new
+    build the same bits again.  The new build runs the instance the wrapper
+    picks (_wrap.feature_sweep_instance: the walk or the row loop) and, as
+    ``other``, the other of the two, which must give the same bits too.
+    Each case is timed in turns, base, new, other, other, new, base.  Lines
+    go to ``log``; stdout gets the path case, every case where the new
+    build is more than FEATURE_SLACK slower than the base build or differs,
+    and counts.  Returns the cases that differ."""
+    differ, slower, better, n = [], [], [], 0
+    for name in FEATURE_SWEEPS:
+        for label, L, B, d in FEATURE_SHAPES:
+            lanes = torch.arange(L, device=dev)
+            elig = torch.rand((L, B), generator=g, device=dev) < 0.9
+            for dtype in (torch.float32, torch.bfloat16):
+                per = _wrap.feature_sweep_instance(name, dtype, d)
+                route = "row loop" if per < 0 else "walk"
+                for weighted in ((False, True) if name in FEATURE_SWEEPS[::2]
+                                 else (False,)):
+                    x, st, ops, g0 = feature_sweep_case(name, L, B, d, dtype,
+                                                        g, dev, weighted)
+                    rules = feature_sweep_rules(L, B, g0, g, dev)
+                    off = elig & (lanes % 4 != 3)[:, None]
+                    rules.append(("budgets 0/1/3, ineligible lanes",
+                                  rules[0][1], (lanes % 3 + lanes % 3 // 2
+                                                ).to(torch.int32), None,
+                                  None))
+                    for i, (rule, tau, budget, cost, cb) in enumerate(rules):
+                        el = off if i == 3 else elig
+                        trees = ("base", "new", "again", "other")
+                        outs = {tree: (torch.empty((L, B), dtype=torch.bool,
+                                                   device=dev),
+                                       torch.empty((L, d), device=dev),
+                                       torch.empty((L, B), device=dev))
+                                for tree in trees}
+
+                        def sweep(tree, into, at):
+                            fn = getattr(libs[tree, name], f"{name}_launch")
+                            return feature_sweep_call(fn, x, st, ops, el, tau,
+                                                      budget, cost, cb,
+                                                      outs[into], stream, at)
+
+                        base = sweep("base", "base",
+                                     _wrap.feature_sweep_per(d))
+                        new = sweep("new", "new", per)
+                        other = sweep("new", "other", -per)
+                        for tree, fn in (("base", base), ("new", new),
+                                         ("again", sweep("new", "again", per)),
+                                         ("other", other)):
+                            for o in outs[tree]:
+                                o.zero_()
+                            check(fn())
+                        torch.cuda.synchronize()
+                        same = all(torch.equal(a, b) and torch.equal(b, c)
+                                   and torch.equal(b, e)
+                                   for a, b, c, e in zip(
+                                       *(outs[tree] for tree in trees)))
+                        n += 1
+                        acc = outs["new"][0].sum(-1)
+                        times = [cuda_ms(fn, 50) for fn in
+                                 (base, new, other, other, new, base)]
+                        t_base = (times[0] + times[5]) / 2
+                        t_new = (times[1] + times[4]) / 2
+                        t_other = (times[2] + times[3]) / 2
+                        what = (f"{name} {label} x({L}, {B}, {d}) "
+                                f"{str(dtype)[6:]} weighted={weighted} "
+                                f"{rule}")
+                        line = (f"[ab] {what}: {route}; accepts per lane min "
+                                f"{int(acc.min())} max {int(acc.max())}; "
+                                f"mask, state and gains equal to base, "
+                                f"repeat and other bitwise: {same}; ms base "
+                                f"{times[0]} new {times[1]} other {times[2]} "
+                                f"other {times[3]} new {times[4]} base "
+                                f"{times[5]}; new/base {t_new / t_base:.3f} "
+                                f"other/base {t_other / t_base:.3f}")
+                        print(line, file=log, flush=True)
+                        is_slower = t_new > FEATURE_SLACK * t_base
+                        if log is not sys.stdout and (
+                                label == "path" or is_slower or not same):
+                            print(line, flush=True)
+                        if not same:
+                            differ.append(what)
+                        if is_slower:
+                            slower.append(what)
+                        if t_other * FEATURE_SLACK < t_new:
+                            better.append(what)
+    print(f"[ab] feature sweeps: {n} cases, {n - len(differ)} bit for bit "
+          f"the base build (repeat and other route bitwise), {len(slower)} "
+          f"where the new build was more than {FEATURE_SLACK} times the "
+          f"base build's ms, {len(better)} where the other route was more "
+          f"than {FEATURE_SLACK} times faster than the route taken"
+          + "".join(f"\n[ab]   other route faster: {w}" for w in better),
+          flush=True)
+    return differ
+
+
+#: a kernel that holds rules::sqrt_rn against sqrtf on every float
 ROOTS_CHECK = r"""
-#include "lane_rows.cuh"
+#include "feature_rules.cuh"
 __global__ void roots_check(unsigned long long* bad) {
   unsigned long long n = 0;
   for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x
@@ -410,7 +567,7 @@ __global__ void roots_check(unsigned long long* bad) {
        i += (unsigned long long)gridDim.x * blockDim.x) {
     float q[1] = {__uint_as_float((unsigned)i)};
     const float want = sqrtf(q[0]);
-    lane_rows::sqrt_rn<1>(q);
+    rules::sqrt_rn<1>(q);
     n += __float_as_uint(q[0]) != __float_as_uint(want);
   }
   atomicAdd(bad, n);
@@ -423,8 +580,9 @@ extern "C" int roots_check_launch(void* bad) {
 
 
 def check_roots(csrc: Path, dev) -> int:
-    """Build ROOTS_CHECK against the lane walk in ``csrc`` and run it over
-    all 2^32 bit patterns: the floats where sqrt_rn and sqrtf differ."""
+    """Build ROOTS_CHECK against rules::sqrt_rn in ``csrc`` and run it
+    over all 2^32 bit patterns: the floats where sqrt_rn and sqrtf
+    differ."""
     src = csrc / "roots_check.cu"
     src.write_text(ROOTS_CHECK)
     lib = csrc / "libroots_check.so"

@@ -35,10 +35,11 @@
 //     float partial(int i)  this thread's share of row i's gain, against
 //                           the current state
 //     void  accept()        apply the row just scored to the state
-// The feature sweeps (feature_sweep.cuh) and the wide instance of
-// facility_accept.cu and exemplar_accept.cu run on it with their own
-// Steps; their narrow instance batches this loop's reduction tree over a
-// window of rows (reference_tile.cuh, walk_kernel).
+// The feature sweeps' row loop and wide instance (feature_sweep.cuh) and
+// the wide instance of facility_accept.cu and exemplar_accept.cu run on it
+// with their own Steps; their walks batch this loop's reduction tree over
+// a window of rows (walk_kernel in feature_sweep.cuh and
+// reference_tile.cuh) and keep its decisions and bits.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -25,7 +25,7 @@
 // per CTA (into shared memory), not once per row, so each (lane, row,
 // feature) costs exactly one square root, the minimum the formula needs.
 // A warp tile's 32 roots share one range test and branch
-// (lane_rows::sqrt_rn), where sqrtf has one a root with two convergence
+// (rules::sqrt_rn), where sqrtf has one a root with two convergence
 // barriers, and a thread's (s, pre) pair and x value are each loaded once
 // for 4 to 8 terms.  No --use_fast_math: parity with the plain version
 // needs IEEE sqrtf.

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel src/repro/kernels/graph_cut_accept.py,
 // graph_cut_accept (its pallas_call is accept_call in
 // src/repro/kernels/_accept_common.py), in both of its modes: cardinality
-// (cost=None) and knapsack cost (accept_sweep.cuh).  One launch serves L
+// (cost=None) and knapsack cost (feature_sweep.cuh).  One launch serves L
 // lanes, one CTA each, in place of the JAX engines' vmap over the tau grid.
 //
 // Per lane: sweep the (B, d) tile in order; row i's gain is
@@ -16,13 +16,17 @@
 //
 // What bounds it on the H100: 4.8 MB of rows at L = 37, B = 128, d = 256
 // is about 1.5 us at 3.35 TB/s, and the operations are fewer still; the
-// real cost is the chain of B dependent block reductions
-// (accept_sweep.cuh).  The design (feature_sweep.cuh with rules::GraphCut)
+// real cost is the chain of B dependent block reductions the order of the
+// sweep asks for.  The design (feature_sweep.cuh with rules::GraphCut)
 // keeps each thread's slice of s and of pre = t - 2 lam s in registers, so
-// a row costs four rounded operations per feature and one block
-// reduction, an accept recomputes pre for its features with no barrier,
-// and row i + 1 is loaded while row i is being reduced (past 2048
-// features the wide instance keeps s in global memory).
+// a row costs four rounded operations per feature, and an accept
+// recomputes pre for its features with no barrier.  Up to 256 features it
+// runs the row loop, one block reduction a row with row i + 1 loaded while
+// row i is reduced: its lanes accept about every other row, where the
+// windowed walk measured slower on an H100, and so does the f32 sweep at
+// 513 to 1024 features (its cost mode).  Elsewhere up to 2048 features it
+// runs the walk, several rows a barrier; past 2048 the wide instance keeps
+// s in global memory.
 #include "feature_sweep.cuh"
 
 extern "C" int graph_cut_accept_launch(

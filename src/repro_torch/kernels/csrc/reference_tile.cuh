@@ -38,10 +38,10 @@
 // r <= 4096): thread t owns columns t, t + 256, ... of the state in
 // registers, so an accept is a thread-local update; a pass
 // scores a window of rows against the state at once, run_sweep's
-// reduction tree batched over the window (Scatter), and a ballot finds the
-// first row that passes.  The rows before it are rejected with the gains
-// just taken, the state changes, and the next pass starts after it: one
-// barrier a pass, not one a row.  A pass takes 32 rows (fewer past kPer =
+// reduction tree batched over the window (warp_scatter.cuh), and a
+// ballot finds the first row that passes.  The rows before it are
+// rejected with the gains just taken, the state changes, and the next pass
+// starts after it: one barrier a pass, not one a row.  A pass takes 32 rows (fewer past kPer =
 // 2); after an accept among a pass's first 4 rows the walk runs the row
 // loop, the next row loaded while this one is reduced, until 2 rows in a
 // row are rejected.  Past r = 4096 the wide instance keeps
@@ -56,8 +56,11 @@
 
 #include "accept_sweep.cuh"
 #include "sims_tile.cuh"
+#include "warp_scatter.cuh"
 
 namespace reftile {
+
+using warp_scatter::Scatter;
 
 constexpr int kThreads = 256;  // a walk's CTA, and row_sq's
 constexpr int kSqParts = kThreads / sims::kTileRows;  // row_sq: 4 x 64 rows
@@ -253,40 +256,6 @@ __host__ __device__ constexpr int log2_rows(int n) {
   return n <= 1 ? 0 : 1 + log2_rows(n / 2);
 }
 
-// run_sweep's warp butterfly (p += shfl_xor(p, o) for o = 16, 8, 4, 2, 1),
-// batched over kN rows: while a lane holds more than one row it keeps half
-// of them at level o (the upper half where lane & o) and adds its partner's
-// sums of that half, so each sum is its partner's and its own, added in
-// the butterfly's pairs; past log2(kN) levels it holds one row and adds as
-// the butterfly does.  So every row's warp sum has the butterfly's bits,
-// and lane a ends with row a >> (5 - log2(kN)) (each group of 32 / kN
-// lanes holds the same bits).  kN - 1 shuffles in place of 5 kN.
-template <int kN, int kO>
-struct Scatter {
-  static __device__ __forceinline__ void run(float* p, int lane) {
-    constexpr int kH = kN / 2;
-    const bool up = (lane & kO) != 0;
-#pragma unroll
-    for (int i = 0; i < kH; ++i) {
-      const float send = up ? p[i] : p[kH + i];
-      const float keep = up ? p[kH + i] : p[i];
-      p[i] = keep + __shfl_xor_sync(kFull, send, kO);
-    }
-    Scatter<kH, kO / 2>::run(p, lane);
-  }
-};
-template <int kO>
-struct Scatter<1, kO> {
-  static __device__ __forceinline__ void run(float* p, int lane) {
-    p[0] += __shfl_xor_sync(kFull, p[0], kO);
-    Scatter<1, kO / 2>::run(p, lane);
-  }
-};
-template <>
-struct Scatter<1, 0> {
-  static __device__ __forceinline__ void run(float*, int) {}
-};
-
 // The walk of one lane over its (B, r) value block: the state in
 // registers (thread t owns columns t, t + 256, ...), the decisions of
 // run_sweep (accept_sweep.cuh) in both modes.
@@ -336,8 +305,8 @@ struct Walk {
 #pragma unroll
       for (int j = 0; j < kPer; ++j) p[w] += Rule::residual(s[j], v[w][j]);
     }
-    Scatter<kRows, 16>::run(p, lane);
-    part[par][warp][ra] = p[0];
+    // run_sweep's warp butterfly, batched over the rows (warp_scatter.cuh)
+    part[par][warp][ra] = Scatter<kRows, 16>::run(p, lane);
     __syncthreads();
     // the warp sums added in warp order, as run_sweep adds them; every
     // warp forms every gain and takes the same decisions

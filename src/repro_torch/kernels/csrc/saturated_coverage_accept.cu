@@ -3,7 +3,7 @@
 // Replaces the TPU kernel src/repro/kernels/saturated_coverage_accept.py,
 // saturated_coverage_accept (its pallas_call is accept_call in
 // src/repro/kernels/_accept_common.py), in both of its modes: cardinality
-// (cost=None) and knapsack cost (accept_sweep.cuh).  One launch serves L
+// (cost=None) and knapsack cost (feature_sweep.cuh).  One launch serves L
 // lanes, one CTA each, in place of the JAX engines' vmap over the tau grid.
 //
 // Per lane: sweep the (B, d) tile in order; row i's gain is
@@ -15,11 +15,12 @@
 //
 // What bounds it on the H100: 4.8 MB of rows at L = 37, B = 128, d = 256
 // is about 1.5 us at 3.35 TB/s; the real cost is the chain of B dependent
-// block reductions (accept_sweep.cuh).  The design (feature_sweep.cuh with
-// rules::SaturatedCoverage) keeps each thread's slice of s, min(s, cap),
-// cap and w in registers, recomputes min(s, cap) only on an accept, and
-// loads row i + 1 while row i is being reduced (past 2048 features the
-// wide instance keeps s in global memory).
+// block reductions the order of the sweep asks for.  The design
+// (feature_sweep.cuh's windowed walk with rules::SaturatedCoverage) keeps
+// each thread's slice of s, min(s, cap), cap and w in registers,
+// recomputes min(s, cap) only on an accept, and scores 32 rows a pass with
+// one reduce-scatter a warp and one barrier (past 2048 features the wide
+// instance keeps s in global memory).
 #include "feature_sweep.cuh"
 
 extern "C" int saturated_coverage_accept_launch(

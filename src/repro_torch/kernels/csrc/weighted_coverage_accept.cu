@@ -3,7 +3,7 @@
 // Replaces the TPU kernel src/repro/kernels/weighted_coverage_accept.py,
 // weighted_coverage_accept (its pallas_call is accept_call in
 // src/repro/kernels/_accept_common.py), in both of its modes: cardinality
-// (cost=None) and knapsack cost (accept_sweep.cuh).  One launch serves L
+// (cost=None) and knapsack cost (feature_sweep.cuh).  One launch serves L
 // lanes, one CTA each, in place of the JAX engines' vmap over the tau grid.
 //
 // Per lane: sweep the (B, U) incidence tile in order; row i's gain is
@@ -16,12 +16,17 @@
 //
 // What bounds it on the H100: 4.8 MB of rows at L = 37, B = 128, U = 256
 // is about 1.5 us at 3.35 TB/s, and the operations are fewer still; the
-// real cost is the chain of B dependent block reductions (accept_sweep.cuh).
-// The design (feature_sweep.cuh with rules::WeightedCoverage) keeps each
-// thread's slice of s in registers, so a row costs one multiply-add per
-// feature and one block reduction, an accept one multiply per feature with
-// no barrier, and row i + 1 is loaded while row i is being reduced (past
-// 2048 features the wide instance keeps s in global memory).
+// real cost is the chain of B dependent block reductions the order of the
+// sweep asks for, which the first port paid a row at a time.  The design
+// (feature_sweep.cuh's windowed walk with rules::WeightedCoverage) keeps
+// each thread's slice of s in registers and scores 32 rows a pass (one
+// multiply-add a feature and row), reduced by one reduce-scatter a warp
+// and one barrier for all of them, a ballot for the first accept; an
+// accept is one multiply a feature with no barrier.  The pass loads its
+// rows together, so no row waits on a load scheduled behind the last
+// row's barrier.  At 1025 to 2048 features the f32 sweep keeps the row
+// loop, a row at a time, where the walk's 16 features a thread spill; past
+// 2048 the wide instance keeps s in global memory.
 #include "feature_sweep.cuh"
 
 extern "C" int weighted_coverage_accept_launch(

@@ -52,7 +52,7 @@ def graph_cut_accept(x, total, state, eligible, tau, budget, lam=0.5,
                  eligible.data_ptr(), tau.data_ptr(), budget.data_ptr(),
                  _wrap.ptr(cost), _wrap.ptr(cost_budget),
                  mask.data_ptr(), state_out.data_ptr(), gains.data_ptr(),
-                 L, B, d, _wrap.feature_sweep_per(d))
+                 L, B, d, _wrap.feature_sweep_instance(name, x.dtype, d))
     launches += 1
     _wrap.count_shape(name, eligible.shape[-1])
     if cost is not None:

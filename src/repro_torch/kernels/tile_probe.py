@@ -2,16 +2,19 @@
 """What holds back the tiled kernels on a card: the facility / exemplar /
 log-det product of csrc/marginals_tile.cuh, the skinny tile of graph cut
 and weighted coverage (csrc/skinny_tile.cuh), the log-det accept sweep's
-narrow instance, the facility and exemplar accept sweeps, and the lane
-walk of coverage and saturated coverage (csrc/lane_rows.cuh).
+narrow instance, the facility and exemplar accept sweeps, the lane walk
+of coverage and saturated coverage (csrc/lane_rows.cuh), and the four
+feature sweeps (csrc/feature_sweep.cuh).
 
     PYTHONPATH=src python3 -m repro_torch.kernels.tile_probe
-        [--only lane_walk] [--sass-dir DIR] [OTHER_CSRC]
+        [--only lane_walk | --only feature_sweeps] [--sass-dir DIR]
+        [OTHER_CSRC]
                     (from the root of a checkout, on a machine with a
                      CUDA card and nvcc)
 
-``--only lane_walk`` runs the lane walk's probe alone; ``--sass-dir``
-writes the lane walk kernels' SASS there.
+``--only lane_walk`` / ``--only feature_sweeps`` runs that probe alone;
+``--sass-dir`` writes the lane walk kernels' SASS there, and the narrow
+feature sweeps' at 2 features a thread, f32.
 
 Builds facility_marginals.cu three times from patched copies of the
 kernel sources, in a temporary directory:
@@ -69,8 +72,21 @@ clock64 laps (LANE_ROWS_LAPS, by the design the tree's lane_rows.cuh
 holds: staging cycles a CTA, term-loop and reduction cycles of each warp
 tile or row), prints ptxas's registers and spills and the SASS mix of the
 walk's kernels, and times each at LANE_WALK_SHAPES (the corpus filter, the
-sample, one lane, the survivors, a chunk, one row; f32).  Last it runs the
-shipped facility kernel
+sample, one lane, the survivors, a chunk, one row; f32).  Then it builds
+the four feature sweeps of each tree as they are, with clock64 laps
+(FEATURE_LAPS, by the design the tree's feature_sweep.cuh holds: a row's
+term loop, butterfly, barrier and warp sums, eligibility / cost loads and
+decision, accept and stores for the row loop; a pass's x loads and
+shares, reduce-scatter, barrier and warp sums, decision, stores and
+accept, and the row loop, for the windowed walk; each sweep at
+feature_sweep_per's instance, so a tree with the walk probes the walk
+even where the wrapper keeps the row loop, _wrap.FEATURE_SWEEP_LOOPS) and
+with the design's variants (the row loop without the next row's x loads;
+the walk with other constants), prints the order of the loads, shuffles and barrier in
+each narrow kernel's SASS, and times each at chip_smoke.py's path case
+(L = 37, B = 128, d = 256, f32 and bf16) in three rules: the path taus,
+the knapsack cost mode and tau = -inf with the budget B.  Last it runs
+the shipped facility kernel
 at the filter shape for three seconds while sampling the SM clock, power
 draw and throttle reasons with nvidia-smi, and prints the card's name and
 power limit.  Imports nothing of JAX.
@@ -89,7 +105,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, _wrap, ref
 
 #: (name, [(text, replacement)]) patches of marginals_tile.cuh
 TILE_VARIANTS = (
@@ -726,6 +742,332 @@ def probe_lane_walk(tmp: Path, trees: dict, g, dev, stream,
     del X, Xs
 
 
+
+#: the four feature sweeps (csrc/feature_sweep.cuh), by source
+FEATURE_SWEEPS = ("coverage_accept", "weighted_coverage_accept",
+                  "saturated_coverage_accept", "graph_cut_accept")
+#: the feature sweeps' main path: chip_smoke.py's path case
+FEATURE_PATH = (37, 128, 256)
+
+
+def feature_sweep_case(name, L, B, d, dtype, g, dev, weighted=False):
+    """(x, state, operands, gains0) of feature sweep ``name`` at (L, B, d)
+    on chip_smoke.py's data (rows U[0, 1)^2; coverage states U[0, 4),
+    weighted U[0, 2), saturated states at 0, 0.5, 0.9, 1 and 1.5 times a cap
+    U[0.25, 2.25), graph cut a total U[0, 2^20 / 3) and states up to 1.2
+    t / (2 lam), lam 0.5); ``operands`` are the launch's arguments between
+    the state and ``eligible`` (weights with ``weighted``), gains0 every
+    row's gain against the state (plain version)."""
+    x = (torch.rand((L, B, d), generator=g, device=dev) ** 2).to(dtype)
+    w = (torch.rand(d, generator=g, device=dev) + 0.5) if weighted else None
+    if name == "coverage_accept":
+        st = torch.rand((L, d), generator=g, device=dev) * 4
+        ops, g0 = (w,), ref.coverage_marginals(x, st, w)
+    elif name == "weighted_coverage_accept":
+        st = torch.rand((L, d), generator=g, device=dev) * 2
+        ops, g0 = (), ref.weighted_coverage_marginals(x, st)
+    elif name == "saturated_coverage_accept":
+        cap = torch.rand(d, generator=g, device=dev) * 2 + 0.25
+        frac = torch.tensor([0.0, 0.5, 0.9, 1.0, 1.5], device=dev)
+        st = frac[torch.randint(0, 5, (L, d), generator=g, device=dev)] * cap
+        ops, g0 = (cap, w), ref.saturated_coverage_marginals(x, st, cap, w)
+    else:
+        t = torch.rand(d, generator=g, device=dev) * (1 << 20) / 3
+        st = t * torch.rand((L, 1), generator=g, device=dev) * 1.2
+        ops, g0 = (t, 0.5), ref.graph_cut_marginals(x, t, st, 0.5)
+    return x, st.contiguous(), ops, g0
+
+
+def feature_sweep_rules(L, B, g0, g, dev):
+    """[(rule, tau, budget, cost, cost_budget)] of the feature sweeps'
+    three rules: chip_smoke.py's path taus (each lane's quantile 0.05 ..
+    0.95 of its first gains, budget 3 in every fifth lane, else 64), the
+    knapsack cost mode (costs U[0.5, 2), tau over the mean cost, a cost
+    budget of 2 in even lanes) and tau = -inf with the budget B (every
+    eligible row accepted)."""
+    lanes = torch.arange(L, device=dev)
+    q = torch.linspace(0.05, 0.95, L, device=dev)
+
+    def taus(gains):
+        return torch.stack([gains[l].quantile(q[l])
+                            for l in range(L)]).contiguous()
+
+    path_budget = torch.where(lanes % 5 == 0, 3, 64).to(torch.int32)
+    cost = (0.5 + 1.5 * torch.rand((L, B), generator=g, device=dev)
+            ).contiguous()
+    cb = torch.where(lanes % 2 == 0, 2.0, 1e9).to(torch.float32).contiguous()
+    return [("path taus", taus(g0), path_budget, None, None),
+            ("cost", taus(g0 / cost.mean()), path_budget, cost, cb),
+            ("tau=-inf", torch.full((L,), float("-inf"), device=dev),
+             torch.full((L,), B, dtype=torch.int32, device=dev), None, None)]
+
+
+def feature_sweep_call(fn, x, st, ops, elig, tau, budget, cost, cb, outs,
+                       stream, per=None):
+    """A launch of a feature sweep's entry point ``fn`` (ctypes) on these
+    operands into ``outs`` (mask, state, gains), at instance ``per`` (see
+    _wrap.feature_sweep_instance; by default feature_sweep_per(d): the walk
+    or the wide instance)."""
+    L, B, d = x.shape
+    per = _wrap.feature_sweep_per(d) if per is None else per
+    args = [o if isinstance(o, float) else
+            (None if o is None else o.data_ptr()) for o in ops]
+    return lambda: fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                      st.data_ptr(), *args, elig.data_ptr(), tau.data_ptr(),
+                      budget.data_ptr(),
+                      None if cost is None else cost.data_ptr(),
+                      None if cb is None else cb.data_ptr(),
+                      *(o.data_ptr() for o in outs), L, B, d, per, stream)
+
+
+#: clock64 laps of the feature sweeps' narrow instance: (design, lap names,
+#: [(text, replacement)], the other variants) for each design; the probe
+#: takes the patch whose anchors the tree's accept_sweep.cuh and
+#: feature_sweep.cuh hold.  Every thread keeps its laps; thread 0 of each
+#: CTA writes its sums over gains[l, :n] at the end, so the laps build's
+#: gains are not the sweep's.  ``x resident`` drops the load of each next
+#: row (every row is scored as row 0, in registers): the term-loop lap of
+#: the two builds differs by the x-load stall.
+FEATURE_LAPS = (
+    # run_sweep's row loop, one butterfly and one barrier a row
+    ("row loop", ("term loop", "butterfly", "barrier and warp sums",
+                  "eligible / cost loads and decision", "accept",
+                  "thread 0's stores"), [
+        ("  int n_acc = 0;\n  float spent = 0.0f;\n"
+         "  for (int i = 0; i < B; ++i) {\n    float p = step.partial(i);\n",
+         "  int n_acc = 0;\n  float spent = 0.0f;\n"
+         "  long long lp_[6] = {0, 0, 0, 0, 0, 0};\n"
+         "  long long tc_ = clock64();\n"
+         "#define REPRO_LAP(k) { const long long t_ = clock64(); "
+         "lp_[k] += t_ - tc_; tc_ = t_; }\n"
+         "  for (int i = 0; i < B; ++i) {\n    float p = step.partial(i);\n"
+         "    REPRO_LAP(0)\n"),
+        ("    if (lane == 0) partials[i & 1][warp] = p;\n",
+         "    REPRO_LAP(1)\n    if (lane == 0) partials[i & 1][warp] = p;\n"),
+        ("    bool acc;\n    if constexpr (kCost) {\n      const float c = "
+         "cost[i];\n",
+         "    REPRO_LAP(2)\n    bool acc;\n    if constexpr (kCost) {\n"
+         "      const float c = cost[i];\n"),
+        ("    if (acc) {\n      step.accept();\n",
+         "    REPRO_LAP(3)\n    if (acc) {\n      step.accept();\n"),
+        ("    if (threadIdx.x == 0) {\n      mask_out[i] = acc ? 1 : 0;\n"
+         "      gains_out[i] = gain;\n    }\n  }\n}\n",
+         "    REPRO_LAP(4)\n    if (threadIdx.x == 0) {\n"
+         "      mask_out[i] = acc ? 1 : 0;\n      gains_out[i] = gain;\n    }\n"
+         "    REPRO_LAP(5)\n  }\n  if (threadIdx.x == 0)\n"
+         "    for (int k = 0; k < 6; ++k) gains_out[k] = (float)lp_[k];\n"
+         "#undef REPRO_LAP\n}\n"),
+    ], {"x resident": [("    load_row(i + 1, next);\n", "")]}),
+    # the windowed walk: a pass's phases (cycles, summed over the passes
+    # of both kinds), the row loop (cycles, and its rows), the passes, and
+    # the rest (state in and out); the other variants move its constants
+    ("walk", ("pass: x loads and shares", "pass: reduce-scatter",
+              "pass: barrier and warp sums",
+              "pass: decision, stores and accept", "row loop",
+              "passes (count)", "row loop rows (count)",
+              "prologue and epilogue"), [
+        ("  int par = 0;\n",
+         "  int par = 0;\n  long long lp_[4] = {0, 0, 0, 0};\n"
+         "#define REPRO_LAP(k) { const long long t_ = clock64(); "
+         "lp_[k] += t_ - tc_; tc_ = t_; }\n"),
+        ("    const int ra = lane >> kShift, row = cur + ra;\n",
+         "    long long tc_ = clock64();\n"
+         "    const int ra = lane >> kShift, row = cur + ra;\n"),
+        ("    shares<kRows>(s, pre, v, p);\n",
+         "    shares<kRows>(s, pre, v, p);\n    REPRO_LAP(0)\n"),
+        ("                      ? r[0][j] : Rule::pre(hs[j], ops[j]);\n"
+         "        }\n    }\n",
+         "                      ? r[0][j] : Rule::pre(hs[j], ops[j]);\n"
+         "        }\n    }\n    REPRO_LAP(0)\n"),
+        ("    part[par][warp][ra] = Scatter<kRows, 16>::run(p, lane);\n",
+         "    part[par][warp][ra] = Scatter<kRows, 16>::run(p, lane);\n"
+         "    REPRO_LAP(1)\n"),
+        ("    const bool acc = e && mode.passes(gain, op) && mode.fits(op);\n"
+         "    const unsigned bal",
+         "    REPRO_LAP(2)\n"
+         "    const bool acc = e && mode.passes(gain, op) && mode.fits(op);\n"
+         "    const unsigned bal"),
+        ("    const bool hoped_in = fit >> ra & 1;\n",
+         "    REPRO_LAP(2)\n    const bool hoped_in = fit >> ra & 1;\n"),
+        ("    return first;\n  }\n",
+         "    REPRO_LAP(3)\n    return first;\n  }\n"),
+        ("    return surprise;\n  }\n",
+         "    REPRO_LAP(3)\n    return surprise;\n  }\n"),
+        ("  for (int cur = 0, width = kWide; cur < B;) {\n",
+         "  const long long lap0 = clock64();\n"
+         "  long long ln = 0, nw = 0, nn = 0;\n"
+         "  for (int cur = 0, width = kWide; cur < B;) {\n"),
+        ("    cur += f < width ? f + 1 : width;\n",
+         "    ++nw;\n    cur += f < width ? f + 1 : width;\n"),
+        ("      cur = walk.row_loop(cur, took, hits);\n",
+         "      const long long t_ = clock64();\n      const int c0_ = cur;\n"
+         "      cur = walk.row_loop(cur, took, hits);\n"
+         "      ln += clock64() - t_;\n      nn += cur - c0_;\n"),
+        ("    if (walk.owns(j)) state_out[l * d + threadIdx.x + j * kThreads] = "
+         "walk.s[j];\n}\n",
+         "    if (walk.owns(j)) state_out[l * d + threadIdx.x + j * kThreads] = "
+         "walk.s[j];\n"
+         "  if (threadIdx.x == 0) {\n    long long lw = 0;\n"
+         "    for (int k = 0; k < 4; ++k) {\n"
+         "      gains[l * B + k] = (float)walk.lp_[k];\n"
+         "      lw += walk.lp_[k];\n    }\n"
+         "    gains[l * B + 4] = (float)ln;\n"
+         "    gains[l * B + 5] = (float)nw;\n"
+         "    gains[l * B + 6] = (float)nn;\n"
+         "    gains[l * B + 7] = (float)(clock64() - lap0 - lw - ln);\n"
+         "  }\n}\n"),
+    ], {"close 4": [("constexpr int kCloseRows = 8;",
+                     "constexpr int kCloseRows = 4;")],
+        "hits 4": [("constexpr int kHits = 6;", "constexpr int kHits = 4;")],
+        "hits 8": [("constexpr int kHits = 6;", "constexpr int kHits = 8;")],
+        "dense misses 8": [("constexpr int kMissesDense = 16;",
+                            "constexpr int kMissesDense = 8;")],
+        "never hopeful": [("constexpr int kHits = 6;",
+                           "constexpr int kHits = 1 << 30;")],
+        "tree 1": [("  return kPer <= 8 ? 2 : 1;", "  return 1;")],
+        # bf16 reads predicated as the f32 ones
+        "bf16 predicated": [("      if constexpr (std::is_same<T, float>::"
+                             "value) {\n        v[j] =",
+                             "      if constexpr (true) {\n        v[j] ="),
+                            ("        if constexpr (std::is_same<T, float>::"
+                             "value) {\n#pragma unroll",
+                             "        if constexpr (true) {\n#pragma unroll")]}),
+)
+
+
+def feature_sweep_laps(tmp: Path, label: str, csrc: Path):
+    """(design, lap names, {source: {variant: launch fn}}) for the tree
+    ``csrc``: the four feature sweeps as they are (``shipped``), with the
+    design's clock64 laps (``laps``), and each other variant of the design
+    alone and with the laps."""
+    texts = "".join((csrc / f).read_text()
+                    for f in ("accept_sweep.cuh", "feature_sweep.cuh"))
+    # the newest design first: the walk's tree keeps run_sweep for the
+    # wide instance
+    for design, names, patch, others in reversed(FEATURE_LAPS):
+        if all(old in texts for old, _ in patch):
+            break
+    else:
+        raise RuntimeError(f"{csrc}: no laps patch fits feature_sweep.cuh")
+    variants = [("shipped", []), ("laps", patch)]
+    for name, other in others.items():
+        variants.append((name, other))
+        if design == "row loop":
+            variants.append((f"laps, {name}", patch + other))
+    fns = {}
+    for source in FEATURE_SWEEPS:
+        sub = tmp / f"feature_{label.replace(' ', '_')}_{source}"
+        sub.mkdir(parents=True)
+        fns[source] = build(sub, source,
+                            ("accept_sweep.cuh", "feature_sweep.cuh"),
+                            [(v.replace(" ", "_").replace(",", ""), p)
+                             for v, p in variants], csrc)
+    return design, names, fns
+
+
+#: the SASS opcodes whose order feature_sweep_order prints
+ORDER_OPS = ("LDG", "BAR", "SHFL", "LDS", "STS", "STG", "MUFU", "VOTE", "BRA")
+
+
+def feature_sweep_order(lib_path: Path) -> dict:
+    """{kernel: the order of ORDER_OPS in its SASS, run-length coded} for
+    the narrow f32 kernels at 2 features a thread (the path case's
+    instance) of a feature sweep library: where the x and eligibility
+    loads sit against the barrier and the shuffles."""
+    out = {}
+    for name, fn_sass in sass_functions(lib_path, "feature_sweep").items():
+        if "IfLi2E" not in name or "wide" in name:
+            continue
+        seq = []
+        for ln in fn_sass.splitlines():
+            if not (ln.strip().startswith("/*") and ";" in ln):
+                continue
+            op = [tok for tok in ln.split(";")[0].split()[1:]
+                  if not tok.startswith("@")][0].split(".")[0]
+            if op not in ORDER_OPS:
+                continue
+            if seq and seq[-1][0] == op:
+                seq[-1][1] += 1
+            else:
+                seq.append([op, 1])
+        out[name] = " ".join(op if n == 1 else f"{op}x{n}" for op, n in seq)
+    return out
+
+
+def probe_feature_sweeps(tmp: Path, trees: dict, g, dev, stream,
+                         sass_dir: Path | None = None):
+    """Time the four feature sweeps of each tree ({label: csrc}) at
+    chip_smoke.py's path case (FEATURE_PATH, f32, and the same rows in
+    bf16) in their three rules (feature_sweep_rules) as built and as each
+    variant of the design, and
+    print each laps build's cycles a row by phase (slowest lane and the
+    mean over lanes) and the accepts per lane."""
+    L, B, D = FEATURE_PATH
+    elig = torch.rand((L, B), generator=g, device=dev) < 0.9
+    outs = (torch.empty((L, B), dtype=torch.bool, device=dev),
+            torch.empty((L, D), device=dev), torch.empty((L, B), device=dev))
+    cases = {}
+    for source in FEATURE_SWEEPS:
+        x, st, ops, g0 = feature_sweep_case(source, L, B, D, torch.float32,
+                                            g, dev)
+        cases[source] = (x, st, ops, feature_sweep_rules(L, B, g0, g, dev))
+    for label, csrc in trees.items():
+        design, names, fns = feature_sweep_laps(tmp, label, csrc)
+        for source, variants in fns.items():
+            lib_path = Path(variants["shipped"].lib._name)
+            for kernel, order in feature_sweep_order(lib_path).items():
+                print(f"[probe] {label} ({design}) {source} sass order "
+                      f"{kernel}: {order}", flush=True)
+            if sass_dir is not None:
+                sass_dir.mkdir(parents=True, exist_ok=True)
+                tag = label.replace(" ", "_")
+                with (sass_dir / f"{tag}_{source}.sass").open("w") as f:
+                    for name, fn_sass in sass_functions(
+                            lib_path, "feature_sweep").items():
+                        if "IfLi2E" in name and "wide" not in name:
+                            f.write("Function : " + fn_sass)
+            x32, st, ops, rules = cases[source]
+            for (rule, tau, budget, cost, cb), (x, tag) in (
+                    (r, xt) for xt in ((x32, ""),
+                                       (x32.to(torch.bfloat16), " bf16"))
+                    for r in rules):
+                rule += tag
+
+                def call(fn):
+                    return feature_sweep_call(fn, x, st, ops, elig, tau,
+                                              budget, cost, cb, outs, stream)
+
+                ms = {v: cuda_ms(call(fn), 50) for v, fn in variants.items()}
+                call(variants["shipped"])()
+                torch.cuda.synchronize()
+                acc = outs[0].sum(-1)
+                times = ", ".join(f"{v} {t} ms" for v, t in ms.items())
+                print(f"[probe] {label} ({design}) {source} x({L}, {B}, {D}) "
+                      f"{rule}: {times}; accepts per lane min "
+                      f"{int(acc.min())} mean {float(acc.float().mean()):.2f}"
+                      f" max {int(acc.max())}", flush=True)
+                for v in variants:
+                    if not v.startswith("laps"):
+                        continue
+                    call(variants[v])()  # decides as shipped, but x resident
+                    torch.cuda.synchronize()
+                    cyc = outs[2][:, :len(names)].double()
+                    count = torch.tensor(["count" in n for n in names],
+                                         device=dev)
+                    total = torch.where(count, 0.0, cyc).sum(-1)
+                    slow = int(total.argmax())
+                    laps = "; ".join(
+                        f"{who}: {float(tot) / B:.0f} cycles a row ("
+                        + ", ".join(f"{n} {float(c) if k else float(c) / B:.1f}"
+                                    for n, c, k in zip(names, row, count))
+                        + ")"
+                        for who, row, tot in (
+                            (f"slowest lane {slow}", cyc[slow], total[slow]),
+                            ("mean", cyc.mean(0), total.mean())))
+                    print(f"[probe] {label} ({design}) {source} {rule} {v}: "
+                          f"cycles {laps}", flush=True)
+
+
 def main() -> int:
     args, only, sass_dir = sys.argv[1:], None, None
     while args[:1] in (["--only"], ["--sass-dir"]) and len(args) >= 2:
@@ -735,7 +1077,7 @@ def main() -> int:
             sass_dir = Path(args[1])
         args = args[2:]
     if len(args) > 1 or (args and not Path(args[0]).is_dir()) or \
-            only not in (None, "lane_walk"):
+            only not in (None, "lane_walk", "feature_sweeps"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -746,10 +1088,14 @@ def main() -> int:
     trees = {"this tree": _build.CSRC}
     if args:
         trees = {"base": Path(args[0]), **trees}
-    if only == "lane_walk":
+    if only is not None:
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         with tempfile.TemporaryDirectory() as tmp:
-            probe_lane_walk(Path(tmp), trees, g, dev, stream, sass_dir)
+            if only == "lane_walk":
+                probe_lane_walk(Path(tmp), trees, g, dev, stream, sass_dir)
+            else:
+                probe_feature_sweeps(Path(tmp), trees, g, dev, stream,
+                                     sass_dir)
         print(smi("name,power.limit"))
         return 0
     N, D, R, L = 1 << 20, 256, 256, 37
@@ -805,6 +1151,7 @@ def main() -> int:
                                   LA_VARIANTS + (("laps", LAPS_PATCH),)),
                             g, dev, stream)
         probe_reference_sweeps(Path(tmp), trees, g, dev, stream)
+        probe_feature_sweeps(Path(tmp), trees, g, dev, stream)
         probe_lane_walk(Path(tmp), trees, g, dev, stream, sass_dir)
         st = (torch.rand((L, R), generator=g, device=dev) * D / 4).contiguous()
         shipped = fns["shipped"]

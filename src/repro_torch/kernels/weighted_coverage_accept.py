@@ -50,7 +50,7 @@ def weighted_coverage_accept(x, state, eligible, tau, budget,
                  state.data_ptr(), eligible.data_ptr(), tau.data_ptr(),
                  budget.data_ptr(), _wrap.ptr(cost), _wrap.ptr(cost_budget),
                  mask.data_ptr(), state_out.data_ptr(), gains.data_ptr(),
-                 L, B, U, _wrap.feature_sweep_per(U))
+                 L, B, U, _wrap.feature_sweep_instance(name, x.dtype, U))
     launches += 1
     _wrap.count_shape(name, eligible.shape[-1])
     if cost is not None:

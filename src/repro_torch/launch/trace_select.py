@@ -1,29 +1,36 @@
 #!/usr/bin/env python3
 """Where one fused select's time goes on the card: a ``torch.profiler``
-trace of a FacilityLocation select and an ExemplarClustering select at
-full width, and the accepts each of their sweep launches made.
+trace of fused selects at full width, and the accepts each of their sweep
+launches made.
 
     python3 src/repro_torch/launch/trace_select.py [--src DIR]
+        [--oracles NAME,...] [--modes f32,bf16,knapsack]
                     (from the root of a checkout, on a machine with a
                      CUDA card and nvcc)
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported
 (default: the one this file lies in), so one command can trace two trees,
 for example the parent commit unpacked with ``git archive`` into a
-directory that ``.gitignore`` lists, and this one.
+directory that ``.gitignore`` lists, and this one.  ``--oracles`` names
+the oracles (default ``facility_location,exemplar``; any of ORACLES),
+``--modes`` the selects of each (default ``f32``): f32 storage, bf16
+storage, and the knapsack constraint (costs U[0.5, 2), budget 40) on f32.
 
 Each select is the fused two_round select of ``chip_smoke.py``'s main path:
 n = 1,048,576 rows of d = 256 (U[0,1)^2, generator seed 0), a 256-row
-reference set drawn after them, k = 64, m = 16 simulated machines,
-eps = 0.15, chunk 128, on the kernel route, f32.  Per oracle it prints:
+reference set and the knapsack's costs drawn after them, the ground set's
+feature sum as saturated coverage's and graph cut's total, k = 64, m = 16
+simulated machines, eps = 0.15, chunk 128, on the kernel route.  Per
+oracle and mode it prints:
 
 * the select's wall ms (host clock around a select that ends in a device
-  sync), three runs after a warm-up, without the profiler;
+  sync), three runs after a warm-up, without the profiler, its value and a
+  checksum of its ids in order;
 * from one traced run: the device's busy share of the select's host span
   (the union of the kernel, memcpy and memset intervals), its idle share,
-  the device ms by kernel for the top ones, and the share of device time
-  of the oracle's accept sweep (every kernel of ``reference_tile.cuh``:
-  its name holds ``reftile``);
+  the device ms by kernel for the top ones, and the device ms and share of
+  the oracle's accept sweep (every kernel whose name holds the sweep's
+  marker in ORACLES);
 * from one more run with the sweep's wrapper wrapped: its launches, lanes
   swept, rows, eligible rows and accepts, and a histogram of the accepts
   per lane and launch.
@@ -35,16 +42,29 @@ from __future__ import annotations
 
 import argparse
 import collections
+import inspect
 import json
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 N, D, K, M, EPS, CHUNK, R = 1 << 20, 256, 64, 16, 0.15, 128, 256
-ORACLES = (("facility_location", "facility_accept"),
-           ("exemplar", "exemplar_accept"))
+KNAP_BUDGET = K * 1.25 / 2  # the knapsack's budget (the JAX CLI's): 40
+#: oracle: (its accept sweep's module, a marker its kernels' names hold)
+ORACLES = {"facility_location": ("facility_accept", "reftile"),
+           "exemplar": ("exemplar_accept", "reftile"),
+           "feature_coverage": ("coverage_accept", "feature_sweep"),
+           "weighted_coverage": ("weighted_coverage_accept", "feature_sweep"),
+           "saturated_coverage": ("saturated_coverage_accept",
+                                  "feature_sweep"),
+           "graph_cut": ("graph_cut_accept", "feature_sweep")}
+#: mode: the SelectorSpec fields of its select
+MODES = {"f32": {}, "bf16": {"precision": "bf16"},
+         "knapsack": {"constraint": "knapsack",
+                      "knapsack_budget": KNAP_BUDGET}}
 #: upper edges of the accepts-per-lane histogram's bins
 BINS = (0, 1, 2, 4, 8, 16, 32, 64, 128)
 
@@ -82,7 +102,13 @@ def device_share(trace_path, span_name):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--oracles", default="facility_location,exemplar")
+    ap.add_argument("--modes", default="f32")
     args = ap.parse_args(argv)
+    oracles, modes = args.oracles.split(","), args.modes.split(",")
+    if not set(oracles) <= set(ORACLES) or not set(modes) <= set(MODES):
+        ap.error(f"--oracles from {sorted(ORACLES)}, --modes from "
+                 f"{sorted(MODES)}")
     import torch
     if not torch.cuda.is_available():
         print("trace_select: no CUDA device", file=sys.stderr)
@@ -97,12 +123,18 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     X = torch.rand((N, D), generator=gen, device="cuda") ** 2
     reference = torch.rand((R, D), generator=gen, device="cuda")
-    for oracle, sweep in ORACLES:
+    costs = 0.5 + 1.5 * torch.rand(N, generator=gen, device="cuda")
+    total = X.sum(0)
+    for oracle, mode in ((o, m) for o in oracles for m in modes):
+        sweep, marker = ORACLES[oracle]
         spec = tsel.SelectorSpec(k=K, eps=EPS, chunk=CHUNK, oracle=oracle,
-                                 engine="fused", use_kernel=True)
-        sel = tsel.DistributedSelector(spec, n_total=N, feat_dim=D,
-                                       n_machines=M, device="cuda",
-                                       reference=reference)
+                                 engine="fused", use_kernel=True,
+                                 **MODES[mode])
+        sel = tsel.DistributedSelector(
+            spec, n_total=N, feat_dim=D, n_machines=M, device="cuda",
+            reference=reference, total=total,
+            element_costs=costs if mode == "knapsack" else None)
+        what = f"{label} {oracle} fused {mode}"
 
         def select():
             g = torch.Generator(device="cuda").manual_seed(1)
@@ -114,9 +146,10 @@ def main(argv=None) -> int:
 
         res, value, _ = select()  # warm-up: builds and loads the kernels
         walls = [select()[2] for _ in range(3)]
-        ids = res.sol_ids[:int(res.sol_size)].tolist()
-        print(f"[trace] {label} {oracle} fused: value={value} "
-              f"|S|={len(ids)} wall_ms={walls} ids={ids}", flush=True)
+        ids = res.sol_ids.cpu()[:int(res.sol_size)].to(torch.int64)
+        print(f"[trace] {what}: value={value} |S|={len(ids)} "
+              f"ids_crc32={zlib.crc32(ids.numpy().tobytes())} "
+              f"wall_ms={walls}", flush=True)
 
         from torch.profiler import ProfilerActivity, profile, record_function
         with tempfile.TemporaryDirectory() as tmp:
@@ -128,9 +161,9 @@ def main(argv=None) -> int:
             prof.export_chrome_trace(str(path))
             span, busy, by_kernel = device_share(path, "select")
         sweep_ms = sum(ms for name, ms in by_kernel.items()
-                       if "reftile" in name)
+                       if marker in name)
         dev_ms = sum(by_kernel.values())
-        print(f"[trace] {label} {oracle} fused traced: wall_ms={wall} "
+        print(f"[trace] {what} traced: wall_ms={wall} "
               f"span_ms={span} device_busy_ms={busy} busy_share="
               f"{busy / span} idle_share={1 - busy / span} device_ms="
               f"{dev_ms} sweep_ms={sweep_ms} sweep_share_of_device="
@@ -142,9 +175,11 @@ def main(argv=None) -> int:
                       sweep)
         shipped, stats = getattr(mod, sweep), collections.Counter()
         hist = collections.Counter()
+        signature = inspect.signature(shipped)
 
-        def counted(cand, ref, state, eligible, *rest, **kw):
-            out = shipped(cand, ref, state, eligible, *rest, **kw)
+        def counted(*a, **kw):
+            out = shipped(*a, **kw)
+            eligible = signature.bind(*a, **kw).arguments["eligible"]
             per_lane = out[0].reshape(-1, out[0].shape[-1]).sum(-1).tolist()
             stats["launches"] += 1
             stats["lanes"] += len(per_lane)
@@ -160,8 +195,9 @@ def main(argv=None) -> int:
             select()
         finally:
             setattr(mod, sweep, shipped)
-        print(f"[trace] {label} {oracle} fused {sweep}: {dict(stats)}; "
-              f"lanes by accepts (<= bin): "
+        print(f"[trace] {what} {sweep}: {dict(stats)}; sweep device ms a "
+              f"launch {sweep_ms / max(stats['launches'], 1)}; lanes by "
+              f"accepts (<= bin): "
               f"{ {b: hist[b] for b in BINS if hist[b]} }", flush=True)
         del sel
         ops.reset_launch_counts()

@@ -45,7 +45,9 @@ instance of the lane walk (csrc/lane_rows.cuh: shared-x warp tiles of
 4 x 8, 8 x 4, 16 x 2 and 32 x 1 rows x lanes, one-lane and per-lane tiles
 of 16, 8 and 1 rows, a shared block shorter than a row tile) holds to the
 plain versions of its four kernels with their tolerances, and a repeated
-launch gives the same bits.
+launch gives the same bits.  Every narrow instance of the feature walk
+(csrc/feature_sweep.cuh, 1 to 16 features a thread) gives the plain
+sweeps' bits on dyadic data in both modes.
 """
 
 import pytest
@@ -930,6 +932,97 @@ def _same_sweep(got, want, exact):
             torch.testing.assert_close(
                 a, b, rtol=RTOL if exact is False else LD_RTOL,
                 atol=ATOL if exact is False else LD_ATOL)
+
+
+#: d at each narrow instance of the feature walk: (d, features a thread)
+FEATURE_WALK_D = ((100, 1), (200, 2), (500, 4), (1000, 8), (2000, 16))
+
+
+def _feature_walk_case(name, g, dev, L, B, d, dtype):
+    """(kernel call, plain call) of a feature sweep on dyadic data where
+    every term, gain, state and spend is exact in f32 in any order; each
+    call takes (cost, cost_budget).  Coverage: states c/64 (c = 1, 4, 16)
+    and each feature non-zero in at most two rows of a lane, at 24 c/64, so
+    a state runs through c/64, 25 c/64 and 49 c/64 and every root is exact;
+    weighted coverage: binary rows, states k/8; saturated: (a/8)^2 rows,
+    dyadic caps and weights, states straddling the caps; graph cut: a/8
+    rows, totals k/2, lam 0.5.  Lanes take budgets 0, 1, 3 and B in turn,
+    and lane 5 has no eligible row."""
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev)
+
+    elig = torch.rand((L, B), generator=g, device=dev) < 0.9
+    elig[5] = False
+    bud = torch.tensor([0, 1, 3, B], dtype=torch.int32,
+                       device=dev).repeat(L // 4)
+    if name == "coverage":
+        c = 4.0 ** ints(0, 3, (L, 1, d))
+        rows = torch.arange(B, device=dev)[None, :, None]
+        on = torch.zeros((L, B, d), dtype=torch.bool, device=dev)
+        for _ in range(2):
+            on |= (rows == ints(0, B, (L, 1, d))) & (
+                torch.rand((L, 1, d), generator=g, device=dev) < 0.7)
+        x = torch.where(on, 24.0 * c / 64.0, 0.0).to(dtype)
+        state = (c[:, 0] / 64.0).contiguous()
+        w = ints(1, 8, (d,)) / 4.0
+        tau = ref.coverage_marginals(x, state, w).median(dim=1).values
+        args = (x, state, w, elig, (tau * 0.5).contiguous(), bud)
+        return (lambda c_, cb: tca.coverage_accept(*args, c_, cb),
+                lambda c_, cb: ref.coverage_accept(*args, c_, cb))
+    if name in ("weighted", "saturated"):
+        x, state, _, _, cap = _sweep_case(
+            g, dev, L, B, d, dtype, "binary" if name == "weighted" else
+            "dyadic")
+        if name == "weighted":
+            tau = ref.weighted_coverage_marginals(x, state).median(
+                dim=1).values
+            args = (x, state, elig, (tau * 0.5).contiguous(), bud)
+            return (lambda c_, cb: twa.weighted_coverage_accept(*args, c_, cb),
+                    lambda c_, cb: ref.weighted_coverage_accept(*args, c_,
+                                                                cb))
+        w = ints(1, 8, (d,)) / 4.0
+        tau = ref.saturated_coverage_marginals(x, state, cap, w).median(
+            dim=1).values
+        args = (x, state, cap, w, elig, (tau * 0.5).contiguous(), bud)
+        return (lambda c_, cb: tsa.saturated_coverage_accept(*args, c_, cb),
+                lambda c_, cb: ref.saturated_coverage_accept(*args, c_, cb))
+    x, total, state = _graph_cut_case(g, dev, "per_lane", L, B, d, dtype)
+    state = state.expand(L, d).contiguous()
+    tau = ref.graph_cut_marginals(x, total, state).median(dim=1).values
+    args = (x, total, state, elig, (tau * 0.5).contiguous(), bud, 0.5)
+    return (lambda c_, cb: tga.graph_cut_accept(*args, c_, cb),
+            lambda c_, cb: ref.graph_cut_accept(*args, c_, cb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["walk", "row loop"])
+@pytest.mark.parametrize("mode", ["cardinality", "cost"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,per", FEATURE_WALK_D)
+@pytest.mark.parametrize("name", ["coverage", "weighted", "saturated",
+                                  "graph_cut"])
+def test_cuda_feature_walk_dyadic_bitwise(cuda_device, monkeypatch, name, d,
+                                          per, dtype, mode, route):
+    """Each narrow instance of the feature walk (csrc/feature_sweep.cuh: 32,
+    32, 16, 8 and 8 rows a pass at 1, 2, 4, 8 and 16 features a thread) and
+    of the row loop, forced whichever the wrapper would pick, in both
+    modes, on dyadic data: masks, states and gains bit for bit the plain
+    sweep's, and a repeated launch the same bits."""
+    assert _wrap.feature_sweep_per(d) == per
+    sign = 1 if route == "walk" else -1
+    monkeypatch.setattr(_wrap, "feature_sweep_instance",
+                        lambda name, dtype, d: sign * per)
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    L, B = 8, 128
+    kern, plain = _feature_walk_case(name, g, cuda_device, L, B, d, dtype)
+    cost, cb = _cost_operands(g, cuda_device, L, B, mode)
+    got = kern(cost, cb)
+    torch.cuda.synchronize()
+    want = plain(cost, cb)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[0].sum()) > 0
+    assert all(torch.equal(a, b) for a, b in zip(got, kern(cost, cb)))
 
 
 @pytest.mark.cuda
