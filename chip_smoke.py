@@ -38,7 +38,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    warp tiles of 4 x 8, 8 x 4, 16 x 2 and 32 x 1 rows x lanes, one-lane
    and per-lane tiles of 16, 8 and 1 rows), f32 and bf16, against the plain
    version and bitwise on a second launch, and the build prints ptxas's
-   registers and spills of every lane walk kernel.
+   registers and spills of every lane walk kernel.  rectified_residual_sum
+   runs at its main-path shapes (unbatched over the corpus and over the
+   sample, the sample shared by 37 lanes, 37 lanes' per-lane survivors,
+   unbatched over the wide FacilityLocation select's 262,144 x 8192 aux)
+   and two odd ones, beside a read-rate yardstick (``aux.sum(-1)`` over the
+   corpus's 1 GiB aux, not the same function), each line naming the card
+   and its power limit.
 3. The knapsack cost mode of the seven accept sweeps against their plain
    versions, with budgets that bind inside the chunk in half the lanes;
    then each sweep's wide instance (d = 2049 and 4096 features, r = 4097
@@ -53,8 +59,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    guarantee against sequential greedy, and that every kernel of the path
    launched; each kernel's launches are also split by the rows a lane each
    launch took (more than a chunk, a chunk, one row), and the "filter"
-   launches of coverage_marginals and saturated_coverage_marginals by
-   lanes, shared or per-lane x and rows.  FeatureCoverage; FacilityLocation and ExemplarClustering
+   launches of coverage_marginals, saturated_coverage_marginals and
+   rectified_residual_sum by lanes, shared or per-lane x (the aux) and
+   rows.  FeatureCoverage; FacilityLocation and ExemplarClustering
    with a 256-row reference set; WeightedCoverage; SaturatedCoverage
    (total = X.sum(0), alpha = 0.25, and once more at alpha = 2^-16, where
    the cap binds); GraphCut (lam = 0.5); LogDetDiversity (alpha = 1) and
@@ -111,12 +118,14 @@ N_PARTS, PART_CAP = 8, 8    # partition matroid: parts, cap of each
 #: than the engines' chunk, up to it, one row
 SHAPES = ("filter", "chunk", "row")
 #: the kernels whose filter-class launches split by lanes, x and rows
-#: (kernels.ops.filter_launch_counts), and the shapes they are timed at:
-#: (label, lanes, rows a lane, per-lane x) for one lane over the corpus
-#: (the singleton passes), the gathered sample (shared x), a lane's
-#: gathered survivors (per-lane x), a chunk and one row (the partition
-#: matroid's row scan)
-FILTER_SPLIT_KERNELS = ("coverage_marginals", "saturated_coverage_marginals")
+#: (kernels.ops.filter_launch_counts; rectified_residual_sum's x is its
+#: aux, timed at its own shapes in phase_facility_kernels), and the
+#: coverage kernels' shapes: (label, lanes, rows a lane, per-lane x) for
+#: one lane over the corpus (the singleton passes), the gathered sample
+#: (shared x), a lane's gathered survivors (per-lane x), a chunk and one
+#: row (the partition matroid's row scan)
+FILTER_SPLIT_KERNELS = ("coverage_marginals", "saturated_coverage_marginals",
+                        "rectified_residual_sum")
 FILTER_SHAPES = (("one lane", 1, N, False), ("sample", L, S_ROWS, False),
                  ("survivors", L, F_ROWS, True), ("chunk", L, B, True),
                  ("one row", L, 1, True))
@@ -422,20 +431,28 @@ def phase_facility_kernels(torch, ref, fm, fa):
     print(f"[kernels] yardstick: torch.matmul with allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}")
 
-    # -- rectified_residual_sum: unbatched over the corpus (local_top), the
-    #    shared sample with 37 lanes (dense phase 1), per-lane survivors
-    #    (dense phase 2), two odd shapes
-    worst = 0.0
-    for label, Lk, C, r in (("unbatched", 1, N, R), ("shared", L, S_ROWS, R),
+    # -- rectified_residual_sum: unbatched over the corpus (local_top) and
+    #    over the sample (max_singleton), the shared sample with 37 lanes
+    #    (dense phase 1), per-lane survivors (dense phase 2), the wide
+    #    FacilityLocation select's local_top (its 262,144 rows against 8192
+    #    reference rows: an 8.6 GB aux), two odd shapes
+    worst, card, times = 0.0, smi(), {}
+    for label, Lk, C, r in (("unbatched", 1, N, R),
+                            ("unbatched sample", 1, S_ROWS, R),
+                            ("shared", L, S_ROWS, R),
                             ("per-lane", L, F_ROWS, R),
+                            ("unbatched wide", 1, WIDE_SELECTS[2][1],
+                             WIDE_SELECTS[2][3]),
                             ("odd shared", 100, 1000, 45),
                             ("odd per-lane", 1, 65, 45)):
         per_lane = label.endswith("per-lane")
+        unbatched = label.startswith("unbatched")
+        aux = got = want = tol = None  # free the last shape's first
         aux = torch.rand((Lk, C, r) if per_lane else (C, r), generator=g,
-                         device=dev) * 40
-        state = torch.rand((r,) if label == "unbatched" else (Lk, r),
+                         device=dev).mul_(40)
+        state = torch.rand((r,) if unbatched else (Lk, r),
                            generator=g, device=dev) * 40
-        if per_lane or label == "unbatched":
+        if per_lane or unbatched:
             plain = lambda: ref.rectified_residual_sum(aux, state)  # noqa: E731
         else:
             plain = lambda: torch.stack([  # noqa: E731
@@ -453,12 +470,21 @@ def phase_facility_kernels(torch, ref, fm, fa):
         pms = cuda_ms(plain, 1)
         b_ms, b_by = bound_ms(aux.numel() * 4 + state.numel() * 4
                               + Lk * C * 4, 3 * Lk * C * r)
-        print(f"[kernels] rectified_residual_sum {label} aux{tuple(aux.shape)} "
-              f"L={Lk}: max_abs_err={err} kernel_ms={ms} plain_ms={pms} "
-              f"bound_ms={b_ms} ({b_by}) repeat=bitwise")
+        times[f"{label} {tuple(aux.shape)} L={Lk}"] = dict(ms=ms,
+                                                         bound_ms=b_ms)
+        line = (f"[kernels] rectified_residual_sum {label} "
+                f"aux{tuple(aux.shape)} L={Lk}: max_abs_err={err} "
+                f"kernel_ms={ms} plain_ms={pms} bound_ms={b_ms} ({b_by}) "
+                f"repeat=bitwise")
         if label == "unbatched":
             rows["rectified_residual_sum"] = dict(ms=ms, plain_ms=pms,
                                                   bound_ms=b_ms, bound_by=b_by)
+            # what the card reads at: one PyTorch reduction over the same
+            # 1 GiB, a yardstick of the read rate, not the same function
+            line += (f"; read-rate yardstick aux.sum(-1) ms "
+                     f"{cuda_ms(lambda: aux.sum(-1), 10)}")
+        print(f"{line}; card {card}")
+    rows["rectified_residual_sum"]["filter_shapes_ms"] = times
     rows["rectified_residual_sum"]["max_abs_err"] = worst
 
     # -- facility_accept at the fused engine's shape, r = 256 and 1024, and
@@ -2010,7 +2036,8 @@ def phase_marginals_ragged(torch, ref, fm, em):
 
 def print_tile_resources(_build):
     """What ptxas said of the marginals tile's kernels, of the lane walk's
-    instances and of the feature walk's (registers, stack, spills), and the
+    instances, of the feature walk's and of the residual walk's (registers,
+    stack, spills), and the
     tile's SASS instruction mix where cuobjdump is at hand."""
     for name, marker in (("coverage_marginals", "lane_rows"),
                          ("saturated_coverage_marginals", "lane_rows"),
@@ -2018,6 +2045,7 @@ def print_tile_resources(_build):
                          ("graph_cut_marginals", "lane_rows"),
                          *((n, "walk_kernel") for n in FEATURE_SWEEPS),
                          ("facility_marginals", "5mtile"),
+                         ("facility_marginals", "rwalk"),
                          ("exemplar_marginals", "5mtile")):
         entry, props = None, ""
         for line in _build.ptxas_report(name).splitlines():

@@ -2,7 +2,8 @@
 """Compare two builds of the redesigned kernels on one card.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.ab_compare
-        [--only lane_walk | --only feature_sweeps] [--log FILE] BASE_CSRC
+        [--only lane_walk | --only feature_sweeps | --only residual]
+        [--log FILE] BASE_CSRC
                     (from the root of a checkout, on a machine with a
                      CUDA card and nvcc)
 
@@ -17,7 +18,8 @@ saturated_coverage_marginals.cu and the four feature sweeps
 saturated_coverage_accept.cu, graph_cut_accept.cu) from both trees
 (``--only lane_walk``: the four kernels of the lane walk; ``--only
 feature_sweeps``: the four feature sweeps, and the reference sweeps and
-the lane walk's kernels for their SASS), in parallel, in a temporary
+the lane walk's kernels for their SASS; ``--only residual``:
+facility_marginals.cu), in parallel, in a temporary
 directory, and
 runs both builds on the same inputs at the filter shape (L = 37 lanes,
 C = 2^20 rows, d = r = 256, k_max = 64, f32 and bf16) and, for the
@@ -61,9 +63,21 @@ sweeps, at the fused engine's chunk (B = 128):
   (the walk or the row loop): mask, state and gains the same bits, a
   repeated launch the same bits again (a difference raises), and the
   cases where the new build is more than 5 % slower than the base build.
-``--log FILE`` sends every lane-walk and feature-sweep case's line there,
-and stdout keeps the main shapes, the odd shapes where the new build was
-slower and a count.
+* rectified_residual_sum at its main-path shapes (unbatched over the
+  corpus and over the sample, the sample shared by 37 lanes, 37 lanes'
+  per-lane survivors, one and 37 lanes over 2,304 rows, and unbatched
+  over the wide select's 262,144-row corpus and 49,408-row sample at
+  r = 8192), chip_smoke.py's odd shapes (r = 45; L = 100 shared,
+  one lane per-lane) and every combination of r = 3, 45, 257, 1024, C = 1,
+  31, 33, 1000 and L = 1, 2, 9, 100, both aux modes, and shared aux at
+  the sample's rows for L = 2, 8, 9, 130 (r = 256) and 100 (r = 45), and
+  at r = 1024 and 8192: the same bits, a
+  repeated launch the same bits again (a difference raises), the main
+  shapes' bounds and a read-rate yardstick (``aux.sum(-1)``), and the
+  cases where the new build is more than 5 % slower than the base build.
+``--log FILE`` sends every residual, lane-walk and feature-sweep case's
+line there, and stdout keeps the main shapes, the odd shapes where the new
+build was slower and a count.
 
 Each case is timed in turns, base, new, new, base (CUDA events over
 back-to-back launches; the feature sweeps base, new, other, other, new,
@@ -185,7 +199,7 @@ def main() -> int:
             log_path = args[1]
         args = args[2:]
     if len(args) != 1 or not Path(args[0]).is_dir() or \
-            only not in (None, "lane_walk", "feature_sweeps"):
+            only not in (None, "lane_walk", "feature_sweeps", "residual"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -197,7 +211,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         names = {None: NAMES, "lane_walk": LANE_WALK_KERNELS,
                  "feature_sweeps": FEATURE_SWEEPS + tuple(
-                     dict.fromkeys(n for n, _ in SASS_KEPT[4:]))}[only]
+                     dict.fromkeys(n for n, _ in SASS_KEPT[4:])),
+                 "residual": ("facility_marginals",)}[only]
         libs = build(Path(tmp), {"base": Path(args[0]), "new": _build.CSRC},
                      names)
         for name, marker, new_marker in (
@@ -215,10 +230,11 @@ def main() -> int:
                       f"of the two builds identical: "
                       f"{sorted(base.values()) == sorted(new.values())} "
                       f"({moved} lines differ)", flush=True)
-        bad = check_roots(Path(tmp) / "new", dev)
-        print(f"[ab] rules::sqrt_rn against sqrtf on all 2^32 floats: "
-              f"{bad} differ", flush=True)
-        check_same(bad == 0, "sqrt_rn is not sqrtf")
+        if only != "residual":
+            bad = check_roots(Path(tmp) / "new", dev)
+            print(f"[ab] rules::sqrt_rn against sqrtf on all 2^32 floats: "
+                  f"{bad} differ", flush=True)
+            check_same(bad == 0, "sqrt_rn is not sqrtf")
         if only is None:
             compare_marginals(libs, g, dev, stream)
             compare_logdet_accept(libs, g, dev, stream)
@@ -226,9 +242,11 @@ def main() -> int:
         with (open(log_path, "w") if log_path
               else contextlib.nullcontext(sys.stdout)) as log:
             differ = []
-            if only != "feature_sweeps":
+            if only in (None, "residual"):
+                differ += compare_residual(libs, g, dev, stream, log)
+            if only in (None, "lane_walk"):
                 differ += compare_lane_walk(libs, g, dev, stream, log)
-            if only != "lane_walk":
+            if only in (None, "feature_sweeps"):
                 differ += compare_feature_sweeps(libs, g, dev, stream, log)
     print(smi("name,power.limit"))
     check_same(not differ, "; ".join(differ))
@@ -327,6 +345,104 @@ def compare_marginals(libs, g, dev, stream):
             print(f"[ab] {label} {tag}: {same}; ms base {times[0]} new "
                   f"{times[1]} new {times[2]} base {times[3]}",
                   flush=True)
+
+
+#: rectified_residual_sum's main-path launches, (label, L, C, r, per-lane
+#: aux, (L, r) state), every shape of chip_smoke.py's split of them:
+#: local_top over the corpus and max_singleton over the sample
+#: (unbatched), the dense engine's phase 1 (the sample shared by the 37
+#: lanes) and phase 2 (each lane's gathered survivors), the same at 2,304
+#: rows, and the wide FacilityLocation select's (8192 reference rows)
+#: local_top and max_singleton; then chip_smoke.py's two odd shapes
+RESIDUAL_MAIN = (("unbatched corpus", 1, 1 << 20, 256, False, False),
+                 ("unbatched sample", 1, 98_560, 256, False, False),
+                 ("shared", 37, 98_560, 256, False, True),
+                 ("per-lane", 37, 34_048, 256, True, True),
+                 ("unbatched 2,304", 1, 2304, 256, False, False),
+                 ("shared 2,304", 37, 2304, 256, False, True),
+                 ("wide corpus", 1, 1 << 18, 8192, False, False),
+                 ("wide sample", 1, 49_408, 8192, False, False),
+                 ("odd shared", 100, 1000, 45, False, True),
+                 ("odd per-lane", 1, 65, 45, True, True))
+#: the odd shapes, every combination of these, both aux modes
+RESIDUAL_ODD = {"r": (3, 45, 257, 1024), "C": (1, 31, 33, 1000),
+                "L": (1, 2, 9, 100)}
+#: odd shapes at the sample's rows and beyond the main path's widths, shared
+#: aux: (L, C, r)
+RESIDUAL_ODD_LARGE = ((2, 98_560, 256), (8, 98_560, 256), (9, 98_560, 256),
+                      (130, 98_560, 256), (100, 98_560, 45),
+                      (37, 20_000, 1024), (37, 4096, 8192))
+#: H100 SXM peaks: HBM3 bytes/s and f32 FLOP/s off the tensor cores
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+
+
+def compare_residual(libs, g, dev, stream, log):
+    """Both builds of rectified_residual_sum at RESIDUAL_MAIN, every odd
+    shape of RESIDUAL_ODD and RESIDUAL_ODD_LARGE: the same bits, and a repeated launch of the new
+    build the same bits again; each case timed in turns, base, new, new,
+    base.  The main shapes also print their bound (each byte once over
+    PEAK_BYTES, or 3 operations a (lane, row, column) over PEAK_F32) and a
+    read-rate yardstick, ``aux.sum(-1)`` over the same aux (not the same
+    function).  Lines go to ``log``; stdout gets the main shapes, every odd
+    shape where the new build is more than 5 % slower, and a count.
+    Returns the cases that differ."""
+    cases = list(RESIDUAL_MAIN)
+    for r in RESIDUAL_ODD["r"]:
+        for C in RESIDUAL_ODD["C"]:
+            for L in RESIDUAL_ODD["L"]:
+                for per in (False, True):
+                    cases.append(("odd", L, C, r, per, True))
+    cases += [("odd", L, C, r, False, True) for L, C, r in RESIDUAL_ODD_LARGE]
+    differ, slower, n = [], [], 0
+    for label, L, C, r, per, batched in cases:
+        aux = None  # the wide corpus's 8.6 GB: free the last case's first
+        aux = torch.rand((L, C, r) if per else (C, r), generator=g,
+                         device=dev).mul_(40)
+        st = torch.rand((L, r) if batched else (r,), generator=g,
+                        device=dev) * 40
+        outs = {tree: torch.full((L, C), float("nan"), device=dev)
+                for tree in ("base", "new", "again")}
+
+        def rrs(tree, into):
+            fn = libs[tree, "facility_marginals"].rectified_residual_sum_launch
+            o = outs[into]
+            return lambda: fn(aux.data_ptr(), int(per), st.data_ptr(),
+                              o.data_ptr(), L, C, r, stream)
+
+        base, new = rrs("base", "base"), rrs("new", "new")
+        for fn in (base, new, rrs("new", "again")):
+            check(fn())
+        torch.cuda.synchronize()
+        same = (torch.equal(outs["base"], outs["new"])
+                and torch.equal(outs["new"], outs["again"]))
+        n += 1
+        iters = 10 if aux.numel() >= 1 << 24 else 50
+        times = [cuda_ms(fn, iters) for fn in (base, new, new, base)]
+        ratio = (times[1] + times[2]) / (times[0] + times[3])
+        what = (f"rectified_residual_sum {label} aux{tuple(aux.shape)} "
+                f"state{tuple(st.shape)}")
+        line = (f"[ab] {what}: bits equal to base and repeat bitwise: "
+                f"{same}; ms base {times[0]} new {times[1]} new {times[2]} "
+                f"base {times[3]}; new / base {ratio}")
+        if label != "odd":
+            b_bytes = (aux.numel() + st.numel() + L * C) * 4 / PEAK_BYTES
+            b_ops = 3 * L * C * r / PEAK_F32
+            line += (f"; bound_ms {max(b_bytes, b_ops) * 1e3} "
+                     f"({'bytes' if b_bytes >= b_ops else 'operations'}); "
+                     f"read-rate yardstick aux.sum(-1) ms "
+                     f"{cuda_ms(lambda: aux.sum(-1), iters)}")
+        print(line, file=log, flush=True)
+        if log is not sys.stdout and (label != "odd" or ratio > 1.05
+                                      or not same):
+            print(line, flush=True)
+        if not same:
+            differ.append(what)
+        if ratio > 1.05:
+            slower.append(what)
+    print(f"[ab] rectified_residual_sum: {n} cases, {n - len(differ)} bit "
+          f"for bit the base build (repeat bitwise), {len(slower)} where the "
+          f"new build was more than 5 % slower", flush=True)
+    return differ
 
 
 #: the lane walk's (lane_rows.cuh) main-path launches: (label, L, C, d,

@@ -55,9 +55,9 @@ def rectified_residual_sum(aux, state):
     state (r,) or (L, r) float32; contiguous CUDA tensors on one device.
     Returns (C,) for aux (C, r) with state (r,), else (L, C) float32."""
     name = "rectified_residual_sum"
-    _wrap.check(aux.is_cuda, name, f"aux must be a CUDA tensor, got {aux.device}")
     _wrap.check(aux.dtype == torch.float32, name,
                 f"aux must be float32, got {aux.dtype}")
+    _wrap.check_rows(name, aux, "aux")
     r = aux.shape[-1]
     L, C, per_lane, out_shape = _wrap.lanes(name, aux, state, r)
     _wrap.placed(name, (aux, state), aux.device)
@@ -71,5 +71,5 @@ def rectified_residual_sum(aux, state):
                  aux.device, aux.data_ptr(), int(per_lane), state.data_ptr(),
                  out.data_ptr(), L, C, r)
     launches[name] += 1
-    _wrap.count_shape(name, C)
+    _wrap.count_shape(name, C, L, per_lane)
     return out

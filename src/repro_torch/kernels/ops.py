@@ -80,7 +80,8 @@ def filter_launch_counts() -> dict:
     """The "filter" class launches of ``shape_launch_counts`` since the last
     reset, split by lanes, shared or per-lane x and rows a lane:
     {name: {"<lanes>, <x> x, <rows> rows": launches}}, for the entry points
-    that split them (coverage_marginals, saturated_coverage_marginals)."""
+    that split them (coverage_marginals, saturated_coverage_marginals, and
+    rectified_residual_sum, whose x is its aux block)."""
     return {name: dict(split) for name, split in _wrap.filter_launches.items()}
 
 

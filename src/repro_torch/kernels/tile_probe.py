@@ -7,12 +7,13 @@ of coverage and saturated coverage (csrc/lane_rows.cuh), and the four
 feature sweeps (csrc/feature_sweep.cuh).
 
     PYTHONPATH=src python3 -m repro_torch.kernels.tile_probe
-        [--only lane_walk | --only feature_sweeps] [--sass-dir DIR]
-        [OTHER_CSRC]
+        [--only lane_walk | --only feature_sweeps | --only residual]
+        [--sass-dir DIR] [OTHER_CSRC]
                     (from the root of a checkout, on a machine with a
                      CUDA card and nvcc)
 
-``--only lane_walk`` / ``--only feature_sweeps`` runs that probe alone;
+``--only lane_walk`` / ``--only feature_sweeps`` / ``--only residual``
+runs that probe alone;
 ``--sass-dir`` writes the lane walk kernels' SASS there, and the narrow
 feature sweeps' at 2 features a thread, f32.
 
@@ -85,7 +86,12 @@ with the design's variants (the row loop without the next row's x loads;
 the walk with other constants), prints the order of the loads, shuffles and barrier in
 each narrow kernel's SASS, and times each at chip_smoke.py's path case
 (L = 37, B = 128, d = 256, f32 and bf16) in three rules: the path taus,
-the knapsack cost mode and tau = -inf with the budget B.  Last it runs
+the knapsack cost mode and tau = -inf with the budget B.  Then it builds
+facility_marginals.cu with rectified_residual_sum's walk as it is and in
+RESIDUAL_VARIANTS (timing probes without a term's max or without the
+reduce-scatter), prints ptxas's registers and spills and the shared-aux
+kernel's SASS mix, and times each at RESIDUAL_SHAPES in turns (OTHER_CSRC
+is not used there: ab_compare.py --only residual times two trees).  Last it runs
 the shipped facility kernel
 at the filter shape for three seconds while sampling the SM clock, power
 draw and throttle reasons with nvidia-smi, and prints the card's name and
@@ -743,6 +749,88 @@ def probe_lane_walk(tmp: Path, trees: dict, g, dev, stream,
 
 
 
+#: rectified_residual_sum's shapes: (label, lanes, rows, r, per-lane aux,
+#: (L, r) state): its main path's (unbatched over the corpus and over the
+#: sample, the sample shared by 37 lanes, 37 lanes' per-lane survivors)
+RESIDUAL_SHAPES = (("unbatched corpus", 1, 1 << 20, 256, False, False),
+                   ("unbatched sample", 1, 98_560, 256, False, False),
+                   ("shared", 37, 98_560, 256, False, True),
+                   ("per-lane", 37, 34_048, 256, True, True))
+#: (name, [(text, replacement)]) patches of facility_marginals.cu's
+#: residual walk: the walk as built, and two timing probes whose sums are
+#: wrong, one without a term's max and one without the reduce-scatter
+#: (each thread stores the plain sum of its chains)
+RESIDUAL_VARIANTS = (
+    ("shipped", []),
+    ("no_max", [("""  return ((fmaxf(a.x - s.x, 0.0f) + fmaxf(a.y - s.y, 0.0f)) +
+          fmaxf(a.z - s.z, 0.0f)) + fmaxf(a.w - s.w, 0.0f);""",
+                 """  return (((a.x - s.x) + (a.y - s.y)) + (a.z - s.z)) +
+         (a.w - s.w);""")]),
+    ("no_scatter", [("  const float v = Scatter<N, 16>::run(acc, lane);",
+                     "  float v = acc[0];\n#pragma unroll\n"
+                     "  for (int i = 1; i < N; ++i) v += acc[i];")]),
+)
+
+
+def probe_residual(tmp: Path, csrc: Path, g, dev, stream):
+    """Time this tree's rectified_residual_sum walk (csrc) at
+    RESIDUAL_SHAPES in each of RESIDUAL_VARIANTS, in turns (each variant,
+    then again in reverse order); print each build's registers and spills
+    (ptxas), the SASS mix of the shared-aux kernel (float4 groups in
+    registers) and the SM clock and power under the shared shape.  The
+    parent's kernel against this one: ab_compare.py --only residual."""
+    fns, logs = {}, {}
+    built = build(tmp / "residual", "facility_marginals",
+                  "facility_marginals.cu", RESIDUAL_VARIANTS, csrc, logs)
+    for name, fn in built.items():
+        entry, spill = None, ""
+        for line in logs[name].splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "spill" in line and entry and "rwalk" in entry:
+                spill = line.strip()
+            elif "Used" in line and entry and "rwalk" in entry:
+                print(f"[probe] residual {name} ptxas {entry}: "
+                      f"{line.split(':', 1)[1].strip()}; {spill}")
+        rrs = fn.lib.rectified_residual_sum_launch
+        rrs.argtypes = list(_build.SIGNATURES["facility_marginals"][
+            "rectified_residual_sum_launch"])
+        rrs.restype = ctypes.c_int
+        fns[name] = rrs
+    lib_path = tmp / "residual" / "facility_marginals_shipped" / "lib.so"
+    for name, fn_sass in sass_functions(lib_path,
+                                        "shared_kernelILi4ELi2E").items():
+        print(f"[probe] residual shipped sass {name}: {sass_mix(fn_sass)}")
+    order = list(fns) + list(fns)[::-1]
+    for label, L, C, r, per_lane, batched in RESIDUAL_SHAPES:
+        aux = torch.rand((L, C, r) if per_lane else (C, r), generator=g,
+                         device=dev) * 40
+        st = torch.rand((L, r) if batched else (r,), generator=g,
+                        device=dev) * 40
+        outs = {n: torch.full((L, C), float("nan"), device=dev) for n in fns}
+
+        def call(n):
+            o = outs[n]
+            return lambda: fns[n](aux.data_ptr(), int(per_lane),
+                                  st.data_ptr(), o.data_ptr(), L, C, r,
+                                  stream)
+
+        for n in fns:
+            if call(n)() != 0:
+                raise RuntimeError(f"residual {n}: launch failed")
+        torch.cuda.synchronize()
+        times = {}
+        for n in order:
+            times.setdefault(n, []).append(
+                cuda_ms(call(n), 10 if L * C * r >= 1 << 26 else 50))
+        print(f"[probe] residual {label} aux{tuple(aux.shape)} L={L}: "
+              + ", ".join(f"{n} {t[0]} / {t[1]} ms" for n, t in times.items()),
+              flush=True)
+        if label == "shared":
+            under_load("the shared residual", call("shipped"), 2.0)
+        del aux, outs
+
+
 #: the four feature sweeps (csrc/feature_sweep.cuh), by source
 FEATURE_SWEEPS = ("coverage_accept", "weighted_coverage_accept",
                   "saturated_coverage_accept", "graph_cut_accept")
@@ -1077,7 +1165,7 @@ def main() -> int:
             sass_dir = Path(args[1])
         args = args[2:]
     if len(args) > 1 or (args and not Path(args[0]).is_dir()) or \
-            only not in (None, "lane_walk", "feature_sweeps"):
+            only not in (None, "lane_walk", "feature_sweeps", "residual"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1093,6 +1181,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             if only == "lane_walk":
                 probe_lane_walk(Path(tmp), trees, g, dev, stream, sass_dir)
+            elif only == "residual":
+                probe_residual(Path(tmp), _build.CSRC, g, dev, stream)
             else:
                 probe_feature_sweeps(Path(tmp), trees, g, dev, stream,
                                      sass_dir)
@@ -1153,6 +1243,7 @@ def main() -> int:
         probe_reference_sweeps(Path(tmp), trees, g, dev, stream)
         probe_feature_sweeps(Path(tmp), trees, g, dev, stream)
         probe_lane_walk(Path(tmp), trees, g, dev, stream, sass_dir)
+        probe_residual(Path(tmp), _build.CSRC, g, dev, stream)
         st = (torch.rand((L, R), generator=g, device=dev) * D / 4).contiguous()
         shipped = fns["shipped"]
         under_load("the facility filter launches", lambda: shipped(

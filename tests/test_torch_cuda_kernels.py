@@ -153,7 +153,8 @@ def test_cuda_facility_marginals_matches_plain(cuda_device, dtype, mode, L, C,
 @pytest.mark.parametrize("mode,L,C,r", [
     ("unbatched", 1, 5000, 256), ("shared", 37, 3000, 256),
     ("per_lane", 37, 500, 256), ("shared", 100, 77, 45),
-    ("per_lane", 3, 65, 1000)])
+    ("per_lane", 3, 65, 1000), ("unbatched", 1, 98_560, 256),
+    ("shared", 37, 20, 256)])
 def test_cuda_rectified_residual_sum_matches_plain(cuda_device, mode, L, C, r):
     g = torch.Generator(device=cuda_device).manual_seed(3)
     aux = torch.rand((L, C, r) if mode == "per_lane" else (C, r), generator=g,

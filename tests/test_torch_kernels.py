@@ -266,12 +266,15 @@ def test_launch_count_split_sums_to_the_counts(stubbed_launch):
 
 
 @pytest.mark.parametrize("name", ["coverage_marginals",
-                                  "saturated_coverage_marginals"])
+                                  "saturated_coverage_marginals",
+                                  "rectified_residual_sum"])
 def test_filter_launches_split_by_lanes_and_x(stubbed_launch, name):
-    """The "filter" class of coverage_marginals and
-    saturated_coverage_marginals splits by lanes, shared or per-lane x and
-    rows a lane, and the split sums to the class; other classes and a reset
-    leave it empty."""
+    """The "filter" class of coverage_marginals,
+    saturated_coverage_marginals and rectified_residual_sum (whose x is
+    the aux block) splits by lanes, shared or per-lane x and rows a lane,
+    and the split sums to the class; other classes and a reset leave it
+    empty."""
+    from repro_torch.kernels import facility_marginals as tfm
     from repro_torch.kernels import saturated_coverage_marginals as tsm
     d = 8
     cap = torch.rand(d)
@@ -279,6 +282,8 @@ def test_filter_launches_split_by_lanes_and_x(stubbed_launch, name):
     def launch(x, state):
         if name == "coverage_marginals":
             return tcm.coverage_marginals(x, state)
+        if name == "rectified_residual_sum":
+            return tfm.rectified_residual_sum(x, state)
         return tsm.saturated_coverage_marginals(x, state, cap)
 
     launch(torch.rand(1000, d), torch.rand(d))          # one lane
