@@ -4,28 +4,42 @@ primitives, MapReduce drivers and the selector API."""
 from repro_torch.core.constraints import (CONSTRAINT_NAMES, Cardinality,
                                           Constraint, Knapsack,
                                           PartitionMatroid, make_constraint)
-from repro_torch.core.functions import (ExemplarClustering, FacilityLocation,
+from repro_torch.core.functions import (AdversarialThreshold,
+                                        ExemplarClustering, FacilityLocation,
                                         FeatureCoverage, GraphCut,
                                         LogDetDiversity,
                                         MutualInformationGaussian,
                                         SaturatedCoverage, SubmodularOracle,
-                                        WeightedCoverage)
-from repro_torch.core.mapreduce import (MRConfig, SelectionResult,
-                                        multi_epoch_sim, two_round_sim)
-from repro_torch.core.selector import (ALGORITHMS, ORACLE_NAMES,
-                                       DistributedSelector, SelectorSpec,
-                                       make_oracle)
+                                        WeightedCoverage, adversarial_schedule,
+                                        bind_query, consumes_query_params,
+                                        make_adversarial_instance)
+from repro_torch.core.mapreduce import (MRConfig, QueryBatch, SelectionResult,
+                                        dense_two_round_sim, make_query_batch,
+                                        multi_epoch_sim, multi_threshold_sim,
+                                        sparse_two_round_sim,
+                                        two_round_batch_sim,
+                                        two_round_known_opt_sim, two_round_sim)
+from repro_torch.core.selector import (ALGORITHMS, OPT_FREE_ALGORITHMS,
+                                       ORACLE_NAMES, DistributedSelector,
+                                       SelectorSpec, make_oracle)
 from repro_torch.core.threshold import (GreedyStats, pack_by_mask,
-                                        threshold_filter, threshold_greedy)
+                                        threshold_filter, threshold_greedy,
+                                        threshold_greedy_batch)
 
 __all__ = [
     "CONSTRAINT_NAMES", "Cardinality", "Constraint", "Knapsack",
     "PartitionMatroid", "make_constraint",
-    "ExemplarClustering", "FacilityLocation", "FeatureCoverage", "GraphCut",
-    "LogDetDiversity", "MutualInformationGaussian", "SaturatedCoverage",
-    "SubmodularOracle", "WeightedCoverage",
-    "MRConfig", "SelectionResult", "multi_epoch_sim", "two_round_sim",
-    "ALGORITHMS", "ORACLE_NAMES", "DistributedSelector", "SelectorSpec",
-    "make_oracle",
+    "AdversarialThreshold", "ExemplarClustering", "FacilityLocation",
+    "FeatureCoverage", "GraphCut", "LogDetDiversity",
+    "MutualInformationGaussian", "SaturatedCoverage", "SubmodularOracle",
+    "WeightedCoverage", "adversarial_schedule", "bind_query",
+    "consumes_query_params", "make_adversarial_instance",
+    "MRConfig", "QueryBatch", "SelectionResult", "dense_two_round_sim",
+    "make_query_batch", "multi_epoch_sim", "multi_threshold_sim",
+    "sparse_two_round_sim", "two_round_batch_sim", "two_round_known_opt_sim",
+    "two_round_sim",
+    "ALGORITHMS", "OPT_FREE_ALGORITHMS", "ORACLE_NAMES",
+    "DistributedSelector", "SelectorSpec", "make_oracle",
     "GreedyStats", "pack_by_mask", "threshold_filter", "threshold_greedy",
+    "threshold_greedy_batch",
 ]

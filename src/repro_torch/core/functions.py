@@ -18,8 +18,10 @@ selects and maps such states).
 
 Oracles: FeatureCoverage, FacilityLocation, WeightedCoverage,
 SaturatedCoverage, GraphCut, LogDetDiversity, MutualInformationGaussian and
-ExemplarClustering (the JAX package's AdversarialThreshold, a test
-instance, is not ported).
+ExemplarClustering, and AdversarialThreshold, the closed form of the
+Theorem-4 instance (no kernel, as in the JAX package).  ``bind_query``
+rebinds a query's hyper-parameters (GraphCut's lam, LogDetDiversity's
+alpha) for the query axis.
 
 Every oracle lives on the CUDA card unless it is built with
 ``device="cpu"``; without a card and without that argument it raises (the
@@ -31,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -583,3 +586,97 @@ class MutualInformationGaussian(_WhitenedBasis):
     @property
     def alpha(self):
         return 1.0 / (self.noise * self.noise)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdversarialThreshold(SubmodularOracle):
+    """The Theorem-4 hard instance, as a closed-form oracle:
+
+        f(S' u O') = sum_{i in S'} v_i + (1 - sum_{i in S'} v_i / (k v*)) |O'| v*,
+
+    with feature rows (value v_i, is_opt flag).  The state is a tuple of
+    (the S'-values' sum, |O'|), () or (L,) each.  It checks that the
+    thresholding bound 1 - (t/(t+1))^t is met exactly, no better and no
+    worse."""
+
+    feat_dim: int = 2
+    k: int = 1
+    vstar: float = 1.0
+    device: Optional[torch.device] = None   # None: the CUDA card
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def init_state(self, lanes: Optional[int] = None):
+        shape = () if lanes is None else (lanes,)
+        return (torch.zeros(shape, dtype=torch.float32, device=self.device),
+                torch.zeros(shape, dtype=torch.float32, device=self.device))
+
+    def marginals(self, state, aux):
+        sum_s, n_o = state
+        if sum_s.dim() == 1:
+            sum_s, n_o = sum_s[:, None], n_o[:, None]
+        aux = aux.float()
+        v, is_opt = aux[..., 0], aux[..., 1]
+        gain_s = v * (1.0 - n_o / self.k)
+        gain_o = (1.0 - sum_s / (self.k * self.vstar)) * self.vstar
+        return torch.where(is_opt > 0.5, gain_o, gain_s)
+
+    def add(self, state, aux_row):
+        sum_s, n_o = state
+        aux_row = aux_row.float()
+        v, opt_row = aux_row[..., 0], aux_row[..., 1] > 0.5
+        return (sum_s + torch.where(opt_row, 0.0, v),
+                n_o + torch.where(opt_row, 1.0, 0.0))
+
+    def value(self, state):
+        sum_s, n_o = state
+        return sum_s + (1.0 - sum_s / (self.k * self.vstar)) * n_o * self.vstar
+
+
+def consumes_query_params(oracle) -> bool:
+    """True when ``bind_query`` rebinds something on this oracle, i.e. a
+    query's hyper-parameters change its marginals; the batched driver
+    shares the query-invariant work (singleton estimates, the top-singleton
+    message) across the batch when it is False."""
+    return isinstance(oracle, (GraphCut, LogDetDiversity))
+
+
+def bind_query(oracle, graph_cut_lam=None, logdet_alpha=None):
+    """The oracle with one query's hyper-parameters: GraphCut's ``lam`` or
+    LogDetDiversity's ``alpha`` (Python floats, or 0-d tensors, which the
+    oracle turns into floats, so the kernel route stays); other oracles,
+    MutualInformationGaussian among them, pass through unchanged."""
+    if isinstance(oracle, GraphCut) and graph_cut_lam is not None:
+        return dataclasses.replace(oracle, lam=float(graph_cut_lam))
+    if isinstance(oracle, LogDetDiversity) and logdet_alpha is not None:
+        return dataclasses.replace(oracle, alpha=float(logdet_alpha))
+    return oracle
+
+
+def make_adversarial_instance(k: int, thresholds, vstar: float = 1.0,
+                              margin: float = 2e-3, device=None):
+    """Feature rows of the Theorem-4 instance against a threshold schedule
+    alpha_1 >= ... >= alpha_t (normalized so OPT = k * vstar): n_l =
+    (alpha_{l-1}/alpha_l - 1) k decoys of value alpha_l (1 + margin), then
+    the k optimal elements of value vstar.  The margin plays the
+    adversary's tie-breaking against run thresholds alpha_l (1 + margin/2)
+    (``adversarial_schedule``).
+
+    Returns (features (n, 2) float32, opt): a numpy array, or a tensor on
+    ``device`` when one is given."""
+    alphas = [vstar] + list(thresholds)
+    rows = []
+    for lo, hi in zip(alphas[1:], alphas[:-1]):
+        n_l = int(round((hi / lo - 1.0) * k))
+        rows += [[lo * (1.0 + margin), 0.0]] * n_l
+    rows += [[vstar, 1.0]] * k
+    feats = np.asarray(rows, np.float32)
+    if device is not None:
+        feats = torch.from_numpy(feats).to(resolve_device(device))
+    return feats, float(k * vstar)
+
+
+def adversarial_schedule(thresholds, margin: float = 2e-3):
+    """Run thresholds matching ``make_adversarial_instance``'s margin."""
+    return [a * (1.0 + margin / 2.0) for a in thresholds]

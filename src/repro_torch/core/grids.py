@@ -30,7 +30,8 @@ def max_singleton(oracle, s_feats, s_valid):
 def tau_grid_from_v(v, k, eps: float, n_points: int):
     """Scale a max-singleton estimate v (a 0-d f32 tensor) into the (J,)
     grid tau_j = (v/2k)(1+eps)^j, with j a float32 arange as in the JAX
-    package.
+    package.  ``k`` is an int, or a (Q,) int tensor of per-query budgets,
+    which gives a (Q, J) grid (2k is exact in float32 either way).
 
     Degenerate-sample guard: v = 0 would make every tau 0 and let every
     candidate pass, so the grid falls back to +inf (nothing qualifies) and
@@ -40,6 +41,8 @@ def tau_grid_from_v(v, k, eps: float, n_points: int):
     Returns (taus (J,), degenerate () int32)."""
     degenerate = v <= 0.0
     j = torch.arange(n_points, dtype=torch.float32, device=v.device)
+    if isinstance(k, torch.Tensor):
+        k = k.to(torch.float32)[:, None]
     taus = (v / (2.0 * k)) * (1.0 + eps) ** j
     taus = torch.where(degenerate, float("inf"), taus)
     return taus, degenerate.to(torch.int32)
@@ -76,3 +79,12 @@ def epoch_schedule(tau0, epochs: int, eps: float, kind: str = "paper"):
         return [tau0 * float((1.0 - eps) ** l) for l in range(epochs)]
     return [2.0 * tau0 * float((1.0 - 1.0 / (epochs + 1)) ** l)
             for l in range(1, epochs + 1)]
+
+
+def alg5_schedule(opt, k: int, epochs: int):
+    """Algorithm 5's known-OPT schedule alpha_l = (1 - 1/(E+1))^l OPT/k, in
+    the JAX package's order of operations: in Python floats for a float
+    ``opt``, rounded to float32 once, where a driver makes each threshold
+    a tensor."""
+    return [(1.0 - 1.0 / (epochs + 1)) ** ell * opt / k
+            for ell in range(1, epochs + 1)]

@@ -142,14 +142,15 @@ def local_sample(feats, ids, valid, uniforms, p: float, cap: int):
 
 
 def local_filter(oracle, st, sol, size, feats, ids, valid, tau, cap: int,
-                 k: int, chunk=None, constraint=None, cstate=None):
+                 k, chunk=None, constraint=None, cstate=None):
     """Algorithm 2 local half for a grid of L lanes: each machine's
     survivors of ThresholdFilter against each lane's solution, packed.
 
     feats (m, n, d), ids and valid (m, n); st (L, w), sol (L, k), size and
-    tau (L,).  Returns packed (L, m, cap, ...) buffers and (L, m) overflow
-    counts.  A lane that already holds k elements sends nothing (Lemma 2's
-    escape hatch: "we are done and do not send anything").
+    tau (L,); ``k`` the lanes' budget, an int or (L,) per lane.  Returns
+    packed (L, m, cap, ...) buffers and (L, m) overflow counts.  A lane
+    that already holds its budget sends nothing (Lemma 2's escape hatch:
+    "we are done and do not send anything").
 
     Under a constraint the rows are augmented (plane columns last): the
     filter scores the base features, drops rows infeasible under each
@@ -223,11 +224,13 @@ class SimRounds:
                  tv.reshape(-1)), tdrop)
 
     def filter_grid(self, oracle, st_j, sol_j, size_j, taus, cap: int,
-                    k: int, chunk, cstate_j=None):
+                    k, chunk, cstate_j=None):
         """Per-lane survivor filter for a (J,)-stacked grid of partial
         solutions (and their feasibility states, under a constraint); lane
         j's gathered message is machine 0's buffer, then machine 1's, and
-        so on."""
+        so on.  ``k`` is the lanes' budget (an int, or (J,) per lane).
+        Returns the gathered messages and each lane's (J,) overflow
+        count."""
         J = taus.shape[0]
         rf, ri, rv, rdrop = local_filter(oracle, st_j, sol_j, size_j,
                                          self.feats_mk, self.ids_mk,
@@ -235,7 +238,7 @@ class SimRounds:
                                          **self._constrained(cstate=cstate_j))
         m, d = self.m, self.feat_dim
         return ((rf.reshape(J, m * cap, d), ri.reshape(J, m * cap),
-                 rv.reshape(J, m * cap)), rdrop.sum())
+                 rv.reshape(J, m * cap)), rdrop.sum(-1))
 
 
 # ---------------------------------------------------------------------------
@@ -256,13 +259,21 @@ def empty_solution(oracle, k: int, lanes: int, constraint=None):
     return carry + (constraint.init_state(lanes),)
 
 
-def greedy_step(oracle, carry, cands, tau, k: int, cfg):
+def _budgets(k_dyn):
+    """The per-lane budget keyword of the central accepts: none when every
+    lane's budget is the buffer's k, so the plain calls keep their
+    signature."""
+    return {} if k_dyn is None else {"k_dyn": k_dyn}
+
+
+def greedy_step(oracle, carry, cands, tau, k: int, cfg, k_dyn=None):
     """One central accept: extend every lane's carried (state, sol, size)
     with the gathered candidates (shared, or one message per lane) at the
-    lane's threshold, excluding already-selected ids.  Under
-    ``cfg.constraint`` the carry holds the lanes' feasibility state last,
-    and the candidates' plane columns are split off in front of the
-    engine."""
+    lane's threshold, excluding already-selected ids.  ``k`` is the
+    solution buffer's capacity, ``k_dyn`` (L,) each lane's budget within it
+    (None: k).  Under ``cfg.constraint`` the carry holds the lanes'
+    feasibility state last, and the candidates' plane columns are split off
+    in front of the engine."""
     st, sol, size = carry[:3]
     feats, ids, valid = cands
     valid = exclude_ids(ids, valid & (ids >= 0), sol)
@@ -270,41 +281,44 @@ def greedy_step(oracle, carry, cands, tau, k: int, cfg):
     if constraint is None:
         return threshold_greedy(oracle, st, sol, size, feats, ids, valid, tau,
                                 k, accept=cfg.accept, engine=cfg.engine,
-                                chunk=cfg.chunk)
+                                chunk=cfg.chunk, **_budgets(k_dyn))
     base, plane = split_plane(feats, n_planes_of(constraint))
     return threshold_greedy(oracle, st, sol, size, base, ids, valid, tau, k,
                             accept=cfg.accept, engine=cfg.engine,
                             chunk=cfg.chunk, constraint=constraint,
-                            cstate=carry[3], cplane=plane)
+                            cstate=carry[3], cplane=plane, **_budgets(k_dyn))
 
 
-def grid_phase1(oracle, S, taus, k: int, cfg):
+def grid_phase1(oracle, S, taus, k: int, cfg, k_dyn=None):
     """First central accept of a grid epoch: an independent empty-start
     greedy per threshold guess (the paper's parallel tau copies), all
     lanes over the one shared sample."""
     return greedy_step(oracle, empty_solution(oracle, k, taus.shape[0],
                                               cfg.constraint), S, taus, k,
-                       cfg)
+                       cfg, **_budgets(k_dyn))
 
 
-def sparse_sweep(oracle, pool, schedule, cfg):
+def sparse_sweep(oracle, pool, schedule, cfg, k_dyn=None):
     """Algorithm 7's central half: each guess lane runs its descending
     threshold sequence over the gathered top-singleton pool, with no extra
-    rounds.  ``schedule`` is a list of per-level (G,) threshold columns.
-    Returns per-lane (sol (G, k), size (G,), value (G,))."""
+    rounds.  ``schedule`` is a list of per-level (G,) threshold columns,
+    ``k_dyn`` (G,) the lanes' budgets (None: cfg.k).  Returns per-lane
+    (sol (G, k), size (G,), value (G,))."""
     carry = empty_solution(oracle, cfg.k, schedule[0].shape[0],
                            cfg.constraint)
     for tau in schedule:
-        carry = greedy_step(oracle, carry, pool, tau, cfg.k, cfg)
+        carry = greedy_step(oracle, carry, pool, tau, cfg.k, cfg,
+                            **_budgets(k_dyn))
     st, sol, size = carry[:3]
     return sol, size, oracle.value(st)
 
 
 def run_epochs(oracle, rounds, schedule, epoch_uniforms, cfg,
-               first_sample=None):
+               first_sample=None, k_dyn=None):
     """The epoch engine: execute a descending threshold schedule (a list of
     per-epoch (G,) guess columns) on a round-primitives backend, carrying
-    the lanes' partial solutions across epochs.
+    the lanes' partial solutions across epochs.  A known-OPT schedule (one
+    sequential solution, Algorithms 4 and 5) is a column of one lane.
 
     Each epoch at level thresholds tau_e:
       sample -> central accept at tau_e -> local filter at tau_e
@@ -312,25 +326,33 @@ def run_epochs(oracle, rounds, schedule, epoch_uniforms, cfg,
 
     ``epoch_uniforms[e]`` are epoch e's (m, n/m) sample draws;
     ``first_sample`` injects epoch 1's already-gathered sample (the
-    unknown-OPT drivers derive the grid from it first).  Under
-    ``cfg.constraint`` the lanes' feasibility state rides the carry across
-    epochs and into every local filter.  Returns ((state, sol, size[,
-    cstate]), drops)."""
+    unknown-OPT drivers derive the grid from it first); ``k_dyn`` (G,) is
+    each lane's budget within the buffer's cfg.k (None: cfg.k; the query
+    axis).  Under ``cfg.constraint`` the lanes' feasibility state rides the
+    carry across epochs and into every local filter.  Returns ((state, sol,
+    size[, cstate]), (the sample rounds' overflow (), each lane's survivor
+    overflow (G,))), both summed over the epochs."""
     k = cfg.k
+    budget = k if k_dyn is None else k_dyn
     s_cap, f_cap, _ = cfg.caps()
     carry = None
-    drops = torch.zeros((), dtype=torch.int32, device=oracle.device)
+    sdrops = torch.zeros((), dtype=torch.int32, device=oracle.device)
+    rdrops = torch.zeros(schedule[0].shape[0], dtype=torch.int32,
+                         device=oracle.device)
     for e, taus in enumerate(schedule):
         if e == 0 and first_sample is not None:
             S, sdrop = first_sample
         else:
             S, sdrop = rounds.sample(epoch_uniforms[e], cfg.sample_p, s_cap)
         if carry is None:
-            carry = grid_phase1(oracle, S, taus, k, cfg)
+            carry = grid_phase1(oracle, S, taus, k, cfg, **_budgets(k_dyn))
         else:
-            carry = greedy_step(oracle, carry, S, taus, k, cfg)
-        R, rdrop = rounds.filter_grid(oracle, *carry[:3], taus, f_cap, k,
+            carry = greedy_step(oracle, carry, S, taus, k, cfg,
+                                **_budgets(k_dyn))
+        R, rdrop = rounds.filter_grid(oracle, *carry[:3], taus, f_cap, budget,
                                       cfg.filter_chunk, *carry[3:])
-        carry = greedy_step(oracle, carry, R, taus, k, cfg)
-        drops = drops + sdrop + rdrop
-    return carry, drops
+        carry = greedy_step(oracle, carry, R, taus, k, cfg, **_budgets(k_dyn))
+        del R  # the survivor buffers, before the next epoch's sample
+        sdrops = sdrops + sdrop
+        rdrops = rdrops + rdrop
+    return carry, (sdrops, rdrops)

@@ -1,10 +1,14 @@
 """DistributedSelector: the user-facing API for the paper's technique.
 
 It owns oracle construction from a spec, MRConfig derivation and the
-driver choice.  The m machines of the MapReduce model are a leading batch
-axis on one device (the sim substrate).  The selector runs on the CUDA card
-unless the caller passes ``device="cpu"``; with no card and no explicit
-device it raises rather than fall back.
+driver choice: the OPT-free two_round and multi_epoch, and the known-OPT
+multi_threshold (Algorithm 5) and two_round_known_opt (Algorithm 4), which
+take an OPT estimate per select.  ``select_batch`` answers Q queries
+(``mapreduce.QueryBatch``) against one corpus.  The m machines of the
+MapReduce model are a leading batch axis on one device (the sim
+substrate).  The selector runs on the CUDA card unless the caller passes
+``device="cpu"``; with no card and no explicit device it raises rather
+than fall back.
 """
 
 from __future__ import annotations
@@ -23,8 +27,14 @@ from repro_torch.core.rounds import epoch_round_log
 from repro_torch.core.threshold import validate_engine
 from repro_torch.device import resolve_device
 
-#: the OPT-free drivers, which need no OPT estimate or guess loop
-ALGORITHMS = ("two_round", "multi_epoch")
+#: every algorithm DistributedSelector runs; the CLI takes its choices
+#: from this tuple
+ALGORITHMS = ("two_round", "multi_epoch", "multi_threshold",
+              "two_round_known_opt")
+
+#: the algorithms that need no OPT estimate or guess loop, the only ones
+#: ``select_batch`` runs
+OPT_FREE_ALGORITHMS = ("two_round", "multi_epoch")
 
 #: every oracle of the JAX package
 ORACLE_NAMES = ("feature_coverage", "facility_location", "weighted_coverage",
@@ -40,6 +50,7 @@ class SelectorSpec:
     k: int
     oracle: str = "feature_coverage"   # see ORACLE_NAMES
     algorithm: str = "two_round"       # see ALGORITHMS
+    t: int = 1                         # multi_threshold's thresholds
     eps: float = 0.15
     epochs: Optional[int] = None       # multi_epoch levels; None derives
     #                                    ceil(1/eps)
@@ -70,9 +81,8 @@ class SelectorSpec:
         validate_engine(self.engine, self.accept, where="SelectorSpec")
         validate_schedule_kind(self.schedule_kind, where="SelectorSpec")
         if self.algorithm not in ALGORITHMS:
-            raise ValueError(f"SelectorSpec: unknown or not yet ported "
-                             f"algorithm {self.algorithm!r}; choose from "
-                             f"{ALGORITHMS}")
+            raise ValueError(f"SelectorSpec: unknown algorithm "
+                             f"{self.algorithm!r}; choose from {ALGORITHMS}")
 
     @property
     def precision_policy(self):
@@ -195,32 +205,95 @@ class DistributedSelector:
                                constraint=self.constraint)
         self.cfg.require_even_shards(where="DistributedSelector")
         self._epochs = 1 if spec.algorithm == "two_round" else None
-        # every message carries the constraint's plane columns
-        self.round_log = epoch_round_log(
-            self.cfg, n_machines, feat_dim + self.cfg.constraint_planes,
-            self.cfg.n_epochs(self._epochs), with_grid=True, with_top=True)
+        # each algorithm's log is the one its sim driver returns; every
+        # message carries the constraint's plane columns
+        d_msg = feat_dim + self.cfg.constraint_planes
+        if spec.algorithm == "multi_threshold":
+            self.round_log = epoch_round_log(self.cfg, n_machines, d_msg,
+                                             spec.t, level_suffix=True)
+        elif spec.algorithm == "two_round_known_opt":
+            self.round_log = epoch_round_log(self.cfg, n_machines, d_msg, 1)
+        else:
+            self.round_log = epoch_round_log(
+                self.cfg, n_machines, d_msg, self.cfg.n_epochs(self._epochs),
+                with_grid=True, with_top=True)
+        self._batch_logs = {}      # Q -> RoundLog (its events accumulate)
+        self.round_log_batch = None
 
-    def select(self, embeddings, generator: Optional[torch.Generator] = None,
-               uniforms=None) -> mr.SelectionResult:
-        """Select k of the n_total rows.  The sample rounds draw from
-        ``generator`` (on the selector's device), or take ``uniforms``, an
-        (E, m, n/m) array of U[0, 1) draws."""
+    def _shards(self, embeddings, where: str):
+        """The corpus as the sim drivers take it: (m, n/m, d) rows, ids and
+        validity, on the selector's device."""
         X = torch.as_tensor(embeddings, device=self.device)
         n, d = X.shape
         if n != self.cfg.n_total:
-            raise ValueError(f"select: got {n} rows, the selector was built "
+            raise ValueError(f"{where}: got {n} rows, the selector was built "
                              f"for n_total={self.cfg.n_total}")
         m = self.cfg.n_machines
         ids = torch.arange(n, dtype=torch.int32, device=self.device)
         valid = torch.ones(n, dtype=torch.bool, device=self.device)
-        res, _ = mr.multi_epoch_sim(
-            self.oracle, X.reshape(m, n // m, d), ids.reshape(m, -1),
-            valid.reshape(m, -1), self.cfg, uniforms=uniforms,
-            generator=generator, epochs=self._epochs)
+        return (X.reshape(m, n // m, d), ids.reshape(m, -1),
+                valid.reshape(m, -1))
+
+    def select(self, embeddings, opt_estimate=None,
+               generator: Optional[torch.Generator] = None,
+               uniforms=None) -> mr.SelectionResult:
+        """Select k of the n_total rows.  The known-OPT algorithms need
+        ``opt_estimate`` (a float, or a 0-d tensor); the OPT-free ones
+        ignore it.  The sample rounds draw from ``generator`` (on the
+        selector's device), or take ``uniforms``, an (E, m, n/m) array of
+        U[0, 1) draws (E = t for multi_threshold, 1 for
+        two_round_known_opt)."""
+        shards = self._shards(embeddings, "select")
+        algorithm = self.spec.algorithm
+        if algorithm in OPT_FREE_ALGORITHMS:
+            res, _ = mr.multi_epoch_sim(self.oracle, *shards, self.cfg,
+                                        uniforms=uniforms,
+                                        generator=generator,
+                                        epochs=self._epochs)
+        elif opt_estimate is None:
+            raise ValueError(f"select: {algorithm} needs an OPT estimate "
+                             f"(opt_estimate=)")
+        elif algorithm == "multi_threshold":
+            res, _ = mr.multi_threshold_sim(self.oracle, *shards,
+                                            float(opt_estimate), self.spec.t,
+                                            self.cfg, uniforms=uniforms,
+                                            generator=generator)
+        else:
+            res, _ = mr.two_round_known_opt_sim(self.oracle, *shards,
+                                                float(opt_estimate), self.cfg,
+                                                uniforms=uniforms,
+                                                generator=generator)
         # degenerate-sample and overflow events surface in the round log's
         # runtime counters (device scalars, no sync here)
         self.round_log.note("tau_fallback", res.tau_fallback)
         self.round_log.note("n_dropped", res.n_dropped)
+        return res
+
+    def select_batch(self, embeddings, queries: mr.QueryBatch,
+                     generator: Optional[torch.Generator] = None,
+                     uniforms=None) -> mr.SelectionResult:
+        """Answer Q queries (budgets queries.k <= spec.k, and the oracle
+        hyper-parameters they rebind) against one corpus: one shared sample
+        round and one gather round (``mapreduce.two_round_batch_sim``, the
+        two_round pipeline whatever the OPT-free algorithm).  Returns a
+        SelectionResult whose fields carry a leading (Q,) axis.  One
+        RoundLog per Q is kept and reused as ``round_log_batch``, so its
+        tau_fallback and n_dropped counters add up over calls."""
+        if self.spec.algorithm not in OPT_FREE_ALGORITHMS:
+            raise ValueError(f"select_batch: needs an OPT-free algorithm "
+                             f"{OPT_FREE_ALGORITHMS}, not "
+                             f"{self.spec.algorithm!r}")
+        k_max = int(queries.k.max())
+        if k_max > self.spec.k:
+            raise ValueError(f"select_batch: a query's budget {k_max} exceeds "
+                             f"the solution buffer spec.k={self.spec.k}")
+        res, log = mr.two_round_batch_sim(
+            self.oracle, *self._shards(embeddings, "select_batch"), queries,
+            self.cfg, uniforms=uniforms, generator=generator)
+        self.round_log_batch = self._batch_logs.setdefault(
+            queries.n_queries, log)
+        self.round_log_batch.note("tau_fallback", res.tau_fallback.sum())
+        self.round_log_batch.note("n_dropped", res.n_dropped.sum())
         return res
 
     def opt_upper_bound(self, embeddings) -> torch.Tensor:

@@ -31,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.states import where_state
+from repro_torch.states import tree_map, where_state
 
 NEG = float("-inf")
 
@@ -81,14 +81,16 @@ def _first_true(mask):
 
 class _Carry:
     """The per-lane loop carry shared by the engines: solution buffer,
-    taken flags, done flags and work counters."""
+    taken flags, done flags and work counters.  ``k`` is the buffer's
+    capacity, ``k_eff`` (L,) each lane's budget within it."""
 
-    def __init__(self, sol_ids, sol_size, C, k, done):
+    def __init__(self, sol_ids, sol_size, C, k, k_eff, done):
         L = sol_size.shape[0]
         dev = sol_size.device
         self.sol = sol_ids.clone()
         self.size = sol_size.clone()
         self.k = k
+        self.k_eff = k_eff
         self.taken = torch.zeros(L, C, dtype=torch.bool, device=dev)
         self.done = done
         self.n_evals = torch.zeros(L, dtype=torch.int32, device=dev)
@@ -96,7 +98,7 @@ class _Carry:
         self.lanes = torch.arange(L, device=dev)
 
     def active(self):
-        return ~self.done & (self.size < self.k)
+        return ~self.done & (self.size < self.k_eff)
 
     def append_one(self, accept_now, cand_id, idx):
         """Append ``cand_id`` (L,) at each accepting lane's slot and mark
@@ -142,11 +144,16 @@ def threshold_greedy(oracle, oracle_state, sol_ids, sol_size, cand_feats,
                      cand_ids, cand_valid, tau, k: int, accept: str = "first",
                      engine: str = "dense", chunk: int = DEFAULT_CHUNK,
                      with_stats: bool = False, constraint=None, cstate=None,
-                     cplane=None):
+                     cplane=None, k_dyn=None):
     """Algorithm 1 for L threshold lanes at once.  Extends each lane's
     (sol_ids, sol_size, oracle_state) greedily with candidates whose
     marginal against the lane's current solution is >= the lane's tau,
-    until the lane holds k elements or no candidate qualifies.
+    until the lane holds its budget or no candidate qualifies.
+
+    ``k`` is the solution buffer's capacity; ``k_dyn`` (an int, or (L,)
+    int32 with each value <= k) is each lane's budget within it (None: k),
+    so lanes of several queries with their own budgets share one call.  A
+    lane whose budget is 0 is done at once.
 
     oracle_state (L, w), w the oracle's state width, or a tuple of tensors
     with that leading lane axis (the log-det oracles); sol_ids (L, k) int32,
@@ -172,13 +179,15 @@ def threshold_greedy(oracle, oracle_state, sol_ids, sol_size, cand_feats,
     tau = tau.expand(L).contiguous()
     cand_ids = cand_ids.expand(L, C)
     cand_valid = cand_valid.expand(L, C)
+    k_eff = torch.as_tensor(k if k_dyn is None else k_dyn, dtype=torch.int32,
+                            device=dev).reshape(-1).expand(L).clamp(max=k)
     if constraint is not None and cstate is None:
         cstate = constraint.init_state(L)
     fn = {"dense": _threshold_greedy_dense,
           "lazy": _threshold_greedy_lazy,
           "fused": _threshold_greedy_fused}[engine]
     st, carry, cst = fn(oracle, oracle_state, sol_ids, sol_size, cand_feats,
-                        cand_ids, cand_valid, tau, k, accept, chunk,
+                        cand_ids, cand_valid, tau, k, k_eff, accept, chunk,
                         constraint, cstate, cplane)
     out = (st, carry.sol, carry.size)
     if constraint is not None:
@@ -188,14 +197,69 @@ def threshold_greedy(oracle, oracle_state, sol_ids, sol_size, cand_feats,
     return out
 
 
+def threshold_greedy_batch(oracle, oracle_states, sol_ids, sol_sizes,
+                           cand_feats, cand_ids, cand_valid, taus, k: int,
+                           k_dyn=None, bind=None, bind_params=None,
+                           accept: str = "first", engine: str = "dense",
+                           chunk: int = DEFAULT_CHUNK,
+                           with_stats: bool = False, constraint=None,
+                           cstates=None, cplane=None):
+    """Q independent ThresholdGreedy queries over one shared (C, d)
+    candidate block.
+
+    oracle_states, sol_ids, sol_sizes and taus carry a leading (Q,) axis,
+    the candidates do not; ``k`` is the shared buffer capacity and
+    ``k_dyn`` (Q,) the per-query budgets (<= k).  Without ``bind`` the Q
+    queries are the Q lanes of one ``threshold_greedy`` call.  With it,
+    ``bind(oracle, params_q)`` rebuilds the oracle with query q's slice of
+    ``bind_params`` (a tensor, or a tuple of tensors, with a leading (Q,)
+    axis; see ``functions.bind_query``), and each query runs as a one-lane
+    call of its own oracle.  Constrained selection adds per-query
+    feasibility states ``cstates`` over the shared plane ``cplane``.
+    Returns (oracle_states, sol_ids, sol_sizes[, cstates][, GreedyStats])
+    batched on Q."""
+    validate_engine(engine, accept, where="threshold_greedy_batch")
+    kw = dict(accept=accept, engine=engine, chunk=chunk,
+              with_stats=with_stats, constraint=constraint, cplane=cplane)
+    if bind is None:
+        return threshold_greedy(oracle, oracle_states, sol_ids, sol_sizes,
+                                cand_feats, cand_ids, cand_valid, taus, k,
+                                cstate=cstates, k_dyn=k_dyn, **kw)
+    Q = sol_sizes.shape[0]
+    dev = sol_sizes.device
+    taus = torch.as_tensor(taus, dtype=torch.float32,
+                           device=dev).reshape(-1).expand(Q)
+    k_dyn = torch.as_tensor(k if k_dyn is None else k_dyn, dtype=torch.int32,
+                            device=dev).reshape(-1).expand(Q)
+    outs = []
+    for q in range(Q):
+        def one(t):
+            return t[q:q + 1]
+        prm = (None if bind_params is None
+               else tree_map(lambda a: a[q], bind_params))
+        outs.append(threshold_greedy(
+            bind(oracle, prm), tree_map(one, oracle_states), one(sol_ids),
+            one(sol_sizes), cand_feats, cand_ids, cand_valid, one(taus), k,
+            cstate=None if cstates is None else tree_map(one, cstates),
+            k_dyn=one(k_dyn), **kw))
+
+    def stack(parts):
+        if isinstance(parts[0], GreedyStats):
+            return GreedyStats(*(torch.cat(p) for p in zip(*parts)))
+        return tree_map(lambda *p: torch.cat(p), *parts)
+
+    return tuple(stack(parts) for parts in zip(*outs))
+
+
 def _threshold_greedy_dense(oracle, st, sol_ids, sol_size, feats, ids, valid,
-                            tau, k, accept, chunk, constraint, cst, cplane):
+                            tau, k, k_eff, accept, chunk, constraint, cst,
+                            cplane):
     """One full-block marginals call per accept."""
     L, C = valid.shape
     aux = oracle.prep(st, feats)
     order = torch.arange(C, device=valid.device)
     tau_row = _row_tau(constraint, tau, cplane, C)
-    cr = _Carry(sol_ids, sol_size, C, k,
+    cr = _Carry(sol_ids, sol_size, C, k, k_eff,
                 torch.zeros(L, dtype=torch.bool, device=valid.device))
     while True:
         active = cr.active()
@@ -219,7 +283,8 @@ def _threshold_greedy_dense(oracle, st, sol_ids, sol_size, feats, ids, valid,
 
 
 def _threshold_greedy_lazy(oracle, st, sol_ids, sol_size, feats, ids, valid,
-                           tau, k, accept, chunk, constraint, cst, cplane):
+                           tau, k, k_eff, accept, chunk, constraint, cst,
+                           cplane):
     """Stale-gain upper bounds plus chunked on-demand rescoring.
 
     Invariant: ``g_stale >= fresh marginal`` for every row.  accept="first"
@@ -237,7 +302,7 @@ def _threshold_greedy_lazy(oracle, st, sol_ids, sol_size, feats, ids, valid,
     arange_b = torch.arange(B, device=dev)
     tau_row = _row_tau(constraint, tau, cplane, C)
     g_stale = torch.full((L, C), float("inf"), dtype=torch.float32, device=dev)
-    cr = _Carry(sol_ids, sol_size, C, k, ~valid.any(-1))
+    cr = _Carry(sol_ids, sol_size, C, k, k_eff, ~valid.any(-1))
     while True:
         active = cr.active()
         if not bool(active.any()):
@@ -316,7 +381,8 @@ def constrained_chunk_accept(oracle, constraint, oracle_state, cstate,
 
 
 def _threshold_greedy_fused(oracle, st, sol_ids, sol_size, feats, ids, valid,
-                            tau, k, accept, chunk, constraint, cst, cplane):
+                            tau, k, k_eff, accept, chunk, constraint, cst,
+                            cplane):
     """The accept loop runs inside ``oracle.chunk_accept``: each trip sweeps
     the contiguous chunk at the scan frontier (start clamped to C - B) and
     appends every accepted row in stream order.  Same stale-gain invariant
@@ -335,7 +401,7 @@ def _threshold_greedy_fused(oracle, st, sol_ids, sol_size, feats, ids, valid,
     mode = ("none" if constraint is None or cplane is None
             else constraint.fused_mode)
     g_stale = torch.full((L, C), float("inf"), dtype=torch.float32, device=dev)
-    cr = _Carry(sol_ids, sol_size, C, k, ~valid.any(-1))
+    cr = _Carry(sol_ids, sol_size, C, k, k_eff, ~valid.any(-1))
     sentinel = torch.full((L, 1), -1, dtype=cr.sol.dtype, device=dev)
     while True:
         active = cr.active()
@@ -345,7 +411,7 @@ def _threshold_greedy_fused(oracle, st, sol_ids, sol_size, feats, ids, valid,
         hot = eligible & (g_stale >= tau_row)
         base = _first_true(hot).clamp(max=C - B)
         idxs = base[:, None] + arange_b
-        budget = (k - cr.size).to(torch.int32)
+        budget = (k_eff - cr.size).to(torch.int32)
         rows, elig = _lane_rows(feats, idxs), eligible.gather(1, idxs)
         if mode == "none":
             mask, new_st, g_chunk = oracle.chunk_accept(st, rows, elig, tau,

@@ -5,8 +5,9 @@ The system has no weights: what crosses is numpy data (the corpus sharded
 weights, FacilityLocation's and ExemplarClustering's (r, d) reference set,
 SaturatedCoverage's and GraphCut's (d,) ground-set total, a log-det
 oracle's (U, logdet, size) state, a knapsack's costs and budget or a
-partition matroid's labels and caps, and the sample rounds' U[0, 1)
-draws).  These helpers turn such
+partition matroid's labels and caps, the sample rounds' U[0, 1) draws, a
+query batch's budgets and hyper-parameters, and the Theorem-4 instance's
+oracle).  These helpers turn such
 arrays into the port's tensors and oracle on a given device, so a test can
 feed the same inputs to both packages.  numpy bfloat16 arrays (the
 ``ml_dtypes`` type that JAX hands out) arrive as torch.bfloat16.
@@ -18,11 +19,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.constraints import Knapsack, PartitionMatroid
-from repro_torch.core.functions import (ExemplarClustering, FacilityLocation,
+from repro_torch.core.functions import (AdversarialThreshold,
+                                        ExemplarClustering, FacilityLocation,
                                         FeatureCoverage, GraphCut,
                                         LogDetDiversity,
                                         MutualInformationGaussian,
                                         SaturatedCoverage, WeightedCoverage)
+from repro_torch.core.mapreduce import QueryBatch
 
 
 def tensor(a, device="cpu") -> torch.Tensor:
@@ -142,3 +145,20 @@ def logdet_state(U, logdet, size, device="cpu"):
 def uniforms(draws, device="cpu") -> torch.Tensor:
     """The sample rounds' draws, (E, m, n/m) or (m, n/m), as float32."""
     return _f32(draws, device)
+
+
+def adversarial(k: int, vstar: float = 1.0,
+                device="cpu") -> AdversarialThreshold:
+    """The Theorem-4 instance's oracle with the JAX side's k and v*."""
+    return AdversarialThreshold(feat_dim=2, k=k, vstar=vstar,
+                                device=torch.device(device))
+
+
+def query_batch(qb, device="cpu") -> QueryBatch:
+    """A JAX QueryBatch (or any triple of (Q,) arrays: budgets,
+    GraphCut's lam, LogDetDiversity's alpha) as the port's, the budgets
+    int32 and the hyper-parameters float32."""
+    k, lam, alpha = qb
+    return QueryBatch(tensor(np.asarray(k, np.int32).reshape(-1), device),
+                      _f32(np.asarray(lam).reshape(-1), device),
+                      _f32(np.asarray(alpha).reshape(-1), device))

@@ -1,10 +1,16 @@
 """Standalone distributed-selection launcher on PyTorch: select k of n
-synthetic embedded documents with the OPT-free MapReduce drivers, the m
+synthetic embedded documents with the paper's MapReduce drivers, the m
 machines simulated on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.select --n 1048576 --k 64 \
         --d 256 --machines 16 --engine fused --use-kernel \
-        [--oracle facility_location]
+        [--oracle facility_location] [--algorithm multi_threshold --t 3]
+
+The known-OPT algorithms (``multi_threshold``, ``two_round_known_opt``)
+run the JAX CLI's estimate loop: v = opt_upper_bound / k (the max
+singleton), then max(4, ceil(log k / 0.25) + 1) selects at the estimates
+v * 1.25^(j+1), estimate j drawing its sample from a generator seeded
+seed + j; the best value is kept.
 
 Embeddings are U[0, 1)^2; facility location's and exemplar's reference
 set is 256 rows of U[0, 1) drawn after them from the same generator, as the
@@ -25,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 
 import torch
@@ -32,8 +39,9 @@ import torch
 from repro_torch.core.constraints import CONSTRAINT_NAMES
 from repro_torch.core.grids import SCHEDULE_KINDS
 from repro_torch.core.precision import PRECISION_NAMES
-from repro_torch.core.selector import (ALGORITHMS, PORTED_ORACLES,
-                                       DistributedSelector, SelectorSpec)
+from repro_torch.core.selector import (ALGORITHMS, OPT_FREE_ALGORITHMS,
+                                       PORTED_ORACLES, DistributedSelector,
+                                       SelectorSpec)
 from repro_torch.core.threshold import ENGINES
 from repro_torch.device import resolve_device
 
@@ -72,6 +80,8 @@ def main(argv=None) -> None:
                          "split k evenly)")
     ap.add_argument("--mi-noise", type=float, default=1.0,
                     help="mutual_information sensor noise")
+    ap.add_argument("--t", type=int, default=3,
+                    help="multi_threshold: thresholds (2 rounds each)")
     ap.add_argument("--eps", type=float, default=0.15)
     ap.add_argument("--schedule", default="paper",
                     choices=list(SCHEDULE_KINDS))
@@ -83,7 +93,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     spec = SelectorSpec(k=args.k, oracle=args.oracle,
-                        algorithm=args.algorithm, eps=args.eps,
+                        algorithm=args.algorithm, t=args.t, eps=args.eps,
                         epochs=args.epochs, schedule_kind=args.schedule,
                         engine=args.engine, chunk=args.chunk,
                         use_kernel=args.use_kernel, precision=args.precision,
@@ -114,7 +124,20 @@ def main(argv=None) -> None:
                               part_caps=part_caps)
 
     t0 = time.perf_counter()
-    res = sel.select(emb, generator=gen)
+    if args.algorithm in OPT_FREE_ALGORITHMS:
+        res = sel.select(emb, generator=gen)
+    else:
+        # OPT lies in [v, k v] for the max singleton v: try geometric
+        # estimates and keep the best selection
+        v = float(sel.opt_upper_bound(emb)) / args.k
+        n_est = max(4, int(math.ceil(math.log(args.k) / 0.25)) + 1)
+        res = None
+        for j in range(n_est):
+            r = sel.select(emb, v * 1.25 ** (j + 1),
+                           generator=torch.Generator(device=device)
+                           .manual_seed(args.seed + j))
+            if res is None or float(r.value) > float(res.value):
+                res = r
     value = float(res.value)  # waits for the device
     dt = time.perf_counter() - t0
 

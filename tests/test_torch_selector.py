@@ -106,7 +106,7 @@ def test_spec_and_oracle_names_are_checked():
     with pytest.raises(ValueError, match="unknown oracle"):
         tsel.make_oracle(tsel.SelectorSpec(k=4, oracle="nope"), 4, "cpu")
     with pytest.raises(ValueError, match="algorithm"):
-        tsel.SelectorSpec(k=4, algorithm="multi_threshold")
+        tsel.SelectorSpec(k=4, algorithm="nope")
     with pytest.raises(ValueError, match="fused"):
         tsel.SelectorSpec(k=4, engine="fused", accept="best")
     with pytest.raises(ValueError, match="divisible"):
@@ -123,7 +123,11 @@ def _env():
 @pytest.mark.parametrize("extra", [["--engine", "fused"],
                                    ["--algorithm", "multi_epoch", "--epochs",
                                     "2", "--engine", "lazy", "--precision",
-                                    "bf16"]])
+                                    "bf16"],
+                                   ["--algorithm", "multi_threshold", "--t",
+                                    "2"],
+                                   ["--algorithm", "two_round_known_opt",
+                                    "--engine", "fused"]])
 def test_cli_runs_on_cpu(extra):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.select", "--device", "cpu",
