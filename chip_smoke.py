@@ -94,7 +94,31 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    rtol 1e-3): FeatureCoverage on 65,536 x 4096, LogDetDiversity (k = 64)
    on 262,144 x 1024, FacilityLocation with 8192 reference rows on
    262,144 x 256.
-8. Print the kernel table as one JSON line, the card's name and power
+8. The mesh substrate on the same corpus (fused engine, kernel route),
+   printing each part's seconds: (a) one rank over NCCL in this process,
+   mesh (data = 1, model = 1): two_round for all eight oracles and, on
+   FeatureCoverage, multi_epoch (E = 2), two_round_known_opt,
+   multi_threshold (t = 3), knapsack (budget 40) and select_batch (64,
+   32, 16, 1), each against the sim selector at m = 1 with the same
+   generator (the same ids, sizes, overflow and fallback counts and
+   RoundLog records; the value's bits, or the difference printed); (b)
+   four ranks spawned on the one card over gloo, mesh (data = 4, model =
+   1), each drawing the corpus from seed 0: two_round for all eight
+   oracles, FeatureCoverage multi_epoch (E = 2), select_batch (64, 32,
+   16, 1), and two_round under chaos_plan(0.25, seed=0), each against the
+   sim at m = 4 (under the same plan: the same fault records, degraded,
+   haircut), with each rank's peak memory; (c) the tensor-parallel oracle
+   on (data = 2, model = 2), FeatureCoverage and WeightedCoverage two_round
+   on the lazy engine against the sim at m = 2 on the full-width oracle
+   (the same ids, values within rtol 1e-5), with each rank's all_reduce
+   and all_gather counts, and the fused engine's row scan
+   (TPOracle.chunk_accept, one all_reduce a row) on one (37, 128, 256)
+   chunk against the full-width coverage_accept kernel; every rank must
+   equal rank 0, and every select must launch its oracle's kernels; (d)
+   rand_greedi on
+   FeatureCoverage at m = 16 beside two_round's value.  Its launches go on
+   a line of their own.
+9. Print the kernel table as one JSON line, the card's name and power
    limit, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -2572,6 +2596,414 @@ def print_tile_resources(_build):
                   f"{mix}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the mesh substrate
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 4               # ranks of the spawned job, all on the one card
+MESH_GROUP_TIMEOUT_S = 300   # a process group's collectives give up after
+MESH_JOB_TIMEOUT_S = 600     # the spawned job's limit
+MESH_PLAN = (0.25, 0)        # chaos_plan(rate, seed) of the fault select
+MESH_BASELINE_M = 16         # rand_greedi's machines
+
+#: part (a), one rank over NCCL: (label, spec knobs, what the select takes
+#: beyond the corpus: "opt", "costs", "batch" or None)
+MESH_ONE_RANK = (
+    *((f"{oracle} two_round", dict(oracle=oracle), None)
+      for oracle, *_ in ORACLES),
+    ("feature_coverage multi_epoch E=2",
+     dict(algorithm="multi_epoch", epochs=2), None),
+    ("feature_coverage two_round_known_opt",
+     dict(algorithm="two_round_known_opt"), "opt"),
+    (f"feature_coverage multi_threshold t={KO_T}",
+     dict(algorithm="multi_threshold", t=KO_T), "opt"),
+    ("feature_coverage knapsack",
+     dict(constraint="knapsack", knapsack_budget=KNAP_BUDGET), "costs"),
+    ("feature_coverage select_batch", {}, "batch"),
+)
+
+#: parts (b) and (c), four spawned ranks over gloo on the one card: (label,
+#: mesh (data, model), spec knobs, extra as above).  Under the
+#: tensor-parallel oracle the fused engine's accept is the row scan, one
+#: all_reduce a row (about 34,000 a select, 92 s through gloo with four
+#: processes on one H100), so the tensor-parallel selects run the lazy
+#: engine (one all_reduce a trip) and ``mesh_tp_scan`` holds the row scan
+#: on one chunk
+MESH_SPAWNED = (
+    *((f"{oracle} two_round", (MESH_WORLD, 1), dict(oracle=oracle), None)
+      for oracle, *_ in ORACLES),
+    ("feature_coverage multi_epoch E=2", (MESH_WORLD, 1),
+     dict(algorithm="multi_epoch", epochs=2), None),
+    ("feature_coverage select_batch", (MESH_WORLD, 1), {}, "batch"),
+    ("feature_coverage two_round chaos", (MESH_WORLD, 1),
+     dict(faults="chaos"), None),
+    ("feature_coverage two_round tp lazy", (2, 2),
+     dict(oracle_tp=True, engine="lazy"), None),
+    ("weighted_coverage two_round tp lazy", (2, 2),
+     dict(oracle="weighted_coverage", oracle_tp=True, engine="lazy"), None),
+)
+
+
+def mesh_corpus(torch):
+    """The main path's corpus, drawn again from seed 0 on the card: X
+    (N, D) = U[0,1)^2, the 256-row reference set, the knapsack's costs
+    and the ground set's f32 feature sum."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    X = torch.rand((N, D), generator=gen, device="cuda") ** 2
+    reference = torch.rand((R, D), generator=gen, device="cuda")
+    costs = 0.5 + 1.5 * torch.rand(N, generator=gen, device="cuda")
+    return dict(X=X, reference=reference, costs=costs, total=X.sum(0))
+
+
+def mesh_select(torch, tsel, tmr, tfaults, ops, data, label, extra,
+                mesh=None, n_machines=1, **spec_kw):
+    """One select of the mesh phase through DistributedSelector, on
+    ``mesh`` or on the sim with ``n_machines`` machines: the fused engine
+    (unless ``spec_kw`` names another) on the kernel route, the sample
+    drawn from a generator seeded 1 (every rank alike), the launch counts
+    set to 0 just before and read just after.  Checks the ids; returns
+    the result as plain Python, which a rank can pickle."""
+    if spec_kw.get("faults") == "chaos":
+        spec_kw = dict(spec_kw, faults=tfaults.chaos_plan(*MESH_PLAN))
+    spec = tsel.SelectorSpec(**{"k": K, "eps": EPS, "chunk": CHUNK,
+                                "engine": "fused", "use_kernel": True,
+                                **spec_kw})
+    kw = {}
+    if spec.oracle in ("facility_location", "exemplar"):
+        kw["reference"] = data["reference"]
+    if spec.oracle in ("saturated_coverage", "graph_cut"):
+        kw["total"] = data["total"]
+    if extra == "costs":
+        kw["element_costs"] = data["costs"]
+    sel = tsel.DistributedSelector(spec, n_total=N, feat_dim=D,
+                                   n_machines=n_machines, device="cuda",
+                                   mesh=mesh, **kw)
+    # a mesh rank selects over its shard: its rows (and its columns under
+    # the tensor-parallel oracle)
+    X = data["X"] if mesh is None else sel.data_sharding(data["X"])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if extra == "batch":
+        res = sel.select_batch(X, tmr.make_query_batch(QUERY_KS,
+                                                       device="cuda"),
+                               generator=gen)
+        log = sel.round_log_batch
+    else:
+        res = sel.select(X, opt_estimate=data["opt"] if extra == "opt"
+                         else None, generator=gen)
+        log = sel.round_log
+    values = res.value.reshape(-1).tolist()  # waits for the device
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    ids = res.sol_ids.reshape(len(values), K).cpu()
+    sizes = res.sol_size.reshape(-1).tolist()
+    for q, size in enumerate(sizes):
+        chosen = ids[q, :size].tolist()
+        check(size >= 1 and len(set(chosen)) == size
+              and min(chosen) >= 0 and max(chosen) < N
+              and all(i == -1 for i in ids[q, size:].tolist()),
+              f"[mesh] {label}: ids {chosen} not {size} distinct rows")
+    return dict(ids=ids.tolist(), size=sizes, value=values,
+                n_dropped=res.n_dropped.reshape(-1).tolist(),
+                tau_fallback=res.tau_fallback.reshape(-1).tolist(),
+                degraded=int(res.degraded), haircut=float(res.haircut),
+                records=[(r.name, r.bytes_per_machine, r.bytes_total,
+                          r.detail) for r in log.records],
+                faults=[tuple(getattr(r, f) for f in r.__dataclass_fields__)
+                        for r in log.faults],
+                wall_ms=wall, counts=counts, tp=sel.tp,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def mesh_compare(label, want, got, records=True, rtol=1e-5):
+    """``got`` (a mesh's select) against ``want`` (the sim's): the same
+    ids, sizes, overflow and fallback counts, fault records, ``degraded``
+    and ``haircut``, and RoundLog records when ``records``; values within
+    ``rtol``, and where their bits differ the line says by how much.
+    Returns whether every value has the sim's bits."""
+    for key in ("ids", "size", "n_dropped", "tau_fallback", "faults",
+                "degraded", "haircut", *(("records",) if records else ())):
+        check(got[key] == want[key],
+              f"[mesh] {label}: {key} {got[key]} differs from the sim's "
+              f"{want[key]}")
+    bits = got["value"] == want["value"]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got["value"],
+                                                  want["value"]))
+    check(rel <= rtol, f"[mesh] {label}: value {got['value']} vs the sim's "
+          f"{want['value']} (rel {rel})")
+    if not bits:
+        print(f"[mesh] {label}: the value's bits differ from the sim's by "
+              f"rel {rel} ({got['value']} vs {want['value']})")
+    return bits
+
+
+def mesh_kernels(label, spec_kw, counts, tp=False):
+    """Check that the select launched every kernel of its oracle's path
+    (the accept sweep's too, but under the tensor-parallel oracle, whose
+    accept is the row scan); returns {kernel: launches}."""
+    oracle = spec_kw.get("oracle", "feature_coverage")
+    _, kernels, accept, _ = next(o for o in ORACLES if o[0] == oracle)
+    launched = {name: counts[name] for name in kernels}
+    for name, n in launched.items():
+        want = not (tp and name == accept)
+        check((n > 0) == want, f"[mesh] {label}: {name} launched {n} times")
+    return launched
+
+
+def count_collectives(dist):
+    """Count every all_reduce and all_gather call of this process (the
+    port calls them through the torch.distributed module)."""
+    counts = {"all_reduce": 0, "all_gather": 0}
+    for name in counts:
+        fn = getattr(dist, name)
+
+        def wrapped(*args, _fn=fn, _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*args, **kw)
+        setattr(dist, name, wrapped)
+    return counts
+
+
+def mesh_tp_scan(torch, mesh, collectives):
+    """Part (c)'s row scan: ``TPOracle.chunk_accept`` (the generic scan,
+    one all_reduce over the model axis a row) on one chunk at the fused
+    engine's shape (L, B, D), with this rank's column block, held against
+    the full-width oracle's accept (the coverage_accept kernel) on the
+    same rows, as the kernel checks hold a sweep against its plain
+    version.  Every rank draws the same chunk.  Returns its wall ms and
+    all_reduce calls (``collectives``, count_collectives' counts)."""
+    from repro_torch.core import functions as F
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.rand((L, B, D), generator=g, device=dev) ** 2
+    state = torch.rand((L, D), generator=g, device=dev) * 4
+    elig = torch.rand((L, B), generator=g, device=dev) < 0.9
+    tau = lane_taus(torch, ref.coverage_marginals(x, state, None))
+    budget = torch.where(torch.arange(L, device=dev) % 5 == 0, 3,
+                         K).to(torch.int32)
+    w = D // mesh.tp
+    cols = slice(mesh.coords["model"] * w, (mesh.coords["model"] + 1) * w)
+    tp = F.TPOracle(base=F.FeatureCoverage(feat_dim=w, use_kernel=True,
+                                           device=dev),
+                    group=mesh.group("model"))
+    full = F.FeatureCoverage(feat_dim=D, use_kernel=True, device=dev)
+    want = full.chunk_accept(state, x, elig, tau, budget)
+    collectives.update(all_reduce=0, all_gather=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = tp.chunk_accept(state[:, cols].contiguous(),
+                          x[..., cols].contiguous(), elig, tau, budget)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ties, err = check_sweep(
+        "[mesh] (c) TPOracle.chunk_accept", got,
+        (want[0], want[1][:, cols], want[2]), tau, RTOL * tau.abs(),
+        lambda l, a, b, what: torch.allclose(a, b, rtol=RTOL, atol=ATOL))
+    return dict(wall_ms=wall, all_reduce=collectives["all_reduce"],
+                accepted=int(got[0].sum()), ties=ties, max_abs_err=err)
+
+
+def mesh_rank(rank, world, store, out_dir):
+    """A rank of parts (b) and (c): joins the gloo job on the one card,
+    draws the corpus from seed 0, and runs every select of MESH_SPAWNED on
+    its mesh; writes its results to ``out_dir``."""
+    import datetime
+    import pickle
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import faults as tfaults
+    from repro_torch.core import mapreduce as tmr
+    from repro_torch.core import selector as tsel
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh_for
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+    meshes = {shape: make_mesh_for(world, model_parallel=shape[1])
+              for shape in sorted({case[1] for case in MESH_SPAWNED})}
+    # connect every group before the first timed select
+    for mesh in meshes.values():
+        for axes in (("data",), ("model",)):
+            dist.barrier(group=mesh.group(axes))
+    collectives = count_collectives(dist)
+    data = mesh_corpus(torch)
+    results = []
+    for label, shape, spec_kw, extra in MESH_SPAWNED:
+        collectives.update(all_reduce=0, all_gather=0)
+        r = mesh_select(torch, tsel, tmr, tfaults, ops, data, label, extra,
+                        mesh=meshes[shape], **spec_kw)
+        r["collectives"] = dict(collectives)
+        results.append(r)
+        # four ranks share the card: hand back what this select cached
+        torch.cuda.empty_cache()
+    scan = mesh_tp_scan(torch, meshes[(2, 2)], collectives)
+    dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump((results, scan), f)
+
+
+def mesh_spawn(torch):
+    """Start the MESH_WORLD ranks (spawn start method) and wait for them;
+    any rank that raises, or a job past MESH_JOB_TIMEOUT_S, fails the
+    phase, and every rank is gone when this returns.  Returns each rank's
+    results."""
+    import pickle
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(mesh_rank,
+                                 args=(MESH_WORLD, f"{tmp}/store", tmp),
+                                 nprocs=MESH_WORLD, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + MESH_JOB_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"[mesh] the {MESH_WORLD}-rank job outlived "
+                      f"{MESH_JOB_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        out = []
+        for r in range(MESH_WORLD):
+            with open(Path(tmp) / f"rank{r}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def mesh_phase(torch, tsel, tmr, ops, gval, two_round_value):
+    """Phase 8: the mesh substrate on the main path's corpus.  (a) One rank
+    over NCCL in this process against the sim at m = 1; (b) four spawned
+    ranks over gloo on the one card, (data = 4, model = 1), against the sim
+    at m = 4, and under a chaos plan against the sim under the same plan;
+    (c) the tensor-parallel oracle on (data = 2, model = 2) against the sim
+    at m = 2 on the full-width oracle; (d) rand_greedi at m = 16.  Every
+    rank must equal rank 0.  Returns the mesh selects' launches by kernel
+    (rank 0's for the spawned job)."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core import distributed_baselines as tdb
+    from repro_torch.core import faults as tfaults
+    from repro_torch.launch.mesh import make_smoke_mesh
+    card = smi()
+    data = mesh_corpus(torch)
+    data["opt"] = gval
+    launches = {}
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+        try:
+            mesh = make_smoke_mesh()
+            # connect the groups before the first timed select
+            for axes in (("data",), ("model",)):
+                dist.all_reduce(torch.zeros(1, device="cuda"),
+                                group=mesh.group(axes))
+            for label, spec_kw, extra in MESH_ONE_RANK:
+                want = mesh_select(torch, tsel, tmr, tfaults, ops, data,
+                                   label, extra, n_machines=1, **spec_kw)
+                got = mesh_select(torch, tsel, tmr, tfaults, ops, data,
+                                  label, extra, mesh=mesh, **spec_kw)
+                bits = mesh_compare(f"(a) {label}", want, got)
+                launched = mesh_kernels(label, spec_kw, got["counts"])
+                add_launches(launches, got["counts"], launched)
+                print(f"[mesh] (a) one rank, NCCL: {label}: value="
+                      f"{got['value']} |S|={got['size']} sim_bits={bits} "
+                      f"wall_ms={got['wall_ms']} sim_wall_ms="
+                      f"{want['wall_ms']} launches={launched} card: {card}")
+        finally:
+            dist.destroy_process_group()
+    print(f"[mesh] part (a) took {time.perf_counter() - t0:.3f} s")
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks, scans = zip(*mesh_spawn(torch))
+    t_job = time.perf_counter() - t0
+    for r, scan in enumerate(scans):
+        check(scan["all_reduce"] == B,
+              f"[mesh] (c) rank {r}: the row scan made {scan['all_reduce']} "
+              f"all_reduces, not one a row ({B})")
+        check(scan["accepted"] == scans[0]["accepted"],
+              f"[mesh] (c) rank {r}: the row scan accepted "
+              f"{scan['accepted']} rows, rank 0 {scans[0]['accepted']}")
+    print(f"[mesh] (c) TPOracle.chunk_accept, the fused engine's row scan, "
+          f"on one ({L}, {B}, {D}) chunk, mesh (2, 2), against the "
+          f"full-width coverage_accept kernel: accepted="
+          f"{scans[0]['accepted']} near_tau_ties={scans[0]['ties']} "
+          f"max_abs_err={max(s['max_abs_err'] for s in scans)} all_reduces="
+          f"{scans[0]['all_reduce']} wall_ms={[s['wall_ms'] for s in scans]}"
+          f" card: {card}")
+    for i, (label, shape, spec_kw, extra) in enumerate(MESH_SPAWNED):
+        got = ranks[0][i]
+        for r in range(1, MESH_WORLD):
+            for key in ("ids", "size", "value", "n_dropped", "tau_fallback",
+                        "faults", "degraded", "haircut", "records",
+                        "collectives"):
+                check(ranks[r][i][key] == got[key],
+                      f"[mesh] {label}: rank {r}'s {key} "
+                      f"{ranks[r][i][key]} is not rank 0's {got[key]}")
+        tp = shape[1] > 1
+        check(got["tp"] == tp, f"[mesh] {label}: tp={got['tp']}")
+        want = mesh_select(torch, tsel, tmr, tfaults, ops, data, label,
+                           extra, n_machines=shape[0], **spec_kw)
+        bits = mesh_compare(f"({'c' if tp else 'b'}) {label}", want, got,
+                            records=not tp)
+        if spec_kw.get("faults"):
+            check(got["degraded"] == 1 and got["faults"],
+                  f"[mesh] {label}: the plan realized no fault")
+        launched = mesh_kernels(label, spec_kw, got["counts"], tp=tp)
+        add_launches(launches, got["counts"], launched)
+        walls = [ranks[r][i]["wall_ms"] for r in range(MESH_WORLD)]
+        print(f"[mesh] ({'c' if tp else 'b'}) {MESH_WORLD} ranks on one "
+              f"card, gloo, mesh {shape}: {label}: value={got['value']} "
+              f"|S|={got['size']} sim_bits={bits} wall_ms={walls} "
+              f"sim_wall_ms={want['wall_ms']} collectives a rank="
+              f"{got['collectives']} peak_gib a rank="
+              f"{[ranks[r][i]['peak_gib'] for r in range(MESH_WORLD)]} "
+              f"launches a rank={launched} faults="
+              f"{len(got['faults'])} degraded={got['degraded']} haircut="
+              f"{got['haircut']} card: {card}")
+    print(f"[mesh] parts (b) and (c): the {MESH_WORLD}-rank job took "
+          f"{t_job:.3f} s, with the sim selects "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    t0 = time.perf_counter()
+    oracle = tsel.make_oracle(tsel.SelectorSpec(k=K, use_kernel=True), D,
+                              "cuda")
+    m = MESH_BASELINE_M
+    ids = torch.arange(N, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res, log = tdb.rand_greedi(oracle, data["X"].reshape(m, N // m, D),
+                               ids.reshape(m, -1),
+                               torch.ones(m, N // m, dtype=torch.bool,
+                                          device="cuda"), K)
+    value = float(res.value)
+    wall = (time.perf_counter() - t1) * 1e3
+    chosen = res.sol_ids[res.sol_ids >= 0].tolist()
+    check(len(chosen) == int(res.sol_size) == len(set(chosen)) > 0,
+          f"[mesh] rand_greedi: ids {chosen} and size {int(res.sol_size)}")
+    print(f"[mesh] (d) rand_greedi m={m}: value={value} |S|="
+          f"{int(res.sol_size)} wall_ms={wall}; two_round fused kernel "
+          f"(m = {M}) value={two_round_value}; ratio="
+          f"{value / two_round_value} rounds={log.n_rounds} card: {card}")
+    print(f"[mesh] part (d) took {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2715,6 +3147,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, n in wide_selects(torch, tsel, ops, _wrap, la).items():
         launches[name] = launches.get(name, 0) + n
+
+    # the mesh substrate; its launches go on a line of their own, not into
+    # the kernel table
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_launches = mesh_phase(
+        torch, tsel, tmr, ops, gvals["feature_coverage"],
+        by["feature_coverage"]["two_round fused kernel"][1])
+    for name in (kernel for _, kernels, _, _ in ORACLES for kernel in kernels):
+        check(mesh_launches.get(name, 0) > 0,
+              f"[mesh] {name} never launched on the mesh path")
+    print(f"[mesh] launches on the mesh path by kernel: "
+          f"{ {k: v for k, v in mesh_launches.items() if '@' not in k} }")
+    print(f"[mesh] phase 8 took {time.perf_counter() - t0:.3f} s")
 
     check(SHAPES == _wrap.SHAPES, f"shape classes {_wrap.SHAPES}")
     table = []

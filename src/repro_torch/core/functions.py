@@ -19,7 +19,8 @@ selects and maps such states).
 Oracles: FeatureCoverage, FacilityLocation, WeightedCoverage,
 SaturatedCoverage, GraphCut, LogDetDiversity, MutualInformationGaussian and
 ExemplarClustering, and AdversarialThreshold, the closed form of the
-Theorem-4 instance (no kernel, as in the JAX package).  ``bind_query``
+Theorem-4 instance (no kernel, as in the JAX package).  ``TPOracle``
+splits an oracle's features over a mesh's model axis.  ``bind_query``
 rebinds a query's hyper-parameters (GraphCut's lam, LogDetDiversity's
 alpha) for the query axis.
 
@@ -31,10 +32,11 @@ same rule as the selector, ``repro_torch.device.resolve_device``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
@@ -634,11 +636,68 @@ class AdversarialThreshold(SubmodularOracle):
         return sum_s + (1.0 - sum_s / (self.k * self.vstar)) * n_o * self.vstar
 
 
+@dataclasses.dataclass(frozen=True)
+class TPOracle(SubmodularOracle):
+    """Tensor parallelism for the oracle: ``base`` sees this rank's slice
+    of the feature dimension (FeatureCoverage and WeightedCoverage: a
+    d / tp column block), and ``marginals``, ``chunk_marginals`` and
+    ``value`` are completed with an ``all_reduce`` over ``group``, the
+    mesh's model axis.  ``init_state``, ``prep`` and ``add`` are the base
+    oracle's, on its slice.
+
+    ``chunk_accept`` is the generic row scan, not the base oracle's sweep
+    kernel: each row's gain must be summed over the slices before the
+    accept decision, so the fused engine runs B all_reduces a chunk.  Every
+    rank of the group sees the summed gain, so the accepts stay the same
+    on every rank and each applies its own slice of the update."""
+
+    base: Any = None
+    group: Any = None   # the model axis's process group
+
+    @property
+    def feat_dim(self) -> int:   # this rank's slice width
+        return self.base.feat_dim
+
+    @property
+    def device(self):
+        return self.base.device
+
+    @property
+    def use_kernel(self) -> bool:
+        return self.base.use_kernel
+
+    def _sum(self, x):
+        x = x.contiguous()
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def init_state(self, lanes: Optional[int] = None):
+        return self.base.init_state(lanes)
+
+    def prep(self, state, cand_feats):
+        return self.base.prep(state, cand_feats)
+
+    def marginals(self, state, aux):
+        return self._sum(self.base.marginals(state, aux))
+
+    def chunk_marginals(self, state, cand_feats):
+        return self._sum(self.base.chunk_marginals(state, cand_feats))
+
+    def add(self, state, aux_row):
+        return self.base.add(state, aux_row)
+
+    def value(self, state):
+        return self._sum(self.base.value(state))
+
+
 def consumes_query_params(oracle) -> bool:
     """True when ``bind_query`` rebinds something on this oracle, i.e. a
     query's hyper-parameters change its marginals; the batched driver
     shares the query-invariant work (singleton estimates, the top-singleton
-    message) across the batch when it is False."""
+    message) across the batch when it is False.  It sees through a
+    TPOracle."""
+    if isinstance(oracle, TPOracle):
+        return consumes_query_params(oracle.base)
     return isinstance(oracle, (GraphCut, LogDetDiversity))
 
 
@@ -646,7 +705,11 @@ def bind_query(oracle, graph_cut_lam=None, logdet_alpha=None):
     """The oracle with one query's hyper-parameters: GraphCut's ``lam`` or
     LogDetDiversity's ``alpha`` (Python floats, or 0-d tensors, which the
     oracle turns into floats, so the kernel route stays); other oracles,
-    MutualInformationGaussian among them, pass through unchanged."""
+    MutualInformationGaussian among them, pass through unchanged.  A
+    TPOracle rebinds its base."""
+    if isinstance(oracle, TPOracle):
+        return dataclasses.replace(
+            oracle, base=bind_query(oracle.base, graph_cut_lam, logdet_alpha))
     if isinstance(oracle, GraphCut) and graph_cut_lam is not None:
         return dataclasses.replace(oracle, lam=float(graph_cut_lam))
     if isinstance(oracle, LogDetDiversity) and logdet_alpha is not None:

@@ -1,20 +1,30 @@
-"""The round-primitives layer on the sim substrate, the epoch engine, and
-round/communication accounting.
+"""The round-primitives layer: the sim and mesh substrates, the epoch
+engine, and round/communication accounting.
 
 Every driver is a composition of the same moves: Bernoulli-sample
 locally, accept centrally with ``threshold_greedy``, filter locally at a
-threshold, gather the packed survivors, accept centrally again.  Here the m
-machines are a leading batch axis on one device (``SimRounds``); each
-"gather" is a reshape of the per-machine packed buffers into what the
-central machine would receive.
+threshold, gather the packed survivors, accept centrally again.  They are
+defined once, behind two substrates with one surface:
+
+* ``SimRounds``: the m machines are a leading batch axis on one device,
+  and a "gather" is a reshape of the machines' packed buffers into what
+  the central machine would receive (the executable MRC model);
+* ``MeshRounds``: this process is one machine of a process group, a
+  gather is an ``all_gather`` over the group (``gather_packed``), and
+  overflow counts are summed with one ``all_reduce``.
+
+The central phase runs replicated on every machine of a mesh: every rank
+receives the same gathered messages, so it takes the same decisions and
+issues the same collectives in the same order.
 
 ``run_epochs`` executes a descending threshold schedule, one (G,) column
 of guesses per epoch (G lanes sharing every epoch's sample), carrying the
 lanes' partial solutions across epochs; one epoch is two MapReduce rounds.
 ``RoundLog`` records each round's message bytes from the static buffer
-shapes, so the Lemma-2/6 bounds are checkable numbers.
+shapes, so the Lemma-2/6 bounds are checkable numbers, and the realized
+faults of a fault plan (``FaultRecord``, ``core/faults.py``).
 
-Constrained selection (``MRConfig.constraint``): ``SimRounds`` appends the
+Constrained selection (``MRConfig.constraint``): the substrates append the
 constraint's attribute plane to the sharded rows, so every message ships
 it (width d + n_planes); the local halves and the central accepts split it
 off in front of the oracle, and the carry grows the lanes' feasibility
@@ -24,9 +34,11 @@ state, (state, sol, size, cstate), which rides across epochs.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.constraints import (append_plane, n_planes_of,
                                           split_plane)
@@ -42,13 +54,31 @@ class RoundRecord:
     detail: str = ""
 
 
+@dataclasses.dataclass(frozen=True)
+class FaultRecord:
+    """One realized fault (``faults.FaultyRounds``), beside the byte
+    accounting: ``eff_machines`` and ``eff_n`` are the machine count and
+    ground-set size left once it landed, which the guarantee haircut is
+    computed from (``faults.fault_summary``)."""
+    kind: str                  # faults.FAULT_KINDS
+    epoch: int                 # epoch the fault landed in
+    round_index: int           # gather index within the driver call
+    machines: tuple            # affected machine indices
+    n_machines: int            # configured M
+    eff_machines: int          # survivors after this fault
+    eff_n: int                 # degraded effective ground-set size
+    detail: str = ""
+
+
 @dataclasses.dataclass
 class RoundLog:
     records: List[RoundRecord] = dataclasses.field(default_factory=list)
-    #: runtime event counters (tau_fallback, n_dropped) noted by the
-    #: selector after each run; values may be device scalars, realized only
-    #: by ``summary``
+    #: runtime event counters (tau_fallback, n_dropped, degraded_selects)
+    #: noted by the selector after each run; values may be device scalars,
+    #: realized only by ``summary``
     events: Dict[str, object] = dataclasses.field(default_factory=dict)
+    #: the realized faults of the last driver call (faults.FaultyRounds)
+    faults: List[FaultRecord] = dataclasses.field(default_factory=list)
 
     def add(self, name: str, bytes_per_machine: int, bytes_total: int,
             detail: str = "") -> None:
@@ -59,6 +89,24 @@ class RoundLog:
         """Accumulate a runtime counter without forcing a device sync."""
         prev = self.events.get(name)
         self.events[name] = count if prev is None else prev + count
+
+    def fault(self, rec: FaultRecord) -> None:
+        self.faults.append(rec)
+
+    def fault_events(self) -> Dict[str, int]:
+        """The fault records as flat counters: affected machines per kind,
+        the number of distinct faulted gathers, and the worst gather's
+        survivor count."""
+        out: Dict[str, int] = {}
+        for rec in self.faults:
+            key = f"{rec.kind}_machines"
+            out[key] = out.get(key, 0) + len(rec.machines)
+        if self.faults:
+            out["faulted_rounds"] = len(
+                {(rec.epoch, rec.round_index) for rec in self.faults})
+            out["min_eff_machines"] = min(
+                rec.eff_machines for rec in self.faults)
+        return out
 
     @property
     def n_rounds(self) -> int:
@@ -78,6 +126,12 @@ class RoundLog:
             counts = " ".join(f"{k}={int(v)}"
                               for k, v in sorted(self.events.items()))
             lines.append(f"  events: {counts}")
+        for rec in self.faults:
+            lines.append(
+                f"  FAULT [{rec.kind}] epoch={rec.epoch} "
+                f"gather={rec.round_index} machines={list(rec.machines)} "
+                f"eff=(M={rec.eff_machines}/{rec.n_machines}, "
+                f"n~{rec.eff_n}) {rec.detail}")
         return "\n".join(lines)
 
 
@@ -184,24 +238,75 @@ def local_top(oracle, feats, ids, valid, cap: int, constraint=None):
     return f, i, v, torch.zeros((), dtype=torch.int32, device=ids.device)
 
 
-class SimRounds:
-    """Round primitives with the m machines as a leading batch axis.
+def gather_packed(x, group, lead: int = 0):
+    """all_gather one packed message buffer over ``group``, concatenating
+    the machines' buffers on the capacity axis, machine-major; ``lead``
+    leading axes (a lane axis, or query and lane) stay in place, and the
+    whole stack moves in one collective.  A rank's rank in ``group`` is its
+    machine index.  The machines' buffers land in one allocation, which
+    holds the gathered stack once: under leading axes their blocks are
+    reordered in place from machine-major to lead-major."""
+    m = dist.get_world_size(group)
+    x = x.contiguous()
+    out = x.new_empty((m,) + x.shape)
+    dist.all_gather(list(out.unbind(0)), x, group=group)
+    lanes = math.prod(x.shape[:lead])
+    if lanes > 1:
+        _lead_major(out.view(m * lanes, -1), m, lanes)
+    s = x.shape
+    return out.view(s[:lead] + (m * s[lead],) + s[lead + 1:])
 
-    Holds the (m, n/m, d) sharded ground set, with the constraint's
-    attribute plane appended at the storage dtype (so ``feat_dim`` and the
-    byte accounting are the augmented width); every primitive returns the
-    *gathered* message triple (feats, ids, valid) with the machine axis
-    flattened into the capacity axis, which is what the central machine
-    sees, plus the summed overflow count."""
 
-    def __init__(self, feats_mk, ids_mk, valid_mk, precision=None,
+def _lead_major(blocks, m: int, lanes: int) -> None:
+    """Reorder ``blocks``, an (m lanes, b) stack whose row c * lanes + l is
+    machine c's block of lane l, in place to lane-major order (row
+    l * m + c): the permutation's cycles, one block of scratch."""
+    tmp = torch.empty_like(blocks[0])
+    done = [False] * (m * lanes)
+    for start in range(m * lanes):
+        if done[start]:
+            continue
+        tmp.copy_(blocks[start])
+        p = start
+        while True:
+            done[p] = True
+            src = (p % m) * lanes + p // m   # where row p's block lies now
+            if src == start:
+                blocks[p].copy_(tmp)
+                break
+            blocks[p].copy_(blocks[src])
+            p = src
+
+
+class _Rounds:
+    """The round primitives over a (M, n/m, d) block of machines' rows: all
+    m machines on one device (the sim, M = m), or this rank's one machine
+    (the mesh, M = 1).  Each op runs the local halves on the block and
+    returns the *gathered* message triple (feats, ids, valid), machine-major
+    on the capacity axis, which is what the central machine sees, with the
+    block's overflow count; ``finalize_drops`` completes a count over the
+    machines.  The constraint's attribute plane is appended to the rows at
+    the storage dtype, so ``feat_dim`` and the byte accounting are the
+    augmented width.
+
+    ``m`` is the machine count, ``n_local`` the rows a machine holds,
+    ``device`` where they live."""
+
+    def __init__(self, feats, ids, valid, m: int, precision=None,
                  constraint=None):
         if precision is not None:
-            feats_mk = precision.cast_storage(feats_mk)
-        feats_mk = append_plane(feats_mk, constraint, ids_mk)
+            feats = precision.cast_storage(feats)
+        feats = append_plane(feats, constraint, ids)
         self.constraint = constraint
-        self.feats_mk, self.ids_mk, self.valid_mk = feats_mk, ids_mk, valid_mk
-        self.m, self.n_local, self.feat_dim = feats_mk.shape
+        self.feats_mk, self.ids_mk, self.valid_mk = feats, ids, valid
+        self.m = int(m)
+        _, self.n_local, self.feat_dim = feats.shape
+        self.device = ids.device
+
+    def begin_epoch(self, e: int) -> None:
+        """Epoch-boundary hook, announced by ``run_epochs``: a no-op on the
+        bare substrates; ``faults.FaultyRounds`` realizes its shard-loss
+        mask there."""
 
     def _constrained(self, **kw):
         """The constraint keywords of the local halves: none when the run
@@ -210,35 +315,101 @@ class SimRounds:
             return {}
         return dict(constraint=self.constraint, **kw)
 
+    def _own(self, uniforms):
+        """The block's rows of one epoch's (m, n/m) draws."""
+        raise NotImplementedError
+
+    def _gather(self, x, lead: int):
+        """(*lead, M, cap, ...) local buffers -> (*lead, m cap, ...)."""
+        raise NotImplementedError
+
+    def _gather3(self, trip, lead: int = 0):
+        return tuple(self._gather(x, lead) for x in trip)
+
     def sample(self, uniforms, p: float, cap: int):
         sf, si, sv, sdrop = local_sample(self.feats_mk, self.ids_mk,
-                                         self.valid_mk, uniforms, p, cap)
-        return ((sf.reshape(self.m * cap, self.feat_dim), si.reshape(-1),
-                 sv.reshape(-1)), sdrop.sum())
+                                         self.valid_mk, self._own(uniforms),
+                                         p, cap)
+        return self._gather3((sf, si, sv)), sdrop.sum()
 
-    def tops(self, oracle, cap: int):
-        tf, ti, tv, tdrop = local_top(oracle, self.feats_mk, self.ids_mk,
-                                      self.valid_mk, cap,
-                                      **self._constrained())
-        return ((tf.reshape(self.m * cap, self.feat_dim), ti.reshape(-1),
-                 tv.reshape(-1)), tdrop)
+    def tops(self, oracles, cap: int):
+        """One top-singleton message per oracle (the run's oracle, or each
+        query's rebound oracle), stacked on a leading axis and gathered in
+        one collective a tensor: (len(oracles), m cap, ...)."""
+        outs = [local_top(orc, self.feats_mk, self.ids_mk, self.valid_mk,
+                          cap, **self._constrained()) for orc in oracles]
+        stack = [torch.stack(p) for p in zip(*outs)]
+        return self._gather3(stack[:3], 1), stack[3].sum()
 
-    def filter_grid(self, oracle, st_j, sol_j, size_j, taus, cap: int,
-                    k, chunk, cstate_j=None):
-        """Per-lane survivor filter for a (J,)-stacked grid of partial
-        solutions (and their feasibility states, under a constraint); lane
-        j's gathered message is machine 0's buffer, then machine 1's, and
-        so on.  ``k`` is the lanes' budget (an int, or (J,) per lane).
-        Returns the gathered messages and each lane's (J,) overflow
-        count."""
-        J = taus.shape[0]
-        rf, ri, rv, rdrop = local_filter(oracle, st_j, sol_j, size_j,
-                                         self.feats_mk, self.ids_mk,
-                                         self.valid_mk, taus, cap, k, chunk,
-                                         **self._constrained(cstate=cstate_j))
-        m, d = self.m, self.feat_dim
-        return ((rf.reshape(J, m * cap, d), ri.reshape(J, m * cap),
-                 rv.reshape(J, m * cap)), rdrop.sum(-1))
+    def filter_grid(self, groups, cap: int, chunk):
+        """Per-lane survivor filter for lane groups that each have an
+        oracle of their own (the run's lanes, or one query's rebound oracle
+        and its J lanes): ``groups`` is a list of (oracle, carry, taus, k),
+        the carry the lanes' (state, sol, size[, cstate]) and ``k`` their
+        budget (an int, or per lane).  The groups' survivors are stacked on
+        the lane axis, and lane j's gathered message is machine 0's buffer,
+        then machine 1's, and so on.  Returns the gathered messages and
+        each lane's overflow count."""
+        # the carry's last entry is the feasibility state under a
+        # constraint (and unused without one)
+        outs = [local_filter(orc, *carry[:3], self.feats_mk, self.ids_mk,
+                             self.valid_mk, taus, cap, k, chunk,
+                             **self._constrained(cstate=carry[-1]))
+                for orc, carry, taus, k in groups]
+        rf, ri, rv, rdrop = (outs[0] if len(outs) == 1
+                             else (torch.cat(p) for p in zip(*outs)))
+        return self._gather3((rf, ri, rv), 1), rdrop.sum(-1)
+
+    def finalize_drops(self, drops):
+        """A local overflow count completed over every machine."""
+        return drops
+
+
+class SimRounds(_Rounds):
+    """The m machines as a leading batch axis on one device: feats_mk
+    (m, n/m, d), ids_mk and valid_mk (m, n/m); a gather is a reshape of the
+    machines' buffers."""
+
+    def __init__(self, feats_mk, ids_mk, valid_mk, precision=None,
+                 constraint=None):
+        super().__init__(feats_mk, ids_mk, valid_mk, feats_mk.shape[0],
+                         precision, constraint)
+
+    def _own(self, uniforms):
+        return uniforms
+
+    def _gather(self, x, lead: int):
+        s = x.shape
+        return x.reshape(s[:lead] + (s[lead] * s[lead + 1],) + s[lead + 2:])
+
+
+class MeshRounds(_Rounds):
+    """One machine of a process group: this rank's (n/m, d) shard (its
+    column block under tensor parallelism), its global ids and validity.
+    ``group`` is the machine axes' process group (``launch.mesh.Mesh``), in
+    which a rank's rank is its machine index.  A gather is an all_gather
+    over the group (``gather_packed``); overflow counts stay local until
+    ``finalize_drops`` sums them with one all_reduce.  The sample round
+    keeps this machine's row of the (m, n/m) draws, so a mesh given the
+    sim's draws samples the sim's rows."""
+
+    def __init__(self, feats, ids, valid, group, precision=None,
+                 constraint=None):
+        super().__init__(feats[None], ids[None], valid[None],
+                         dist.get_world_size(group), precision, constraint)
+        self.group = group
+        self.machine_index = dist.get_rank(group)
+
+    def _own(self, uniforms):
+        return uniforms[self.machine_index][None]
+
+    def _gather(self, x, lead: int):
+        return gather_packed(x.squeeze(lead), self.group, lead)
+
+    def finalize_drops(self, drops):
+        drops = drops.clone()
+        dist.all_reduce(drops, group=self.group)
+        return drops
 
 
 # ---------------------------------------------------------------------------
@@ -315,44 +486,73 @@ def sparse_sweep(oracle, pool, schedule, cfg, k_dyn=None):
 
 def run_epochs(oracle, rounds, schedule, epoch_uniforms, cfg,
                first_sample=None, k_dyn=None):
-    """The epoch engine: execute a descending threshold schedule (a list of
-    per-epoch (G,) guess columns) on a round-primitives backend, carrying
-    the lanes' partial solutions across epochs.  A known-OPT schedule (one
-    sequential solution, Algorithms 4 and 5) is a column of one lane.
+    """``run_epoch_groups`` for one lane group: the lanes of ``oracle``
+    with their per-epoch (G,) threshold columns ``schedule`` and budgets
+    ``k_dyn``.  Returns ((state, sol, size[, cstate]), (the sample rounds'
+    overflow (), each lane's survivor overflow (G,)))."""
+    (carry,), drops = run_epoch_groups([(oracle, schedule, k_dyn)], rounds,
+                                       epoch_uniforms, cfg, first_sample)
+    return carry, drops
 
-    Each epoch at level thresholds tau_e:
+
+def run_epoch_groups(groups, rounds, epoch_uniforms, cfg, first_sample=None):
+    """The epoch engine: execute descending threshold schedules on a
+    round-primitives backend, carrying the lanes' partial solutions across
+    epochs.  ``groups`` is a list of lane groups (oracle, schedule, k_dyn),
+    each with an oracle of its own (the run's, or one query's rebound
+    oracle): ``schedule`` the per-epoch (G,) guess columns of its lanes
+    (every group has as many epochs), ``k_dyn`` (G,) each lane's budget
+    within the buffer's cfg.k (None: cfg.k; the query axis).  A known-OPT
+    schedule (one sequential solution, Algorithms 4 and 5) is a column of
+    one lane.
+
+    Each epoch, every group at its level thresholds tau_e:
       sample -> central accept at tau_e -> local filter at tau_e
-             -> gather survivors -> central accept at tau_e.
+             -> gather survivors -> central accept at tau_e,
+    with one sample and one survivor gather an epoch for all the groups.
 
     ``epoch_uniforms[e]`` are epoch e's (m, n/m) sample draws;
     ``first_sample`` injects epoch 1's already-gathered sample (the
-    unknown-OPT drivers derive the grid from it first); ``k_dyn`` (G,) is
-    each lane's budget within the buffer's cfg.k (None: cfg.k; the query
-    axis).  Under ``cfg.constraint`` the lanes' feasibility state rides the
-    carry across epochs and into every local filter.  Returns ((state, sol,
+    unknown-OPT drivers derive the grid from it first).  Under
+    ``cfg.constraint`` the lanes' feasibility state rides the carry across
+    epochs and into every local filter.  Returns (each group's (state, sol,
     size[, cstate]), (the sample rounds' overflow (), each lane's survivor
-    overflow (G,))), both summed over the epochs."""
+    overflow, the groups' lanes in order)), both summed over the
+    epochs."""
     k = cfg.k
-    budget = k if k_dyn is None else k_dyn
     s_cap, f_cap, _ = cfg.caps()
-    carry = None
-    sdrops = torch.zeros((), dtype=torch.int32, device=oracle.device)
-    rdrops = torch.zeros(schedule[0].shape[0], dtype=torch.int32,
-                         device=oracle.device)
-    for e, taus in enumerate(schedule):
+    dev = groups[0][0].device
+    carries = [None] * len(groups)
+    sdrops = torch.zeros((), dtype=torch.int32, device=dev)
+    rdrops = torch.zeros(sum(g[1][0].shape[0] for g in groups),
+                         dtype=torch.int32, device=dev)
+    for e in range(len(groups[0][1])):
+        # announce the epoch boundary (a fault wrapper realizes its
+        # shard-loss mask; idempotent when epoch 1's sample was drawn first)
+        rounds.begin_epoch(e)
         if e == 0 and first_sample is not None:
             S, sdrop = first_sample
         else:
             S, sdrop = rounds.sample(epoch_uniforms[e], cfg.sample_p, s_cap)
-        if carry is None:
-            carry = grid_phase1(oracle, S, taus, k, cfg, **_budgets(k_dyn))
-        else:
-            carry = greedy_step(oracle, carry, S, taus, k, cfg,
-                                **_budgets(k_dyn))
-        R, rdrop = rounds.filter_grid(oracle, *carry[:3], taus, f_cap, budget,
-                                      cfg.filter_chunk, *carry[3:])
-        carry = greedy_step(oracle, carry, R, taus, k, cfg, **_budgets(k_dyn))
-        del R  # the survivor buffers, before the next epoch's sample
+        for g, (orc, schedule, k_dyn) in enumerate(groups):
+            if carries[g] is None:
+                carries[g] = grid_phase1(orc, S, schedule[e], k, cfg,
+                                         **_budgets(k_dyn))
+            else:
+                carries[g] = greedy_step(orc, carries[g], S, schedule[e], k,
+                                         cfg, **_budgets(k_dyn))
+        R, rdrop = rounds.filter_grid(
+            [(orc, carry, schedule[e], k if k_dyn is None else k_dyn)
+             for (orc, schedule, k_dyn), carry in zip(groups, carries)],
+            f_cap, cfg.filter_chunk)
+        lo = 0
+        for g, (orc, schedule, k_dyn) in enumerate(groups):
+            hi = lo + schedule[e].shape[0]
+            Rg = R if len(groups) == 1 else tuple(x[lo:hi] for x in R)
+            carries[g] = greedy_step(orc, carries[g], Rg, schedule[e], k,
+                                     cfg, **_budgets(k_dyn))
+            lo = hi
+        del R, Rg  # the survivor buffers, before the next epoch's sample
         sdrops = sdrops + sdrop
         rdrops = rdrops + rdrop
-    return carry, (sdrops, rdrops)
+    return carries, (sdrops, rdrops)

@@ -5,9 +5,9 @@ The system has no weights: what crosses is numpy data (the corpus sharded
 weights, FacilityLocation's and ExemplarClustering's (r, d) reference set,
 SaturatedCoverage's and GraphCut's (d,) ground-set total, a log-det
 oracle's (U, logdet, size) state, a knapsack's costs and budget or a
-partition matroid's labels and caps, the sample rounds' U[0, 1) draws, a
-query batch's budgets and hyper-parameters, and the Theorem-4 instance's
-oracle).  These helpers turn such
+partition matroid's labels and caps, the sample rounds' U[0, 1) draws on
+the sim and on the mesh, a query batch's budgets and hyper-parameters, a
+fault plan, and the Theorem-4 instance's oracle).  These helpers turn such
 arrays into the port's tensors and oracle on a given device, so a test can
 feed the same inputs to both packages.  numpy bfloat16 arrays (the
 ``ml_dtypes`` type that JAX hands out) arrive as torch.bfloat16.
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.constraints import Knapsack, PartitionMatroid
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.functions import (AdversarialThreshold,
                                         ExemplarClustering, FacilityLocation,
                                         FeatureCoverage, GraphCut,
@@ -145,6 +146,26 @@ def logdet_state(U, logdet, size, device="cpu"):
 def uniforms(draws, device="cpu") -> torch.Tensor:
     """The sample rounds' draws, (E, m, n/m) or (m, n/m), as float32."""
     return _f32(draws, device)
+
+
+def mesh_uniforms(rows, device="cpu") -> torch.Tensor:
+    """The mesh's draws as the port's (E, m, n/m) float32 block:
+    ``rows[e][c]`` is machine c's (n/m,) draw of epoch e, which the JAX
+    mesh drivers make from ``jax.random.fold_in(epoch_key, c)`` (where the
+    sim splits the epoch key over the machines)."""
+    return _f32(np.stack([np.stack([np.asarray(r, np.float32) for r in rs])
+                          for rs in rows]), device)
+
+
+def fault_plan(plan):
+    """A JAX ``FaultPlan`` (or any object with its fields) as the port's;
+    None stays None.  The masks are the same numpy draws in both
+    packages."""
+    if plan is None:
+        return None
+    return FaultPlan(**{f: getattr(plan, f) for f in (
+        "loss_rate", "drop_rate", "corrupt_rate", "straggler_rate",
+        "straggler_deadline_ms", "seed")})
 
 
 def adversarial(k: int, vstar: float = 1.0,

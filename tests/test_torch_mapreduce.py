@@ -36,6 +36,17 @@ def jax_uniforms(key, epochs, m, n_local):
     return np.stack([np.asarray(draw(jax.random.split(ek, m))) for ek in eks])
 
 
+def jax_mesh_uniforms(epoch_keys, m, n_local):
+    """The (E, m, n/m) draws of the JAX mesh drivers' sample rounds, given
+    their epoch keys: machine c folds its index into the key
+    (``MeshRounds.sample``), where the sim splits the key over the
+    machines."""
+    return interop.mesh_uniforms(
+        [[np.asarray(jax.random.uniform(jax.random.fold_in(ek, c),
+                                        (n_local,))) for c in range(m)]
+         for ek in epoch_keys])
+
+
 def _corpus(seed, zero=False, weighted=False):
     rng = np.random.default_rng(seed)
     X = (rng.random((N, D), dtype=np.float32)) ** 2
