@@ -116,9 +116,34 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    chunk against the full-width coverage_accept kernel; every rank must
    equal rank 0, and every select must launch its oracle's kernels; (d)
    rand_greedi on
-   FeatureCoverage at m = 16 beside two_round's value.  Its launches go on
-   a line of their own.
-9. Print the kernel table as one JSON line, the card's name and power
+   FeatureCoverage at m = 16 beside two_round's value; (a) and (b) also
+   run sieve_and_merge_mesh (FeatureCoverage, dense kernel route, 65,536-
+   row chunks) against sieve_and_merge_sim at m = 1 and m = 4, (b) also
+   under the first chaos_plan(0.25) seed that realizes a fault on its one
+   gather: the sim's ids, value bits, records and FaultRecords.  Its
+   launches go on a line of their own.
+9. The streaming path (k = 64, eps = 0.15: 37 lanes, a 128-row
+   reservoir; 65,536-row sieve chunks of the main path's corpus, copied
+   once to the host and streamed through prefetch_to_device), each part
+   printing its seconds: the prefetch's host -> device rate beside one
+   pinned copy's; (a) FeatureCoverage over all 2^20 rows on the dense and
+   fused kernel routes against the lazy plain route (the same ids, rtol
+   1e-3), the (1/2 - eps/2) floor against greedy, four uneven batches
+   bit for bit the one-shot ingest (every SieveState leaf), bf16 storage
+   (>= 0.99 x f32), a knapsack (budget 40) and a partition matroid (8 x
+   8) on the dense engine, select(budget=16); (b) the other seven oracles
+   over 2^18 rows on both engines against the plain route, and mutual
+   information finishing log-det's state at exactly half its value with
+   its ids; (c) sieve_and_merge_sim at m = 16 (one chunk a machine): one
+   gather, nothing dropped, the (1/2 - eps) floor, its ratio to the
+   two_round fused select, and under chaos_plan(0.25) at the first seed
+   that realizes a fault; (d) SelectionService killed with os._exit in a
+   child after an async save, restored here, against the uninterrupted
+   run (ids, value bits, every sieve leaf); (e) the select_serve CLI at
+   n = 2^20 (8 slots, 24 requests, 65,536-document ingests, checkpoints
+   every 2 steps, --use-kernel), then again with --restore.  Its launches
+   go on a `[stream]` line of their own; every kernel must show there.
+10. Print the kernel table as one JSON line, the card's name and power
    limit, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -2843,9 +2868,15 @@ def mesh_rank(rank, world, store, out_dir):
         # four ranks share the card: hand back what this select cached
         torch.cuda.empty_cache()
     scan = mesh_tp_scan(torch, meshes[(2, 2)], collectives)
+    from repro_torch.streaming import distributed_sieve as tds
+    from repro_torch.streaming import sieve as tsieve
+    seed = sieve_chaos_seed(tfaults, world)
+    sieves = [sieve_merge(torch, tds, tsieve, tsel, tfaults, ops, data["X"],
+                          world, mesh=meshes[(world, 1)], seed=s)
+              for s in (None, seed)]
     dist.destroy_process_group()
     with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
-        pickle.dump((results, scan), f)
+        pickle.dump((results, scan, sieves), f)
 
 
 def mesh_spawn(torch):
@@ -2894,6 +2925,8 @@ def mesh_phase(torch, tsel, tmr, ops, gval, two_round_value):
     from repro_torch.core import distributed_baselines as tdb
     from repro_torch.core import faults as tfaults
     from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.streaming import distributed_sieve as tds
+    from repro_torch.streaming import sieve as tsieve
     card = smi()
     data = mesh_corpus(torch)
     data["opt"] = gval
@@ -2923,13 +2956,24 @@ def mesh_phase(torch, tsel, tmr, ops, gval, two_round_value):
                       f"{got['value']} |S|={got['size']} sim_bits={bits} "
                       f"wall_ms={got['wall_ms']} sim_wall_ms="
                       f"{want['wall_ms']} launches={launched} card: {card}")
+            want = sieve_merge(torch, tds, tsieve, tsel, tfaults, ops,
+                               data["X"], 1)
+            got = sieve_merge(torch, tds, tsieve, tsel, tfaults, ops,
+                              data["X"], 1, mesh=mesh)
+            sieve_compare("(a) sieve_and_merge", got, want)
+            add_launches(launches, got["counts"], ("coverage_marginals",))
+            print(f"[mesh] (a) one rank, NCCL: sieve_and_merge_mesh over "
+                  f"{N} rows: value={got['value']} |S|={got['size']}, the "
+                  f"sim's (m = 1) ids, value bits and records; wall_ms="
+                  f"{got['wall_ms']} sim_wall_ms={want['wall_ms']} card: "
+                  f"{card}")
         finally:
             dist.destroy_process_group()
     print(f"[mesh] part (a) took {time.perf_counter() - t0:.3f} s")
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks, scans = zip(*mesh_spawn(torch))
+    ranks, scans, sieves = zip(*mesh_spawn(torch))
     t_job = time.perf_counter() - t0
     for r, scan in enumerate(scans):
         check(scan["all_reduce"] == B,
@@ -2975,6 +3019,26 @@ def mesh_phase(torch, tsel, tmr, ops, gval, two_round_value):
               f"launches a rank={launched} faults="
               f"{len(got['faults'])} degraded={got['degraded']} haircut="
               f"{got['haircut']} card: {card}")
+    seed = sieve_chaos_seed(tfaults, MESH_WORLD)
+    for i, s in enumerate((None, seed)):
+        want = sieve_merge(torch, tds, tsieve, tsel, tfaults, ops, data["X"],
+                           MESH_WORLD, seed=s)
+        label = (f"(b) sieve_and_merge" if s is None else
+                 f"(b) sieve_and_merge chaos_plan({SIEVE_PLAN_RATE}, "
+                 f"seed={s})")
+        for r in range(MESH_WORLD):
+            sieve_compare(f"{label} rank {r}", sieves[r][i], want)
+        got = sieves[0][i]
+        if s is not None:
+            check(got["degraded"] == 1 and got["faults"],
+                  f"[mesh] {label}: the plan realized no fault")
+        add_launches(launches, got["counts"], ("coverage_marginals",))
+        print(f"[mesh] {label}, {MESH_WORLD} ranks on one card, gloo: value="
+              f"{got['value']} |S|={got['size']}, the sim's (m = "
+              f"{MESH_WORLD}) ids, value bits, records and faults "
+              f"{got['faults']} on every rank; wall_ms="
+              f"{[sieves[r][i]['wall_ms'] for r in range(MESH_WORLD)]} "
+              f"sim_wall_ms={want['wall_ms']} card: {card}")
     print(f"[mesh] parts (b) and (c): the {MESH_WORLD}-rank job took "
           f"{t_job:.3f} s, with the sim selects "
           f"{time.perf_counter() - t0:.3f} s")
@@ -3002,6 +3066,532 @@ def mesh_phase(torch, tsel, tmr, ops, gval, two_round_value):
     print(f"[mesh] part (d) took {time.perf_counter() - t0:.3f} s")
     return launches
 
+
+# ---------------------------------------------------------------------------
+# phase 9: the streaming path (the sieve, out-of-core ingest, checkpoint and
+# restore, the selection service)
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNK = 1 << 16       # sieve chunk rows: 64 MiB of f32 rows a chunk
+STREAM_ROWS_B = 1 << 18      # rows a stream of part (b): 4 chunks
+STREAM_SPLITS = (100_003, 400_000, 700_001)   # part (a)'s uneven batches
+SERVE_INIT = 1 << 18         # part (d)'s initial corpus
+SERVE_BATCHES = 4            # part (d)'s ingested batches of STREAM_CHUNK
+SERVE_TIMEOUT_S = 300        # part (d)'s child and part (e)'s CLI runs
+STREAM_BUDGET = 16           # part (a)'s select(budget=) check
+SIEVE_PLAN_RATE = 0.25       # chaos_plan rate of the sieve's fault runs
+
+
+def sieve_spec(tsieve, **kw):
+    """The phase's SieveSpec: k = 64, eps = 0.15 (37 lanes, a reservoir of
+    128), the dense engine unless ``kw`` names another."""
+    return tsieve.SieveSpec(**{"k": K, "eps": EPS, "chunk": CHUNK, **kw})
+
+
+def stream_oracle(tsel, name, stats, use_kernel, **spec_kw):
+    needs = next(o[3] for o in ORACLES if o[0] == name)
+    return tsel.make_oracle(
+        tsel.SelectorSpec(k=K, oracle=name, use_kernel=use_kernel, **spec_kw),
+        D, "cuda", **({needs: stats[needs]} if needs else {}))
+
+
+def check_ids(label, res, n):
+    """The result's ids are ``sol_size`` distinct rows of n, -1 padded;
+    returns their checksum in order."""
+    size = int(res.sol_size)
+    ids = res.sol_ids.cpu().long()
+    chosen = ids[:size].tolist()
+    check(size >= 1 and len(set(chosen)) == size and min(chosen) >= 0
+          and max(chosen) < n and all(i == -1 for i in ids[size:].tolist()),
+          f"[stream] {label}: ids {chosen} not {size} distinct rows")
+    return zlib.crc32(ids[:size].numpy().tobytes())
+
+
+def stream_run(torch, tstream, ops, oracle, spec, rows, label, splits=(),
+               budget=None):
+    """One StreamingSelector over host ``rows`` (ingested whole, or in the
+    batches ``splits`` cuts), then a warm select: the launch counts set to
+    0 just before the ingest and read just after the select.  Returns
+    (selector, result, value, counts, ms a sieve chunk, select ms)."""
+    sel = tstream.StreamingSelector(oracle, spec, D, chunk_elems=STREAM_CHUNK)
+    n = rows.shape[0]
+    cuts = (0, *splits, n)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        sel.ingest(rows[a:b])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = sel.select(budget)
+    value = float(res.value)  # waits for the device
+    t2 = time.perf_counter()
+    counts = read_counts(ops)
+    chunks = -(-n // STREAM_CHUNK)
+    crc = check_ids(label, res, n)
+    check(value == value and 0 < value < float("inf"),
+          f"[stream] {label}: value {value}")
+    nonzero = {k: v for k, v in counts.items() if v and "@" not in k}
+    ms_chunk = (t1 - t0) * 1e3 / chunks
+    print(f"[stream] {label}: value={value} |S|={int(res.sol_size)} "
+          f"ids_crc32={crc} chunks={chunks} ms_a_chunk={ms_chunk} "
+          f"warm_select_ms={(t2 - t1) * 1e3} launches={nonzero}")
+    return sel, res, value, counts, ms_chunk, (t2 - t1) * 1e3
+
+
+def same_stream(label, got, want, rtol=1e-3):
+    """``got`` (a kernel-route stream's (result, value)) against ``want``
+    (the plain route's): the same ids, values within ``rtol``."""
+    (r, v), (rp, vp) = got, want
+    check(r.sol_ids.tolist() == rp.sol_ids.tolist(),
+          f"[stream] {label}: ids {r.sol_ids.tolist()} differ from the plain "
+          f"route's {rp.sol_ids.tolist()}")
+    check(abs(v - vp) <= rtol * abs(vp),
+          f"[stream] {label}: value {v} vs the plain route's {vp}")
+    return abs(v - vp) / abs(vp)
+
+
+def stream_kernels(label, name, counts, fused, launches):
+    """Each kernel of the oracle's path launched (its accept sweep only on
+    the fused engine); adds them to ``launches``."""
+    _, kernels, accept, _ = next(o for o in ORACLES if o[0] == name)
+    for k in kernels:
+        want = fused if k == accept else True
+        check((counts[k] > 0) == want,
+              f"[stream] {label}: {k} launched {counts[k]} times")
+    add_launches(launches, counts, kernels)
+
+
+def prefetch_rates(torch, tstream, rows, card):
+    """Host -> device GB/s of prefetch_to_device over ``rows`` (the chunks
+    handed over, the consumer doing nothing else), beside one pinned
+    STREAM_CHUNK x D copy timed alone (the copy engine's rate)."""
+    corpus = tstream.HostCorpus(D, STREAM_CHUNK)
+    corpus.append(rows)
+    chunk_bytes = STREAM_CHUNK * (D * 4 + 4 + 1)
+    n_chunks = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in tstream.prefetch_to_device(corpus.chunks(0), "cuda"):
+        n_chunks += 1
+    torch.cuda.synchronize()
+    prefetch_gbs = n_chunks * chunk_bytes / (time.perf_counter() - t0) / 1e9
+    pinned = torch.empty((STREAM_CHUNK, D), pin_memory=True)
+    dev = torch.empty((STREAM_CHUNK, D), device="cuda")
+    copy_ms = cuda_ms(lambda: dev.copy_(pinned, non_blocking=True), 20)
+    copy_gbs = STREAM_CHUNK * D * 4 / copy_ms / 1e6
+    print(f"[stream] prefetch_to_device: {n_chunks} chunks of "
+          f"{chunk_bytes} B, {prefetch_gbs} GB/s host -> device; one pinned "
+          f"{STREAM_CHUNK} x {D} f32 copy alone: {copy_ms} ms, {copy_gbs} "
+          f"GB/s; card: {card}")
+    return prefetch_gbs, copy_gbs
+
+
+def stream_part_a(torch, tstream, tsel, tcons, ops, data, X_host, gval,
+                  launches, card):
+    """Part (a): FeatureCoverage over all 2^20 rows."""
+    fc = stream_oracle(tsel, "feature_coverage", data, True)
+    plain = stream_oracle(tsel, "feature_coverage", data, False)
+    out = {}
+    _, res_p, v_p, counts, _, _ = stream_run(
+        torch, tstream, ops, plain, sieve_spec(tstream, engine="lazy"),
+        X_host, "feature_coverage lazy plain")
+    check(not any(counts.values()), f"plain route launched kernels {counts}")
+    for engine in ("dense", "fused"):
+        sel, res, v, counts, ms, sel_ms = stream_run(
+            torch, tstream, ops, fc, sieve_spec(tstream, engine=engine),
+            X_host, f"feature_coverage {engine} kernel")
+        rel = same_stream(f"feature_coverage {engine}", (res, v), (res_p, v_p))
+        stream_kernels(f"feature_coverage {engine}", "feature_coverage",
+                       counts, engine == "fused", launches)
+        check(v >= (0.5 - EPS / 2) * gval, f"[stream] feature_coverage "
+              f"{engine}: value {v} below (1/2 - eps/2) x greedy {gval}")
+        print(f"[stream] feature_coverage {engine} kernel vs lazy plain: "
+              f"same ids, rel_diff={rel}; value/greedy={v / gval} "
+              f"(greedy on the first {GREEDY_ROWS} rows); card: {card}")
+        out[engine] = (sel, res, v, ms, sel_ms)
+
+    # the same rows in four uneven batches: the one-shot ingest's bits
+    sel1, res1, v1 = out["dense"][:3]
+    sel4, res4, v4, _, _, _ = stream_run(
+        torch, tstream, ops, fc, sieve_spec(tstream), X_host,
+        "feature_coverage dense kernel, 4 uneven batches",
+        splits=STREAM_SPLITS)
+    from repro_torch.checkpoint.checkpointer import flatten
+    leaves1, leaves4 = flatten(sel1.state), flatten(sel4.state)
+    check(res4.sol_ids.tolist() == res1.sol_ids.tolist()
+          and res4.value.cpu().numpy().tobytes()
+          == res1.value.cpu().numpy().tobytes()
+          and len(leaves1) == len(leaves4)
+          and all(torch.equal(a, b) for (_, a), (_, b) in zip(leaves1,
+                                                              leaves4)),
+          "[stream] four uneven batches do not give the one-shot bits")
+    print(f"[stream] four uneven batches {STREAM_SPLITS}: the one-shot "
+          f"ingest's ids, value bits and all {len(leaves1)} SieveState "
+          f"leaves")
+
+    _, _, v_bf, counts, _, _ = stream_run(
+        torch, tstream, ops, fc, sieve_spec(tstream, precision="bf16"),
+        X_host, "feature_coverage dense kernel bf16")
+    add_launches(launches, counts, ("coverage_marginals",))
+    check(v_bf >= 0.99 * v1, f"[stream] bf16 value {v_bf} < 0.99 x f32 {v1}")
+    print(f"[stream] bf16/f32 value ratio = {v_bf / v1}")
+
+    knap = tcons.make_constraint("knapsack", N, costs=data["costs"],
+                                 budget=KNAP_BUDGET, device="cuda")
+    _, res_k, _, counts, _, _ = stream_run(
+        torch, tstream, ops, fc, sieve_spec(tstream, constraint=knap),
+        X_host, f"feature_coverage dense kernel knapsack {KNAP_BUDGET}")
+    add_launches(launches, counts, ("coverage_marginals",))
+    ids = res_k.sol_ids[:int(res_k.sol_size)].long()
+    spent = float(data["costs"][ids].double().sum())
+    check(spent <= KNAP_BUDGET, f"[stream] knapsack: costs sum to {spent}")
+    print(f"[stream] knapsack: |S|={int(res_k.sol_size)} spent={spent} of "
+          f"{KNAP_BUDGET}")
+
+    caps = torch.full((N_PARTS,), PART_CAP, dtype=torch.int32)
+    part = tcons.make_constraint("partition_matroid", N, parts=data["parts"],
+                                 capacities=caps, device="cuda")
+    _, res_m, _, counts, _, _ = stream_run(
+        torch, tstream, ops, fc, sieve_spec(tstream, constraint=part),
+        X_host, f"feature_coverage dense kernel partition({N_PARTS} x "
+        f"{PART_CAP})")
+    add_launches(launches, counts, ("coverage_marginals",))
+    ids = res_m.sol_ids[:int(res_m.sol_size)].long()
+    per_part = torch.bincount(data["parts"][ids].long(),
+                              minlength=N_PARTS).cpu()
+    check(bool((per_part <= PART_CAP).all()),
+          f"[stream] partition: per-part counts {per_part.tolist()}")
+    print(f"[stream] partition matroid: per-part counts "
+          f"{per_part.tolist()} caps={PART_CAP}")
+
+    small = sel1.select(STREAM_BUDGET)
+    check_ids("select(budget=16)", small, N)
+    check(int(small.sol_size) <= STREAM_BUDGET,
+          f"[stream] select(budget={STREAM_BUDGET}) gave "
+          f"{int(small.sol_size)} rows")
+    print(f"[stream] select(budget={STREAM_BUDGET}): |S|="
+          f"{int(small.sol_size)} value={float(small.value)}")
+    return {e: out[e][3:] for e in out}
+
+
+def stream_part_b(torch, tstream, tsel, ops, data, X_host, gvals, launches,
+                  card):
+    """Part (b): the other seven oracles, 2^18 rows each."""
+    rows = X_host[:STREAM_ROWS_B]
+    by = {}
+    for name, _, _, _ in ORACLES[1:]:
+        t0 = time.perf_counter()
+        _, res_p, v_p, counts, _, _ = stream_run(
+            torch, tstream, ops, stream_oracle(tsel, name, data, False),
+            sieve_spec(tstream, engine="lazy"), rows, f"{name} lazy plain")
+        check(not any(counts.values()),
+              f"plain route launched kernels {counts}")
+        for engine in ("dense", "fused"):
+            sel, res, v, counts, ms, _ = stream_run(
+                torch, tstream, ops, stream_oracle(tsel, name, data, True),
+                sieve_spec(tstream, engine=engine), rows,
+                f"{name} {engine} kernel")
+            rel = same_stream(f"{name} {engine}", (res, v), (res_p, v_p))
+            stream_kernels(f"{name} {engine}", name, counts,
+                           engine == "fused", launches)
+            by[(name, engine)] = (sel, res, v)
+            print(f"[stream] {name} {engine} kernel vs lazy plain: same ids, "
+                  f"rel_diff={rel}, ms_a_chunk={ms}; value/greedy(main "
+                  f"path)={v / gvals[name]}")
+        print(f"[stream] {name}: {time.perf_counter() - t0:.3f} s")
+    # MutualInformation at noise 1 is exactly half of log-det, but the
+    # sieve's lane grid sits at absolute powers of (1 + eps): halving every
+    # gain shifts the window by log 2 / log 1.15 = 4.96 exponents, not a
+    # whole number, so the two streams run other thresholds.  The finish is
+    # scale-equivariant (its grid is v_max (1 + eps)^j / 2k): MI finishing
+    # log-det's live state, its v_max and logdet halved (exact), must give
+    # log-det's finish ids at exactly half the value
+    mi = stream_oracle(tsel, "mutual_information", data, True)
+    for engine in ("dense", "fused"):
+        sel, res, v = by[("log_det", engine)]
+        st = sel.state
+        U, logdet, size = st.oracle_states
+        half = st._replace(v_max=st.v_max * 0.5,
+                           oracle_states=(U, logdet * 0.5, size))
+        r_mi = tstream.sieve_finish(mi, sel.spec, half)
+        check(r_mi.sol_ids.tolist() == res.sol_ids.tolist()
+              and float(r_mi.value) == 0.5 * v,
+              f"[stream] {engine}: mutual information's finish of log-det's "
+              f"state {float(r_mi.value)} is not half of log-det's {v} with "
+              f"its ids")
+        _, res_mi, v_mi = by[("mutual_information", engine)]
+        same = len(set(res_mi.sol_ids.tolist()) & set(res.sol_ids.tolist()))
+        print(f"[stream] {engine}: mutual_information finishing log-det's "
+              f"state = 0.5 x log_det's finish, same ids; the two streams "
+              f"(other lane thresholds): MI value={v_mi}, 2 x MI / log_det "
+              f"= {2 * v_mi / v}, {same}/{K} ids shared")
+
+
+def sieve_chaos_seed(tfaults, m):
+    """The first seed whose chaos_plan(SIEVE_PLAN_RATE) realizes a fault on
+    the sieve's one gather (epoch 0's shard loss or gather 0's transient
+    faults) at m machines."""
+    for seed in range(256):
+        plan = tfaults.chaos_plan(SIEVE_PLAN_RATE, seed=seed)
+        masks = plan.round_masks(0, m)
+        if plan.loss_mask(0, m).any() or any(x.any() for x in masks.values()):
+            return seed
+    raise RuntimeError("no seed realizes a fault")
+
+
+def sieve_merge(torch, tds, tsieve, tsel, tfaults, ops, X, m, mesh=None,
+                seed=None):
+    """sieve_and_merge at m machines of X's rows (one chunk of 65,536 rows
+    each at m = 16), FeatureCoverage, the dense engine on the kernel route:
+    on the sim, or on ``mesh`` over this rank's rows; under
+    chaos_plan(SIEVE_PLAN_RATE, seed) when ``seed`` is given.  Returns the
+    result as plain Python, which a rank can pickle."""
+    oracle = tsel.make_oracle(tsel.SelectorSpec(k=K, use_kernel=True), D,
+                              "cuda")
+    plan = (None if seed is None
+            else tfaults.chaos_plan(SIEVE_PLAN_RATE, seed=seed))
+    spec = sieve_spec(tsieve)
+    n_loc = X.shape[0] // m
+    ids = torch.arange(X.shape[0], dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if mesh is None:
+        res, log = tds.sieve_and_merge_sim(
+            oracle, X.reshape(m, n_loc, D), ids.reshape(m, n_loc),
+            torch.ones(m, n_loc, dtype=torch.bool, device="cuda"), spec,
+            chunk_elems=STREAM_CHUNK, faults=plan)
+    else:
+        run, log = tds.sieve_and_merge_mesh(oracle, spec, mesh,
+                                            chunk_elems=STREAM_CHUNK,
+                                            faults=plan)
+        c = mesh.index(("data",))
+        rows = slice(c * n_loc, (c + 1) * n_loc)
+        res = run(X[rows].contiguous(), ids[rows])
+    value = float(res.value)  # waits for the device
+    wall = (time.perf_counter() - t0) * 1e3
+    check_ids("sieve_and_merge", res, X.shape[0])
+    return dict(ids=res.sol_ids.tolist(), size=int(res.sol_size),
+                value=value, n_dropped=int(res.n_dropped),
+                degraded=int(res.degraded), haircut=float(res.haircut),
+                records=[(r.name, r.bytes_per_machine, r.bytes_total,
+                          r.detail) for r in log.records],
+                faults=[tuple(getattr(r, f) for f in r.__dataclass_fields__)
+                        for r in log.faults],
+                wall_ms=wall, counts=read_counts(ops))
+
+
+def sieve_compare(label, got, want):
+    """A mesh's sieve_and_merge against the sim's: the same ids, size,
+    overflow, records, fault records, degraded and haircut, and the value's
+    bits."""
+    for key in ("ids", "size", "value", "n_dropped", "degraded", "haircut",
+                "records", "faults"):
+        check(got[key] == want[key], f"[mesh] {label}: {key} {got[key]} "
+              f"differs from the sim's {want[key]}")
+
+
+def stream_part_c(torch, tds, tsieve, tsel, tfaults, ops, X, gval, two_round,
+                  launches, card):
+    """Part (c): sieve_and_merge_sim at m = 16 over the whole corpus."""
+    m = M
+    r = sieve_merge(torch, tds, tsieve, tsel, tfaults, ops, X, m)
+    add_launches(launches, r["counts"], ("coverage_marginals",))
+    check(len(r["records"]) == 1 and r["n_dropped"] == 0,
+          f"[stream] sieve_and_merge: records {r['records']} n_dropped "
+          f"{r['n_dropped']}")
+    check(r["value"] >= (0.5 - EPS) * gval,
+          f"[stream] sieve_and_merge: value {r['value']} below (1/2 - eps) x "
+          f"greedy {gval}")
+    print(f"[stream] (c) sieve_and_merge_sim m={m}: value={r['value']} "
+          f"|S|={r['size']} n_dropped={r['n_dropped']} wall_ms="
+          f"{r['wall_ms']}; two_round fused kernel value={two_round}, "
+          f"ratio={r['value'] / two_round}; value/greedy={r['value'] / gval}; "
+          f"round: {r['records'][0]}; card: {card}")
+    seed = sieve_chaos_seed(tfaults, m)
+    rc = sieve_merge(torch, tds, tsieve, tsel, tfaults, ops, X, m, seed=seed)
+    add_launches(launches, rc["counts"], ("coverage_marginals",))
+    check(rc["faults"] and rc["degraded"] == 1,
+          f"[stream] chaos seed {seed}: faults {rc['faults']} degraded "
+          f"{rc['degraded']}")
+    for rec in rc["faults"]:
+        print(f"[stream] (c) chaos_plan({SIEVE_PLAN_RATE}, seed={seed}) "
+              f"FaultRecord {rec}")
+    print(f"[stream] (c) under chaos_plan({SIEVE_PLAN_RATE}, seed={seed}) "
+          f"(the first seed that realizes a fault on the one gather): "
+          f"value={rc['value']} degraded={rc['degraded']} haircut="
+          f"{rc['haircut']} wall_ms={rc['wall_ms']}")
+
+
+def serve_data(torch):
+    """Part (d)'s corpus: the main path's first SERVE_INIT rows, then
+    SERVE_BATCHES batches of STREAM_CHUNK rows, on the host."""
+    X = mesh_corpus(torch)["X"]
+    init = X[:SERVE_INIT].cpu()
+    batches = [X[SERVE_INIT + i * STREAM_CHUNK:
+                 SERVE_INIT + (i + 1) * STREAM_CHUNK].cpu()
+               for i in range(SERVE_BATCHES)]
+    return init, batches
+
+
+def serve_service(tsel, tserve, init):
+    spec = tsel.SelectorSpec(k=K, eps=EPS, chunk=CHUNK, use_kernel=True)
+    return tserve.SelectionService(spec, None, init,
+                                   stream_chunk=STREAM_CHUNK, device="cuda")
+
+
+def serve_child(_, ck_dir):
+    """Part (d)'s killed service: ingests two batches over the initial
+    corpus, saves (async, then waits), and exits without any cleanup."""
+    import os
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core import selector as tsel
+    from repro_torch.launch import select_serve as tserve
+    torch.cuda.set_device(0)
+    init, batches = serve_data(torch)
+    svc = serve_service(tsel, tserve, init)
+    for b in batches[:2]:
+        svc.ingest(b)
+    ck = Checkpointer(ck_dir)
+    svc.save(ck, 2, blocking=False)
+    ck.wait()
+    os._exit(0)
+
+
+def stream_part_d(torch, tsel, ops, launches, card):
+    """Part (d): the service killed in a child process and restored here,
+    against the uninterrupted run."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.checkpoint.checkpointer import Checkpointer, flatten
+    from repro_torch.launch import select_serve as tserve
+    init, batches = serve_data(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(serve_child, args=(tmp,), nprocs=1,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + SERVE_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"[stream] the killed service outlived "
+                      f"{SERVE_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        t_child = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        svc = serve_service(tsel, tserve, init)
+        step = svc.restore(Checkpointer(tmp))
+        check(step == 2 and svc.stream.n_streamed == SERVE_INIT
+              + 2 * STREAM_CHUNK, f"[stream] restored step {step} at "
+              f"{svc.stream.n_streamed} rows")
+        for b in batches[2:]:
+            svc.ingest(b)
+        res = svc.select_warm()
+        value = float(res.value)
+        add_launches(launches, read_counts(ops), ("coverage_marginals",))
+    full = serve_service(tsel, tserve, init)
+    for b in batches:
+        full.ingest(b)
+    res_full = full.select_warm()
+    la, lb = flatten(svc.stream.state), flatten(full.stream.state)
+    check(res.sol_ids.tolist() == res_full.sol_ids.tolist()
+          and res.value.cpu().numpy().tobytes()
+          == res_full.value.cpu().numpy().tobytes()
+          and len(la) == len(lb)
+          and all(torch.equal(a, b) for (_, a), (_, b) in zip(la, lb)),
+          "[stream] (d) the restored service is not the uninterrupted run")
+    print(f"[stream] (d) service killed after 2 of {SERVE_BATCHES} batches "
+          f"(child {t_child:.3f} s, os._exit after an async save), restored, "
+          f"2 more batches: value={value} |S|={int(res.sol_size)}, the "
+          f"uninterrupted run's ids, value bits and all {len(la)} sieve "
+          f"leaves; stats={svc.stats}; card: {card}")
+
+
+def stream_part_e(card):
+    """Part (e): the service CLI at full width, then again with
+    --restore."""
+    import os
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "repro_torch.launch.select_serve",
+               "--n", str(N), "--d", str(D), "--k", str(K), "--slots", "8",
+               "--requests", "24", "--ingest-docs", str(STREAM_CHUNK),
+               "--ingest-every", "2", "--stream-chunk", str(STREAM_CHUNK),
+               "--checkpoint-dir", tmp, "--checkpoint-every", "2",
+               "--use-kernel"]
+        for extra in ([], ["--restore"]):
+            t0 = time.perf_counter()
+            p = subprocess.run(cmd + extra, env=env, cwd=ROOT,
+                               capture_output=True, text=True,
+                               timeout=SERVE_TIMEOUT_S)
+            check(p.returncode == 0, f"[stream] (e) select_serve "
+                  f"{' '.join(extra)} exited {p.returncode}:\n"
+                  f"{p.stdout[-2000:]}\n{p.stderr[-3000:]}")
+            keep = [ln for ln in p.stdout.splitlines()
+                    if ln.startswith("[service]") or "latency" in ln
+                    or "slots=" in ln or "restored" in ln
+                    or "ingested" in ln]
+            for ln in keep:
+                print(f"[stream] (e) select_serve {' '.join(extra)}: {ln}")
+            print(f"[stream] (e) select_serve {' '.join(extra)} took "
+                  f"{time.perf_counter() - t0:.3f} s; card: {card}")
+
+
+def stream_phase(torch, tsel, ops, gvals, two_round_value):
+    """Phase 9: the streaming path on the main path's corpus, copied once
+    to host memory; its documents cross host -> device through
+    prefetch_to_device.  Returns the launches of parts (a)-(d) by kernel
+    (part (e)'s CLI runs in its own processes)."""
+    from repro_torch import streaming as tstream
+    from repro_torch.core import constraints as tcons
+    from repro_torch.core import faults as tfaults
+    from repro_torch.streaming import distributed_sieve as tds
+    from repro_torch.streaming import sieve as tsieve
+    card = smi()
+    data = mesh_corpus(torch)
+    data["parts"] = torch.randint(
+        0, N_PARTS, (N,), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(2))
+    X_host = data["X"].cpu()
+    launches = {}
+    t_phase = time.perf_counter()
+    prefetch_rates(torch, tstream, X_host, card)
+
+    t0 = time.perf_counter()
+    rates = stream_part_a(torch, tstream, tsel, tcons, ops, data, X_host,
+                          gvals["feature_coverage"], launches, card)
+    print(f"[stream] part (a) took {time.perf_counter() - t0:.3f} s; ms a "
+          f"sieve chunk (dense, fused) = {rates['dense'][0]}, "
+          f"{rates['fused'][0]}; warm select ms (dense, fused) = "
+          f"{rates['dense'][1]}, {rates['fused'][1]}")
+    t0 = time.perf_counter()
+    stream_part_b(torch, tstream, tsel, ops, data, X_host, gvals, launches,
+                  card)
+    print(f"[stream] part (b) took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    stream_part_c(torch, tds, tsieve, tsel, tfaults, ops, data["X"],
+                  gvals["feature_coverage"], two_round_value, launches, card)
+    print(f"[stream] part (c) took {time.perf_counter() - t0:.3f} s")
+    del data, X_host
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stream_part_d(torch, tsel, ops, launches, card)
+    print(f"[stream] part (d) took {time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stream_part_e(card)
+    print(f"[stream] part (e) took {time.perf_counter() - t0:.3f} s")
+    print(f"[stream] phase 9 took {time.perf_counter() - t_phase:.3f} s "
+          f"after its corpus copy")
+    return launches
 
 
 def main() -> int:
@@ -3161,6 +3751,19 @@ def main() -> int:
     print(f"[mesh] launches on the mesh path by kernel: "
           f"{ {k: v for k, v in mesh_launches.items() if '@' not in k} }")
     print(f"[mesh] phase 8 took {time.perf_counter() - t0:.3f} s")
+
+    # the streaming path; its launches go on a line of their own too
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stream_launches = stream_phase(
+        torch, tsel, ops, gvals,
+        by["feature_coverage"]["two_round fused kernel"][1])
+    for name in (kernel for _, kernels, _, _ in ORACLES for kernel in kernels):
+        check(stream_launches.get(name, 0) > 0,
+              f"[stream] {name} never launched on the streaming path")
+    print(f"[stream] launches on the streaming path by kernel: "
+          f"{ {k: v for k, v in stream_launches.items() if '@' not in k} }")
+    print(f"[stream] phase 9 took {time.perf_counter() - t0:.3f} s")
 
     check(SHAPES == _wrap.SHAPES, f"shape classes {_wrap.SHAPES}")
     table = []

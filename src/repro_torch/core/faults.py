@@ -137,6 +137,11 @@ class FaultyRounds:
         self._round = 0
         self._epoch: Optional[int] = None
         self._lost = np.zeros(self.m, bool)
+        #: the last ``degrade``'s realized dead-machine mask (numpy bool
+        #: (m,)), or None when that gather was clean: a driver with one
+        #: gather (the distributed sieve) masks its ride-along statistics
+        #: with it
+        self.last_dead: Optional[np.ndarray] = None
         log.faults.clear()
 
     def __getattr__(self, name):
@@ -152,7 +157,11 @@ class FaultyRounds:
         return int(round(self.n_total * eff_machines / self.m))
 
     def begin_epoch(self, e: int) -> None:
-        self.inner.begin_epoch(e)
+        # ``inner=None`` is the mode of a one-gather driver that is no
+        # substrate (the distributed sieve): only ``degrade`` is used, and
+        # nothing delegates
+        if self.inner is not None:
+            self.inner.begin_epoch(e)
         if self.plan is None or self._epoch == e:
             return
         self._epoch = e
@@ -180,6 +189,7 @@ class FaultyRounds:
         f, i, v = gathered
         r = self._round
         self._round += 1
+        self.last_dead = None
         if self.plan is None:
             return gathered, drops
         masks = self.plan.round_masks(r, self.m)
@@ -203,6 +213,7 @@ class FaultyRounds:
                 self._eff_n(eff), detail[kind]))
         if not dead.any():
             return gathered, drops
+        self.last_dead = dead
         cap = i.shape[-1] // self.m
         corrupt = masks["msg_corrupt"] & ~self._lost
         if corrupt.any():

@@ -88,3 +88,61 @@ def alg5_schedule(opt, k: int, epochs: int):
     a tensor."""
     return [(1.0 - 1.0 / (epochs + 1)) ** ell * opt / k
             for ell in range(1, epochs + 1)]
+
+
+# ---------------------------------------------------------------------------
+# geometric threshold lanes (the streaming sieve's online form of the grid)
+# ---------------------------------------------------------------------------
+
+def lane_count(k: int, eps: float) -> int:
+    """Lanes needed to cover v_grid in [m, 2km] at ratio (1+eps): the
+    SieveStreaming instantiation window (Badanidiyuru et al.)."""
+    return int(math.ceil(math.log(max(2 * k, 4)) / math.log1p(eps))) + 2
+
+
+def _log1p32(eps: float, device) -> torch.Tensor:
+    """log1p(eps) computed in float32 from eps rounded to float32 first, as
+    the JAX package's weakly typed ``jnp.log1p(eps)``: ``math.log1p`` in
+    float64 and then rounded is another number."""
+    return torch.log1p(torch.tensor(eps, dtype=torch.float32, device=device))
+
+
+def _recip32(x: torch.Tensor) -> torch.Tensor:
+    """1 / x rounded to float32: the constant that XLA multiplies by where
+    the JAX package divides by a constant (its algebraic simplifier turns
+    ``a / c`` into ``a * (1 / c)`` in every compiled sieve)."""
+    return torch.ones_like(x) / x
+
+
+def lane_window_lo(v_max, eps: float):
+    """Exponent of the smallest grid value >= v_max: the live window is
+    exponents [lo, lo + L - 1], i.e. grid values ~[v_max, 2k*v_max].  Only
+    meaningful when v_max > 0 (callers gate on that).  Every step is
+    float32, in the order of the JAX package's compiled sieve: log(v)
+    times the float32 reciprocal of the float32 log1p(eps).  A one-ulp
+    change of the quotient near an integer moves ``lo`` and reseeds a
+    lane."""
+    v = torch.clamp(v_max.to(torch.float32), min=1e-30)
+    inv = _recip32(_log1p32(eps, v.device))
+    return torch.ceil(torch.log(v) * inv).to(torch.int32)
+
+
+def lane_exponents(lo, n_lanes: int):
+    """The unique exponent assignment e_j in [lo, lo + L) with
+    e_j = j (mod L): lane identity is exponent mod L, so when the window
+    slides up, exactly the lanes whose exponents fell below ``lo`` are
+    reassigned to the top of the window (and must be reseeded empty); every
+    other lane keeps its exponent and its accumulated state."""
+    j = torch.arange(n_lanes, dtype=torch.int32, device=lo.device)
+    return lo + torch.remainder(j - lo, n_lanes)
+
+
+def lane_taus(exps, k, eps: float, active):
+    """tau_j = (1+eps)^{e_j} / (2k) while active; +inf before the first
+    nonzero singleton arrives (the same degenerate guard as the grid).  The
+    division by 2k is a product with its float32 reciprocal, as in the JAX
+    package's compiled sieve."""
+    v = torch.exp(exps.to(torch.float32) * _log1p32(eps, exps.device))
+    inv = _recip32(torch.tensor(2.0 * k, dtype=torch.float32,
+                                device=exps.device))
+    return torch.where(active, v * inv, float("inf"))

@@ -15,10 +15,13 @@ from repro_torch.core.threshold import threshold_greedy
 from repro_torch.states import where_state
 
 
-def greedy(oracle, feats, valid, k: int, ids=None, constraint=None):
+def greedy(oracle, feats, valid, k: int, ids=None, k_dyn=None,
+           constraint=None):
     """Classic greedy: k argmax steps over the whole block.  Returns (ids
     (k,) int32 -1 padded, size () int, value ()); the buffer holds row
-    indices, or global ids when ``ids`` is given.  ``constraint`` (from
+    indices, or global ids when ``ids`` is given.  ``k_dyn`` (an int or a
+    0-d int tensor, <= k) caps the accepted count inside the k-step loop,
+    a per-request budget under the one buffer of k.  ``constraint`` (from
     ``core.constraints``) restricts each step's argmax to the elements it
     still admits and accounts each accepted element; its attribute plane
     is looked up by global id (row index when ``ids`` is None)."""
@@ -28,6 +31,8 @@ def greedy(oracle, feats, valid, k: int, ids=None, constraint=None):
     aux = oracle.prep(st, feats)
     sol = torch.full((k,), -1, dtype=torch.int32, device=dev)
     taken = torch.zeros(n, dtype=torch.bool, device=dev)
+    k_eff = k if k_dyn is None else torch.as_tensor(
+        k_dyn, dtype=torch.int32, device=dev).clamp(max=k)
     constrained = constraint is not None and constraint.n_planes > 0
     if constrained:
         plane = constraint.plane(
@@ -41,7 +46,7 @@ def greedy(oracle, feats, valid, k: int, ids=None, constraint=None):
             gains = torch.where(constraint.eligible(cstate, plane), gains,
                                 float("-inf"))
         best = gains.argmax()
-        ok = gains[best] > 0.0
+        ok = (gains[best] > 0.0) & (i < k_eff)
         st = where_state(ok, oracle.add(st, aux[best]), st)
         if constrained:
             cstate = torch.where(ok, constraint.add(cstate, plane[best]),

@@ -7,7 +7,8 @@ SaturatedCoverage's and GraphCut's (d,) ground-set total, a log-det
 oracle's (U, logdet, size) state, a knapsack's costs and budget or a
 partition matroid's labels and caps, the sample rounds' U[0, 1) draws on
 the sim and on the mesh, a query batch's budgets and hyper-parameters, a
-fault plan, and the Theorem-4 instance's oracle).  These helpers turn such
+fault plan, the Theorem-4 instance's oracle, and a streaming sieve's spec
+and live state).  These helpers turn such
 arrays into the port's tensors and oracle on a given device, so a test can
 feed the same inputs to both packages.  numpy bfloat16 arrays (the
 ``ml_dtypes`` type that JAX hands out) arrive as torch.bfloat16.
@@ -27,6 +28,7 @@ from repro_torch.core.functions import (AdversarialThreshold,
                                         MutualInformationGaussian,
                                         SaturatedCoverage, WeightedCoverage)
 from repro_torch.core.mapreduce import QueryBatch
+from repro_torch.streaming.sieve import SieveSpec, SieveState
 
 
 def tensor(a, device="cpu") -> torch.Tensor:
@@ -183,3 +185,47 @@ def query_batch(qb, device="cpu") -> QueryBatch:
     return QueryBatch(tensor(np.asarray(k, np.int32).reshape(-1), device),
                       _f32(np.asarray(lam).reshape(-1), device),
                       _f32(np.asarray(alpha).reshape(-1), device))
+
+
+def sieve_spec(spec, constraint=None) -> SieveSpec:
+    """A JAX ``SieveSpec`` (or any object with its fields) as the port's.
+    ``constraint`` is the port's constraint (``knapsack`` or
+    ``partition_matroid`` above carry the JAX one's data), or None."""
+    return SieveSpec(**{f: getattr(spec, f) for f in (
+        "k", "eps", "n_lanes", "top_cap", "accept", "engine", "chunk",
+        "precision")}, constraint=constraint)
+
+
+def sieve_state(state, spec: SieveSpec, device="cpu") -> SieveState:
+    """A JAX ``SieveState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)``) as the port's, so both packages can go on from one mid-stream
+    state: every leaf bit for bit (bfloat16 feature pools included), a
+    log-det oracle state as the port's tuple, and the feasibility states
+    only where the port's constraint keeps one.  Raises ValueError when a
+    leaf's shape or dtype is not what ``spec`` gives."""
+    want = SieveState._fields
+    st = dict(zip(want, state))
+    ost = st["oracle_states"]
+    oracle_states = (tuple(tensor(a, device) for a in ost)
+                     if isinstance(ost, (tuple, list)) else tensor(ost, device))
+    cn = spec.constraint
+    keeps = cn is not None and cn.init_state(1) is not None
+    out = SieveState(
+        oracle_states=oracle_states,
+        **{f: tensor(st[f], device) for f in want
+           if f not in ("oracle_states", "cstates")},
+        cstates=tensor(st["cstates"], device) if keeps else ())
+    L, k, T = spec.lanes, spec.k, spec.tops
+    sdt = spec.precision_policy.storage
+    for name, shape, dtype in (
+            ("sol_ids", (L, k), torch.int32),
+            ("sol_feats", (L, k, out.sol_feats.shape[-1]), sdt),
+            ("sol_sizes", (L,), torch.int32), ("exps", (L,), torch.int32),
+            ("v_max", (), torch.float32), ("n_seen", (), torch.int32),
+            ("top_feats", (T, out.top_feats.shape[-1]), sdt),
+            ("top_ids", (T,), torch.int32), ("top_vals", (T,), torch.float32)):
+        got = getattr(out, name)
+        if tuple(got.shape) != shape or got.dtype != dtype:
+            raise ValueError(f"sieve_state: {name} is {tuple(got.shape)} "
+                             f"{got.dtype}, the spec gives {shape} {dtype}")
+    return out

@@ -29,6 +29,8 @@ from repro_torch.core import faults as tfaults
 from repro_torch.core import mapreduce as tmr
 from repro_torch.core import selector as tsel
 from repro_torch.launch.mesh import make_mesh_for
+from repro_torch.streaming import distributed_sieve as tds
+from repro_torch.streaming import sieve as tsieve
 
 #: a process group's collectives give up after this long
 GROUP_TIMEOUT_S = 60
@@ -107,11 +109,14 @@ def run_case(case, meshes):
     corpus, and ``reference`` / ``total`` where the oracle takes them;
     ``uniforms`` the (E, m, n/m) draws or None, then ``seed`` seeds a
     generator; ``opt`` for the known-OPT algorithms; ``batch`` (k, lam,
-    alpha) for select_batch."""
+    alpha) for select_batch.  A case with ``sieve`` (SieveSpec knobs) runs
+    sieve_and_merge_mesh instead (``run_sieve``)."""
     if case["mesh"] not in meshes:
         meshes[case["mesh"]] = make_mesh_for(int(np.prod(case["mesh"])),
                                              model_parallel=case["mesh"][1])
     mesh = meshes[case["mesh"]]
+    if case.get("sieve") is not None:
+        return run_sieve(case, mesh)
     knobs = dict(case["spec"])
     knobs["faults"] = _plan(knobs.get("faults"))
     spec = tsel.SelectorSpec(**knobs)
@@ -139,6 +144,38 @@ def run_case(case, meshes):
         records=[dataclass_tuple(r) for r in log.records],
         faults=[dataclass_tuple(r) for r in log.faults],
         events=sel.runtime_events(), tp=sel.tp)
+
+
+def run_sieve(case, mesh):
+    """sieve_and_merge_mesh on ``mesh``: ``sieve`` the SieveSpec knobs,
+    ``spec`` the SelectorSpec knobs of the oracle, ``X`` the global corpus
+    (this rank streams its machine's rows), ``chunk_elems``, ``pool_cap``
+    and ``faults`` (a FaultPlan's fields, or None)."""
+    X = case["X"]
+    n, d = X.shape
+    oracle = tsel.make_oracle(tsel.SelectorSpec(**case["spec"]), d, "cpu",
+                              reference=case.get("reference"),
+                              total=case.get("total"))
+    run, log = tds.sieve_and_merge_mesh(
+        oracle, tsieve.SieveSpec(**case["sieve"]), mesh,
+        chunk_elems=case["chunk_elems"], pool_cap=case.get("pool_cap"),
+        faults=_plan(case.get("faults")))
+    m = mesh.size(("data",))
+    c = mesh.index(("data",))
+    rows = slice(c * n // m, (c + 1) * n // m)
+    res = run(torch.from_numpy(X[rows]),
+              torch.arange(n, dtype=torch.int32)[rows])
+    return sieve_result(res, log)
+
+
+def sieve_result(res, log):
+    return dict(
+        ids=res.sol_ids.numpy(), size=int(res.sol_size),
+        value=res.value.numpy(), n_dropped=int(res.n_dropped),
+        tau_fallback=int(res.tau_fallback), degraded=int(res.degraded),
+        haircut=float(res.haircut),
+        records=[dataclass_tuple(r) for r in log.records],
+        faults=[dataclass_tuple(r) for r in log.faults])
 
 
 def dataclass_tuple(rec):
