@@ -143,7 +143,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    n = 2^20 (8 slots, 24 requests, 65,536-document ingests, checkpoints
    every 2 steps, --use-kernel), then again with --restore.  Its launches
    go on a `[stream]` line of their own; every kernel must show there.
-10. Print the kernel table as one JSON line, the card's name and power
+10. The LM serving path (``repro_torch.models``, ``launch/steps.py``,
+   ``launch/serve.py``; random weights drawn on the card from seeded
+   generators, bf16 compute), each part printing its seconds: (a)
+   qwen3-1.7b at full width (28 layers, d_model 2048, vocab 151,936)
+   through prefill_bundle / decode_step_bundle at launch/serve.py's
+   defaults (B = 4, prompt 64, generate 32): prefill and decode ms and
+   tok/s, peak memory, the same greedy ids twice, every decode step's
+   logits against a prefill over the same tokens (rtol = atol = 0.08,
+   argmax agreement >= 0.95), and one decode step's roofline bound from
+   repro_torch.roofline (the f32 weights and the caches over 3.35 TB/s
+   against model_flops_for over the bf16 peak) beside the measured step;
+   (b) a qwen3-1.7b prefill of B = 8 x 4096 tokens (q_block 512 and
+   kv_block 1024 both tile), ms, tok/s, model_flops_for over the bf16
+   peak and peak memory; (c) h2o-danube-1.8b (window 4096, head_dim 80),
+   B = 1, prompt 4160, generate 16: the ring branch of prefill_to_cache
+   and a decode that wraps the ring, with (a)'s decode-vs-prefill check;
+   (d) ``python -m repro_torch.launch.serve --arch qwen3-1.7b`` on the
+   card; (e) exclude_ids at the 148-lane batch's shape (L = 148, C =
+   2^20, k = 64) bit for bit the broadcast it replaced, each one's peak
+   extra memory (the new one under 1 GiB), and the FeatureCoverage
+   148-lane select_batch with the same ids and value bits either way.
+11. Print the kernel table as one JSON line, the card's name and power
    limit, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -3594,6 +3615,392 @@ def stream_phase(torch, tsel, ops, gvals, two_round_value):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the LM serving path (configs, the dense transformer, Model, the
+# serve bundles, launch/serve.py) at full width, and exclude_ids at the
+# 148-lane batch's shape
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-1.7b"          # launch/serve.py's default architecture
+LM_B, LM_PROMPT, LM_GEN = 4, 64, 32        # launch/serve.py's defaults
+LM_LONG_B, LM_LONG_PROMPT = 8, 4096        # q_block 512 and kv_block 1024
+#                                            both tile the prompt
+RING_ARCH = "h2o-danube-1.8b"   # sliding window 4096, head_dim 80
+RING_B, RING_PROMPT, RING_GEN = 1, 4160, 16  # a prompt past the window: the
+#                                              ring branch, decode wraps
+LM_TOL, LM_ARGMAX = 0.08, 0.95  # the JAX package's decode-vs-prefill bar
+LM_CLI_TIMEOUT_S = 300
+EXCL_LANES = len(QUERY_KS) * L  # the 148-lane batch's filter: (L, C, k) =
+EXCL_K = K                      # (148, 2^20, 64) with the corpus's C = N
+
+
+def lm_model(torch, cfg, seed):
+    """The port's Model of ``cfg`` with parameters drawn on the card from a
+    seeded generator."""
+    from repro_torch.models.model import build_model
+    torch.cuda.synchronize()
+    model = build_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        "cuda")
+    torch.cuda.synchronize()
+    return model
+
+
+def lm_serve(torch, steps, cfg, model, B, prompt, gen, seed):
+    """Greedy serving through the port's bundles, as launch/serve.py serves:
+    one prefill of ``prompt`` tokens into caches of prompt + gen slots,
+    then gen - 1 decode steps.  Returns (prompt tokens, generated ids (B,
+    gen), prefill ms, decode ms a step, each step's logits, the caches
+    after prefill)."""
+    from repro_torch.configs.base import ShapeSpec
+    pre = steps.prefill_bundle(cfg, ShapeSpec("serve", prompt, B, "prefill"))
+    dec = steps.decode_step_bundle(cfg, ShapeSpec("serve", prompt + gen, B,
+                                                  "decode"))
+    toks = torch.randint(0, cfg.vocab_size, (B, prompt), device="cuda",
+                         dtype=torch.int32,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(seed))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = pre.fn(model, {"tokens": toks}, cache_len=prompt + gen)
+    torch.cuda.synchronize()
+    t_pre = (time.perf_counter() - t0) * 1e3
+    prefill_caches = caches
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    out, step_logits = [tok], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        pos = torch.full((B, 1), prompt + i, dtype=torch.int32,
+                         device="cuda")
+        logits, caches = dec.fn(model, caches, tok, pos)
+        step_logits.append(logits)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        out.append(tok)
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) * 1e3 / (gen - 1)
+    return toks, torch.cat(out, 1), t_pre, t_dec, step_logits, prefill_caches
+
+
+def lm_decode_vs_prefill(torch, cfg, model, toks, ids, step_logits, label,
+                         card, tol=LM_TOL, exact=False):
+    """Every decode step's logits against a prefill over the same tokens
+    (the prompt and the ids generated so far), within rtol = atol = ``tol``.
+
+    Argmax: with random weights a row's top two logits are often closer
+    than bf16 rounding at depth (≈ 0.05 here), so a row whose prefill top-2
+    gap is within ``tol`` is a near-tie and stays out of the count;
+    agreement over the other rows must be >= 0.95, and every row must agree
+    when ``exact`` (the f32 check).  The raw agreement and each row that
+    differs are printed."""
+    V = cfg.vocab_size
+    worst, agree, rows, kept, kept_agree, flips = 0.0, 0, 0, 0, 0, []
+    for i, lg in enumerate(step_logits):
+        ref, _ = model.prefill({"tokens": torch.cat([toks, ids[:, :i + 1]],
+                                                    1)})
+        a = lg[..., :V].float().reshape(-1, V)
+        b = ref[..., :V].float().reshape(-1, V)
+        diff = (a - b).abs()
+        excess = (diff - tol * b.abs()).max().item()
+        worst = max(worst, diff.max().item())
+        check(excess <= tol,
+              f"{label}: decode step {i} differs from a prefill over the "
+              f"same tokens by {excess} beyond rtol {tol}")
+        top2 = b.topk(2, -1).values
+        gap = top2[:, 0] - top2[:, 1]
+        same = a.argmax(-1) == b.argmax(-1)
+        wide = gap > tol
+        agree += int(same.sum())
+        rows += a.shape[0]
+        kept += int(wide.sum())
+        kept_agree += int((same & wide).sum())
+        for r in torch.nonzero(~same).flatten().tolist():
+            flips.append((i, r, int(a[r].argmax()), int(b[r].argmax()),
+                          round(gap[r].item(), 6),
+                          round(diff[r].max().item(), 6)))
+    check(agree == rows if exact else kept_agree >= LM_ARGMAX * kept,
+          f"{label}: argmax agreement {agree}/{rows}, {kept_agree}/{kept} "
+          f"where the prefill's top-2 gap exceeds {tol}; rows that differ "
+          f"(step, row, decode's, prefill's, gap, max |diff|): {flips}")
+    print(f"[lm] {label}: all {len(step_logits)} decode steps = a prefill "
+          f"over the same tokens: max |logit diff| {worst} (bar rtol = atol "
+          f"{tol}), argmax agreement {agree}/{rows}, {kept_agree}/{kept} "
+          f"where the top-2 gap exceeds {tol}; rows that differ (step, row, "
+          f"decode's id, prefill's id, prefill top-2 gap, max |diff|): "
+          f"{flips}; card: {card}")
+
+
+def lm_part_a(torch, steps, analysis, T, card):
+    """Part (a): qwen3-1.7b at full width, launch/serve.py's defaults."""
+    from repro_torch.configs.base import ShapeSpec, get_config
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == (28, 2048, 151_936),
+          f"{LM_ARCH} is not at full width: {cfg}")
+    model = lm_model(torch, cfg, 0)
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [lm_serve(torch, steps, cfg, model, LM_B, LM_PROMPT, LM_GEN, 1)
+            for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated()
+    (toks, ids, t_pre, t_dec, step_logits, caches), again = runs
+    check(torch.equal(ids, again[1]),
+          f"[lm] (a) two runs gave other greedy ids: {ids[0].tolist()} and "
+          f"{again[1][0].tolist()}")
+    check(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()),
+          f"[lm] (a) ids out of the vocabulary: {ids.tolist()}")
+    print(f"[lm] (a) {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, vocab "
+          f"{cfg.vocab_size}, {cfg.param_count()} parameters, f32 weights "
+          f"{weights / 2 ** 30:.3f} GiB, bf16 compute) B={LM_B} prompt="
+          f"{LM_PROMPT} gen={LM_GEN}: prefill {t_pre:.3f} ms first, "
+          f"{again[2]:.3f} ms again ({LM_B * LM_PROMPT / again[2] * 1e3:.0f} "
+          f"tok/s); decode {t_dec:.3f} / {again[3]:.3f} ms a step "
+          f"({LM_B / again[3] * 1e3:.0f} tok/s); peak "
+          f"{peak / 2 ** 30:.3f} GiB ({(peak - weights) / 2 ** 30:.3f} above "
+          f"the weights); the same greedy ids twice: "
+          f"{ids[0, :16].tolist()}; card: {card}")
+    lm_decode_vs_prefill(torch, cfg, model, toks, ids, step_logits,
+                         "(a) " + cfg.name, card)
+    # one decode step's bound: the weights as stored (f32) and the caches
+    # read once, against 2 N flops a token at the bf16 peak
+    cache_len = LM_PROMPT + LM_GEN
+    roof = analysis.from_costs(
+        "decode", 1,
+        {"flops": analysis.model_flops_for(
+            cfg, ShapeSpec("decode", cache_len, LM_B, "decode")),
+         "bytes accessed": T.param_bytes(model.params) + T.cache_bytes(
+             caches)}, {})
+    bound = roof.t_bound * 1e3
+    print(f"[lm] (a) decode step roofline (repro_torch.roofline.analysis, "
+          f"H100 SXM {analysis.HBM_BW:.3e} B/s, {analysis.PEAK_FLOPS:.4e} "
+          f"bf16 FLOP/s): bytes {roof.bytes_per_device:.0f} -> "
+          f"{roof.t_memory * 1e3:.4f} ms, flops {roof.flops_per_device:.0f}"
+          f" -> {roof.t_compute * 1e3:.4f} ms; bound {bound:.4f} ms "
+          f"({roof.bottleneck}); measured {again[3]:.3f} ms = "
+          f"{again[3] / bound:.2f}x the bound; card: {card}")
+    return model, cfg
+
+
+def lm_part_b(torch, steps, analysis, model, cfg, card):
+    """Part (b): a long prefill at full width, q_block 512 and kv_block 1024
+    both tiling the prompt."""
+    from repro_torch.configs.base import ShapeSpec
+    check(LM_LONG_PROMPT % cfg.q_block == 0
+          and LM_LONG_PROMPT % cfg.kv_block == 0,
+          f"prompt {LM_LONG_PROMPT} vs q_block {cfg.q_block}, kv_block "
+          f"{cfg.kv_block}")
+    shape = ShapeSpec("long", LM_LONG_PROMPT, LM_LONG_B, "prefill")
+    pre = steps.prefill_bundle(cfg, shape)
+    toks = torch.randint(0, cfg.vocab_size, (LM_LONG_B, LM_LONG_PROMPT),
+                         device="cuda", dtype=torch.int32,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, caches = pre.fn(model, {"tokens": toks})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(logits[..., :cfg.vocab_size].float()).all())
+          and logits.shape == (LM_LONG_B, 1, cfg.padded_vocab),
+          f"[lm] (b) logits {tuple(logits.shape)} not finite")
+    check(tuple(caches["sub"][0].k.shape) == (
+        cfg.n_layers, LM_LONG_B, LM_LONG_PROMPT, cfg.n_kv_heads,
+        cfg.head_dim_), f"[lm] (b) caches {caches['sub'][0].k.shape}")
+    flops = analysis.model_flops_for(cfg, shape)
+    bound = flops / analysis.PEAK_FLOPS * 1e3
+    toks_n = LM_LONG_B * LM_LONG_PROMPT
+    print(f"[lm] (b) {cfg.name} prefill B={LM_LONG_B} prompt="
+          f"{LM_LONG_PROMPT} (q_block {cfg.q_block}, kv_block "
+          f"{cfg.kv_block}): {ms[0]:.3f} ms first, {ms[1]:.3f} ms again "
+          f"({toks_n / ms[1] * 1e3:.0f} tok/s); model_flops_for "
+          f"{flops:.4e} over the bf16 peak = {bound:.3f} ms "
+          f"({bound / ms[1]:.4f} of the time); peak {peak / 2 ** 30:.3f} GiB"
+          f" ({(peak - base) / 2 ** 30:.3f} above the weights); card: "
+          f"{card}")
+
+
+def lm_part_c(torch, steps, card):
+    """Part (c): h2o-danube-1.8b's ring cache at full width: a prompt past
+    the sliding window, so prefill keeps the last 4096 positions at their
+    ring slots and decode wraps the ring."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(RING_ARCH)
+    model = lm_model(torch, cfg, 3)
+    toks, ids, t_pre, t_dec, step_logits, caches = lm_serve(
+        torch, steps, cfg, model, RING_B, RING_PROMPT, RING_GEN, 4)
+    C = caches["sub"][0].k.shape[-3]
+    spos = caches["sub"][0].slot_pos[0]
+    check(C == cfg.sliding_window < RING_PROMPT
+          and int(spos.min()) == RING_PROMPT - C
+          and int(spos.max()) == RING_PROMPT - 1
+          and int(spos[(RING_PROMPT - 1) % C]) == RING_PROMPT - 1,
+          f"[lm] (c) ring of {C} slots holds {int(spos.min())}.."
+          f"{int(spos.max())}")
+    print(f"[lm] (c) {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, head_dim {cfg.head_dim_}, window "
+          f"{cfg.sliding_window}) B={RING_B} prompt={RING_PROMPT} "
+          f"gen={RING_GEN}: ring of {C} slots holds positions "
+          f"{RING_PROMPT - C}..{RING_PROMPT - 1} after prefill; prefill "
+          f"{t_pre:.3f} ms, decode {t_dec:.3f} ms a step; ids "
+          f"{ids[0].tolist()}; card: {card}")
+    lm_decode_vs_prefill(torch, cfg, model, toks, ids, step_logits,
+                         "(c) " + cfg.name, card)
+    # the same weights in f32 compute: decode must give the prefill's
+    # logits to 1e-3 and its argmax in every row
+    del model, step_logits, caches
+    torch.cuda.empty_cache()
+    from repro_torch.models.model import Model
+    model = Model(cfg, torch.Generator(device="cuda").manual_seed(3), "cuda",
+                  dtype=torch.float32)
+    toks, ids, t_pre, t_dec, step_logits, _ = lm_serve(
+        torch, steps, cfg, model, RING_B, RING_PROMPT, RING_GEN, 4)
+    print(f"[lm] (c) {cfg.name} in f32 compute: prefill {t_pre:.3f} ms, "
+          f"decode {t_dec:.3f} ms a step; ids {ids[0].tolist()}; card: "
+          f"{card}")
+    lm_decode_vs_prefill(torch, cfg, model, toks, ids, step_logits,
+                         "(c) " + cfg.name + " f32", card, tol=1e-3,
+                         exact=True)
+
+
+def lm_part_d(card):
+    """Part (d): the serve CLI at full width on the card."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           LM_ARCH]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=LM_CLI_TIMEOUT_S)
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("[serve]")]
+    check(p.returncode == 0 and len(lines) == 3
+          and f"arch={LM_ARCH} batch={LM_B}" in lines[0],
+          f"[lm] (d) serve exited {p.returncode}:\n{p.stdout[-2000:]}\n"
+          f"{p.stderr[-3000:]}")
+    for ln in lines:
+        print(f"[lm] (d) {ln}")
+    print(f"[lm] (d) python -m repro_torch.launch.serve --arch {LM_ARCH} "
+          f"took {time.perf_counter() - t0:.3f} s; card: {card}")
+
+
+def broadcast_exclude(cand_ids, cand_valid, sol_ids):
+    """The id test exclude_ids replaced: an (L, C, k) comparison."""
+    hit = (cand_ids.unsqueeze(-1) == sol_ids.unsqueeze(-2)).any(-1)
+    return cand_valid & ~hit
+
+
+def lm_part_e(torch, tsel, tmr, ops, card):
+    """Part (e): exclude_ids at the 148-lane batch's shape against the
+    broadcast it replaced (mask and peak memory), and the 148-lane
+    select_batch with each of them (the same ids and value bits)."""
+    from repro_torch.core import rounds, threshold
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ids = torch.arange(N, dtype=torch.int32, device="cuda")
+    valid = torch.rand(N, generator=gen, device="cuda") < 0.99
+    sol = torch.randint(-1, N, (EXCL_LANES, EXCL_K), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    sizes = torch.randint(0, EXCL_K + 1, (EXCL_LANES, 1), generator=gen,
+                          device="cuda")
+    sol = torch.where(torch.arange(EXCL_K, device="cuda") < sizes, sol, -1)
+    out = {}
+    for name, fn in (("exclude_ids", threshold.exclude_ids),
+                     ("broadcast", broadcast_exclude)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mask = fn(ids, valid, sol)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        out[name] = (mask, cuda_ms(lambda: fn(ids, valid, sol), 5), peak)
+    new, old = out["exclude_ids"][0], out["broadcast"][0]
+    check(new.shape == (EXCL_LANES, N) and torch.equal(new, old),
+          f"[lm] (e) exclude_ids differs from the broadcast in "
+          f"{int((new != old).sum())} places")
+    check(out["exclude_ids"][2] < 1.0,
+          f"[lm] (e) exclude_ids took {out['exclude_ids'][2]} GiB")
+    print(f"[lm] (e) exclude_ids (L, C, k) = ({EXCL_LANES}, {N}, {EXCL_K}): "
+          f"the broadcast's mask bit for bit ({int(new.sum())} kept); peak "
+          f"extra memory {out['exclude_ids'][2]:.4f} GiB (sorted search, "
+          f"{threshold.EXCLUDE_TILE} elements a tile) against "
+          f"{out['broadcast'][2]:.4f} GiB (broadcast); "
+          f"{out['exclude_ids'][1]:.3f} ms against {out['broadcast'][1]:.3f} "
+          f"ms (mean of 5 back to back); card: {card}")
+    del new, old, out, ids, valid, sol
+    torch.cuda.empty_cache()
+
+    X = mesh_corpus(torch)["X"]
+    sel = tsel.DistributedSelector(
+        tsel.SelectorSpec(k=K, eps=EPS, chunk=CHUNK,
+                          oracle="feature_coverage", engine="fused",
+                          use_kernel=True),
+        n_total=N, feat_dim=D, n_machines=M, device="cuda")
+    queries = tmr.make_query_batch(QUERY_KS, device="cuda")
+    # in turns: exclude_ids, the broadcast, the broadcast, exclude_ids
+    saved, runs = rounds.exclude_ids, []
+    for name in ("exclude_ids", "broadcast", "broadcast", "exclude_ids"):
+        rounds.exclude_ids = saved if name == "exclude_ids" \
+            else broadcast_exclude
+        try:
+            res, wall, _ = drive_batch(torch, ops, sel, X,
+                                       f"(e) select_batch with {name}",
+                                       queries)
+        finally:
+            rounds.exclude_ids = saved
+        runs.append((name, res, wall))
+    res = runs[0][1]
+    for name, other, _ in runs[1:]:
+        check(torch.equal(res.sol_ids, other.sol_ids)
+              and torch.equal(res.sol_size, other.sol_size)
+              and res.value.cpu().numpy().tobytes()
+              == other.value.cpu().numpy().tobytes(),
+              f"[lm] (e) the 148-lane batch moved with {name}: "
+              f"{res.value.tolist()} vs {other.value.tolist()}")
+    print(f"[lm] (e) FeatureCoverage select_batch {QUERY_KS} "
+          f"({EXCL_LANES} lanes, fused kernel route): the same ids, sizes "
+          f"and value bits with exclude_ids as with the broadcast; wall ms "
+          f"in turns {[(name, wall) for name, _, wall in runs]}; card: "
+          f"{card}")
+
+
+def lm_phase(torch, tsel, tmr, ops):
+    """Phase 10: the LM serving path at full width (parts (a)-(d)) and the
+    repaired exclude_ids (part (e)).  The LM path reaches none of the
+    fifteen kernels; its launches are counted and printed all the same."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.roofline import analysis
+    card = smi()
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, cfg = lm_part_a(torch, steps, analysis, T, card)
+    print(f"[lm] part (a) took {time.perf_counter() - t0:.3f} s; card: {card}")
+    t0 = time.perf_counter()
+    lm_part_b(torch, steps, analysis, model, cfg, card)
+    print(f"[lm] part (b) took {time.perf_counter() - t0:.3f} s; card: {card}")
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm_part_c(torch, steps, card)
+    torch.cuda.empty_cache()
+    print(f"[lm] part (c) took {time.perf_counter() - t0:.3f} s; card: {card}")
+    counts = read_counts(ops)
+    print(f"[lm] kernel launches on the LM path (parts (a)-(c)): "
+          f"{ {k: v for k, v in counts.items() if v and '@' not in k} } "
+          f"(it reaches no pallas_call in the JAX package)")
+    t0 = time.perf_counter()
+    lm_part_d(card)
+    print(f"[lm] part (d) took {time.perf_counter() - t0:.3f} s; card: {card}")
+    t0 = time.perf_counter()
+    lm_part_e(torch, tsel, tmr, ops, card)
+    print(f"[lm] part (e) took {time.perf_counter() - t0:.3f} s; card: {card}")
+    print(f"[lm] phase 10 took {time.perf_counter() - t_phase:.3f} s; card: "
+          f"{card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3764,6 +4171,10 @@ def main() -> int:
     print(f"[stream] launches on the streaming path by kernel: "
           f"{ {k: v for k, v in stream_launches.items() if '@' not in k} }")
     print(f"[stream] phase 9 took {time.perf_counter() - t0:.3f} s")
+
+    # the LM serving path and exclude_ids at the batch's shape
+    torch.cuda.empty_cache()
+    lm_phase(torch, tsel, tmr, ops)
 
     check(SHAPES == _wrap.SHAPES, f"shape classes {_wrap.SHAPES}")
     table = []

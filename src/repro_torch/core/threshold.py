@@ -27,6 +27,7 @@ For ``accept="first"`` all three accept the same sequence.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -473,11 +474,40 @@ def threshold_filter(oracle, oracle_state, cand_feats, cand_valid, tau,
     return cand_valid & (gains >= tau)
 
 
+#: candidates x lanes that ``exclude_ids`` tests at a time: its temporaries
+#: stay near 17 bytes an element of one tile (int64 slots, the ids and
+#: their matches), whatever C and L are
+EXCLUDE_TILE = 1 << 22
+
+
 def exclude_ids(cand_ids, cand_valid, sol_ids):
     """Mask out candidates already selected (by global id).  cand_ids (C,)
-    or (L, C) against sol_ids (k,) or (L, k)."""
-    hit = (cand_ids.unsqueeze(-1) == sol_ids.unsqueeze(-2)).any(-1)
-    return cand_valid & ~hit
+    or (L, C) against sol_ids (k,) or (L, k); the mask has their broadcast
+    shape, (C,) or (L, C).
+
+    Each lane's solution is sorted once and every candidate looked up in it
+    with ``torch.searchsorted``, over tiles of about ``EXCLUDE_TILE``
+    elements of C, so the test needs memory for the (L, C) mask and one
+    tile, never the (L, C, k) comparison of a broadcast.  It is an equality
+    test either way: negative (padding) ids and duplicates in a solution
+    mask exactly what the broadcast ``any(cand == sol)`` masks."""
+    lead = torch.broadcast_shapes(cand_ids.shape[:-1], sol_ids.shape[:-1])
+    C, k = cand_ids.shape[-1], sol_ids.shape[-1]
+    hit = torch.zeros(lead + (C,), dtype=torch.bool, device=cand_ids.device)
+    if k:
+        dtype = torch.promote_types(cand_ids.dtype, sol_ids.dtype)
+        lanes = math.prod(lead)
+        srt = (sol_ids.to(dtype).sort(-1).values
+               .expand(lead + (k,)).reshape(lanes, k).contiguous())
+        step = max(1, EXCLUDE_TILE // max(lanes, 1))
+        for c0 in range(0, C, step):
+            q = (cand_ids[..., c0:c0 + step].to(dtype)
+                 .expand(lead + (min(step, C - c0),)).reshape(lanes, -1)
+                 .contiguous())
+            slot = torch.searchsorted(srt, q).clamp_(max=k - 1)
+            hit[..., c0:c0 + step] = (srt.gather(1, slot) == q).view(
+                hit[..., c0:c0 + step].shape)
+    return cand_valid & hit.logical_not_()
 
 
 def pack_by_mask(feats, ids, mask, cap: int, priority=None):

@@ -8,7 +8,9 @@ oracle's (U, logdet, size) state, a knapsack's costs and budget or a
 partition matroid's labels and caps, the sample rounds' U[0, 1) draws on
 the sim and on the mesh, a query batch's budgets and hyper-parameters, a
 fault plan, the Theorem-4 instance's oracle, and a streaming sieve's spec
-and live state).  These helpers turn such
+and live state).  The LM stack does have weights: ``lm_params`` and
+``lm_caches`` carry a JAX parameter tree and KV caches across.  These
+helpers turn such
 arrays into the port's tensors and oracle on a given device, so a test can
 feed the same inputs to both packages.  numpy bfloat16 arrays (the
 ``ml_dtypes`` type that JAX hands out) arrive as torch.bfloat16.
@@ -28,6 +30,8 @@ from repro_torch.core.functions import (AdversarialThreshold,
                                         MutualInformationGaussian,
                                         SaturatedCoverage, WeightedCoverage)
 from repro_torch.core.mapreduce import QueryBatch
+from repro_torch.models import layers as LM
+from repro_torch.models.model import Model
 from repro_torch.streaming.sieve import SieveSpec, SieveState
 
 
@@ -229,3 +233,48 @@ def sieve_state(state, spec: SieveSpec, device="cpu") -> SieveState:
             raise ValueError(f"sieve_state: {name} is {tuple(got.shape)} "
                              f"{got.dtype}, the spec gives {shape} {dtype}")
     return out
+
+
+def lm_params(tree, cfg, device="cpu", dtype=torch.bfloat16) -> Model:
+    """A ``Model`` of ``cfg`` holding the JAX package's parameter tree
+    (``repro.models.transformer.init_params``; numpy or JAX leaves): the
+    embedding table, the groups' leaves stacked on a leading G axis (one
+    dict per sublayer: ``tree["groups"][i][...][g]`` is group g's sublayer
+    i), the final norm and the untied head, each bit for bit in f32.
+    ``dtype`` is the port model's compute dtype."""
+    model = Model(cfg, torch.Generator(device=device).manual_seed(0), device,
+                  dtype)
+    p = model.params
+
+    def put(dst, src):
+        src = tensor(src, device)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"lm_params: a leaf of shape {tuple(src.shape)}"
+                             f" for a parameter of {tuple(dst.shape)}")
+        dst.data.copy_(src)
+
+    if p.embed is not None:
+        put(p.embed["table"], tree["embed"]["table"])
+    for g, group in enumerate(p.groups):
+        for blk, sub in zip(group, tree["groups"]):
+            put(blk.ln1, sub["ln1"][g])
+            put(blk.ln2, sub["ln2"][g])
+            for part in ("attn", "mlp"):
+                dst = getattr(blk, part)
+                if set(dst) != set(sub[part]):
+                    raise ValueError(f"lm_params: {part} holds "
+                                     f"{sorted(sub[part])}, the port's "
+                                     f"{sorted(dst)}")
+                for name in dst:
+                    put(dst[name], sub[part][name][g])
+    put(p.final_norm, tree["final_norm"])
+    if p.lm_head is not None:
+        put(p.lm_head, tree["lm_head"])
+    return model
+
+
+def lm_caches(caches, device="cpu"):
+    """The JAX package's decode caches (``{"sub": [KVCache, ...]}``, leaves
+    stacked on a leading G axis) as the port's, each leaf bit for bit."""
+    return {"sub": [LM.KVCache(*(tensor(t, device) for t in c))
+                    for c in caches["sub"]]}

@@ -1,0 +1,153 @@
+"""The port's serving steps and CLI on the CPU (``repro_torch.launch.steps``,
+``repro_torch.launch.serve``): the bundles give the ``Model``'s own
+results, their batches have the JAX package's input specs, the CLI serves
+at the reduced size with ``--device cpu``, and nothing that defaults to the
+card falls back to the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import pytest
+import torch
+
+from repro.configs.base import SHAPES as JSHAPES
+from repro.configs.base import get_config as jget_config
+from repro.models.model import build_model as jbuild_model
+from repro_torch.configs.base import SHAPES, ShapeSpec, get_config
+from repro_torch.launch import steps
+from repro_torch.models.model import build_model, input_specs
+from repro_torch.models.sharding import make_policy
+
+torch.set_num_threads(2)
+jax.config.update("jax_platform_name", "cpu")
+
+ROOT = Path(__file__).resolve().parents[1]
+SERVED = ("qwen3-1.7b", "granite-3-2b", "h2o-danube-1.8b", "internvl2-26b")
+
+
+def _model(name):
+    cfg = get_config(name).reduced()
+    return cfg, build_model(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+def _batch(cfg, B, S, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    n_img = cfg.num_image_tokens if cfg.family == "vlm" else 0
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S - n_img),
+                                     generator=g, dtype=torch.int32)}
+    if n_img:
+        batch["image_embeds"] = 0.02 * torch.randn(
+            (B, n_img, cfg.d_model), generator=g).to(torch.bfloat16)
+    return batch
+
+
+@pytest.mark.parametrize("name", SERVED)
+def test_bundles_give_the_models_results(name):
+    """prefill_bundle's fn is Model.prefill with caches of seq_len slots;
+    decode_step_bundle's fn is Model.decode_step; three greedy steps."""
+    cfg, model = _model(name)
+    B, S, cache_len = 2, 32, 40
+    pre = steps.prefill_bundle(cfg, ShapeSpec("t", cache_len, B, "prefill"))
+    dec = steps.decode_step_bundle(cfg, ShapeSpec("t", cache_len, B,
+                                                  "decode"))
+    batch = _batch(cfg, B, S)
+    lg, caches = pre.fn(model, batch)
+    lg_m, caches_m = model.prefill(batch, cache_len=cache_len)
+    assert torch.equal(lg, lg_m)
+    assert caches["sub"][0].k.shape[-3] == min(cache_len,
+                                               cfg.sliding_window or 10 ** 9)
+    for c, cm in zip(caches["sub"], caches_m["sub"]):
+        assert all(torch.equal(a, b) for a, b in zip(c, cm))
+    for i in range(3):
+        tok = lg[:, -1:].argmax(-1).to(torch.int32)
+        pos = torch.full((B, 1), S + i, dtype=torch.int32)
+        lg, caches = dec.fn(model, caches, tok, pos)
+        lg_m, caches_m = model.decode_step(caches_m, tok, pos)
+        assert torch.equal(lg, lg_m)
+        assert lg.shape == (B, 1, cfg.padded_vocab)
+    assert torch.isfinite(lg[..., :cfg.vocab_size].float()).all()
+
+
+@pytest.mark.parametrize("shape_name", list(SHAPES))
+@pytest.mark.parametrize("name", SERVED + ("hubert-xlarge",))
+def test_input_specs_match_jax(name, shape_name):
+    """The batch each SHAPES entry takes: the JAX package's names, shapes
+    and dtypes (at full width: specs allocate nothing)."""
+    cfg = get_config(name)
+    want = jbuild_model(jget_config(name)).input_specs(JSHAPES[shape_name])
+    got = input_specs(cfg, SHAPES[shape_name])
+    assert set(got) == set(want)
+    for key, spec in got.items():
+        assert tuple(spec.shape) == tuple(want[key].shape)
+        assert str(spec.dtype).split(".")[-1] == str(want[key].dtype)
+
+
+@pytest.mark.parametrize("shape_name", list(SHAPES))
+def test_bundle_for(shape_name):
+    cfg = get_config("qwen3-1.7b")
+    shape = SHAPES[shape_name]
+    if shape.kind == "train":
+        with pytest.raises(NotImplementedError, match="train_step_bundle"):
+            steps.bundle_for(cfg, shape_name)
+        return
+    b = steps.bundle_for(cfg, shape_name)
+    assert b.policy.kind == shape.kind
+    want = {"decode": {"tokens", "positions"}, "prefill": {"tokens"}}
+    assert set(b.input_specs) == want[shape.kind]
+    assert b.input_specs["tokens"].shape[0] == shape.global_batch
+
+
+def test_policy_is_one_card():
+    class FakeMesh:
+        shape = {"data": 2, "model": 1}
+    with pytest.raises(NotImplementedError, match="ShardingPolicy"):
+        make_policy(FakeMesh(), 4)
+    p = make_policy(None, 4, "decode")
+    x = torch.ones(2, 3)
+    assert p.constrain_tokens(x) is x and p.model_size == 1
+
+
+def _cli(*args, timeout=120):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           *args], env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def test_serve_cli_on_the_cpu():
+    """The CLI at its defaults (qwen3-1.7b, B = 4, prompt 64, generate 32),
+    reduced since the device is the CPU."""
+    p = _cli("--device", "cpu")
+    assert p.returncode == 0, p.stderr[-3000:]
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("[serve]")]
+    assert len(lines) == 3, p.stdout
+    assert "arch=qwen3-1.7b-smoke batch=4 prompt=64 gen=32" in lines[0]
+    assert "prefill" in lines[1] and "decode" in lines[1]
+    ids = ast.literal_eval(lines[2].split(":", 1)[1].strip())
+    assert len(ids) == 16 and all(0 <= i < 512 for i in ids)
+
+
+@pytest.mark.parametrize("args,message", [
+    ((), "no CUDA device"),                 # the card by default
+    (("--device", "cpu", "--model-parallel", "2"), "model-parallel"),
+    (("--device", "cpu", "--arch", "hubert-xlarge"), "encoder-only"),
+])
+def test_serve_cli_refuses(args, message):
+    if not args and torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default runs on it")
+    p = _cli(*args)
+    assert p.returncode != 0
+    assert message in p.stderr + p.stdout
+    assert "[serve]" not in p.stdout
+
+
+def test_build_model_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default runs on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(get_config("qwen3-1.7b").reduced())
