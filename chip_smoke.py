@@ -164,7 +164,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    2^20, k = 64) bit for bit the broadcast it replaced, each one's peak
    extra memory (the new one under 1 GiB), and the FeatureCoverage
    148-lane select_batch with the same ids and value bits either way.
-11. Print the kernel table as one JSON line, the card's name and power
+11. The moe, ssm and hybrid families' serving (``models/moe.py``,
+   ``models/ssm.py``, their groups in the transformer, the bundles, the
+   CLI; random weights on the card, bf16 compute), each part printing its
+   seconds, ms, tok/s, peak memory and one decode step against its
+   roofline bound: (a) qwen2-moe-a2.7b at full width and depth (24
+   layers, 60 experts top-4, shared width 5632) at launch/serve.py's
+   defaults twice (the same ids), the (token, choice) rows its
+   capacity_factor 1.25 drops in prefill, and decode against prefill with
+   capacity raised to E / k (nothing drops) at (a)'s bf16 bar; (b)
+   falcon-mamba-7b at full width and depth (64 Mamba1 layers, d_inner
+   8192) twice, a B = 1 x 4096 prefill (32 chunks of 128), and decode
+   against prefill in f32 compute (within 1e-3, every argmax equal); (c)
+   zamba2-2.7b at full width and depth (9 groups of 6 Mamba2 layers + the
+   shared block), prompt 200 (the chunk's pad branch), the shared block's
+   9 group copies of its cache, decode against prefill in f32; (d)
+   llama4-scout-17b-a16e at full width cut to one group of 4 layers (3
+   chunked-local + 1 global), B = 1, prompt 8256 past the 8192 chunk: the
+   local rings hold the last 8192 positions, decode against prefill with
+   capacity raised; (e) ``python -m repro_torch.launch.serve --arch
+   zamba2-2.7b`` on the card.
+12. Print the kernel table as one JSON line, the card's name and power
    limit, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -4001,6 +4021,478 @@ def lm_phase(torch, tsel, tmr, ops):
           f"{card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the moe, ssm and hybrid families' serving (models/moe.py,
+# models/ssm.py, their groups in the transformer, the bundles, the CLI) at
+# full width, and llama4's chunked-local layers
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"        # 24 layers, 60 experts top-4 + shared
+SSM_ARCH = "falcon-mamba-7b"        # 64 Mamba1 layers, d_inner 8192
+HYBRID_ARCH = "zamba2-2.7b"         # 9 groups of 6 Mamba2 + shared block
+CHUNK_ARCH = "llama4-scout-17b-a16e"  # 16 experts top-1, chunk 8192
+SSM_LONG_B, SSM_LONG_PROMPT = 1, 4096  # 32 chunks of ssm_chunk 128
+HYBRID_PROMPT = 200                 # not a multiple of 128: the pad branch
+CHUNK_LAYERS = 4                    # llama4 cut to one group (3 local + 1
+#                                     global); 48 layers would not fit
+CHUNK_B, CHUNK_PROMPT, CHUNK_GEN = 1, 8256, 8  # past attention_chunk 8192
+F32_TOL = 1e-3                      # decode vs prefill in f32 compute
+
+
+class DropCount:
+    """Counts the (token, choice) rows that ``moe._dispatch_combine``
+    drops past capacity while it is entered, by the call's token count (a
+    device tensor each: no host sync inside the model)."""
+
+    def __init__(self, moe):
+        self.moe, self.by_tokens = moe, {}
+
+    def __enter__(self):
+        self.saved = self.moe._dispatch_combine
+
+        def counted(x, *args):
+            out = self.saved(x, *args)
+            t = x.shape[0] * x.shape[1]
+            self.by_tokens[t] = self.by_tokens.get(t, 0) + out[2]
+            return out
+        self.moe._dispatch_combine = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._dispatch_combine = self.saved
+
+    def counts(self):
+        return {t: int(n) for t, n in sorted(self.by_tokens.items())}
+
+
+def fam_model(torch, cfg, seed, label, card):
+    """The port's Model of ``cfg`` (parameters drawn on the card); prints
+    its size."""
+    t0 = time.perf_counter()
+    model = lm_model(torch, cfg, seed)
+    n = sum(p.numel() for p in model.params.parameters())
+    weights = torch.cuda.memory_allocated()
+    print(f"[fam] {label} {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n} parameters ({n * 4 / 2 ** 30:.3f} GiB f32, "
+          f"param_count {cfg.param_count()}), drawn in "
+          f"{time.perf_counter() - t0:.3f} s; memory allocated "
+          f"{weights / 2 ** 30:.3f} GiB; card: {card}")
+    return model, n
+
+
+def fam_serve(torch, steps, analysis, T, cfg, model, B, prompt, gen, seed,
+              label, card, runs=2):
+    """Serve through the bundles ``runs`` times (the same greedy ids each
+    time); print prefill and decode ms and tok/s, peak memory against the
+    card's, and one decode step against its roofline bound.  Returns the
+    last run's (tokens, ids, step logits, caches after prefill)."""
+    from repro_torch.configs.base import ShapeSpec
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = [lm_serve(torch, steps, cfg, model, B, prompt, gen, seed)
+           for _ in range(runs)]
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    toks, ids, t_pre, t_dec, step_logits, caches = out[-1]
+    for other in out[:-1]:
+        check(torch.equal(ids, other[1]),
+              f"[fam] {label} runs gave other greedy ids: {ids[0].tolist()} "
+              f"and {other[1][0].tolist()}")
+    check(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()),
+          f"[fam] {label} ids out of the vocabulary: {ids.tolist()}")
+    check(peak < total, f"[fam] {label} peak {peak} of {total} bytes")
+    cache_len = prompt + gen
+    roof = analysis.from_costs(
+        "decode", 1,
+        {"flops": analysis.model_flops_for(
+            cfg, ShapeSpec("decode", cache_len, B, "decode")),
+         "bytes accessed": T.param_bytes(model.params) + T.cache_bytes(
+             caches)}, {})
+    bound = roof.t_bound * 1e3
+    print(f"[fam] {label} {cfg.name} B={B} prompt={prompt} gen={gen}, bf16 "
+          f"compute: prefill {' / '.join(f'{r[2]:.3f}' for r in out)} ms "
+          f"({B * prompt / t_pre * 1e3:.0f} tok/s); decode "
+          f"{' / '.join(f'{r[3]:.3f}' for r in out)} ms a step "
+          f"({B / t_dec * 1e3:.0f} tok/s); peak {peak / 2 ** 30:.3f} GiB "
+          f"({(peak - weights) / 2 ** 30:.3f} above the weights) of the "
+          f"card's {total / 2 ** 30:.3f}; ids {ids[0, :16].tolist()}"
+          f"{' the same in every run' if runs > 1 else ''}; card: {card}")
+    print(f"[fam] {label} decode step roofline (H100 SXM {analysis.HBM_BW:.3e}"
+          f" B/s, {analysis.PEAK_FLOPS:.4e} bf16 FLOP/s): bytes "
+          f"{roof.bytes_per_device:.0f} (f32 weights + caches) -> "
+          f"{roof.t_memory * 1e3:.4f} ms, flops {roof.flops_per_device:.0f} "
+          f"-> {roof.t_compute * 1e3:.4f} ms; bound {bound:.4f} ms "
+          f"({roof.bottleneck}); measured {t_dec:.3f} ms = "
+          f"{t_dec / bound:.2f}x the bound; card: {card}")
+    return toks, ids, step_logits, caches
+
+
+def with_capacity(cfg):
+    """``cfg`` with capacity_factor E / k: every expert has a slot for
+    every token, so a prefill and the decode steps drop nothing."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+
+
+class RouteLog:
+    """Records the expert ids (T, k) of every ``moe._route`` call while it
+    is entered, in call order."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.saved = self.moe._route
+
+        def recorded(logits, cfg):
+            out = self.saved(logits, cfg)
+            self.calls.append(out[1])
+            return out
+        self.moe._route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.saved
+
+
+def moe_decode_vs_prefill(torch, cfg, model, moe, toks, ids, step_logits,
+                          routes, label, card, tol=LM_TOL):
+    """Every decode step against a prefill over the same tokens, with the
+    routing of each.  ``routes`` holds the served run's expert ids: its
+    prefill's L calls (B * prompt, k), then each decode step's L (B, k).
+    A row is routed alike when every one of its tokens, in every layer,
+    went to the same experts in the served run (prefill, then the decode
+    steps) and in the reference prefill; otherwise a near-tie of the
+    router was rounded apart in bf16 (the two evaluation orders round
+    differently) and the row is counted with its first layer and max
+    |diff|.  Printed, not held to a bar: at full depth nearly every row
+    flips somewhere (qwen2-moe: 122 of 124 rows), and a row routed alike
+    still drifts to the bar's edge, since the two runs' products round
+    differently in bf16.  The exact check is fam_f32_check's f32 run on
+    the same weights."""
+    V, L, k = cfg.vocab_size, cfg.n_layers, cfg.experts_per_token
+    B, P = toks.shape
+    served = [r.reshape(B, P, k) for r in routes[:L]]
+    flipped, held, held_agree, kept, kept_agree = [], 0, 0, 0, 0
+    all_agree, all_kept, beyond = 0, 0, []
+    worst_held = worst_flip = 0.0
+    for i, lg in enumerate(step_logits):
+        steps_i = routes[L:L * (i + 2)]
+        with RouteLog(moe) as log:
+            ref, _ = model.prefill({"tokens": torch.cat(
+                [toks, ids[:, :i + 1]], 1)})
+        first = [None] * B
+        for layer in range(L):
+            mine = torch.cat([served[layer]] + [
+                steps_i[s * L + layer].reshape(B, 1, k)
+                for s in range(i + 1)], 1)
+            theirs = log.calls[layer].reshape(B, P + i + 1, k)
+            d = (mine.sort(-1).values != theirs.sort(-1).values).any(-1)
+            d = d.any(-1).tolist()
+            for r in range(B):
+                if d[r] and first[r] is None:
+                    first[r] = layer
+        a = lg[..., :V].float().reshape(B, V)
+        b = ref[..., :V].float().reshape(B, V)
+        diff = (a - b).abs()
+        excess = (diff - tol * b.abs()).amax(-1)
+        top2 = b.topk(2, -1).values
+        wide = ((top2[:, 0] - top2[:, 1]) > tol).tolist()
+        same = (a.argmax(-1) == b.argmax(-1)).tolist()
+        all_kept += sum(wide)
+        all_agree += sum(w and m for w, m in zip(wide, same))
+        for r in range(B):
+            if first[r] is not None:
+                flipped.append((i, r, first[r], round(diff[r].max().item(),
+                                                      4)))
+                worst_flip = max(worst_flip, diff[r].max().item())
+                continue
+            if excess[r].item() > tol:
+                beyond.append((i, r, round(excess[r].item(), 4)))
+            worst_held = max(worst_held, diff[r].max().item())
+            held += 1
+            held_agree += int(same[r])
+            kept += int(wide[r])
+            kept_agree += int(same[r] and wide[r])
+    rows = B * len(step_logits)
+    print(f"[fam] {label}: {len(step_logits)} decode steps against a "
+          f"prefill over the same tokens, bf16: {len(flipped)} of {rows} "
+          f"rows with a routing flip (a token of the row, in some layer, "
+          f"sent to other experts), max |logit diff| {worst_flip:.4f}; "
+          f"(step, row, first layer, max |diff|): {flipped}; the {held} "
+          f"rows routed alike: max |logit diff| {worst_held:.4f}, "
+          f"{held - len(beyond)} within rtol = atol {tol} (beyond it: "
+          f"(step, row, excess) {beyond}), argmax {held_agree}/{held}, "
+          f"{kept_agree}/{kept} "
+          f"where the top-2 gap exceeds {tol}; argmax over all rows "
+          f"{all_agree}/{all_kept} where the top-2 gap exceeds {tol}; card: "
+          f"{card}")
+
+
+def fam_moe_check(torch, steps, moe, cfg, model, B, prompt, gen, seed,
+                  label, card):
+    """Decode against prefill on the same weights with capacity raised to
+    E / k (with tight capacity the two runs legitimately drop different
+    tokens): in bf16 with the routing compared and printed
+    (moe_decode_vs_prefill), then in f32 compute, held to F32_TOL with
+    every argmax equal (fam_f32_check)."""
+    raised = with_capacity(cfg)
+    model.cfg = raised
+    try:
+        with RouteLog(moe) as log:
+            toks, ids, _, _, step_logits, _ = lm_serve(
+                torch, steps, raised, model, B, prompt, gen, seed)
+        moe_decode_vs_prefill(
+            torch, raised, model, moe, toks, ids, step_logits,
+            log.calls,
+            f"{label} {cfg.name} capacity_factor {raised.capacity_factor:g}",
+            card)
+        del step_logits
+        fam_f32_check(torch, steps, raised, model, B, prompt, gen, seed,
+                      label, card)
+    finally:
+        model.cfg = cfg
+
+
+def fam_f32_check(torch, steps, cfg, model, B, prompt, gen, seed, label,
+                  card):
+    """The same weights in f32 compute: every decode step's logits within
+    F32_TOL of a prefill over the same tokens, every argmax equal (in bf16
+    the chunked prefill and the stepwise recurrence drift apart over
+    depth)."""
+    model.dtype = torch.float32
+    try:
+        toks, ids, t_pre, t_dec, step_logits, _ = lm_serve(
+            torch, steps, cfg, model, B, prompt, gen, seed)
+        print(f"[fam] {label} {cfg.name} in f32 compute: prefill "
+              f"{t_pre:.3f} ms, decode {t_dec:.3f} ms a step; ids "
+              f"{ids[0, :16].tolist()}; card: {card}")
+        lm_decode_vs_prefill(torch, cfg, model, toks, ids, step_logits,
+                             f"{label} {cfg.name} f32", card, tol=F32_TOL,
+                             exact=True)
+    finally:
+        model.dtype = torch.bfloat16
+
+
+def fam_part_a(torch, steps, analysis, T, moe, card):
+    """Part (a): qwen2-moe-a2.7b at full width and depth, launch/serve.py's
+    defaults; the tokens the configured capacity drops."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(MOE_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.experts_per_token,
+           cfg.d_ff, cfg.capacity_factor) == (24, 2048, 60, 4, 5632, 1.25),
+          f"{MOE_ARCH} is not at full width: {cfg}")
+    model, _ = fam_model(torch, cfg, 10, "(a)", card)
+    with DropCount(moe) as drops:
+        toks, _, _, _ = fam_serve(torch, steps, analysis, T, cfg, model,
+                                  LM_B, LM_PROMPT, LM_GEN, 11, "(a)", card)
+    counts = drops.counts()
+    T_pre, T_dec = LM_B * LM_PROMPT, LM_B
+    C_pre = moe._capacity(cfg, T_pre)
+    rows = T_pre * cfg.experts_per_token * cfg.n_layers * 2
+    check(set(counts) == {T_pre, T_dec} and counts[T_dec] == 0,
+          f"[fam] (a) drops by tokens a call {counts}")
+    print(f"[fam] (a) capacity_factor {cfg.capacity_factor}: prefill of "
+          f"{T_pre} tokens, {C_pre} slots an expert; (token, choice) rows "
+          f"dropped in the two runs' prefills {counts[T_pre]} of {rows} "
+          f"({counts[T_pre] / rows:.4%}); decode ({T_dec} tokens, "
+          f"{moe._capacity(cfg, T_dec)} slots) dropped {counts[T_dec]}; "
+          f"card: {card}")
+    fam_moe_check(torch, steps, moe, cfg, model, LM_B, LM_PROMPT, LM_GEN, 11,
+                  "(a)", card)
+
+
+def fam_part_b(torch, steps, analysis, T, card):
+    """Part (b): falcon-mamba-7b at full width and depth: serving, a long
+    prefill, and decode against prefill in f32 compute."""
+    from repro_torch.configs.base import ShapeSpec, get_config
+    cfg = get_config(SSM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_state,
+           cfg.ssm_chunk) == (64, 4096, 8192, 16, 128),
+          f"{SSM_ARCH} is not at full width: {cfg}")
+    model, _ = fam_model(torch, cfg, 12, "(b)", card)
+    _, _, _, caches = fam_serve(torch, steps, analysis, T, cfg, model, LM_B,
+                                LM_PROMPT, LM_GEN, 13, "(b)", card)
+    check(type(caches["sub"][0]).__name__ == "Mamba1Cache"
+          and tuple(caches["sub"][0].h.shape) == (
+              cfg.n_layers, LM_B, cfg.d_inner, cfg.ssm_state),
+          f"[fam] (b) caches {[tuple(t.shape) for t in caches['sub'][0]]}")
+    del caches
+    shape = ShapeSpec("long", SSM_LONG_PROMPT, SSM_LONG_B, "prefill")
+    pre = steps.prefill_bundle(cfg, shape)
+    toks = torch.randint(0, cfg.vocab_size, (SSM_LONG_B, SSM_LONG_PROMPT),
+                         device="cuda", dtype=torch.int32,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(14))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, caches = pre.fn(model, {"tokens": toks})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(logits[..., :cfg.vocab_size].float()).all()),
+          "[fam] (b) long prefill logits not finite")
+    flops = analysis.model_flops_for(cfg, shape)
+    print(f"[fam] (b) {cfg.name} prefill B={SSM_LONG_B} prompt="
+          f"{SSM_LONG_PROMPT} ({SSM_LONG_PROMPT // cfg.ssm_chunk} chunks of "
+          f"{cfg.ssm_chunk}): {ms[0]:.3f} ms first, {ms[1]:.3f} ms again "
+          f"({SSM_LONG_B * SSM_LONG_PROMPT / ms[1] * 1e3:.0f} tok/s); "
+          f"model_flops_for {flops:.4e} over the bf16 peak = "
+          f"{flops / analysis.PEAK_FLOPS * 1e3:.3f} ms; peak "
+          f"{peak / 2 ** 30:.3f} GiB ({(peak - base) / 2 ** 30:.3f} above "
+          f"the weights); card: {card}")
+    del logits, caches
+    torch.cuda.empty_cache()
+    fam_f32_check(torch, steps, cfg, model, LM_B, LM_PROMPT, LM_GEN, 13,
+                  "(b)", card)
+
+
+def fam_part_c(torch, steps, analysis, T, card):
+    """Part (c): zamba2-2.7b at full width and depth, a prompt that is not
+    a multiple of the SSM chunk; the shared block's per-group caches."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(HYBRID_ARCH)
+    groups = cfg.n_layers // cfg.shared_attn_every
+    check((cfg.n_layers, cfg.shared_attn_every, cfg.d_model, cfg.ssm_state,
+           groups) == (54, 6, 2560, 64, 9) and HYBRID_PROMPT % cfg.ssm_chunk,
+          f"{HYBRID_ARCH} is not at full width: {cfg}")
+    model, _ = fam_model(torch, cfg, 15, "(c)", card)
+    _, _, _, caches = fam_serve(torch, steps, analysis, T, cfg, model, LM_B,
+                                HYBRID_PROMPT, LM_GEN, 16, "(c)", card)
+    shared = caches["shared"]
+    check(tuple(shared.k.shape) == (groups, LM_B, HYBRID_PROMPT + LM_GEN,
+                                    cfg.n_kv_heads, cfg.head_dim_)
+          and bool((shared.slot_pos[:, :HYBRID_PROMPT] >= 0).all())
+          and bool((shared.slot_pos[:, HYBRID_PROMPT:] == -1).all())
+          and len(caches["sub"]) == cfg.shared_attn_every
+          and all(type(c).__name__ == "Mamba2Cache" for c in caches["sub"]),
+          f"[fam] (c) caches: shared {tuple(shared.k.shape)}, sub "
+          f"{[type(c).__name__ for c in caches['sub']]}")
+    print(f"[fam] (c) the shared block's cache holds {shared.k.shape[0]} "
+          f"group copies of (B, C, KV, hd) = {tuple(shared.k.shape[1:])}, "
+          f"positions 0..{HYBRID_PROMPT - 1} after prefill; "
+          f"{len(caches['sub'])} Mamba2 caches a group, h "
+          f"{tuple(caches['sub'][0].h.shape)}; "
+          f"card: {card}")
+    del caches, shared
+    fam_f32_check(torch, steps, cfg, model, LM_B, HYBRID_PROMPT, LM_GEN, 16,
+                  "(c)", card)
+
+
+def fam_part_d(torch, steps, analysis, T, moe, card):
+    """Part (d): llama4-scout-17b-a16e at full width, its depth cut to one
+    group (3 chunked-local layers + 1 global), a prompt past the attention
+    chunk: the local rings wrap."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    full = get_config(CHUNK_ARCH)
+    cfg = dataclasses.replace(full, n_layers=CHUNK_LAYERS)
+    check((full.n_layers, cfg.d_model, cfg.n_experts, cfg.experts_per_token,
+           cfg.attention_chunk, cfg.global_attn_every) == (
+               48, 5120, 16, 1, 8192, 4)
+          and CHUNK_PROMPT > cfg.attention_chunk,
+          f"{CHUNK_ARCH} is not at full width: {cfg}")
+    print(f"[fam] (d) depth cut: {CHUNK_LAYERS} of {full.n_layers} layers "
+          f"(one group); all {full.n_layers} would hold "
+          f"{full.param_count()} parameters, "
+          f"{full.param_count() * 4 / 2 ** 30:.1f} GiB of f32 weights, past "
+          f"the card's 80 GB; card: {card}")
+    model, _ = fam_model(torch, cfg, 17, "(d)", card)
+    with DropCount(moe) as drops:
+        _, _, _, caches = fam_serve(torch, steps, analysis, T, cfg, model,
+                                    CHUNK_B, CHUNK_PROMPT, CHUNK_GEN, 18,
+                                    "(d)", card, runs=1)
+    counts = drops.counts()
+    T_pre = CHUNK_B * CHUNK_PROMPT
+    C = cfg.attention_chunk
+    for i in range(CHUNK_LAYERS):
+        spos = caches["sub"][i].slot_pos[0]
+        if i < CHUNK_LAYERS - 1:   # chunked-local: the last C positions
+            want = (C, CHUNK_PROMPT - C, CHUNK_PROMPT - 1)
+            last = int(spos[(CHUNK_PROMPT - 1) % C])
+        else:                      # global: every position, room for gen
+            want = (CHUNK_PROMPT + CHUNK_GEN, 0, CHUNK_PROMPT - 1)
+            last = int(spos[CHUNK_PROMPT - 1])
+        got = (spos.shape[0], int(spos[spos >= 0].min()), int(spos.max()))
+        check(got == want and last == CHUNK_PROMPT - 1,
+              f"[fam] (d) layer {i} ring (slots, first, last) {got}, want "
+              f"{want}; slot of the last position holds {last}")
+    print(f"[fam] (d) rings after prefill: local layers 0-2 hold positions "
+          f"{CHUNK_PROMPT - C}..{CHUNK_PROMPT - 1} in {C} slots (position "
+          f"p at slot p % {C}), the global layer 0..{CHUNK_PROMPT - 1} in "
+          f"{CHUNK_PROMPT + CHUNK_GEN}; capacity_factor "
+          f"{cfg.capacity_factor}: {moe._capacity(cfg, T_pre)} slots an "
+          f"expert, (token, choice) rows dropped in prefill "
+          f"{counts.get(T_pre, 0)} of {T_pre * CHUNK_LAYERS}, in decode "
+          f"{sum(n for t, n in counts.items() if t != T_pre)}; card: {card}")
+    del caches
+    torch.cuda.empty_cache()
+    fam_moe_check(torch, steps, moe, cfg, model, CHUNK_B, CHUNK_PROMPT,
+                  CHUNK_GEN, 18, "(d)", card)
+
+
+def fam_part_e(card):
+    """Part (e): the serve CLI on zamba2-2.7b at full width on the card."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           HYBRID_ARCH]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=LM_CLI_TIMEOUT_S)
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("[serve]")]
+    check(p.returncode == 0 and len(lines) == 3
+          and f"arch={HYBRID_ARCH} batch={LM_B}" in lines[0],
+          f"[fam] (e) serve exited {p.returncode}:\n{p.stdout[-2000:]}\n"
+          f"{p.stderr[-3000:]}")
+    for ln in lines:
+        print(f"[fam] (e) {ln}")
+    print(f"[fam] (e) python -m repro_torch.launch.serve --arch "
+          f"{HYBRID_ARCH} took {time.perf_counter() - t0:.3f} s; card: "
+          f"{card}")
+
+
+def families_phase(torch, ops):
+    """Phase 11: the moe, ssm and hybrid families served at full width
+    (parts (a)-(d)) and the CLI (part (e)).  The path reaches none of the
+    fifteen kernels; its launches are counted and printed all the same."""
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.roofline import analysis
+    card = smi()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"[fam] phase 11 starts with {torch.cuda.memory_allocated()} bytes "
+          f"allocated on the card; card: {card}")
+    ops.reset_launch_counts()
+    for label, part in (
+            ("(a)", lambda: fam_part_a(torch, steps, analysis, T, moe, card)),
+            ("(b)", lambda: fam_part_b(torch, steps, analysis, T, card)),
+            ("(c)", lambda: fam_part_c(torch, steps, analysis, T, card)),
+            ("(d)", lambda: fam_part_d(torch, steps, analysis, T, moe, card))):
+        t0 = time.perf_counter()
+        part()
+        torch.cuda.empty_cache()
+        print(f"[fam] part {label} took {time.perf_counter() - t0:.3f} s; "
+              f"card: {card}")
+    counts = read_counts(ops)
+    print(f"[fam] kernel launches on the families' path (parts (a)-(d)): "
+          f"{ {k: v for k, v in counts.items() if v and '@' not in k} } "
+          f"(it reaches no pallas_call in the JAX package)")
+    t0 = time.perf_counter()
+    fam_part_e(card)
+    print(f"[fam] part (e) took {time.perf_counter() - t0:.3f} s; card: "
+          f"{card}")
+    print(f"[fam] phase 11 took {time.perf_counter() - t_phase:.3f} s; "
+          f"card: {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4175,6 +4667,9 @@ def main() -> int:
     # the LM serving path and exclude_ids at the batch's shape
     torch.cuda.empty_cache()
     lm_phase(torch, tsel, tmr, ops)
+
+    # the moe, ssm and hybrid families at full width
+    families_phase(torch, ops)
 
     check(SHAPES == _wrap.SHAPES, f"shape classes {_wrap.SHAPES}")
     table = []

@@ -31,6 +31,7 @@ from repro_torch.core.functions import (AdversarialThreshold,
                                         SaturatedCoverage, WeightedCoverage)
 from repro_torch.core.mapreduce import QueryBatch
 from repro_torch.models import layers as LM
+from repro_torch.models import ssm as SSM
 from repro_torch.models.model import Model
 from repro_torch.streaming.sieve import SieveSpec, SieveState
 
@@ -235,12 +236,26 @@ def sieve_state(state, spec: SieveSpec, device="cpu") -> SieveState:
     return out
 
 
+def _flat(tree, prefix=""):
+    """A nested dict's leaves by dotted path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 def lm_params(tree, cfg, device="cpu", dtype=torch.bfloat16) -> Model:
     """A ``Model`` of ``cfg`` holding the JAX package's parameter tree
     (``repro.models.transformer.init_params``; numpy or JAX leaves): the
     embedding table, the groups' leaves stacked on a leading G axis (one
     dict per sublayer: ``tree["groups"][i][...][g]`` is group g's sublayer
-    i), the final norm and the untied head, each bit for bit in f32.
+    i, an attention sublayer with ``mlp`` or ``moe`` or an SSM one), the
+    hybrid family's unstacked ``shared_block``, the final norm and the
+    untied head, each bit for bit in f32.  A leaf of the wrong shape, and a
+    leaf that one tree has and the other lacks, raise ValueError.
     ``dtype`` is the port model's compute dtype."""
     model = Model(cfg, torch.Generator(device=device).manual_seed(0), device,
                   dtype)
@@ -253,28 +268,52 @@ def lm_params(tree, cfg, device="cpu", dtype=torch.bfloat16) -> Model:
                              f" for a parameter of {tuple(dst.shape)}")
         dst.data.copy_(src)
 
+    def put_module(where, module, sub, g=None):
+        dst = dict(module.named_parameters())
+        src = _flat(sub)
+        if set(dst) != set(src):
+            raise ValueError(f"lm_params: {where} holds {sorted(src)}, the "
+                             f"port's {sorted(dst)}")
+        for name, leaf in src.items():
+            put(dst[name], leaf if g is None else leaf[g])
+
     if p.embed is not None:
         put(p.embed["table"], tree["embed"]["table"])
+    if len(tree["groups"]) != len(p.groups[0]):
+        raise ValueError(f"lm_params: {len(tree['groups'])} sublayers a "
+                         f"group, the port's {len(p.groups[0])}")
     for g, group in enumerate(p.groups):
-        for blk, sub in zip(group, tree["groups"]):
-            put(blk.ln1, sub["ln1"][g])
-            put(blk.ln2, sub["ln2"][g])
-            for part in ("attn", "mlp"):
-                dst = getattr(blk, part)
-                if set(dst) != set(sub[part]):
-                    raise ValueError(f"lm_params: {part} holds "
-                                     f"{sorted(sub[part])}, the port's "
-                                     f"{sorted(dst)}")
-                for name in dst:
-                    put(dst[name], sub[part][name][g])
+        for i, (blk, sub) in enumerate(zip(group, tree["groups"])):
+            put_module(f"sublayer {i}", blk, sub, g)
+    if (p.shared_block is None) != ("shared_block" not in tree):
+        raise ValueError("lm_params: a shared_block in one tree only")
+    if p.shared_block is not None:
+        put_module("shared_block", p.shared_block, tree["shared_block"])
     put(p.final_norm, tree["final_norm"])
     if p.lm_head is not None:
         put(p.lm_head, tree["lm_head"])
     return model
 
 
+#: the port's cache types by the JAX package's NamedTuple names
+_CACHES = {"KVCache": LM.KVCache, "Mamba1Cache": SSM.Mamba1Cache,
+           "Mamba2Cache": SSM.Mamba2Cache}
+
+
+def _cache(c, device):
+    kind = _CACHES.get(type(c).__name__)
+    if kind is None or len(c) != len(kind._fields):
+        raise ValueError(f"lm_caches: a {type(c).__name__} of {len(c)} "
+                         f"leaves; the port knows {sorted(_CACHES)}")
+    return kind(*(tensor(t, device) for t in c))
+
+
 def lm_caches(caches, device="cpu"):
-    """The JAX package's decode caches (``{"sub": [KVCache, ...]}``, leaves
-    stacked on a leading G axis) as the port's, each leaf bit for bit."""
-    return {"sub": [LM.KVCache(*(tensor(t, device) for t in c))
-                    for c in caches["sub"]]}
+    """The JAX package's decode caches (``{"sub": [KVCache | Mamba1Cache |
+    Mamba2Cache, ...]}`` and the hybrid family's ``"shared"`` KVCache,
+    leaves stacked on a leading G axis) as the port's, each leaf bit for
+    bit."""
+    out = {"sub": [_cache(c, device) for c in caches["sub"]]}
+    if "shared" in caches:
+        out["shared"] = _cache(caches["shared"], device)
+    return out

@@ -4,8 +4,11 @@
         --batch 4 --prompt-len 64 --gen 32 [--smoke] [--device cpu]
 
 One ``prefill`` processes the request batch's prompts and builds the
-caches; one ``serve_step`` then appends one token per request per call
-(continuous-batching style: requests are slots in the fixed batch).  It
+caches (KV rings, SSM states, or both for the hybrid family); one
+``serve_step`` then appends one token per request per call
+(continuous-batching style: requests are slots in the fixed batch).  Every
+architecture that decodes is served: the dense, vlm, moe, ssm and hybrid
+families.  It
 runs on the CUDA card unless ``--device cpu`` asks for the CPU, and then
 at the architecture's reduced size unless ``--no-smoke`` says otherwise.
 Weights are random, drawn from seed 0 on the device.

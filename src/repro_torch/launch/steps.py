@@ -3,9 +3,10 @@
 Each builder returns a ``StepBundle``: the step function, the batch it
 takes (name -> shape and dtype) and the sharding policy.  The JAX package's
 bundles also carry abstract arguments and shardings for its dry-run; on
-one card there is nothing to place, and the model owns its parameters, so
-a step takes the ``Model`` as its first argument.  ``train_step_bundle``
-comes with the training slice of the port.
+one card there is nothing to place (neither KV nor SSM caches), and the
+model owns its parameters, so a step takes the ``Model`` as its first
+argument.  The bundles serve every family that decodes.
+``train_step_bundle`` comes with the training slice of the port.
 """
 
 from __future__ import annotations

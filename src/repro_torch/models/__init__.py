@@ -1,2 +1,3 @@
-"""The language-model stack of the port: layers, the transformer, the
-``Model`` facade and its one-card sharding policy."""
+"""The language-model stack of the port: layers, the routed MoE, the Mamba1
+and Mamba2 blocks, the transformer, the ``Model`` facade and its one-card
+sharding policy."""

@@ -84,9 +84,9 @@ class Model(nn.Module):
         """Full prompts in: (logits of the last position (B, 1, V), the
         caches)."""
         policy = self._policy(policy, _batch_size(batch), "prefill")
-        hidden, caches = T.forward(self.params, batch, self.cfg, policy,
-                                   mode="prefill", cache_len=cache_len,
-                                   dtype=self.dtype)
+        hidden, caches, _ = T.forward(self.params, batch, self.cfg, policy,
+                                      mode="prefill", cache_len=cache_len,
+                                      dtype=self.dtype)
         logits = T.logits_fn(self.params, hidden[:, -1:], self.cfg, policy)
         return logits, caches
 
@@ -95,18 +95,18 @@ class Model(nn.Module):
         """One token (B, 1) at ``positions`` (B, 1) through the caches:
         (logits (B, 1, V), new caches; the given caches are not written)."""
         policy = self._policy(policy, tokens.shape[0], "decode")
-        hidden, caches = T.forward(self.params, {"tokens": tokens},
-                                   self.cfg, policy, mode="decode",
-                                   caches=caches, positions=positions,
-                                   dtype=self.dtype)
+        hidden, caches, _ = T.forward(self.params, {"tokens": tokens},
+                                      self.cfg, policy, mode="decode",
+                                      caches=caches, positions=positions,
+                                      dtype=self.dtype)
         logits = T.logits_fn(self.params, hidden, self.cfg, policy)
         return logits, caches
 
     def encode(self, batch, policy: ShardingPolicy = None):
         """Encoder-only forward (hubert): per-frame logits."""
         policy = self._policy(policy, _batch_size(batch), "train")
-        hidden, _ = T.forward(self.params, batch, self.cfg, policy,
-                              mode="train", dtype=self.dtype)
+        hidden, _, _ = T.forward(self.params, batch, self.cfg, policy,
+                                 mode="train", dtype=self.dtype)
         return T.logits_fn(self.params, hidden, self.cfg, policy)
 
     # -- inputs --------------------------------------------------------------

@@ -1,0 +1,303 @@
+"""Mamba1 (falcon-mamba) and Mamba2/SSD (zamba2) blocks.
+
+The port of the JAX package's ``repro.models.ssm``, which itself stands in
+for the CUDA selective-scan kernel with *chunked* formulations:
+  * Mamba1: a scan of the diagonal recurrence h_t = a_t ⊙ h_{t-1} + b_t
+    inside a chunk, sequential across chunks;
+  * Mamba2: the SSD block decomposition (intra-chunk "attention-like"
+    products + inter-chunk state passing), scalar-per-head decay.
+
+The JAX package scans inside a chunk with ``lax.associative_scan``;
+PyTorch has none, so :func:`_mamba1_chunk_scan` runs a log-depth doubling
+scan of whole-tensor ops over the chunk axis.  Prefill loops over chunks,
+never over tokens; decode is one step of the recurrence.  The projections,
+the depthwise conv and the einsums run as PyTorch ops, as the JAX package
+runs them outside any Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init, rms_norm
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv. x: (B, S, C), w: (C, cw), b: (C,).
+
+    ``out[t] = sum_j x[t - (cw - 1) + j] * w[:, j]`` (zeros before the
+    first token): a cross-correlation whose last tap meets the current
+    token, as the JAX package's ``conv_general_dilated`` with kernel
+    ``w.T[:, None, :]`` computes it."""
+    C, cw = w.shape
+    xp = F.pad(x.transpose(1, 2), (cw - 1, 0))            # (B, C, S + cw - 1)
+    out = F.conv1d(xp, w[:, None, :].to(x.dtype), groups=C)
+    return out.transpose(1, 2) + b.to(x.dtype)
+
+
+def _conv_step(x_t, conv_state, w, b):
+    """Single-token causal conv in f32, cast back to x_t's dtype.
+    x_t: (B, 1, C); conv_state: (B, cw-1, C).  Returns (out (B, 1, C), the
+    new window (B, cw-1, C))."""
+    win = torch.cat([conv_state, x_t], dim=1)               # (B, cw, C)
+    out = torch.einsum("bwc,cw->bc", win.float(), w.float()) + b
+    return out[:, None, :].to(x_t.dtype), win[:, 1:]
+
+
+def _conv_tail(x, cw):
+    """The last cw - 1 positions of x (B, S, C), left-padded with zeros
+    when S < cw - 1: the conv state a prefill leaves for decode (a copy:
+    a view would keep the whole projection alive with the cache)."""
+    S = x.shape[1]
+    if S >= cw - 1:
+        return x[:, S - (cw - 1):].clone()
+    return F.pad(x, (0, 0, cw - 1 - S, 0))
+
+
+def _pad_seq(t, pad):
+    """Zero-pad the sequence axis (1) of t by ``pad`` positions at the end."""
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+
+
+def _dt_init(generator, n, device):
+    """dt log-uniform in [1e-3, 0.1]; returns softplus^{-1}(dt)."""
+    u = torch.rand((n,), generator=generator, dtype=torch.float32,
+                   device=device)
+    dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    return torch.log(torch.expm1(dt))
+
+
+# ---------------------------------------------------------------------------
+# Mamba1
+# ---------------------------------------------------------------------------
+
+class Mamba1Cache(NamedTuple):
+    conv: torch.Tensor   # (B, cw-1, di)
+    h: torch.Tensor      # (B, di, N) f32
+
+
+def init_mamba1(cfg, generator, device=None):
+    D, di, N, cw = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    R = max(D // 16, 1)  # dt_rank
+    return {
+        "in_proj": dense_init(generator, (D, 2 * di), device=device),
+        "conv_w": torch.randn((di, cw), generator=generator,
+                              dtype=torch.float32, device=device) * 0.2,
+        "conv_b": torch.zeros((di,), dtype=torch.float32, device=device),
+        "x_proj": dense_init(generator, (di, R + 2 * N), in_dim=di,
+                             device=device),
+        "dt_proj": dense_init(generator, (R, di), in_dim=R, device=device),
+        "dt_bias": _dt_init(generator, di, device),
+        "A_log": torch.log(torch.arange(
+            1, N + 1, dtype=torch.float32, device=device)).expand(
+                di, N).contiguous(),
+        "D_skip": torch.ones((di,), dtype=torch.float32, device=device),
+        "out_proj": dense_init(generator, (di, D), in_dim=di, device=device),
+    }
+
+
+def _doubling_scan(a, b):
+    """Inclusive scan of h_t = a_t * h_{t-1} + b_t over axis 1, as the
+    pairs (prod a, h from zero): log2(length) steps of whole-tensor ops,
+    each combining position t with t - off (off = 1, 2, 4, ...)."""
+    n, off = a.shape[1], 1
+    while off < n:
+        a_hi, b_hi = a[:, off:], b[:, off:]
+        b = torch.cat([b[:, :off], a_hi * b[:, :-off] + b_hi], dim=1)
+        a = torch.cat([a[:, :off], a_hi * a[:, :-off]], dim=1)
+        off *= 2
+    return a, b
+
+
+def _mamba1_chunk_scan(xc, dt, Bm, Cm, A, h0, chunk):
+    """xc, dt: (B,S,di) f32; Bm, Cm: (B,S,N) f32; A: (di,N); h0: (B,di,N).
+    Returns (y (B,S,di) f32, h_last).  One chunk's (B, cl, di, N)
+    expansion lives at a time."""
+    B, S, di = xc.shape
+    cl = min(chunk, S)
+    pad = (-S) % cl
+    if pad:  # dt=0 padding is a no-op on the state (a=1, b=0)
+        xc, dt, Bm, Cm = (_pad_seq(t, pad) for t in (xc, dt, Bm, Cm))
+    h, ys = h0, []
+    for c0 in range(0, S + pad, cl):
+        sl = slice(c0, c0 + cl)
+        dt_c = dt[:, sl]
+        a = torch.exp(dt_c[..., None] * A)                  # (B,cl,di,N)
+        b = (dt_c * xc[:, sl])[..., None] * Bm[:, sl, None, :]
+        aa, bb = _doubling_scan(a, b)
+        del a, b
+        hs = aa * h[:, None] + bb                           # (B,cl,di,N)
+        del aa, bb
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs, Cm[:, sl]))
+        h = hs[:, -1].clone()   # a view would keep the chunk's expansion
+        del hs
+    y = torch.cat(ys, dim=1)
+    return y[:, :S], h
+
+
+def mamba1(p, x, cfg, cache=None):
+    """x: (B, S, D). cache None -> full-seq (returns prefill cache);
+    else single-token decode. Returns (out, new_cache)."""
+    B, S, D = x.shape
+    di, N, cw = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    R = max(D // 16, 1)
+    cd = x.dtype
+
+    xz = x @ p["in_proj"].to(cd)
+    xi, z = xz[..., :di], xz[..., di:]
+
+    if cache is None:
+        xc = _causal_conv(xi, p["conv_w"], p["conv_b"])
+        conv_tail = _conv_tail(xi, cw)
+        h0 = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
+    else:
+        xc, conv_tail = _conv_step(xi, cache.conv, p["conv_w"], p["conv_b"])
+        h0 = cache.h
+    xc = F.silu(xc)
+
+    dbc = xc @ p["x_proj"].to(cd)
+    dt_r, Bm, Cm = dbc[..., :R], dbc[..., R:R + N], dbc[..., R + N:]
+    dt = F.softplus((dt_r @ p["dt_proj"].to(cd)).float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+
+    xc32, Bm32, Cm32 = xc.float(), Bm.float(), Cm.float()
+    if cache is None:
+        y, h_last = _mamba1_chunk_scan(xc32, dt, Bm32, Cm32, A, h0,
+                                       cfg.ssm_chunk)
+    else:
+        a = torch.exp(dt[:, 0, :, None] * A)                # (B,di,N)
+        b = (dt[:, 0] * xc32[:, 0])[..., None] * Bm32[:, 0][:, None, :]
+        h_last = a * h0 + b
+        y = torch.einsum("bdn,bn->bd", h_last, Cm32[:, 0])[:, None, :]
+
+    y = y + p["D_skip"] * xc32
+    y = y.to(cd) * F.silu(z)
+    out = y @ p["out_proj"].to(cd)
+    return out, Mamba1Cache(conv=conv_tail, h=h_last)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD)
+# ---------------------------------------------------------------------------
+
+class Mamba2Cache(NamedTuple):
+    conv: torch.Tensor   # (B, cw-1, di + 2N)
+    h: torch.Tensor      # (B, H, hd, N) f32
+
+
+def mamba2_heads(cfg):
+    return cfg.d_inner // cfg.ssm_head_dim
+
+
+def init_mamba2(cfg, generator, device=None):
+    D, di, N, cw = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    H = mamba2_heads(cfg)
+    return {
+        "in_proj": dense_init(generator, (D, 2 * di + 2 * N + H),
+                              device=device),
+        "conv_w": torch.randn((di + 2 * N, cw), generator=generator,
+                              dtype=torch.float32, device=device) * 0.2,
+        "conv_b": torch.zeros((di + 2 * N,), dtype=torch.float32,
+                              device=device),
+        "dt_bias": _dt_init(generator, H, device),
+        "A_log2": torch.log(torch.arange(1, H + 1, dtype=torch.float32,
+                                         device=device)),
+        "D_skip": torch.ones((H,), dtype=torch.float32, device=device),
+        "norm_w": torch.ones((di,), dtype=torch.float32, device=device),
+        "out_proj": dense_init(generator, (di, D), in_dim=di, device=device),
+    }
+
+
+def _ssd_chunk_scan(xh, la, dt, Bm, Cm, h0, chunk):
+    """SSD: xh (B,S,H,hd) f32, la/dt (B,S,H) f32, Bm/Cm (B,S,N) f32,
+    h0 (B,H,hd,N).  Returns (y (B,S,H,hd), h_last)."""
+    B, S, H, hd = xh.shape
+    cl = min(chunk, S)
+    pad = (-S) % cl
+    if pad:  # dt=0 padding is a no-op on the state
+        xh, la, dt, Bm, Cm = (_pad_seq(t, pad) for t in (xh, la, dt, Bm, Cm))
+    # the upper triangle is -inf before the exp: after it, inf * 0 = NaN
+    upper = ~torch.tril(torch.ones((cl, cl), dtype=torch.bool,
+                                   device=xh.device))
+    h, ys = h0, []
+    for c0 in range(0, S + pad, cl):
+        sl = slice(c0, c0 + cl)
+        x_c, dt_c, B_c, C_c = xh[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl]
+        cum = torch.cumsum(la[:, sl], dim=1)                # (B,cl,H), <= 0
+        cb = torch.einsum("btn,bsn->bts", C_c, B_c)         # (B,cl,cl)
+        expo = cum[:, :, None, :] - cum[:, None, :, :]      # (B,t,s,H)
+        expo = expo.masked_fill(upper[None, :, :, None], float("-inf"))
+        w = cb[..., None] * torch.exp(expo) * dt_c[:, None, :, :]
+        y_intra = torch.einsum("btsh,bshd->bthd", w, x_c)
+        y_inter = torch.einsum("btn,bhdn->bthd", C_c, h) * \
+            torch.exp(cum)[..., None]
+        dec_end = torch.exp(cum[:, -1:, :] - cum)           # (B,cl,H)
+        h_inc = torch.einsum("bshd,bsn->bhdn",
+                             (dec_end * dt_c)[..., None] * x_c, B_c)
+        h = torch.exp(cum[:, -1])[:, :, None, None] * h + h_inc
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1)
+    return y[:, :S], h
+
+
+def mamba2(p, x, cfg, cache=None):
+    """Mamba2 block. x: (B, S, D) -> (out, new_cache)."""
+    B, S, D = x.shape
+    di, N, cw = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    H = mamba2_heads(cfg)
+    hd = cfg.ssm_head_dim
+    cd = x.dtype
+
+    zxbcdt = x @ p["in_proj"].to(cd)
+    z, xBC, dt_in = (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * N],
+                     zxbcdt[..., 2 * di + 2 * N:])
+
+    if cache is None:
+        xBC_c = _causal_conv(xBC, p["conv_w"], p["conv_b"])
+        conv_tail = _conv_tail(xBC, cw)
+        h0 = torch.zeros((B, H, hd, N), dtype=torch.float32, device=x.device)
+    else:
+        xBC_c, conv_tail = _conv_step(xBC, cache.conv, p["conv_w"],
+                                      p["conv_b"])
+        h0 = cache.h
+    xBC_c = F.silu(xBC_c)
+    xi, Bm, Cm = xBC_c[..., :di], xBC_c[..., di:di + N], xBC_c[..., di + N:]
+
+    dt = F.softplus(dt_in.float() + p["dt_bias"])          # (B,S,H)
+    A = -torch.exp(p["A_log2"])                             # (H,)
+    la = dt * A
+
+    xh = xi.float().reshape(B, S, H, hd)
+    Bm32, Cm32 = Bm.float(), Cm.float()
+    if cache is None:
+        y, h_last = _ssd_chunk_scan(xh, la, dt, Bm32, Cm32, h0, cfg.ssm_chunk)
+    else:
+        a = torch.exp(la[:, 0])                             # (B,H)
+        h_last = a[:, :, None, None] * h0 + torch.einsum(
+            "bh,bn,bhd->bhdn", dt[:, 0], Bm32[:, 0], xh[:, 0])
+        y = torch.einsum("bn,bhdn->bhd", Cm32[:, 0], h_last)[:, None]
+
+    y = y + p["D_skip"][None, None, :, None] * xh
+    y = y.reshape(B, S, di).to(cd)
+    y = rms_norm(y.float() * F.silu(z.float()), p["norm_w"],
+                 cfg.norm_eps).to(cd)
+    out = y @ p["out_proj"].to(cd)
+    return out, Mamba2Cache(conv=conv_tail, h=h_last)
+
+
+def init_ssm_cache(cfg, batch, dtype=torch.bfloat16, device=None):
+    """Empty SSM caches: the conv window in ``dtype``, the state in f32."""
+    di, N, cw = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    if cfg.ssm_version == 1:
+        return Mamba1Cache(
+            conv=torch.zeros((batch, cw - 1, di), dtype=dtype, device=device),
+            h=torch.zeros((batch, di, N), dtype=torch.float32, device=device))
+    H, hd = mamba2_heads(cfg), cfg.ssm_head_dim
+    return Mamba2Cache(
+        conv=torch.zeros((batch, cw - 1, di + 2 * N), dtype=dtype,
+                         device=device),
+        h=torch.zeros((batch, H, hd, N), dtype=torch.float32, device=device))

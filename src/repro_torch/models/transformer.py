@@ -1,4 +1,4 @@
-"""Model assembly for the families whose layer groups are attention + MLP.
+"""Model assembly for all the families.
 
 Layers are organized into *groups*, as in the JAX package's
 ``repro.models.transformer``:
@@ -8,17 +8,19 @@ Layers are organized into *groups*, as in the JAX package's
                         3 chunked-local + 1 global — iRoPE pattern)
   ssm                 : group = 1 mamba layer
   hybrid (zamba2)     : group = `shared_attn_every` mamba2 layers + ONE
-                        shared attention+FFN block
+                        shared attention+FFN block (the same parameters in
+                        every group — zamba's parameter-sharing trick)
 
 The JAX package stacks the groups' parameters on a leading G axis and
 scans over them; here each group is a module of its own in an
 ``nn.ModuleList`` and the forward pass loops over them (``interop.lm_params``
 carries a stacked JAX tree across).  The caches keep the JAX layout: one
-``{"sub": [KVCache, ...]}`` tree whose leaves carry the leading G axis.
+``{"sub": [KVCache | Mamba1Cache | Mamba2Cache, ...], "shared": KVCache}``
+tree whose leaves carry the leading G axis (``"shared"`` for the hybrid
+family only: each group's copy of the shared block's cache).
 
 Modes: "train" (a forward over full sequences, no caches), "prefill"
-(returns ring caches), "decode" (one token through the caches).  The
-``moe``, ``ssm`` and ``hybrid`` families are not ported yet.
+(returns ring caches), "decode" (one token through the caches).
 """
 
 from __future__ import annotations
@@ -27,18 +29,8 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
-
-#: the families this module runs; the others wait for the port of
-#: ``models/moe.py`` and ``models/ssm.py``
-FAMILIES = ("dense", "vlm", "audio")
-
-
-def require_family(cfg):
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family needs models/moe.py and "
-            f"models/ssm.py, which the port's next LM slice brings; this "
-            f"one runs {FAMILIES}")
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 
 
 # ---------------------------------------------------------------------------
@@ -71,34 +63,63 @@ def sublayer_is_global(cfg, i, n_sub):
 # ---------------------------------------------------------------------------
 
 def _params(tree):
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tree.items()})
+    """A parameter dict of ``tree`` (nested dicts become nested
+    ParameterDicts)."""
+    return nn.ParameterDict({
+        k: _params(v) if isinstance(v, dict)
+        else nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
+
+
+def _ones(cfg, device):
+    return nn.Parameter(torch.ones(cfg.d_model, dtype=torch.float32,
+                                   device=device), requires_grad=False)
 
 
 class Block(nn.Module):
-    """One attention + MLP sublayer: ``ln1``, ``attn`` (wq, wk, wv, wo and
-    the q/k norms under qk_norm), ``ln2``, ``mlp`` (wg, wu, wd)."""
+    """One attention sublayer: ``ln1``, ``attn`` (wq, wk, wv, wo and the
+    q/k norms under qk_norm), ``ln2`` and its FFN: ``moe`` (router,
+    we_gate, we_up, we_down and the ``shared`` MLP) in the moe family, else
+    ``mlp`` (wg, wu, wd)."""
 
     def __init__(self, cfg, generator, device=None):
         super().__init__()
-        ones = torch.ones(cfg.d_model, dtype=torch.float32, device=device)
-        self.ln1 = nn.Parameter(ones.clone(), requires_grad=False)
+        self.ln1 = _ones(cfg, device)
         self.attn = _params(L.init_attention(cfg, generator, device))
-        self.ln2 = nn.Parameter(ones, requires_grad=False)
-        self.mlp = _params(L.init_mlp(cfg.d_model, cfg.d_ff, generator,
-                                      device))
+        self.ln2 = _ones(cfg, device)
+        if cfg.family == "moe":
+            self.moe = _params(MOE.init_moe(cfg, generator, device))
+        else:
+            self.mlp = _params(L.init_mlp(cfg.d_model, cfg.d_ff, generator,
+                                          device))
+
+
+class SSMBlock(nn.Module):
+    """One SSM sublayer: ``ln1`` and ``ssm`` (Mamba1 or Mamba2), no
+    ``ln2``."""
+
+    def __init__(self, cfg, generator, device=None):
+        super().__init__()
+        self.ln1 = _ones(cfg, device)
+        init = SSM.init_mamba1 if cfg.ssm_version == 1 else SSM.init_mamba2
+        self.ssm = _params(init(cfg, generator, device))
+
+
+def _sublayer(cfg, kind, generator, device):
+    if kind == "ssm":
+        return SSMBlock(cfg, generator, device)
+    return Block(cfg, generator, device)
 
 
 class Transformer(nn.Module):
     """Every parameter of one architecture, drawn from ``generator`` (f32):
     ``embed`` (the padded vocabulary's table, absent for audio), ``groups``
-    (G groups of sublayer Blocks), ``final_norm`` and, unless the
+    (G groups of sublayers), ``shared_block`` (the hybrid family's one
+    attention + MLP Block, else None), ``final_norm`` and, unless the
     embeddings are tied, ``lm_head`` (D, padded vocab)."""
 
     def __init__(self, cfg, generator, device=None):
         super().__init__()
-        require_family(cfg)
-        n_groups, kinds, _ = group_layout(cfg)
+        n_groups, kinds, has_shared = group_layout(cfg)
         self.embed = None
         if not cfg.frontend_stub or cfg.family == "vlm":
             # padded rows keep odd vocabs a multiple of 16; the extra
@@ -106,11 +127,12 @@ class Transformer(nn.Module):
             self.embed = _params(L.init_embed(cfg.padded_vocab, cfg.d_model,
                                               generator, device))
         self.groups = nn.ModuleList(
-            nn.ModuleList(Block(cfg, generator, device) for _ in kinds)
+            nn.ModuleList(_sublayer(cfg, kind, generator, device)
+                          for kind in kinds)
             for _ in range(n_groups))
-        self.final_norm = nn.Parameter(
-            torch.ones(cfg.d_model, dtype=torch.float32, device=device),
-            requires_grad=False)
+        self.shared_block = Block(cfg, generator, device) if has_shared \
+            else None
+        self.final_norm = _ones(cfg, device)
         self.lm_head = None
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
@@ -128,7 +150,12 @@ def _apply_attn_block(p, x, positions, cfg, policy, is_global, cache, mode,
                         positions, cfg, is_global=is_global,
                         cache=cache if mode == "decode" else None)
     x = x + h
-    h2 = L.mlp(p.mlp, L.rms_norm(x, p.ln2, cfg.norm_eps))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    xn = L.rms_norm(x, p.ln2, cfg.norm_eps)
+    if hasattr(p, "moe"):
+        h2, aux = MOE.moe_ffn(p.moe, xn, cfg, policy)
+    else:
+        h2 = L.mlp(p.mlp, xn)
     x = policy.constrain_tokens(x + h2)
     if mode == "train":
         new_cache = None
@@ -140,23 +167,52 @@ def _apply_attn_block(p, x, positions, cfg, policy, is_global, cache, mode,
             is_global_layer=is_global)
     else:  # decode: L.attention already returned the updated KVCache
         new_cache = kv
-    return x, new_cache
+    return x, new_cache, aux
 
 
-def _apply_group(gp, x, positions, cfg, policy, caches, mode,
+def _apply_ssm_block(p, x, cfg, policy, cache, mode):
+    fn = SSM.mamba1 if cfg.ssm_version == 1 else SSM.mamba2
+    h, new_cache = fn(p.ssm, L.rms_norm(x, p.ln1, cfg.norm_eps), cfg, cache)
+    x = policy.constrain_tokens(x + h)
+    if mode == "train":
+        new_cache = None
+    return x, new_cache, torch.zeros((), dtype=torch.float32,
+                                     device=x.device)
+
+
+def _apply_group(gp, shared_p, x, positions, cfg, policy, caches, mode,
                  cache_len=None):
-    """One group: its sublayers in order.  ``caches`` is the group's
-    {"sub": [per-sublayer KVCache]} (decode) or None; returns (x, the
-    group's new caches or None in train mode)."""
-    _, kinds, _ = group_layout(cfg)
+    """One group: its sublayers in order, then the shared attention block
+    where the family has one.  ``caches`` is the group's {"sub": [...],
+    "shared": KVCache} (decode) or None; returns (x, the group's new caches
+    or None in train mode, the sublayers' summed router aux loss)."""
+    _, kinds, has_shared = group_layout(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_sub = []
-    for i, blk in enumerate(gp):
+    for i, (kind, blk) in enumerate(zip(kinds, gp)):
         c = caches["sub"][i] if caches is not None else None
-        x, nc = _apply_attn_block(blk, x, positions, cfg, policy,
-                                  sublayer_is_global(cfg, i, len(kinds)), c,
-                                  mode, cache_len=cache_len)
+        if kind == "ssm":
+            x, nc, a = _apply_ssm_block(blk, x, cfg, policy, c, mode)
+        else:
+            x, nc, a = _apply_attn_block(
+                blk, x, positions, cfg, policy,
+                sublayer_is_global(cfg, i, len(kinds)), c, mode,
+                cache_len=cache_len)
+        aux = aux + a
         new_sub.append(nc)
-    return x, (None if mode == "train" else {"sub": new_sub})
+    if mode == "train":
+        new_caches = None
+    else:
+        new_caches = {"sub": new_sub}
+    if has_shared:
+        c = caches["shared"] if caches is not None else None
+        x, nshared, a = _apply_attn_block(shared_p, x, positions, cfg,
+                                          policy, True, c, mode,
+                                          cache_len=cache_len)
+        aux = aux + a
+        if new_caches is not None:
+            new_caches["shared"] = nshared
+    return x, new_caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -178,25 +234,39 @@ def _embed_inputs(params, batch, cfg, policy, dtype):
     return policy.constrain_tokens(x), positions
 
 
+def _map_caches(fn, caches):
+    """``fn`` over every cache of a group tree ({"sub": [...], "shared"}):
+    KVCache and the Mamba caches alike, leaf by leaf."""
+    out = {"sub": [type(c)(*map(fn, c)) for c in caches["sub"]]}
+    if "shared" in caches:
+        out["shared"] = type(caches["shared"])(*map(fn, caches["shared"]))
+    return out
+
+
 def _group_caches(caches, g):
     """Group ``g``'s slice of a stacked cache tree."""
-    return {"sub": [L.KVCache(*(t[g] for t in c)) for c in caches["sub"]]}
+    return _map_caches(lambda t: t[g], caches)
 
 
 def _stack_caches(per_group):
     """Stack the groups' cache trees on a leading G axis."""
-    return {"sub": [L.KVCache(*(torch.stack(ts) for ts in zip(*cs)))
-                    for cs in zip(*(c["sub"] for c in per_group))]}
+    first = per_group[0]
+    out = {"sub": [type(c)(*(torch.stack(ts) for ts in zip(*cs)))
+                   for c, cs in zip(first["sub"],
+                                    zip(*(t["sub"] for t in per_group)))]}
+    if "shared" in first:
+        out["shared"] = type(first["shared"])(*(
+            torch.stack(ts) for ts in zip(*(t["shared"] for t in per_group))))
+    return out
 
 
 def forward(params, batch, cfg, policy, mode="train", caches=None,
             positions=None, cache_len=None, dtype=torch.bfloat16):
     """mode train/prefill: batch holds full sequences.
     mode decode: batch {"tokens": (B,1)} (+ caches, positions (B,1)).
-    ``dtype`` is the compute dtype.  Returns (hidden (B,S,D), new_caches);
-    the JAX package's third result, the MoE router loss, comes with the
-    moe family."""
-    require_family(cfg)
+    ``dtype`` is the compute dtype.  Returns (hidden (B,S,D), new_caches,
+    aux): aux is the router loss summed over sublayers and groups (zero in
+    decode, as the JAX package's)."""
     if mode == "decode":
         if cfg.frontend_stub and cfg.family != "vlm":
             raise ValueError("encoder-only arch has no decode step")
@@ -205,14 +275,17 @@ def forward(params, batch, cfg, policy, mode="train", caches=None,
     else:
         x, pos = _embed_inputs(params, batch, cfg, policy, dtype)
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_list = []
     for g, gp in enumerate(params.groups):
         cc = _group_caches(caches, g) if mode == "decode" else None
-        x, nc = _apply_group(gp, x, pos, cfg, policy, cc, mode,
-                             cache_len=cache_len)
+        x, nc, a = _apply_group(gp, params.shared_block, x, pos, cfg, policy,
+                                cc, mode, cache_len=cache_len)
+        if mode != "decode":
+            aux = aux + a
         new_list.append(nc)
     new_caches = None if mode == "train" else _stack_caches(new_list)
-    return L.rms_norm(x, params.final_norm, cfg.norm_eps), new_caches
+    return L.rms_norm(x, params.final_norm, cfg.norm_eps), new_caches, aux
 
 
 def logits_fn(params, hidden, cfg, policy):
@@ -229,23 +302,32 @@ def logits_fn(params, hidden, cfg, policy):
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg, batch, cache_len, dtype=torch.bfloat16, device=None):
-    """Empty caches for all groups (leaves stacked on a leading G)."""
-    require_family(cfg)
-    n_groups, kinds, _ = group_layout(cfg)
+    """Empty caches for all groups (leaves stacked on a leading G): a
+    KVCache for an attention sublayer, a Mamba cache for an SSM one (the
+    conv window in ``dtype``, the state f32), and the hybrid family's
+    shared block's global KVCache under ``"shared"``."""
+    n_groups, kinds, has_shared = group_layout(cfg)
     sub = []
-    for i in range(len(kinds)):
-        c = L.init_kv_cache(cfg, batch, cache_len,
-                            sublayer_is_global(cfg, i, len(kinds)), dtype,
-                            device)
-        sub.append(L.KVCache(*(t[None].repeat((n_groups,) + (1,) * t.dim())
-                               for t in c)))
-    return {"sub": sub}
+    for i, kind in enumerate(kinds):
+        if kind == "ssm":
+            sub.append(SSM.init_ssm_cache(cfg, batch, dtype, device))
+        else:
+            sub.append(L.init_kv_cache(
+                cfg, batch, cache_len, sublayer_is_global(cfg, i, len(kinds)),
+                dtype, device))
+    one = {"sub": sub}
+    if has_shared:
+        one["shared"] = L.init_kv_cache(cfg, batch, cache_len, True, dtype,
+                                        device)
+    return _map_caches(
+        lambda t: t[None].repeat((n_groups,) + (1,) * t.dim()), one)
 
 
 def cache_bytes(caches) -> int:
     """Bytes held by a cache tree (every leaf of every group)."""
-    return sum(t.numel() * t.element_size()
-               for c in caches["sub"] for t in c)
+    leaves = [t for c in caches["sub"] for t in c]
+    leaves += list(caches.get("shared", ()))
+    return sum(t.numel() * t.element_size() for t in leaves)
 
 
 def param_bytes(params) -> int:

@@ -27,7 +27,10 @@ torch.set_num_threads(2)
 jax.config.update("jax_platform_name", "cpu")
 
 ROOT = Path(__file__).resolve().parents[1]
-SERVED = ("qwen3-1.7b", "granite-3-2b", "h2o-danube-1.8b", "internvl2-26b")
+#: every architecture that decodes
+SERVED = ("qwen3-1.7b", "granite-3-2b", "h2o-danube-1.8b", "internvl2-26b",
+          "qwen3-14b", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
+          "falcon-mamba-7b", "zamba2-2.7b")
 
 
 def _model(name):
@@ -48,8 +51,10 @@ def _batch(cfg, B, S, seed=1):
 
 @pytest.mark.parametrize("name", SERVED)
 def test_bundles_give_the_models_results(name):
-    """prefill_bundle's fn is Model.prefill with caches of seq_len slots;
-    decode_step_bundle's fn is Model.decode_step; three greedy steps."""
+    """prefill_bundle's fn is Model.prefill with caches of seq_len slots
+    (a KV ring's clamped to the window or the attention chunk; the SSM
+    caches hold a state, not positions); decode_step_bundle's fn is
+    Model.decode_step; three greedy steps."""
     cfg, model = _model(name)
     B, S, cache_len = 2, 32, 40
     pre = steps.prefill_bundle(cfg, ShapeSpec("t", cache_len, B, "prefill"))
@@ -59,9 +64,14 @@ def test_bundles_give_the_models_results(name):
     lg, caches = pre.fn(model, batch)
     lg_m, caches_m = model.prefill(batch, cache_len=cache_len)
     assert torch.equal(lg, lg_m)
-    assert caches["sub"][0].k.shape[-3] == min(cache_len,
-                                               cfg.sliding_window or 10 ** 9)
-    for c, cm in zip(caches["sub"], caches_m["sub"]):
+    for c in caches["sub"] + [caches.get("shared")]:
+        if hasattr(c, "k"):
+            clamp = cfg.sliding_window or (
+                cfg.attention_chunk if c is caches["sub"][0] else 0)
+            assert c.k.shape[-3] == min(cache_len, clamp or 10 ** 9)
+    assert set(caches) == set(caches_m)
+    for c, cm in zip(caches["sub"] + [caches.get("shared", ())],
+                     caches_m["sub"] + [caches_m.get("shared", ())]):
         assert all(torch.equal(a, b) for a, b in zip(c, cm))
     for i in range(3):
         tok = lg[:, -1:].argmax(-1).to(torch.int32)
@@ -128,6 +138,20 @@ def test_serve_cli_on_the_cpu():
     assert len(lines) == 3, p.stdout
     assert "arch=qwen3-1.7b-smoke batch=4 prompt=64 gen=32" in lines[0]
     assert "prefill" in lines[1] and "decode" in lines[1]
+    ids = ast.literal_eval(lines[2].split(":", 1)[1].strip())
+    assert len(ids) == 16 and all(0 <= i < 512 for i in ids)
+
+
+def test_serve_cli_serves_the_hybrid():
+    """The CLI with no family check, on zamba2 at the reduced size (2
+    groups of 6 Mamba2 layers + the shared block), a 64-token prompt in
+    two SSM chunks of 32."""
+    name = "zamba2-2.7b"
+    p = _cli("--device", "cpu", "--arch", name)
+    assert p.returncode == 0, p.stderr[-3000:]
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("[serve]")]
+    assert len(lines) == 3, p.stdout
+    assert f"arch={name}-smoke batch=4 prompt=64 gen=32" in lines[0]
     ids = ast.literal_eval(lines[2].split(":", 1)[1].strip())
     assert len(ids) == 16 and all(0 <= i < 512 for i in ids)
 
