@@ -184,7 +184,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    local rings hold the last 8192 positions, decode against prefill with
    capacity raised; (e) ``python -m repro_torch.launch.serve --arch
    zamba2-2.7b`` on the card.
-12. Print the kernel table as one JSON line, the card's name and power
+12. LM training (launches no kernel; the JAX package's LM stack reaches
+   no ``pl.pallas_call``): (a) qwen3-1.7b at full width and depth, 10 x
+   4096 tokens, the Trainer for 4 steps with curation every 2, bf16
+   compute; each step's ms, tokens/s, loss, grad norm, lr and MFU, the
+   peak memory under 70 GiB; (b) 2 steps, a checkpoint, 2 resumed steps
+   against 4 straight (2 layers), bit-equal; (c) falcon-mamba-7b at full
+   width cut to 4 layers, one step at A = 8 micro-batches and one at A =
+   1: loss, parameters, every gradient leaf and the grad norm; (d) one
+   step of qwen2-moe-a2.7b (2 layers) and of zamba2-2.7b (2 groups): a
+   finite loss and aux, every parameter a non-zero gradient, the MoE's
+   recompute under remat routes as its forward; (e) reduced qwen3,
+   falcon-mamba and qwen2-moe in f32, one step on the card against the
+   CPU; (f) the curation's kernel route gives the plain route's ids; (g)
+   ``python -m repro_torch.launch.train`` on the card.
+13. Print the kernel table as one JSON line, the card's name and power
    limit, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -194,6 +208,7 @@ checkout.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -4493,6 +4508,508 @@ def families_phase(torch, ops):
           f"card: {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: LM training (optim/, the loss with remat and the chunked CE,
+# train_step_bundle, data/ with the selection pipeline, runtime/trainer.py,
+# launch/train.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_SEQ = 4096                # train_4k's length
+TRAIN_B = 10                    # cut from train_4k's 256: the largest batch
+#                                 whose peak stays under TRAIN_PEAK_GIB
+#                                 (python -m repro_torch.runtime.batch_probe)
+TRAIN_PEAK_GIB = 70
+TRAIN_STEPS, TRAIN_SELECT_EVERY = 4, 2
+RESUME_LAYERS, RESUME_B, RESUME_SEQ = 2, 2, 1024
+RESUME_TOL = 2e-5               # tests/test_runtime.py's resume bar, where
+#                                 an atomic backward reorders a sum
+MB_ARCH, MB_LAYERS, MB_B, MB_SEQ = "falcon-mamba-7b", 4, 8, 512
+MB_LOSS_RTOL, MB_RTOL, MB_ATOL = 2e-2, 5e-2, 5e-3  # tests/test_perf_features
+# the parameter bar cannot fail after one step at lr 1e-3 (Adam moves an
+# element by at most lr (1 + wd |p|)), so the gradients are held too: each
+# leaf within a bf16-sized share of its own max |g|, and the grad norm
+MB_GRAD_REL, MB_NORM_RTOL = 1e-2, 1e-3
+MOE_TRAIN_ARCH, HYBRID_TRAIN_ARCH = "qwen2-moe-a2.7b", "zamba2-2.7b"
+ONE_B, ONE_SEQ = 2, 1024
+CPU_ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "qwen2-moe-a2.7b")
+CPU_B, CPU_SEQ = 8, 64          # falcon-mamba's 8 micro-batches of one
+CPU_LOSS_RTOL, CPU_GRAD_REL = 1e-5, 1e-4
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1)  # parameters move in one step
+TRAIN_CLI = ["--arch", TRAIN_ARCH, "--no-smoke", "--steps", "3", "--batch",
+             "2", "--seq", "512", "--select"]
+
+
+def train_gib(n):
+    return n / 2**30
+
+
+def spy_steps(trainer):
+    """Keep each step's metrics (host floats) of a Trainer's step."""
+    seen, step = [], trainer._step_fn
+
+    def spied(model, opt, batch):
+        model, opt, m = step(model, opt, batch)
+        seen.append({k: float(v) for k, v in m.items()})
+        return model, opt, m
+    trainer._step_fn = spied
+    return seen
+
+
+class SpyUpdate:
+    """While entered, every ``adamw.update`` call of the train step hands
+    its gradients to ``keep(grads)`` first."""
+
+    def __init__(self, keep):
+        from repro_torch.optim import adamw
+        self.adamw, self.keep = adamw, keep
+
+    def __enter__(self):
+        update = self.orig = self.adamw.update
+
+        def spied(cfg, params, grads, state):
+            self.keep(grads)
+            return update(cfg, params, grads, state)
+        self.adamw.update = spied
+
+    def __exit__(self, *exc):
+        self.adamw.update = self.orig
+
+
+def train_part_a(torch, analysis, card):
+    """Part (a): qwen3-1.7b at full width and depth, seq 4096, the Trainer
+    with the selection pipeline."""
+    from repro_torch.configs.base import SHAPES, ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    cfg = get_config(TRAIN_ARCH)
+    full = SHAPES["train_4k"]
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == (28, 2048, 151_936)
+          and full.seq_len == TRAIN_SEQ,
+          f"{TRAIN_ARCH} / train_4k are not at full size: {cfg} {full}")
+    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_B, "train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = Trainer(cfg, shape,
+                data=DataConfig(global_batch=TRAIN_B, seq_len=TRAIN_SEQ,
+                                select_every=TRAIN_SELECT_EVERY),
+                train=TrainConfig(steps=TRAIN_STEPS),
+                select=True, device="cuda")
+    metrics = spy_steps(t)
+    model, opt = t.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    n_params = sum(p.numel() for p in model.parameters())
+    state = sum(p.numel() * p.element_size() for p in model.parameters())
+    state += sum(2 * m.numel() * m.element_size() for m in opt.m.values())
+    flops = analysis.model_flops_for(cfg, shape)
+    print(f"[train] (a) {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params} parameters; "
+          f"batch {TRAIN_B} x {TRAIN_SEQ} (train_4k's batch "
+          f"{full.global_batch} cut to {TRAIN_B}), remat per group, CE in "
+          f"chunks of {cfg.loss_chunk}, bf16 compute, curated every "
+          f"{TRAIN_SELECT_EVERY} steps; card: {card}")
+    check(len(t.history) == TRAIN_STEPS == len(metrics),
+          f"[train] (a) took {len(t.history)} steps")
+    for rec, m in zip(t.history, metrics):
+        ok = all(map(math.isfinite, (rec.loss, m["grad_norm"], m["lr"])))
+        check(ok and m["grad_norm"] > 0,
+              f"[train] (a) step {rec.step}: loss {rec.loss}, metrics {m}")
+        print(f"[train] (a) step {rec.step}: {rec.seconds * 1e3:.1f} ms, "
+              f"{TRAIN_B * TRAIN_SEQ / rec.seconds:.0f} tokens/s, loss "
+              f"{m['loss']:.6f} (ce {m['ce']:.6f}), grad_norm "
+              f"{m['grad_norm']:.6f}, lr {m['lr']:.3e}, MFU "
+              f"{100 * flops / rec.seconds / analysis.PEAK_FLOPS:.2f} % "
+              f"(model_flops_for {flops:.4e} over the step and "
+              f"{analysis.PEAK_FLOPS:.4e} FLOP/s bf16); card: {card}")
+    check(peak < TRAIN_PEAK_GIB * 2**30,
+          f"[train] (a) peak {train_gib(peak):.2f} GiB over "
+          f"{TRAIN_PEAK_GIB} GiB")
+    sel = t.pipeline._last_sel
+    check(sel is not None and int(sel.sol_size) > 0,
+          "[train] (a) the selection pipeline chose no document")
+    print(f"[train] (a) peak memory {peak} bytes ({train_gib(peak):.2f} GiB; "
+          f"parameters, m and v {train_gib(state):.2f} GiB, the gradients "
+          f"{train_gib(state / 3):.2f} GiB at their peak); the last curated "
+          f"batch took {int(sel.sol_size)} of {t.pipeline.pool} documents; "
+          f"card: {card}")
+    return t.pipeline
+
+
+def train_part_b(torch, card):
+    """Part (b): 2 steps, a checkpoint, 2 resumed steps against 4 straight
+    (qwen3-1.7b at full width cut to 2 layers)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=RESUME_LAYERS)
+    shape = ShapeSpec("resume", RESUME_SEQ, RESUME_B, "train")
+
+    def trainer(steps, ckpt):
+        return Trainer(cfg, shape, data=DataConfig(global_batch=RESUME_B,
+                                                   seq_len=RESUME_SEQ),
+                       train=TrainConfig(steps=steps, ckpt_dir=ckpt,
+                                         ckpt_every=100, log_every=100),
+                       opt=AdamWConfig(**TRAIN_OPT), device="cuda")
+    straight = trainer(4, None)
+    m_full, o_full = straight.run()
+    full = {f"params/{n}": p.detach() for n, p in
+            m_full.params.named_parameters()}
+    full.update({f"m/{n}": t for n, t in o_full.m.items()})
+    full.update({f"v/{n}": t for n, t in o_full.v.items()})
+    del m_full
+    ck = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        trainer(2, ck).run()
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(ck) for f in fs)
+        resumed = trainer(4, ck)
+        m_res, o_res = resumed.run()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    check(not os.path.exists(ck), f"[train] (b) {ck} was not removed")
+    check([r.step for r in resumed.history] == [2, 3],
+          f"[train] (b) the resumed run took steps "
+          f"{[r.step for r in resumed.history]}, not [2, 3]")
+    got = {f"params/{n}": p.detach() for n, p in
+           m_res.params.named_parameters()}
+    got.update({f"m/{n}": t for n, t in o_res.m.items()})
+    got.update({f"v/{n}": t for n, t in o_res.v.items()})
+    differ = [n for n in full if not torch.equal(full[n], got[n])]
+    losses = [r.loss for r in straight.history[2:]]
+    res_losses = [r.loss for r in resumed.history]
+    if differ:
+        worst = max(float(((got[n] - full[n]).abs() /
+                           (RESUME_TOL + RESUME_TOL * full[n].abs())).max())
+                    for n in differ)
+        check(worst <= 1.0,
+              f"[train] (b) resumed vs straight beyond rtol = atol "
+              f"{RESUME_TOL} in {differ}")
+    print(f"[train] (b) {cfg.name} cut to {RESUME_LAYERS} layers, batch "
+          f"{RESUME_B} x {RESUME_SEQ}: 2 steps, a checkpoint of {nbytes} "
+          f"bytes (deleted), 2 resumed steps (first StepRecord.step "
+          f"{resumed.history[0].step}) against 4 straight: "
+          + ("every parameter, m and v bit-equal" if not differ else
+             f"{len(differ)} of {len(full)} tensors differ, within rtol = "
+             f"atol {RESUME_TOL}: {differ}")
+          + f"; losses of steps 2-3 {res_losses} (straight {losses}); "
+          f"card: {card}")
+
+
+def train_part_c(torch, card):
+    """Part (c): falcon-mamba-7b at full width cut to 4 layers, one step at
+    its configured 8 micro-batches and one at 1, on the same batch."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import train_step_bundle
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config(MB_ARCH), n_layers=MB_LAYERS)
+    check((cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.microbatches)
+          == (4096, 8192, 16, 8), f"{MB_ARCH} is not at full width: {cfg}")
+    shape = ShapeSpec("mb", MB_SEQ, MB_B, "train")
+    batch = SyntheticLM(cfg, DataConfig(seed=5, global_batch=MB_B,
+                                        seq_len=MB_SEQ), "cuda").batch_at(0)
+    out, grads = {}, {}
+    for A in (cfg.microbatches, 1):
+        c = dataclasses.replace(cfg, microbatches=A)
+        bundle = train_step_bundle(c, shape,
+                                   opt_cfg=adamw.AdamWConfig(**TRAIN_OPT))
+        model = build_model(c, torch.Generator(device="cuda").manual_seed(3),
+                            "cuda")
+        opt = adamw.init(dict(model.params.named_parameters()))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kept = {}
+        with SpyUpdate(kept.update):    # references: no copy in the step
+            t0 = time.perf_counter()
+            model, opt, m = bundle.fn(model, opt, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        grads[A] = {n: g.cpu() for n, g in kept.items()}
+        del kept
+        out[A] = (float(m["loss"]), {n: p.detach().cpu() for n, p in
+                                     model.params.named_parameters()},
+                  float(m["grad_norm"]))
+        check(math.isfinite(out[A][0]), f"[train] (c) A={A} loss {m}")
+        print(f"[train] (c) {cfg.name} cut to {MB_LAYERS} layers, batch "
+              f"{MB_B} x {MB_SEQ}, A = {A} micro-batches: {ms:.1f} ms, loss "
+              f"{out[A][0]:.6f}, grad_norm {float(m['grad_norm']):.6f}, peak "
+              f"{peak} bytes ({train_gib(peak):.2f} GiB) above the "
+              f"{train_gib(base):.2f} GiB before the step; card: {card}")
+        del model, opt, bundle, m
+        torch.cuda.empty_cache()
+    (l8, p8, n8), (l1, p1, n1) = out[cfg.microbatches], out[1]
+    check(abs(l8 - l1) <= MB_LOSS_RTOL * abs(l1),
+          f"[train] (c) loss {l8} at A = 8, {l1} at A = 1")
+    worst = max(float(((p8[n] - p1[n]).abs() /
+                       (MB_ATOL + MB_RTOL * p1[n].abs())).max()) for n in p1)
+    check(worst <= 1.0, f"[train] (c) parameters after A = 8 and A = 1 "
+          f"differ by {worst} x (atol {MB_ATOL} + rtol {MB_RTOL})")
+    g8, g1 = grads[cfg.microbatches], grads[1]
+    check(set(g8) == set(g1) == set(p1),
+          f"[train] (c) gradients of {sorted(set(g8) ^ set(g1))} missing")
+    rel = {n: float((g8[n] - g1[n]).abs().max() /
+                    g1[n].abs().max().clamp(min=1e-30)) for n in g1}
+    leaf = max(rel, key=rel.get)
+    check(rel[leaf] <= MB_GRAD_REL and abs(n8 - n1) <= MB_NORM_RTOL * n1,
+          f"[train] (c) gradients at A = 8 against A = 1: grad norm {n8} / "
+          f"{n1}, {leaf} differs by {rel[leaf]} of its max |g| (bar "
+          f"{MB_GRAD_REL})")
+    print(f"[train] (c) A = 8 against A = 1: loss {l8:.6f} / {l1:.6f} (rtol "
+          f"{MB_LOSS_RTOL}), parameters within {worst:.4f} of the bar "
+          f"(rtol {MB_RTOL}, atol {MB_ATOL}); grad norm {n8:.6f} / "
+          f"{n1:.6f} (rtol {MB_NORM_RTOL}); worst gradient leaf {leaf} at "
+          f"{rel[leaf]:.3e} of its max |g| over {len(rel)} leaves (bar "
+          f"{MB_GRAD_REL}); card: {card}")
+
+
+def train_part_d(torch, card):
+    """Part (d): one step of qwen2-moe-a2.7b cut to 2 layers and of
+    zamba2-2.7b cut to 2 groups, at full width: the loss, the router aux,
+    a non-zero gradient for every parameter, and the MoE's routing under
+    remat's recompute."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import train_step_bundle
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    for arch, cut in ((MOE_TRAIN_ARCH, lambda c: 2),
+                      (HYBRID_TRAIN_ARCH, lambda c: 2 * c.shared_attn_every)):
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, n_layers=cut(cfg))
+        shape = ShapeSpec("one", ONE_SEQ, ONE_B, "train")
+        bundle = train_step_bundle(cfg, shape,
+                                   opt_cfg=adamw.AdamWConfig(**TRAIN_OPT))
+        model = build_model(cfg, torch.Generator(device="cuda").manual_seed(4),
+                            "cuda")
+        opt = adamw.init(dict(model.params.named_parameters()))
+        batch = SyntheticLM(cfg, DataConfig(seed=6, global_batch=ONE_B,
+                                            seq_len=ONE_SEQ),
+                            "cuda").batch_at(0)
+        routes, gmax = [], {}
+        route = moe._route
+
+        def recorded(logits, c):
+            gate, idx, aux = route(logits, c)
+            routes.append(idx.clone())
+            return gate, idx, aux
+
+        def keep(grads):
+            names = list(grads)
+            amax = torch.stack([grads[n].abs().max() for n in names]).cpu()
+            gmax.update(zip(names, amax.tolist()))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        moe._route = recorded
+        try:
+            with SpyUpdate(keep):
+                t0 = time.perf_counter()
+                model, opt, m = bundle.fn(model, opt, batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            moe._route = route
+        peak = torch.cuda.max_memory_allocated() - base
+        loss, aux = float(m["loss"]), float(m["aux"])
+        check(math.isfinite(loss) and math.isfinite(aux),
+              f"[train] (d) {arch}: loss {loss}, aux {aux}")
+        zero = [n for n, v in gmax.items() if not v > 0]
+        check(not zero and len(gmax) == len(list(model.parameters())),
+              f"[train] (d) {arch}: no gradient for {zero}")
+        line = (f"[train] (d) {cfg.name} cut to {cfg.n_layers} layers, batch "
+                f"{ONE_B} x {ONE_SEQ}: {ms:.1f} ms, loss {loss:.6f}, aux "
+                f"{aux:.6f}, every one of {len(gmax)} parameters has a "
+                f"non-zero gradient (smallest max |g| "
+                f"{min(gmax.values()):.3e}")
+        if cfg.family == "moe":
+            n = cfg.n_layers
+            check(aux > 0, f"[train] (d) {arch}: router aux {aux}")
+            check(len(routes) == 2 * n and all(
+                torch.equal(a, b) for a, b in zip(routes[:n],
+                                                  reversed(routes[n:]))),
+                f"[train] (d) {arch}: {len(routes)} routings; the recompute "
+                f"under remat routed some token otherwise")
+            line += (f"; the recompute of all {n} groups routed every one of "
+                     f"{routes[0].numel()} (token, choice) pairs a layer as "
+                     f"the forward did")
+        else:
+            shared = [v for n, v in gmax.items()
+                      if n.startswith("shared_block.")]
+            line += (f"; the shared block's {len(shared)} parameters take "
+                     f"their gradient summed over the "
+                     f"{len(model.params.groups)} groups")
+        print(f"{line}), peak {peak} bytes ({train_gib(peak):.2f} GiB); "
+              f"card: {card}")
+        del model, opt, bundle, m
+        torch.cuda.empty_cache()
+
+
+def train_part_e(torch, card):
+    """Part (e): one train_step_bundle step of the reduced qwen3,
+    falcon-mamba (8 micro-batches) and qwen2-moe on the card and on the
+    CPU, the same parameters and batch, f32 compute."""
+    import copy
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import train_step_bundle
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the conv's f32 too
+    try:
+        for arch in CPU_ARCHS:
+            cfg = get_config(arch).reduced()
+            shape = ShapeSpec("cpu", CPU_SEQ, CPU_B, "train")
+            cpu = build_model(cfg, torch.Generator().manual_seed(7), "cpu",
+                              torch.float32)
+            card_model = copy.deepcopy(cpu).to("cuda")
+            batch = SyntheticLM(cfg, DataConfig(seed=8, global_batch=CPU_B,
+                                                seq_len=CPU_SEQ),
+                                "cpu").batch_at(0)
+            got = {}
+            for where, model in (("cpu", cpu), ("cuda", card_model)):
+                bundle = train_step_bundle(
+                    cfg, shape, opt_cfg=adamw.AdamWConfig(**TRAIN_OPT))
+                opt = adamw.init(dict(model.params.named_parameters()))
+                grads = {}
+                with SpyUpdate(lambda g: grads.update(
+                        {n: t.detach().cpu().clone() for n, t in g.items()})):
+                    _, _, m = bundle.fn(model, opt, {
+                        k: v.to(where) for k, v in batch.items()})
+                got[where] = (float(m["loss"]), grads)
+            (lc, gc), (lg, gg) = got["cpu"], got["cuda"]
+            check(abs(lg - lc) <= CPU_LOSS_RTOL * abs(lc),
+                  f"[train] (e) {arch}: loss {lg} on the card, {lc} on the "
+                  f"CPU")
+            rel = {n: float((gg[n] - gc[n]).abs().max() /
+                            gc[n].abs().max().clamp(min=1e-30)) for n in gc}
+            bad = {n: r for n, r in rel.items() if r > CPU_GRAD_REL}
+            check(not bad and set(gg) == set(gc),
+                  f"[train] (e) {arch}: gradients beyond {CPU_GRAD_REL} of "
+                  f"their max: {bad}")
+            print(f"[train] (e) {cfg.name} (A = {max(1, cfg.microbatches)}), "
+                  f"batch {CPU_B} x {CPU_SEQ}, f32: loss {lg:.7f} on the "
+                  f"card, {lc:.7f} on the CPU; worst gradient leaf "
+                  f"{max(rel.values()):.2e} of its max |g| over {len(rel)} "
+                  f"leaves (bar {CPU_GRAD_REL}); card: {card}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def train_part_f(torch, ops, pipeline, card):
+    """Part (f): one of (a)'s curation pools through a selector with
+    use_kernel=True (the same spec, dense engine, and the fused engine,
+    whose sweep is coverage_accept): the plain route's ids."""
+    import dataclasses
+    from repro_torch.core.selector import DistributedSelector
+    from repro_torch.data.pipeline import doc_embeddings, step_generator
+    d = pipeline.base.data
+    step = 0
+    pools = [pipeline.base.batch_at(step * d.pool_factor + i + 10_000)
+             for i in range(d.pool_factor)]
+    cat = {k: torch.cat([p[k] for p in pools]) for k in pools[0]}
+    emb = doc_embeddings(cat, pipeline.emb_dim)
+    plain = pipeline.selector
+    check(not plain.spec.use_kernel, "[train] (f) the pipeline's selector "
+          "runs the kernel route")
+
+    def select(sel):
+        return sel.select(emb, sel.opt_upper_bound(emb),
+                          generator=step_generator(d.seed + 77, step, "cuda"))
+    want = select(plain).sol_ids
+    for engine in ("dense", "fused"):
+        spec = dataclasses.replace(plain.spec, use_kernel=True, engine=engine)
+        sel = DistributedSelector(spec, n_total=pipeline.pool,
+                                  feat_dim=pipeline.emb_dim, device="cuda")
+        ops.reset_launch_counts()
+        got = select(sel).sol_ids
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts(ops).items()
+                  if v and "@" not in k}
+        check(torch.equal(got, want),
+              f"[train] (f) {engine}: kernel route ids {got.tolist()}, plain "
+              f"{want.tolist()}")
+        need = ("coverage_marginals",) + (
+            ("coverage_accept",) if engine == "fused" else ())
+        check(all(counts.get(k, 0) > 0 for k in need),
+              f"[train] (f) {engine}: launches {counts}")
+        print(f"[train] (f) the step-{step} curation pool ({pipeline.pool} "
+              f"documents of {d.seq_len} tokens, {pipeline.emb_dim} hash "
+              f"features) on the {engine} engine's kernel route: ids "
+              f"{got.tolist()} = the plain route's; launches {counts}; "
+              f"card: {card}")
+
+
+def train_part_g(card):
+    """Part (g): the training CLI at full width on the card."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=LM_CLI_TIMEOUT_S)
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("[train]")]
+    check(p.returncode == 0 and lines
+          and lines[-1].startswith("[train] done: steps=3 loss "),
+          f"[train] (g) train exited {p.returncode}:\n{p.stdout[-2000:]}\n"
+          f"{p.stderr[-3000:]}")
+    for ln in lines:
+        print(f"[train] (g) {ln}; card: {card}")
+    print(f"[train] (g) python -m repro_torch.launch.train "
+          f"{' '.join(TRAIN_CLI)} took {time.perf_counter() - t0:.3f} s; "
+          f"card: {card}")
+
+
+def train_phase(torch, ops):
+    """Phase 12: LM training on the card, parts (a)-(g).  The training
+    path reaches none of the fifteen kernels (its curation runs the plain
+    route, as the JAX package's); (f) runs the curation's kernel route."""
+    from repro_torch.roofline import analysis
+    card = smi()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"[train] phase 12 starts with {torch.cuda.memory_allocated()} "
+          f"bytes allocated on the card; card: {card}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pipeline = train_part_a(torch, analysis, card)
+    torch.cuda.empty_cache()
+    counts = read_counts(ops)
+    print(f"[train] part (a) took {time.perf_counter() - t0:.3f} s; kernel "
+          f"launches on the training path: "
+          f"{ {k: v for k, v in counts.items() if v and '@' not in k} } "
+          f"(the LM stack reaches no pallas_call in the JAX package, and the "
+          f"curation's selector runs the plain route, use_kernel=False, as "
+          f"the JAX package's); card: {card}")
+    for label, part in (
+            ("(b)", lambda: train_part_b(torch, card)),
+            ("(c)", lambda: train_part_c(torch, card)),
+            ("(d)", lambda: train_part_d(torch, card)),
+            ("(e)", lambda: train_part_e(torch, card)),
+            ("(f)", lambda: train_part_f(torch, ops, pipeline, card)),
+            ("(g)", lambda: train_part_g(card))):
+        t0 = time.perf_counter()
+        part()
+        torch.cuda.empty_cache()
+        print(f"[train] part {label} took {time.perf_counter() - t0:.3f} s; "
+              f"card: {card}")
+    print(f"[train] phase 12 took {time.perf_counter() - t_phase:.3f} s; "
+          f"card: {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4670,6 +5187,9 @@ def main() -> int:
 
     # the moe, ssm and hybrid families at full width
     families_phase(torch, ops)
+
+    # LM training at full width
+    train_phase(torch, ops)
 
     check(SHAPES == _wrap.SHAPES, f"shape classes {_wrap.SHAPES}")
     table = []

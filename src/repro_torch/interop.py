@@ -9,8 +9,9 @@ partition matroid's labels and caps, the sample rounds' U[0, 1) draws on
 the sim and on the mesh, a query batch's budgets and hyper-parameters, a
 fault plan, the Theorem-4 instance's oracle, and a streaming sieve's spec
 and live state).  The LM stack does have weights: ``lm_params`` and
-``lm_caches`` carry a JAX parameter tree and KV caches across.  These
-helpers turn such
+``lm_caches`` carry a JAX parameter tree and KV caches across,
+``adamw_state`` an optimizer state, and ``lm_tree`` carries the port's
+parameters or gradients back into the JAX tree.  These helpers turn such
 arrays into the port's tensors and oracle on a given device, so a test can
 feed the same inputs to both packages.  numpy bfloat16 arrays (the
 ``ml_dtypes`` type that JAX hands out) arrive as torch.bfloat16.
@@ -33,6 +34,7 @@ from repro_torch.core.mapreduce import QueryBatch
 from repro_torch.models import layers as LM
 from repro_torch.models import ssm as SSM
 from repro_torch.models.model import Model
+from repro_torch.optim.adamw import OptState
 from repro_torch.streaming.sieve import SieveSpec, SieveState
 
 
@@ -293,6 +295,76 @@ def lm_params(tree, cfg, device="cpu", dtype=torch.bfloat16) -> Model:
     if p.lm_head is not None:
         put(p.lm_head, tree["lm_head"])
     return model
+
+
+def _jax_leaf(tree, name: str):
+    """The leaf of a JAX-layout tree (``init_params``'s structure, groups
+    stacked on a leading G) for the port's parameter ``name``
+    (``Model.params.named_parameters()``'s dotted names): group g's
+    sublayer i's ``groups.g.i.<path>`` is ``tree["groups"][i][<path>][g]``."""
+    parts = name.split(".")
+    if parts[0] != "groups":
+        node = tree
+        for k in parts:
+            node = node[k]
+        return node
+    g, i, rest = int(parts[1]), int(parts[2]), parts[3:]
+    node = tree["groups"][i]
+    for k in rest:
+        node = node[k]
+    return node[g]
+
+
+def adamw_state(jax_opt, model: Model):
+    """A JAX ``adamw.OptState`` (step, and m, v in the parameters' tree) as
+    the port's: the step an int32 0-d tensor, m and v f32 by the port's
+    parameter names, on the model's device."""
+    names = [n for n, _ in model.params.named_parameters()]
+    dev = model.device
+
+    def moments(tree):
+        return {n: tensor(np.asarray(_jax_leaf(tree, n), np.float32), dev)
+                for n in names}
+    return OptState(step=tensor(np.asarray(jax_opt.step, np.int32), dev),
+                    m=moments(jax_opt.m), v=moments(jax_opt.v))
+
+
+def _nest(flat):
+    """Dotted names -> nested dicts."""
+    out = {}
+    for name, leaf in flat.items():
+        node = out
+        *path, last = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return out
+
+
+def lm_tree(model: Model, grads: bool = False):
+    """The port's parameters (or, with ``grads``, their ``.grad``; None
+    reads as zeros) as numpy arrays in the JAX package's tree: the groups'
+    leaves re-stacked on a leading G axis, one dict a sublayer; the inverse
+    of ``lm_params``."""
+    def host(p):
+        t = p.grad if grads else p
+        if t is None:
+            t = torch.zeros_like(p)
+        return t.detach().cpu().numpy()
+
+    named = dict(model.params.named_parameters())
+    flat = {n: host(p) for n, p in named.items()
+            if not n.startswith("groups.")}
+    tree = _nest(flat)
+    G, n_sub = len(model.params.groups), len(model.params.groups[0])
+    subs = []
+    for i in range(n_sub):
+        pre = f"groups.0.{i}."
+        rel = [n[len(pre):] for n in named if n.startswith(pre)]
+        subs.append(_nest({r: np.stack([host(named[f"groups.{g}.{i}.{r}"])
+                                        for g in range(G)]) for r in rel}))
+    tree["groups"] = subs
+    return tree
 
 
 #: the port's cache types by the JAX package's NamedTuple names

@@ -1,12 +1,12 @@
-"""Step builders shared by the serving launcher and its callers.
+"""Step bundles shared by the training and serving launchers.
 
 Each builder returns a ``StepBundle``: the step function, the batch it
 takes (name -> shape and dtype) and the sharding policy.  The JAX package's
 bundles also carry abstract arguments and shardings for its dry-run; on
 one card there is nothing to place (neither KV nor SSM caches), and the
 model owns its parameters, so a step takes the ``Model`` as its first
-argument.  The bundles serve every family that decodes.
-``train_step_bundle`` comes with the training slice of the port.
+argument.  The serving bundles serve every family that decodes; the train
+step every family.
 """
 
 from __future__ import annotations
@@ -14,9 +14,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict
 
+import torch
+
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec
 from repro_torch.models.model import TensorSpec, input_specs
 from repro_torch.models.sharding import ShardingPolicy, make_policy
+from repro_torch.optim import adamw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +27,63 @@ class StepBundle:
     fn: Any
     input_specs: Dict[str, TensorSpec]
     policy: ShardingPolicy
+
+
+def train_step_bundle(cfg: ArchConfig, shape: ShapeSpec, mesh=None,
+                      opt_cfg: adamw.AdamWConfig = None) -> StepBundle:
+    """The full train step: ``fn(model, opt_state, batch)`` runs forward,
+    backward, the clip and the AdamW update (the model's parameters and the
+    moments in place) and returns (model, new opt state, metrics {"ce",
+    "aux", "loss", "lr", "grad_norm"}, 0-d tensors).  It turns gradients on
+    for the model it is given.
+
+    With ``cfg.microbatches`` A > 1 the batch is cut into A slices along
+    its batch axis, one backward a slice, the gradients accumulated in f32
+    (the parameters' dtype) and divided by A with the loss and the
+    metrics; the policy, and so the MoE's capacity, sees the micro-batch."""
+    A = max(1, cfg.microbatches)
+    policy = make_policy(mesh, shape.global_batch // A, "train",
+                         head_fsdp=cfg.head_fsdp,
+                         pure_fsdp=cfg.parallelism == "fsdp")
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+
+    def train_step(model, opt_state, batch):
+        model.requires_grad_(True)
+        params = dict(model.params.named_parameters())
+        for p in params.values():
+            p.grad = None
+        B = next(iter(batch.values())).shape[0]
+        if B % A:
+            raise ValueError(f"train_step: a batch of {B} rows does not "
+                             f"split into {A} micro-batches")
+        b = B // A
+        loss, metrics = None, None
+        with torch.enable_grad():
+            for a in range(A):
+                mb = batch if A == 1 else {
+                    k: v[a * b:(a + 1) * b] for k, v in batch.items()}
+                l, m = model.loss(mb, policy)
+                # backward adds each slice's gradients into p.grad, the
+                # accumulator (f32), in slice order
+                l.backward()
+                l, m = l.detach(), {k: t.detach() for k, t in m.items()}
+                loss = l if loss is None else loss + l
+                metrics = m if metrics is None else {
+                    k: metrics[k] + m[k] for k in m}
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items()}
+        if A > 1:
+            for g in grads.values():
+                g.div_(A)
+            loss = loss / A
+            metrics = {k: t / A for k, t in metrics.items()}
+        _, new_opt, om = adamw.update(opt_cfg, params, grads, opt_state)
+        for p in params.values():
+            p.grad = None
+        return model, new_opt, dict(metrics, loss=loss, **om)
+
+    return StepBundle(fn=train_step, input_specs=input_specs(cfg, shape),
+                      policy=policy)
 
 
 def prefill_bundle(cfg: ArchConfig, shape: ShapeSpec,
@@ -61,9 +121,7 @@ def decode_step_bundle(cfg: ArchConfig, shape: ShapeSpec,
 def bundle_for(cfg: ArchConfig, shape_name: str, mesh=None) -> StepBundle:
     shape = SHAPES[shape_name]
     if shape.kind == "train":
-        raise NotImplementedError(
-            f"{shape_name}: train_step_bundle comes with the port's training "
-            f"slice (optim/, the loss, runtime/trainer.py)")
+        return train_step_bundle(cfg, shape, mesh)
     if shape.kind == "prefill":
         return prefill_bundle(cfg, shape, mesh)
     return decode_step_bundle(cfg, shape, mesh)

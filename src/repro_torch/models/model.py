@@ -1,10 +1,13 @@
-"""Model facade: build once from an ArchConfig, then prefill, decode and
-encode, plus the input specs of a shape.
+"""Model facade: build once from an ArchConfig, then the training loss,
+prefill, decode and encode, plus the input specs of a shape.
 
 ``Model`` is an ``nn.Module`` that owns its parameters (f32, drawn from an
 explicit ``torch.Generator`` on the model's device) and its compute dtype
 (bf16 by default; f32 for a check of the arithmetic), where the JAX
 package's facade is stateless and takes a parameter tree in each call.
+The parameters are built with ``requires_grad=False``, so serving builds
+no graph; a training entry point turns gradients on for its own model
+(``model.requires_grad_(True)``).
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec,
 
 
 class Model(nn.Module):
-    """One architecture's parameters and its serving steps.
+    """One architecture's parameters, its training loss and its serving
+    steps.
 
     ``generator`` draws every parameter; the model lives on its device
     unless ``device`` says otherwise.  ``dtype`` is the compute dtype: the
@@ -80,6 +84,13 @@ class Model(nn.Module):
             None, batch_size, kind)
 
     # -- steps -------------------------------------------------------------
+    def loss(self, batch, policy: ShardingPolicy = None):
+        """The training loss of a batch with ``labels``: (loss, {"ce",
+        "aux"}), differentiable in the parameters that require grad."""
+        policy = self._policy(policy, _batch_size(batch), "train")
+        return T.loss_fn(self.params, batch, self.cfg, policy,
+                         dtype=self.dtype)
+
     def prefill(self, batch, policy: ShardingPolicy = None, cache_len=None):
         """Full prompts in: (logits of the last position (B, 1, V), the
         caches)."""

@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import dense_init, rms_norm
 
@@ -113,28 +114,38 @@ def _doubling_scan(a, b):
     return a, b
 
 
+def _mamba1_chunk(dt_c, x_c, B_c, C_c, A, h):
+    """One chunk of the scan: (y (B,cl,di), the chunk's last state)."""
+    a = torch.exp(dt_c[..., None] * A)                      # (B,cl,di,N)
+    b = (dt_c * x_c)[..., None] * B_c[:, :, None, :]
+    aa, bb = _doubling_scan(a, b)
+    del a, b
+    hs = aa * h[:, None] + bb                               # (B,cl,di,N)
+    del aa, bb
+    y = torch.einsum("bcdn,bcn->bcd", hs, C_c)
+    return y, hs[:, -1].clone()  # a view would keep the chunk's expansion
+
+
 def _mamba1_chunk_scan(xc, dt, Bm, Cm, A, h0, chunk):
     """xc, dt: (B,S,di) f32; Bm, Cm: (B,S,N) f32; A: (di,N); h0: (B,di,N).
     Returns (y (B,S,di) f32, h_last).  One chunk's (B, cl, di, N)
-    expansion lives at a time."""
+    expansion lives at a time; under autograd each chunk is checkpointed,
+    since its doubling scan would otherwise keep every level's expansions
+    of every chunk alive for backward (the values are the same)."""
     B, S, di = xc.shape
     cl = min(chunk, S)
     pad = (-S) % cl
     if pad:  # dt=0 padding is a no-op on the state (a=1, b=0)
         xc, dt, Bm, Cm = (_pad_seq(t, pad) for t in (xc, dt, Bm, Cm))
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xc, dt, Bm, Cm, A, h0))
     h, ys = h0, []
     for c0 in range(0, S + pad, cl):
         sl = slice(c0, c0 + cl)
-        dt_c = dt[:, sl]
-        a = torch.exp(dt_c[..., None] * A)                  # (B,cl,di,N)
-        b = (dt_c * xc[:, sl])[..., None] * Bm[:, sl, None, :]
-        aa, bb = _doubling_scan(a, b)
-        del a, b
-        hs = aa * h[:, None] + bb                           # (B,cl,di,N)
-        del aa, bb
-        ys.append(torch.einsum("bcdn,bcn->bcd", hs, Cm[:, sl]))
-        h = hs[:, -1].clone()   # a view would keep the chunk's expansion
-        del hs
+        part = (dt[:, sl], xc[:, sl], Bm[:, sl], Cm[:, sl], A, h)
+        y, h = checkpoint(_mamba1_chunk, *part, use_reentrant=False) \
+            if grad else _mamba1_chunk(*part)
+        ys.append(y)
     y = torch.cat(ys, dim=1)
     return y[:, :S], h
 

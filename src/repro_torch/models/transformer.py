@@ -19,14 +19,18 @@ carries a stacked JAX tree across).  The caches keep the JAX layout: one
 tree whose leaves carry the leading G axis (``"shared"`` for the hybrid
 family only: each group's copy of the shared block's cache).
 
-Modes: "train" (a forward over full sequences, no caches), "prefill"
+Modes: "train" (a forward over full sequences, no caches; each group
+checkpointed under ``cfg.remat`` while autograd records), "prefill"
 (returns ring caches), "decode" (one token through the caches).
+``loss_fn`` is the training loss over a train-mode forward.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -260,6 +264,13 @@ def _stack_caches(per_group):
     return out
 
 
+def _train_group(gp, shared_p, x, positions, cfg, policy):
+    """One group in train mode: (x, its router aux loss)."""
+    x, _, aux = _apply_group(gp, shared_p, x, positions, cfg, policy, None,
+                             "train")
+    return x, aux
+
+
 def forward(params, batch, cfg, policy, mode="train", caches=None,
             positions=None, cache_len=None, dtype=torch.bfloat16):
     """mode train/prefill: batch holds full sequences.
@@ -277,7 +288,17 @@ def forward(params, batch, cfg, policy, mode="train", caches=None,
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_list = []
+    # remat per group, as the JAX package's jax.checkpoint of each group:
+    # backward keeps only the groups' inputs and recomputes one group at a
+    # time (the recompute routes the MoE's tokens on the same values, so
+    # alike)
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     for g, gp in enumerate(params.groups):
+        if remat:
+            x, a = checkpoint(_train_group, gp, params.shared_block, x, pos,
+                              cfg, policy, use_reentrant=False)
+            aux = aux + a
+            continue
         cc = _group_caches(caches, g) if mode == "decode" else None
         x, nc, a = _apply_group(gp, params.shared_block, x, pos, cfg, policy,
                                 cc, mode, cache_len=cache_len)
@@ -295,6 +316,50 @@ def logits_fn(params, hidden, cfg, policy):
         # mask pad columns (large-negative, not -inf: keeps lse finite)
         logits[..., cfg.vocab_size:] = -1e30
     return logits
+
+
+def loss_fn(params, batch, cfg, policy, dtype=torch.bfloat16):
+    """Token-level CE over f32 logits, plus ``router_aux_coef`` times the
+    router aux loss: (loss, {"ce", "aux"}).  The vlm's image positions
+    carry no label; ``batch["loss_mask"]`` (B, S) weighs the tokens when
+    given.  Over ``cfg.loss_chunk`` positions at a time when the chunk
+    divides the sequence and is shorter, each chunk's CE checkpointed, so
+    one (B, chunk, V) f32 logits buffer is alive at a time in backward
+    too (the JAX package's ``jax.checkpoint`` of the scanned body)."""
+    hidden, _, aux = forward(params, batch, cfg, policy, mode="train",
+                             dtype=dtype)
+    if cfg.family == "vlm":
+        hidden = hidden[:, batch["image_embeds"].shape[1]:]
+    labels = batch["labels"].long()
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+
+    def ce(h, y, msk):
+        lg = logits_fn(params, h, cfg, policy).float()
+        lse = torch.logsumexp(lg, dim=-1)
+        if cfg.ce_onehot:
+            onehot = F.one_hot(y, lg.shape[-1]).to(lg.dtype)
+            true = torch.einsum("bsv,bsv->bs", lg, onehot)
+        else:
+            true = torch.gather(lg, -1, y[..., None])[..., 0]
+        return torch.sum((lse - true) * msk), torch.sum(msk)
+
+    S, chunk = hidden.shape[1], cfg.loss_chunk
+    if chunk and S % chunk == 0 and S > chunk:
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        grad = torch.is_grad_enabled()
+        for c0 in range(0, S, chunk):
+            part = (hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                    mask[:, c0:c0 + chunk])
+            ds, dc = checkpoint(ce, *part, use_reentrant=False) if grad \
+                else ce(*part)
+            tot, cnt = tot + ds, cnt + dc
+    else:
+        tot, cnt = ce(hidden, labels, mask)
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss + cfg.router_aux_coef * aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

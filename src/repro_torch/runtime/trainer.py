@@ -1,0 +1,169 @@
+"""Production training loop: the step function from launch.steps, data
+from the (selection-)pipeline, async checkpointing, fault-tolerance hooks.
+
+The port of the JAX package's ``repro.runtime.trainer``:
+
+* **checkpoint/restart** — state = (params, opt, data cursor); restore is
+  resume-exact because the pipeline is cursor-addressable.  The
+  ``Checkpointer`` copies every leaf to the host before ``save`` returns,
+  so the step's in-place updates cannot tear an async save.
+* **straggler mitigation** — a per-step wall-clock EWMA with a deadline
+  multiple; a step exceeding it is recorded as a straggler.
+* **elastic re-mesh** — ``elastic_remesh`` rebuilds the trainer on a new
+  mesh and carries the state through the checkpoint.  The selector state
+  needs no migration: the paper's random partition is oblivious to m.
+* **preemption signal** — a cooperative ``should_stop`` callable checked per
+  step, with a final blocking save at the first step not taken.
+
+The model owns its parameters, so the state the loop carries is (model,
+opt state); it runs on the card unless ``device`` asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.data.selection import SelectionPipeline
+from repro_torch.device import resolve_device
+from repro_torch.launch.steps import train_step_bundle
+from repro_torch.models.model import build_model
+from repro_torch.optim import adamw
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    steps: int = 100
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50
+    ckpt_async: bool = True
+    log_every: int = 10
+    straggler_factor: float = 3.0   # deadline = factor * EWMA(step time)
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class StepRecord:
+    step: int
+    loss: float
+    seconds: float
+    straggler: bool
+
+
+class Trainer:
+    def __init__(self, cfg: ArchConfig, shape: ShapeSpec, mesh=None,
+                 data: DataConfig = None, train: TrainConfig = None,
+                 opt: adamw.AdamWConfig = None, select: bool = False,
+                 verbose: bool = False, device=None):
+        self.cfg, self.shape, self.mesh = cfg, shape, mesh
+        self.device = resolve_device(device)
+        self.train_cfg = train or TrainConfig()
+        self.data_cfg = data or DataConfig(
+            global_batch=shape.global_batch, seq_len=shape.seq_len)
+        self.opt_cfg = opt or adamw.AdamWConfig()
+        self.verbose = verbose
+
+        self.bundle = train_step_bundle(cfg, shape, mesh, self.opt_cfg)
+        self.policy = self.bundle.policy
+        self._step_fn = self.bundle.fn
+
+        base = SyntheticLM(cfg, self.data_cfg, self.device)
+        self.pipeline = SelectionPipeline(base, self.policy) if select \
+            else base
+
+        self.ckpt = Checkpointer(self.train_cfg.ckpt_dir) \
+            if self.train_cfg.ckpt_dir else None
+        self.history: list[StepRecord] = []
+        self._ewma: Optional[float] = None
+
+    # ------------------------------------------------------------------
+    def init_state(self):
+        """(model drawn from the train seed, with gradients on; a fresh
+        opt state; cursor 0)."""
+        gen = torch.Generator(device=self.device).manual_seed(
+            self.train_cfg.seed)
+        model = build_model(self.cfg, gen, self.device)
+        model.requires_grad_(True)
+        opt = adamw.init(dict(model.params.named_parameters()))
+        return model, opt, 0
+
+    def restore_or_init(self):
+        if self.ckpt and self.ckpt.latest_step() is not None:
+            model, opt, _ = self.init_state()
+            params = dict(model.params.named_parameters())
+            tmpl = {"params": params, "opt": opt,
+                    "cursor": torch.zeros((), dtype=torch.int32)}
+            state, _ = self.ckpt.restore(tmpl)
+            with torch.no_grad():
+                for name, p in params.items():
+                    p.copy_(state["params"][name])
+            return model, state["opt"], int(state["cursor"])
+        return self.init_state()
+
+    def save(self, model, opt, step: int, blocking: bool = False):
+        if not self.ckpt:
+            return
+        state = {"params": dict(model.params.named_parameters()), "opt": opt,
+                 "cursor": torch.tensor(step, dtype=torch.int32)}
+        self.ckpt.save(step, state,
+                       blocking=blocking or not self.train_cfg.ckpt_async)
+
+    # ------------------------------------------------------------------
+    def run(self, should_stop: Callable[[], bool] = None,
+            on_step: Callable[[StepRecord], None] = None):
+        model, opt, start = self.restore_or_init()
+        tc = self.train_cfg
+        # the cursor: the first step not taken.  The JAX package's final
+        # save writes step + 1 (src/repro/runtime/trainer.py:156), one past
+        # the cursor after a preempted break or a run with no step to take,
+        # so its resume would skip a batch
+        done = start
+        for step in range(start, tc.steps):
+            if should_stop and should_stop():
+                break
+            batch = self.pipeline.batch_at(step)
+            t0 = time.time()
+            model, opt, metrics = self._step_fn(model, opt, batch)
+            loss = float(metrics["loss"])
+            dt = time.time() - t0
+            done = step + 1
+
+            ew = self._ewma
+            self._ewma = dt if ew is None else 0.9 * ew + 0.1 * dt
+            straggler = ew is not None and dt > tc.straggler_factor * ew
+            rec = StepRecord(step, loss, dt, straggler)
+            self.history.append(rec)
+            if on_step:
+                on_step(rec)
+            if self.verbose and step % tc.log_every == 0:
+                print(f"[train] step={step} loss={loss:.4f} "
+                      f"dt={dt * 1e3:.0f}ms"
+                      f"{' STRAGGLER' if straggler else ''}", flush=True)
+            if self.ckpt and done % tc.ckpt_every == 0:
+                self.save(model, opt, done)
+        if self.ckpt:
+            self.save(model, opt, done, blocking=True)
+            self.ckpt.wait()
+        return model, opt
+
+
+# ---------------------------------------------------------------------------
+# elastic re-mesh
+# ---------------------------------------------------------------------------
+
+def elastic_remesh(trainer: Trainer, new_mesh) -> Trainer:
+    """Machine loss/gain: rebuild the trainer on ``new_mesh``, carrying state
+    through the checkpoint.  The paper's selection state migrates for free
+    (random partition is oblivious to m); the model and opt state come back
+    on restore."""
+    return Trainer(trainer.cfg, trainer.shape, new_mesh,
+                   data=trainer.data_cfg, train=trainer.train_cfg,
+                   opt=trainer.opt_cfg,
+                   select=isinstance(trainer.pipeline, SelectionPipeline),
+                   verbose=trainer.verbose, device=trainer.device)

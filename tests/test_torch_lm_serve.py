@@ -101,13 +101,10 @@ def test_input_specs_match_jax(name, shape_name):
 def test_bundle_for(shape_name):
     cfg = get_config("qwen3-1.7b")
     shape = SHAPES[shape_name]
-    if shape.kind == "train":
-        with pytest.raises(NotImplementedError, match="train_step_bundle"):
-            steps.bundle_for(cfg, shape_name)
-        return
     b = steps.bundle_for(cfg, shape_name)
     assert b.policy.kind == shape.kind
-    want = {"decode": {"tokens", "positions"}, "prefill": {"tokens"}}
+    want = {"decode": {"tokens", "positions"}, "prefill": {"tokens"},
+            "train": {"tokens", "labels"}}
     assert set(b.input_specs) == want[shape.kind]
     assert b.input_specs["tokens"].shape[0] == shape.global_batch
 
