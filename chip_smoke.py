@@ -156,8 +156,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    against model_flops_for over the bf16 peak) beside the measured step;
    (b) a qwen3-1.7b prefill of B = 8 x 4096 tokens (q_block 512 and
    kv_block 1024 both tile), ms, tok/s, model_flops_for over the bf16
-   peak and peak memory; (c) h2o-danube-1.8b (window 4096, head_dim 80),
-   B = 1, prompt 4160, generate 16: the ring branch of prefill_to_cache
+   peak and peak memory; (c) h2o-danube-1.8b (window 4096, head_dim 80;
+   8 of its 24 layers), B = 1, prompt 4160, generate 16: the ring branch
+   of prefill_to_cache
    and a decode that wraps the ring, with (a)'s decode-vs-prefill check;
    (d) ``python -m repro_torch.launch.serve --arch qwen3-1.7b`` on the
    card; (e) exclude_ids at the 148-lane batch's shape (L = 148, C =
@@ -168,16 +169,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ``models/ssm.py``, their groups in the transformer, the bundles, the
    CLI; random weights on the card, bf16 compute), each part printing its
    seconds, ms, tok/s, peak memory and one decode step against its
-   roofline bound: (a) qwen2-moe-a2.7b at full width and depth (24
-   layers, 60 experts top-4, shared width 5632) at launch/serve.py's
+   roofline bound: (a) qwen2-moe-a2.7b at full width (60 experts top-4,
+   shared width 5632), its 24 layers cut to 8 at launch/serve.py's
    defaults twice (the same ids), the (token, choice) rows its
    capacity_factor 1.25 drops in prefill, and decode against prefill with
    capacity raised to E / k (nothing drops) at (a)'s bf16 bar; (b)
-   falcon-mamba-7b at full width and depth (64 Mamba1 layers, d_inner
-   8192) twice, a B = 1 x 4096 prefill (32 chunks of 128), and decode
+   falcon-mamba-7b at full width (d_inner 8192), its 64 Mamba1 layers
+   cut to 16 twice, a B = 1 x 4096 prefill (32 chunks of 128), and decode
    against prefill in f32 compute (within 1e-3, every argmax equal); (c)
-   zamba2-2.7b at full width and depth (9 groups of 6 Mamba2 layers + the
-   shared block), prompt 200 (the chunk's pad branch), the shared block's
+   zamba2-2.7b at full width, its 9 groups (6 Mamba2 layers + the
+   shared block each) cut to 3, prompt 200 (the chunk's pad branch), the shared block's
    9 group copies of its cache, decode against prefill in f32; (d)
    llama4-scout-17b-a16e at full width cut to one group of 4 layers (3
    chunked-local + 1 global), B = 1, prompt 8256 past the 8192 chunk: the
@@ -186,7 +187,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    zamba2-2.7b`` on the card.
 12. LM training (launches no kernel; the JAX package's LM stack reaches
    no ``pl.pallas_call``): (a) qwen3-1.7b at full width and depth, 10 x
-   4096 tokens, the Trainer for 4 steps with curation every 2, bf16
+   4096 tokens, the Trainer for 3 steps with curation every 2, bf16
    compute; each step's ms, tokens/s, loss, grad norm, lr and MFU, the
    peak memory under 70 GiB; (b) 2 steps, a checkpoint, 2 resumed steps
    against 4 straight (2 layers), bit-equal; (c) falcon-mamba-7b at full
@@ -198,7 +199,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    falcon-mamba and qwen2-moe in f32, one step on the card against the
    CPU; (f) the curation's kernel route gives the plain route's ids; (g)
    ``python -m repro_torch.launch.train`` on the card.
-13. Print the kernel table as one JSON line, the card's name and power
+13. LM serving on a (data, model) mesh of gloo ranks sharing the card
+   (``models/sharding.py``'s multi-rank policy, ``models/collectives.py``,
+   the sharded layers, the MoE's ep / tp / all-to-all modes, the bundles
+   on a mesh; launches no kernel), each part against the one-rank serving
+   of the same seeded weights on the card, the decode steps fed the
+   one-rank run's ids, every rank's ids equal to rank 0's; each prints
+   its seconds, prefill and decode ms, each rank's parameter bytes and
+   peak memory, and the collectives' calls and operand bytes by kind and
+   axes of the prefill and of a decode step: (a) qwen3-1.7b at full width
+   and depth (28 layers) on (2, 2), B = 4, prompt 64, generate 8, bf16
+   (rtol = atol 0.08, argmax agreement >= 0.95 where the top-2 gap
+   exceeds it), then 2 layers in f32 (within 1e-4, every argmax equal)
+   and a B = 1 prefill of 1024 tokens (the seq_shard branch, within
+   1e-4); (b) llama4-scout-17b-a16e at full width on (2, 2), 2 layers
+   (one chunked-local, one global: four ranks of its 4-layer group
+   would hold 84 GB), f32, capacity E / k: prefill's all-to-all dispatch,
+   decode's ep, within 1e-4 and every argmax equal; (c) qwen2-moe-a2.7b
+   at full width on (1, 8), 2 layers, f32, capacity E / k: 60 experts do
+   not divide 8, so decode runs tp and prefill ZeRO without EP (its
+   sequence over "model"), within 1e-4 and every argmax equal.
+14. Print the kernel table as one JSON line, the card's name and power
    limit, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -3663,6 +3684,8 @@ LM_LONG_B, LM_LONG_PROMPT = 8, 4096        # q_block 512 and kv_block 1024
 RING_ARCH = "h2o-danube-1.8b"   # sliding window 4096, head_dim 80
 RING_B, RING_PROMPT, RING_GEN = 1, 4160, 16  # a prompt past the window: the
 #                                              ring branch, decode wraps
+RING_LAYERS = 8                 # of h2o-danube's 24, for the time budget (the
+#                                 part took 28.7 s at 24 layers, 9.5 s at 8)
 LM_TOL, LM_ARGMAX = 0.08, 0.95  # the JAX package's decode-vs-prefill bar
 LM_CLI_TIMEOUT_S = 300
 EXCL_LANES = len(QUERY_KS) * L  # the 148-lane batch's filter: (L, C, k) =
@@ -3862,8 +3885,12 @@ def lm_part_c(torch, steps, card):
     """Part (c): h2o-danube-1.8b's ring cache at full width: a prompt past
     the sliding window, so prefill keeps the last 4096 positions at their
     ring slots and decode wraps the ring."""
+    import dataclasses
     from repro_torch.configs.base import get_config
-    cfg = get_config(RING_ARCH)
+    full = get_config(RING_ARCH)
+    cfg = dataclasses.replace(full, n_layers=RING_LAYERS)
+    print(f"[lm] (c) depth cut: {cfg.n_layers} of {full.n_layers} layers "
+          f"(time budget); full width; card: {card}")
     model = lm_model(torch, cfg, 3)
     toks, ids, t_pre, t_dec, step_logits, caches = lm_serve(
         torch, steps, cfg, model, RING_B, RING_PROMPT, RING_GEN, 4)
@@ -4045,6 +4072,11 @@ def lm_phase(torch, tsel, tmr, ops):
 MOE_ARCH = "qwen2-moe-a2.7b"        # 24 layers, 60 experts top-4 + shared
 SSM_ARCH = "falcon-mamba-7b"        # 64 Mamba1 layers, d_inner 8192
 HYBRID_ARCH = "zamba2-2.7b"         # 9 groups of 6 Mamba2 + shared block
+# depth cuts for the time budget (phase 13's mesh serving came after them);
+# every part keeps its full width
+MOE_LAYERS = 8                      # of qwen2-moe's 24
+SSM_LAYERS = 16                     # of falcon-mamba's 64
+HYBRID_GROUPS = 3                   # of zamba2's 9 groups
 CHUNK_ARCH = "llama4-scout-17b-a16e"  # 16 experts top-1, chunk 8192
 SSM_LONG_B, SSM_LONG_PROMPT = 1, 4096  # 32 chunks of ssm_chunk 128
 HYBRID_PROMPT = 200                 # not a multiple of 128: the pad branch
@@ -4291,13 +4323,17 @@ def fam_f32_check(torch, steps, cfg, model, B, prompt, gen, seed, label,
 
 
 def fam_part_a(torch, steps, analysis, T, moe, card):
-    """Part (a): qwen2-moe-a2.7b at full width and depth, launch/serve.py's
+    """Part (a): qwen2-moe-a2.7b at full width, 8 layers, launch/serve.py's
     defaults; the tokens the configured capacity drops."""
+    import dataclasses
     from repro_torch.configs.base import get_config
-    cfg = get_config(MOE_ARCH)
-    check((cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.experts_per_token,
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    check((full.n_layers, cfg.d_model, cfg.n_experts, cfg.experts_per_token,
            cfg.d_ff, cfg.capacity_factor) == (24, 2048, 60, 4, 5632, 1.25),
           f"{MOE_ARCH} is not at full width: {cfg}")
+    print(f"[fam] (a) depth cut: {cfg.n_layers} of {full.n_layers} layers "
+          f"(time budget); full width; card: {card}")
     model, _ = fam_model(torch, cfg, 10, "(a)", card)
     with DropCount(moe) as drops:
         toks, _, _, _ = fam_serve(torch, steps, analysis, T, cfg, model,
@@ -4319,13 +4355,17 @@ def fam_part_a(torch, steps, analysis, T, moe, card):
 
 
 def fam_part_b(torch, steps, analysis, T, card):
-    """Part (b): falcon-mamba-7b at full width and depth: serving, a long
+    """Part (b): falcon-mamba-7b at full width, 16 layers: serving, a long
     prefill, and decode against prefill in f32 compute."""
+    import dataclasses
     from repro_torch.configs.base import ShapeSpec, get_config
-    cfg = get_config(SSM_ARCH)
-    check((cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_state,
+    full = get_config(SSM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=SSM_LAYERS)
+    check((full.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_state,
            cfg.ssm_chunk) == (64, 4096, 8192, 16, 128),
           f"{SSM_ARCH} is not at full width: {cfg}")
+    print(f"[fam] (b) depth cut: {cfg.n_layers} of {full.n_layers} layers "
+          f"(time budget); full width; card: {card}")
     model, _ = fam_model(torch, cfg, 12, "(b)", card)
     _, _, _, caches = fam_serve(torch, steps, analysis, T, cfg, model, LM_B,
                                 LM_PROMPT, LM_GEN, 13, "(b)", card)
@@ -4368,14 +4408,22 @@ def fam_part_b(torch, steps, analysis, T, card):
 
 
 def fam_part_c(torch, steps, analysis, T, card):
-    """Part (c): zamba2-2.7b at full width and depth, a prompt that is not
+    """Part (c): zamba2-2.7b at full width, 3 groups, a prompt that is not
     a multiple of the SSM chunk; the shared block's per-group caches."""
+    import dataclasses
     from repro_torch.configs.base import get_config
-    cfg = get_config(HYBRID_ARCH)
+    full = get_config(HYBRID_ARCH)
+    check((full.n_layers, full.shared_attn_every, full.d_model,
+           full.ssm_state) == (54, 6, 2560, 64)
+          and HYBRID_PROMPT % full.ssm_chunk,
+          f"{HYBRID_ARCH} is not at full width: {full}")
+    cfg = dataclasses.replace(
+        full, n_layers=HYBRID_GROUPS * full.shared_attn_every)
     groups = cfg.n_layers // cfg.shared_attn_every
-    check((cfg.n_layers, cfg.shared_attn_every, cfg.d_model, cfg.ssm_state,
-           groups) == (54, 6, 2560, 64, 9) and HYBRID_PROMPT % cfg.ssm_chunk,
-          f"{HYBRID_ARCH} is not at full width: {cfg}")
+    print(f"[fam] (c) depth cut: {groups} of "
+          f"{full.n_layers // full.shared_attn_every} groups ({cfg.n_layers} "
+          f"of {full.n_layers} Mamba2 layers; time budget); full width; "
+          f"card: {card}")
     model, _ = fam_model(torch, cfg, 15, "(c)", card)
     _, _, _, caches = fam_serve(torch, steps, analysis, T, cfg, model, LM_B,
                                 HYBRID_PROMPT, LM_GEN, 16, "(c)", card)
@@ -4520,7 +4568,8 @@ TRAIN_B = 10                    # cut from train_4k's 256: the largest batch
 #                                 whose peak stays under TRAIN_PEAK_GIB
 #                                 (python -m repro_torch.runtime.batch_probe)
 TRAIN_PEAK_GIB = 70
-TRAIN_STEPS, TRAIN_SELECT_EVERY = 4, 2
+TRAIN_STEPS, TRAIN_SELECT_EVERY = 3, 2  # 3 steps (4 before phase 13, for
+#                                        the time budget): curated at 0, 2
 RESUME_LAYERS, RESUME_B, RESUME_SEQ = 2, 2, 1024
 RESUME_TOL = 2e-5               # tests/test_runtime.py's resume bar, where
 #                                 an atomic backward reorders a sum
@@ -5010,6 +5059,388 @@ def train_phase(torch, ops):
           f"card: {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: LM serving on a (data, model) mesh of gloo ranks sharing the one
+# card (models/sharding.py, models/collectives.py, the sharded layers, the
+# MoE's ep / tp / all-to-all modes, the bundles on a mesh)
+# ---------------------------------------------------------------------------
+
+LMM_GROUP_TIMEOUT_S = 600    # a process group's collectives give up after
+LMM_JOB_TIMEOUT_S = 600      # a spawned job's limit
+LMM_B, LMM_PROMPT, LMM_GEN = 4, 64, 8
+LMM_A_LAYERS = 28            # qwen3-1.7b at full depth
+LMM_F32_LAYERS = 2
+LMM_LONG = 1024              # the B = 1 prefill: the seq_shard branch
+LMM_MOE_LAYERS = 2           # llama4: 2 layers (global_attn_every 2: one
+#                              chunked-local + one global); 4 layers hold
+#                              21 GB a rank, 84 GB for four ranks
+LMM_F32_TOL = 1e-4
+LMM_CARD_BYTES = 80 * 10 ** 9   # an H100's memory, for the depth a rank holds
+#: part -> (mesh (data, model), architecture, layers, compute dtype name,
+#: capacity raised to E / k, B, prompt, seed)
+LMM_PARTS = {
+    "(a)": ((2, 2), "qwen3-1.7b", LMM_A_LAYERS, "bfloat16", False, LMM_B,
+            LMM_PROMPT, 130),
+    "(a) f32": ((2, 2), "qwen3-1.7b", LMM_F32_LAYERS, "float32", False,
+                LMM_B, LMM_PROMPT, 131),
+    "(a) long": ((2, 2), "qwen3-1.7b", LMM_F32_LAYERS, "float32", False, 1,
+                 LMM_LONG, 131),
+    "(b)": ((2, 2), "llama4-scout-17b-a16e", LMM_MOE_LAYERS, "float32", True,
+            LMM_B, LMM_PROMPT, 132),
+    "(c)": ((1, 8), "qwen2-moe-a2.7b", LMM_F32_LAYERS, "float32", True,
+            LMM_B, LMM_PROMPT, 133),
+}
+
+
+def lmm_config(name, layers, raised):
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    cfg = get_config(name)
+    over = dict(n_layers=layers)
+    if cfg.global_attn_every:
+        over["global_attn_every"] = layers
+    if raised:
+        over["capacity_factor"] = cfg.n_experts / cfg.experts_per_token
+    return dataclasses.replace(cfg, **over)
+
+
+def lmm_serve(torch, steps, model, cfg, mesh, B, prompt, gen, tokens, forced):
+    """Serve ``tokens`` through the bundles on ``mesh`` (None: one rank),
+    feeding ``forced`` ids (B, gen) to the decode steps when given (else
+    the greedy ids).  Returns (full-batch greedy ids (B, gen) on the host,
+    each step's logits block on the host, prefill ms, decode ms by step,
+    the collectives by kind of the prefill and of each decode step, the
+    prefill's policy)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import collectives as C
+    pre = steps.prefill_bundle(cfg, ShapeSpec("mesh", prompt, B, "prefill"),
+                               mesh)
+    dec = steps.decode_step_bundle(cfg, ShapeSpec("mesh", prompt + gen, B,
+                                                  "decode"), mesh)
+    sync = (lambda: torch.distributed.barrier()) if mesh is not None \
+        else torch.cuda.synchronize
+    torch.cuda.synchronize()
+    sync()
+    C.reset_counts()
+    t0 = time.perf_counter()
+    logits, caches = pre.fn(model, {"tokens": tokens},
+                            cache_len=prompt + gen)
+    torch.cuda.synchronize()
+    sync()
+    t_pre = (time.perf_counter() - t0) * 1e3
+    counts = [C.counts()]
+    out, ids, t_dec = [logits.float().cpu()], [], []
+    tok = model.greedy(logits, pre.policy)
+    ids.append(tok.cpu())
+    for i in range(gen - 1):
+        feed = tok if forced is None else forced[:, i:i + 1]
+        pos = torch.full((B, 1), prompt + i, dtype=torch.int32,
+                         device="cuda")
+        C.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = dec.fn(model, caches, feed, pos)
+        tok = model.greedy(logits, dec.policy)
+        torch.cuda.synchronize()
+        t_dec.append((time.perf_counter() - t0) * 1e3)
+        counts.append(C.counts())
+        out.append(logits.float().cpu())
+        ids.append(tok.cpu())
+    return torch.cat(ids, 1), out, t_pre, t_dec, counts, pre.policy
+
+
+def lmm_tokens(torch, cfg, B, prompt, seed):
+    return torch.randint(0, cfg.vocab_size, (B, prompt), device="cuda",
+                         dtype=torch.int32,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(seed))
+
+
+def lmm_reference(torch, steps, label, out_dir):
+    """The one-rank serving of a part on the card: writes the prompts, the
+    greedy ids and every step's whole logits to ``out_dir``."""
+    import pickle
+    from repro_torch.models.model import build_model
+    shape, name, layers, dt, raised, B, prompt, seed = LMM_PARTS[label]
+    cfg = lmm_config(name, layers, raised)
+    dtype = getattr(torch, dt)
+    model = build_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        "cuda", dtype)
+    gen = LMM_GEN if prompt == LMM_PROMPT else 1
+    toks = lmm_tokens(torch, cfg, B, prompt, seed + 1000)
+    torch.cuda.reset_peak_memory_stats()
+    ids, logits, t_pre, t_dec, _, _ = lmm_serve(
+        torch, steps, model, cfg, None, B, prompt, gen, toks, None)
+    peak = torch.cuda.max_memory_allocated()
+    with open(Path(out_dir) / f"ref{label}.pkl", "wb") as f:
+        pickle.dump(dict(tokens=toks.cpu(), ids=ids, logits=logits), f)
+    print(f"[lmmesh] {label} one rank: {cfg.name}, {cfg.n_layers} layers, "
+          f"{dt}, B={B} prompt={prompt} gen={gen}: prefill {t_pre:.3f} ms, "
+          f"decode {[round(t, 3) for t in t_dec]} ms; peak "
+          f"{peak / 2 ** 30:.3f} GiB; ids {ids[0].tolist()}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def lmm_compare(got, want, spec, mesh, tol):
+    """This rank's logits blocks against the one-rank run's whole logits:
+    (max |diff| beyond rtol = atol ``tol``, max |diff|)."""
+    from repro_torch.models.sharding import block
+    excess = worst = 0.0
+    for g, w in zip(got, want):
+        w = w[block(w.shape, spec, mesh.shape, mesh.coords)]
+        diff = (g - w).abs()
+        excess = max(excess, (diff - tol * w.abs()).max().item())
+        worst = max(worst, diff.max().item())
+    return excess, worst
+
+
+def lmm_rank(rank, world, store, out_dir, labels):
+    """A rank of phase 13's spawned job: joins the gloo job on the one
+    card and serves every part of ``labels`` on its mesh, against the
+    one-rank run's results in ``out_dir``; writes its findings there."""
+    import datetime
+    import pickle
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.model import build_model
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=LMM_GROUP_TIMEOUT_S))
+    results, meshes = {}, {}
+    for label in labels:
+        shape, name, layers, dt, raised, B, prompt, seed = LMM_PARTS[label]
+        t_part = time.perf_counter()
+        if shape not in meshes:
+            meshes[shape] = make_mesh_for(world, model_parallel=shape[1])
+        mesh = meshes[shape]
+        cfg = lmm_config(name, layers, raised)
+        dtype = getattr(torch, dt)
+        with open(Path(out_dir) / f"ref{label}.pkl", "rb") as f:
+            ref = pickle.load(f)
+        gen = ref["ids"].shape[1]
+        dec = steps.decode_step_bundle(
+            cfg, ShapeSpec("mesh", prompt + gen, B, "decode"), mesh)
+        # the ranks draw their blocks one after another: a rank holds a
+        # whole sublayer while it draws
+        t0 = time.perf_counter()
+        for r in range(world):
+            if r == rank:
+                model = build_model(
+                    cfg, torch.Generator(device="cuda").manual_seed(seed),
+                    "cuda", dtype, policy=dec.policy)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        t_build = time.perf_counter() - t0
+        n_bytes = sum(p.numel() * p.element_size()
+                      for p in model.params.parameters())
+        # the layers' share of it, a layer (every layer's blocks have the
+        # same shapes): what a deeper model adds a rank
+        layer_bytes = sum(p.numel() * p.element_size() for n, p in
+                          model.params.named_parameters()
+                          if n.startswith("groups.")) // cfg.n_layers
+        torch.cuda.reset_peak_memory_stats()
+        toks = ref["tokens"].cuda()
+        forced = ref["ids"].cuda() if gen > 1 else None
+        # this rank's kernel launches on the mesh serving path itself
+        ops.reset_launch_counts()
+        ids, logits, t_pre, t_dec, counts, pol = lmm_serve(
+            torch, steps, model, cfg, mesh, B, prompt, gen, toks, forced)
+        launches = {k: v for k, v in read_counts(ops).items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        spec = pol.logits_spec((B, 1, cfg.padded_vocab))
+        dspec = dec.policy.logits_spec((B, 1, cfg.padded_vocab))
+        tol = LMM_F32_TOL if dtype == torch.float32 else LM_TOL
+        ex0, w0 = lmm_compare(logits[:1], ref["logits"][:1], spec, mesh,
+                              tol)
+        ex1, w1 = lmm_compare(logits[1:], ref["logits"][1:], dspec, mesh,
+                              tol)
+        # argmax: the greedy ids against the one-rank logits' argmax, over
+        # every row and over the rows whose top-2 gap exceeds the bar (in
+        # bf16 a gap within it is a near-tie either run may round apart)
+        ref_top = torch.stack([w[:, -1, :cfg.vocab_size].topk(2, -1).values
+                               for w in ref["logits"]], 1)
+        wide = (ref_top[..., 0] - ref_top[..., 1]) > tol
+        same = ids == ref["ids"]
+        results[label] = dict(
+            ids=ids, ref_ids=ref["ids"], excess=max(ex0, ex1),
+            agree=(int(same.sum()), same.numel(), int((same & wide).sum()),
+                   int(wide.sum())),
+            worst=max(w0, w1), tol=tol, t_pre=t_pre, t_dec=t_dec,
+            counts=counts, launches=launches, peak=peak,
+            param_bytes=n_bytes, layer_bytes=layer_bytes, build_s=t_build,
+            batch_axes=pol.batch_axes, seq_shard=pol.seq_shard,
+            dec_batch_axes=dec.policy.batch_axes,
+            seconds=time.perf_counter() - t_part)
+        del model, logits
+        torch.cuda.empty_cache()
+        dist.barrier()
+    dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(results, f)
+
+
+def lmm_spawn(world, labels, out_dir):
+    """Start ``world`` ranks of ``lmm_rank`` (spawn start method) and wait;
+    a rank that raises, or a job past LMM_JOB_TIMEOUT_S, fails the phase,
+    and every rank is gone when this returns.  Returns each rank's
+    results."""
+    import pickle
+    import torch.multiprocessing as mp
+    store = Path(out_dir) / f"store{world}"
+    ctx = mp.start_processes(lmm_rank,
+                             args=(world, str(store), out_dir, labels),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + LMM_JOB_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"[lmmesh] the {world}-rank job outlived "
+                  f"{LMM_JOB_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    out = []
+    for r in range(world):
+        with open(Path(out_dir) / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def lmm_report(label, res, card):
+    """Hold a part's ranks to its bar and print what they measured."""
+    from repro_torch.configs.base import get_config
+    r0 = res[0][label]
+    shape, name, layers, dt, raised, B, prompt, _ = LMM_PARTS[label]
+    for r, rr in enumerate(res):
+        x = rr[label]
+        check(bool((x["ids"] == r0["ids"]).all()),
+              f"[lmmesh] {label}: rank {r}'s ids {x['ids'].tolist()} are "
+              f"not rank 0's {r0['ids'].tolist()}")
+        check(x["excess"] <= x["tol"],
+              f"[lmmesh] {label}: rank {r}'s logits differ from the one-rank "
+              f"run's by {x['excess']} beyond rtol = atol {x['tol']} (max "
+              f"|diff| {x['worst']})")
+        # the LM stack reaches no pallas_call in the JAX package: a kernel
+        # of the table launched here would be a path the reference lacks
+        check(not x["launches"],
+              f"[lmmesh] {label}: rank {r} launched kernels {x['launches']}")
+    want, test = LMM_BRANCHES[label]
+    for key, val in want.items():
+        check(r0[key] == val, f"[lmmesh] {label}: {key} {r0[key]}, the "
+              f"branch wants {val}")
+    check(test is None or test(r0["counts"][0], r0["counts"][1], layers),
+          f"[lmmesh] {label}: collectives {r0['counts'][:2]}")
+    agree, rows, kept_agree, kept = r0["agree"]
+    check(agree == rows if dt == "float32" else
+          kept_agree >= LM_ARGMAX * kept,
+          f"[lmmesh] {label}: greedy ids {r0['ids'].tolist()} against the "
+          f"one-rank run's {r0['ref_ids'].tolist()}: {agree}/{rows} equal, "
+          f"{kept_agree}/{kept} where the top-2 gap exceeds the bar")
+    kinds = {s: {f"{k[0]} {'/'.join(k[1])}": v
+                 for k, v in sorted(c.items())}
+             for s, c in (("prefill", r0["counts"][0]),
+                          ("decode step", r0["counts"][1]
+                           if len(r0["counts"]) > 1 else {}))}
+    print(f"[lmmesh] {label} {name}, {layers} layers, {dt}, mesh "
+          f"(data, model) = {shape}, B={B} prompt={prompt}"
+          f"{' capacity E / k' if raised else ''}: prefill batch axes "
+          f"{r0['batch_axes']} seq_shard {r0['seq_shard']}, decode batch "
+          f"axes {r0['dec_batch_axes']}; max |logit diff| to one rank "
+          f"{max(x[label]['worst'] for x in res)} (bar rtol = atol "
+          f"{r0['tol']}), argmax = one rank's in {agree}/{rows}, "
+          f"{kept_agree}/{kept} where the top-2 gap exceeds the bar (every "
+          f"rank's ids the same); card: {card}")
+    full = get_config(name).n_layers
+    fixed = r0["param_bytes"] - layers * r0["layer_bytes"]
+    print(f"[lmmesh] {label} resident parameter bytes a rank: "
+          f"{r0['layer_bytes']} a layer beside {fixed} outside the layers, "
+          f"so {fixed + full * r0['layer_bytes']} at the full {full} layers "
+          f"on this mesh; at most {(LMM_CARD_BYTES - fixed) // r0['layer_bytes']} "
+          f"layers fit a rank's {LMM_CARD_BYTES} B card with these "
+          f"resident weights, before any activation or cache; card: {card}")
+    print(f"[lmmesh] {label} prefill ms by rank "
+          f"{[round(x[label]['t_pre'], 3) for x in res]}; decode ms a step "
+          f"(rank 0) {[round(t, 3) for t in r0['t_dec']]}; parameter bytes a "
+          f"rank {[x[label]['param_bytes'] for x in res]}; peak GiB by rank "
+          f"{[round(x[label]['peak'] / 2 ** 30, 3) for x in res]}; drawn in "
+          f"{r0['build_s']:.3f} s; collectives (calls, operand bytes) by "
+          f"kind, rank 0: {kinds}; kernel launches on the mesh serving "
+          f"path by rank {[x[label]['launches'] for x in res]} (it reaches "
+          f"no pallas_call in the JAX package); took {r0['seconds']:.3f} s; "
+          f"card: {card}")
+
+
+#: what each part's prefill and decode policies must be, and a test of its
+#: collectives (kind, axes) -> (calls, bytes) of the prefill and of a decode
+#: step: the branches the parts are there to take
+LMM_BRANCHES = {
+    "(a)": (dict(batch_axes=("data", "model"), seq_shard=None,
+                 dec_batch_axes=("data",)), None),
+    "(a) f32": (dict(batch_axes=("data", "model"), seq_shard=None), None),
+    "(a) long": (dict(batch_axes=(), seq_shard="model"), None),
+    # prefill: the all-to-all dispatch, two a layer; decode: ep's
+    # all_gather over the model axis a layer, the router's a layer (its
+    # (D, E) leaf is split over (data, model)) and greedy's two
+    "(b)": (dict(batch_axes=("data", "model"), dec_batch_axes=("data",)),
+            lambda pre, dec, L: pre[("all_to_all", ("model",))][0] == 2 * L
+            and dec[("all_gather", ("model",))][0] == 2 * L + 2),
+    # prefill: ZeRO without EP (no all_to_all), B = 4 does not fill the
+    # 8 ranks, so the sequence is sharded over "model"; decode: tp's
+    # all_reduce over the model axis a layer, beside attention's two (the
+    # scores over head_dim, wo's partial sums), the shared expert's and
+    # the vocab-parallel lookup's
+    "(c)": (dict(batch_axes=("data",), seq_shard="model",
+                 dec_batch_axes=("data",)),
+            lambda pre, dec, L: not any(k[0] == "all_to_all" for k in pre)
+            and dec[("all_reduce", ("model",))][0] == 4 * L + 1),
+}
+
+
+def lm_mesh_phase(torch):
+    """Phase 13: the dense and moe families served on a (data, model) mesh
+    of gloo ranks sharing the one card, against the one-rank serving of
+    the same weights (drawn from the same seeded generator) on the same
+    card: (a) qwen3-1.7b on (2, 2) in bf16, then 2 layers in f32 and a B =
+    1 prefill of 1024 tokens (the seq_shard branch); (b)
+    llama4-scout-17b-a16e on (2, 2) in f32 with capacity E / k (prefill's
+    all-to-all dispatch, decode's ep); (c) qwen2-moe-a2.7b on (1, 8) in
+    f32 with capacity E / k (prefill's ZeRO without EP, decode's tp).  The
+    decode steps take the one-rank run's ids, so each step compares the
+    same inputs.  The path reaches no kernel of the table."""
+    import tempfile
+    from repro_torch.launch import steps
+    card = smi()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for label in LMM_PARTS:
+            lmm_reference(torch, steps, label, tmp)
+        print(f"[lmmesh] the one-rank runs took {time.perf_counter() - t0:.3f}"
+              f" s; card: {card}")
+        for world, labels in ((4, ("(a)", "(a) f32", "(a) long", "(b)")),
+                              (8, ("(c)",))):
+            t0 = time.perf_counter()
+            res = lmm_spawn(world, labels, tmp)
+            for label in labels:
+                lmm_report(label, res, card)
+            print(f"[lmmesh] the {world}-rank job took "
+                  f"{time.perf_counter() - t0:.3f} s; card: {card}")
+    print(f"[lmmesh] phase 13 took {time.perf_counter() - t_phase:.3f} s; "
+          f"card: {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5190,6 +5621,11 @@ def main() -> int:
 
     # LM training at full width
     train_phase(torch, ops)
+
+    # LM serving on a mesh of ranks sharing the card (each rank counts its
+    # own launches around its serving)
+    torch.cuda.empty_cache()
+    lm_mesh_phase(torch)
 
     check(SHAPES == _wrap.SHAPES, f"shape classes {_wrap.SHAPES}")
     table = []

@@ -11,10 +11,15 @@ fault plan, the Theorem-4 instance's oracle, and a streaming sieve's spec
 and live state).  The LM stack does have weights: ``lm_params`` and
 ``lm_caches`` carry a JAX parameter tree and KV caches across,
 ``adamw_state`` an optimizer state, and ``lm_tree`` carries the port's
-parameters or gradients back into the JAX tree.  These helpers turn such
-arrays into the port's tensors and oracle on a given device, so a test can
-feed the same inputs to both packages.  numpy bfloat16 arrays (the
-``ml_dtypes`` type that JAX hands out) arrive as torch.bfloat16.
+parameters or gradients back into the JAX tree.  On a mesh of several
+ranks ``lm_params`` and ``lm_caches`` give a rank only its block of each
+leaf (the slice that JAX's ``NamedSharding(mesh, spec)`` puts on the
+device at the same mesh coordinates, device r being rank r, row-major),
+and ``gather`` rebuilds a whole leaf from every rank's block.  These
+helpers turn such arrays into the port's tensors and oracle on a given
+device, so a test can feed the same inputs to both packages.  numpy
+bfloat16 arrays (the ``ml_dtypes`` type that JAX hands out) arrive as
+torch.bfloat16.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from repro_torch.core.mapreduce import QueryBatch
 from repro_torch.models import layers as LM
 from repro_torch.models import ssm as SSM
 from repro_torch.models.model import Model
+from repro_torch.models.sharding import block, mesh_ranks
 from repro_torch.optim.adamw import OptState
 from repro_torch.streaming.sieve import SieveSpec, SieveState
 
@@ -249,7 +255,8 @@ def _flat(tree, prefix=""):
     return out
 
 
-def lm_params(tree, cfg, device="cpu", dtype=torch.bfloat16) -> Model:
+def lm_params(tree, cfg, device="cpu", dtype=torch.bfloat16,
+              policy=None) -> Model:
     """A ``Model`` of ``cfg`` holding the JAX package's parameter tree
     (``repro.models.transformer.init_params``; numpy or JAX leaves): the
     embedding table, the groups' leaves stacked on a leading G axis (one
@@ -258,12 +265,19 @@ def lm_params(tree, cfg, device="cpu", dtype=torch.bfloat16) -> Model:
     hybrid family's unstacked ``shared_block``, the final norm and the
     untied head, each bit for bit in f32.  A leaf of the wrong shape, and a
     leaf that one tree has and the other lacks, raise ValueError.
-    ``dtype`` is the port model's compute dtype."""
+    ``dtype`` is the port model's compute dtype; ``policy`` places the
+    parameters on a mesh (``Model(..., policy=)``): each parameter gets this
+    rank's block of its leaf."""
     model = Model(cfg, torch.Generator(device=device).manual_seed(0), device,
-                  dtype)
+                  dtype, policy)
     p = model.params
+    mesh = model.mesh
 
     def put(dst, src):
+        src = np.asarray(src)
+        spec = getattr(dst, "spec", None)
+        if spec is not None:
+            src = src[block(src.shape, spec, mesh.shape, mesh.coords)]
         src = tensor(src, device)
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"lm_params: a leaf of shape {tuple(src.shape)}"
@@ -372,20 +386,59 @@ _CACHES = {"KVCache": LM.KVCache, "Mamba1Cache": SSM.Mamba1Cache,
            "Mamba2Cache": SSM.Mamba2Cache}
 
 
-def _cache(c, device):
+def _cache(c, device, policy):
     kind = _CACHES.get(type(c).__name__)
     if kind is None or len(c) != len(kind._fields):
         raise ValueError(f"lm_caches: a {type(c).__name__} of {len(c)} "
                          f"leaves; the port knows {sorted(_CACHES)}")
-    return kind(*(tensor(t, device) for t in c))
+    if policy is None or mesh_ranks(policy.mesh) == 1:
+        return kind(*(tensor(t, device) for t in c))
+    if kind is not LM.KVCache:
+        raise NotImplementedError(
+            f"lm_caches: a {type(c).__name__} on a mesh of "
+            f"{mesh_ranks(policy.mesh)} ranks; the port shards KV caches "
+            f"only, the ssm caches come with the ssm and hybrid families on "
+            f"a mesh (the next slice)")
+    mesh = policy.mesh
+    out = []
+    for field, t in zip(kind._fields, c):
+        t = np.asarray(t)
+        # k, v by kv_cache_spec; slot_pos replicated, as cache_shardings
+        spec = policy.kv_cache_spec(t.shape) if field in ("k", "v") \
+            else (None,) * t.ndim
+        out.append(tensor(t[block(t.shape, spec, mesh.shape, mesh.coords)],
+                          device))
+    return kind(*out)
 
 
-def lm_caches(caches, device="cpu"):
+def lm_caches(caches, device="cpu", policy=None):
     """The JAX package's decode caches (``{"sub": [KVCache | Mamba1Cache |
     Mamba2Cache, ...]}`` and the hybrid family's ``"shared"`` KVCache,
     leaves stacked on a leading G axis) as the port's, each leaf bit for
-    bit."""
-    out = {"sub": [_cache(c, device) for c in caches["sub"]]}
+    bit; with a ``policy`` on a mesh of more than one rank, this rank's
+    block of each KVCache leaf (``ShardingPolicy.kv_cache_spec``, as the
+    JAX package's ``cache_shardings``)."""
+    out = {"sub": [_cache(c, device, policy) for c in caches["sub"]]}
     if "shared" in caches:
-        out["shared"] = _cache(caches["shared"], device)
+        out["shared"] = _cache(caches["shared"], device, policy)
+    return out
+
+
+def gather(blocks, spec, mesh_shape):
+    """The whole array from every rank's block under ``spec``: ``blocks``
+    in rank order (row-major over ``mesh_shape``, a dict of axis sizes in
+    the mesh's order), each a numpy array; the inverse of the placement."""
+    names = list(mesh_shape)
+    dims = tuple(mesh_shape[a] for a in names)
+    b0 = np.asarray(blocks[0])
+    shape = []
+    for d, n in enumerate(b0.shape):
+        entry = spec[d] if d < len(spec) else None
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        shape.append(n * int(np.prod([mesh_shape[a] for a in axes])))
+    out = np.empty(shape, b0.dtype)
+    for r, b in enumerate(blocks):
+        coords = dict(zip(names, np.unravel_index(r, dims)))
+        out[block(shape, spec, mesh_shape, coords)] = np.asarray(b)
     return out

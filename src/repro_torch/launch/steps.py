@@ -2,11 +2,15 @@
 
 Each builder returns a ``StepBundle``: the step function, the batch it
 takes (name -> shape and dtype) and the sharding policy.  The JAX package's
-bundles also carry abstract arguments and shardings for its dry-run; on
-one card there is nothing to place (neither KV nor SSM caches), and the
-model owns its parameters, so a step takes the ``Model`` as its first
-argument.  The serving bundles serve every family that decodes; the train
-step every family.
+bundles also carry abstract arguments and shardings for its dry-run; the
+port's model owns its parameters (placed by ``Model(..., policy=)`` on a
+mesh), so a step takes the ``Model`` as its first argument.  On one card
+the serving bundles serve every family that decodes and the train step
+every family; on a mesh of several ranks (``launch.mesh``) the serving
+bundles serve the dense and moe families (prefill under the config's
+``parallelism``: ZeRO-3 for "fsdp"; decode under TP + FSDP, the caches
+handed over to its layout), and the train step refuses: training on a
+mesh is the next slice.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import torch
 
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec
 from repro_torch.models.model import TensorSpec, input_specs
-from repro_torch.models.sharding import ShardingPolicy, make_policy
+from repro_torch.models.sharding import ShardingPolicy, check_family, \
+    make_policy, mesh_ranks
 from repro_torch.optim import adamw
 
 
@@ -41,6 +46,12 @@ def train_step_bundle(cfg: ArchConfig, shape: ShapeSpec, mesh=None,
     its batch axis, one backward a slice, the gradients accumulated in f32
     (the parameters' dtype) and divided by A with the loss and the
     metrics; the policy, and so the MoE's capacity, sees the micro-batch."""
+    if mesh_ranks(mesh) > 1:
+        raise NotImplementedError(
+            f"train_step_bundle on a mesh of {mesh_ranks(mesh)} ranks: "
+            f"training on a mesh (the collectives' backward, the gradient "
+            f"reduce_scatter, AdamW's global norm over shards) is the next "
+            f"slice")
     A = max(1, cfg.microbatches)
     policy = make_policy(mesh, shape.global_batch // A, "train",
                          head_fsdp=cfg.head_fsdp,
@@ -91,7 +102,10 @@ def prefill_bundle(cfg: ArchConfig, shape: ShapeSpec,
     """Serving prefill: ``fn(model, batch, cache_len=None)`` takes full
     sequences of ``shape.seq_len`` positions and gives the last-token
     logits and caches of ``cache_len`` slots (default ``shape.seq_len``;
-    a server that goes on to generate asks for room for its tokens)."""
+    a server that goes on to generate asks for room for its tokens).  On a
+    mesh the caches come in the decode policy's layout
+    (``kv_cache_spec``), the JAX bundle's ``dec_policy.cache_shardings``."""
+    check_family(cfg, mesh)
     policy = make_policy(mesh, shape.global_batch, "prefill",
                          head_fsdp=cfg.head_fsdp,
                          pure_fsdp=cfg.parallelism == "fsdp")
@@ -107,7 +121,9 @@ def prefill_bundle(cfg: ArchConfig, shape: ShapeSpec,
 def decode_step_bundle(cfg: ArchConfig, shape: ShapeSpec,
                        mesh=None) -> StepBundle:
     """serve_step: ``fn(model, caches, tokens, positions)`` runs one new
-    token per request through the caches."""
+    token per request through the caches.  Its policy is also the one to
+    place a served model's parameters by (``Model(..., policy=)``)."""
+    check_family(cfg, mesh)
     policy = make_policy(mesh, shape.global_batch, "decode",
                          head_fsdp=cfg.head_fsdp)
 

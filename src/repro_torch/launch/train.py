@@ -43,8 +43,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if args.model_parallel != 1:
-        raise SystemExit("--model-parallel > 1 needs the multi-rank "
-                         "ShardingPolicy, a later slice of the port")
+        raise SystemExit("--model-parallel > 1: training on a mesh is "
+                         "the next slice of the port")
     device = resolve_device(args.device)
     smoke = args.smoke
     if smoke is None:

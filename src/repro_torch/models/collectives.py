@@ -1,0 +1,150 @@
+"""The LM stack's collectives over a ``launch.mesh.Mesh``.
+
+GSPMD inserts the JAX package's collectives; the port's layers call these.
+Each runs over one mesh axis or a tuple of axes (the process group of the
+ranks that share this rank's other coordinates, ordered row-major along
+the axes, the first axis major: the order of a ``PartitionSpec`` entry
+that names those axes), on ``torch.distributed``'s default backend:
+NCCL with one rank a card, gloo on the CPU or for ranks sharing a card.
+torch 2.11's gloo takes CUDA tensors for all four collectives used here
+(``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``,
+``all_to_all_single``; not the list form of ``all_to_all``), so no call
+is staged through the host here; an op that a backend lacks raises.
+
+Every call adds its kind, axes and operand bytes (the bytes of the tensor
+this rank hands to the collective) to a counter that ``counts()`` reads
+and ``reset_counts()`` zeroes: the port's own collective bytes, for the
+roofline and the dry-run.  A call on one rank (axes of size 1) moves
+nothing and is not counted.
+
+Forward only: with autograd recording, a call raises (the collectives'
+backward comes with training on a mesh, the next slice).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.models.sharding import axes_of
+
+_COUNTS: Dict[Tuple[str, Tuple[str, ...]], list] = {}
+
+
+def counts() -> Dict[Tuple[str, Tuple[str, ...]], Tuple[int, int]]:
+    """(kind, axes) -> (calls, operand bytes) since the last reset."""
+    return {k: (v[0], v[1]) for k, v in _COUNTS.items()}
+
+
+def reset_counts() -> None:
+    _COUNTS.clear()
+
+
+def _norm(mesh, axes) -> Tuple[str, ...]:
+    axes = axes_of(axes)
+    order = [mesh.axis_names.index(a) for a in axes]
+    if order != sorted(order):
+        raise ValueError(f"collectives: axes {axes} out of the mesh's order "
+                         f"{mesh.axis_names}")
+    return axes
+
+
+def _group(kind, mesh, axes, x):
+    """(group, size) of ``axes``; counts the call when it moves data."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            f"collectives.{kind} under autograd: the mesh path is forward "
+            f"only until training on a mesh lands (the next slice)")
+    axes = _norm(mesh, axes)
+    n = mesh.size(axes) if axes else 1
+    if n > 1:
+        acc = _COUNTS.setdefault((kind, axes), [0, 0])
+        acc[0] += 1
+        acc[1] += x.numel() * x.element_size()
+    return (mesh.group(axes) if n > 1 else None), n
+
+
+def all_gather(x, mesh, axes, dim: int = 0):
+    """The blocks of ``x`` from every rank along ``axes``, concatenated on
+    ``dim`` in the axes' row-major order."""
+    group, n = _group("all_gather", mesh, axes, x)
+    if n == 1:
+        return x
+    xt = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * xt.shape[0],) + tuple(xt.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(x, mesh, axes, dim: int = 0):
+    """The sum of ``x`` over the ranks along ``axes``, of which this rank
+    keeps its block on ``dim`` (the dim splits into as many blocks as the
+    axes hold ranks)."""
+    group, n = _group("reduce_scatter", mesh, axes, x)
+    if n == 1:
+        return x
+    xt = x.movedim(dim, 0).contiguous()
+    if xt.shape[0] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {xt.shape[0]} does "
+                         f"not split over {n} ranks")
+    out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def all_reduce(x, mesh, axes, op: str = "sum"):
+    """``x`` summed (``op="max"``: the maximum) over the ranks along
+    ``axes``; a new tensor."""
+    group, n = _group("all_reduce", mesh, axes, x)
+    if n == 1:
+        return x
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def all_to_all(x, mesh, axes, split_dim: int, concat_dim: int):
+    """Block j of ``x`` on ``split_dim`` goes to the j-th rank along
+    ``axes``; the blocks received, in the ranks' order, are concatenated
+    on ``concat_dim``."""
+    group, n = _group("all_to_all", mesh, axes, x)
+    if n == 1:
+        return x
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of "
+                         f"{x.shape[split_dim]} does not split over {n} "
+                         f"ranks")
+    xs = x.movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(xs)
+    dist.all_to_all_single(out, xs, group=group)
+    # out: n blocks on dim 0, block j from rank j
+    parts = out.chunk(n, 0)
+    return torch.cat([p.movedim(0, split_dim) for p in parts], concat_dim)
+
+
+def reshard(x, mesh, src, dst):
+    """This rank's block of a tensor under spec ``dst``, from its block
+    under ``src``.  Per dim: the axes that ``dst`` keeps as the leading
+    axes of ``src``'s entry stay; the rest of ``src``'s axes are gathered,
+    then ``dst``'s further axes cut this rank's block.  A move between
+    equal specs is free."""
+    for d in range(x.dim()):
+        a = axes_of(src[d]) if d < len(src) else ()
+        b = axes_of(dst[d]) if d < len(dst) else ()
+        if a == b:
+            continue
+        keep = 0
+        while keep < min(len(a), len(b)) and a[keep] == b[keep]:
+            keep += 1
+        if a[keep:]:
+            x = all_gather(x, mesh, a[keep:], d)
+        if b[keep:]:
+            parts = mesh.size(b[keep:])
+            size = x.shape[d] // parts
+            x = x.narrow(d, mesh.index(b[keep:]) * size, size)
+    return x.contiguous()

@@ -15,14 +15,39 @@ Conventions, as in the JAX package's ``repro.models.layers``:
   * decode uses ring KV caches: SWA archs keep a ``window``-sized ring,
     chunked-local layers an ``attention_chunk``-sized ring, global layers
     the full sequence.
+
+On a mesh of several ranks (a ``ShardingPolicy`` whose mesh holds more than
+one rank) every tensor is this rank's block of its spec (``sharding``) and
+the layers call the collectives that GSPMD inserts for the JAX package
+(``collectives``):
+  * a parameter carries its resident spec (``p.spec``); ``weight`` gathers
+    its FSDP axes just before use (every axis but "model" under tensor
+    parallelism, every axis under ``pure_fsdp``), and the gathered copy is
+    dropped after the product;
+  * tensor parallelism: wq/wk/wv/wg/wu column-parallel, wo/wd
+    row-parallel followed by an ``all_reduce`` over "model"; where the
+    heads (or d_ff) do not split over the model axis the layer gathers its
+    weights whole instead;
+  * sequence sharding (``seq_shard``): attention all-gathers K/V over the
+    sequence axis, everything else stays local;
+  * decode reads the cache in the decode policy's layout (batch over the
+    batch axes or the sequence over "data", head_dim over "model"): the
+    scores are summed over "model", the softmax merged over "data";
+  * ``embed``: the vocab-parallel table's masked local lookup, summed
+    (``reduce_scatter`` where the tokens differ across the model axis),
+    or the D-sharded table's lookup reassembled over "model".
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models import collectives as coll
+from repro_torch.models.sharding import axes_of, mesh_ranks
 
 
 def dense_init(generator, shape, in_dim=None, device=None):
@@ -49,6 +74,48 @@ def rope(x, positions, theta):
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# parameters on a mesh
+# ---------------------------------------------------------------------------
+
+def on_mesh(policy) -> bool:
+    """Whether ``policy`` places tensors on more than one rank."""
+    return policy is not None and mesh_ranks(policy.mesh) > 1
+
+
+def weight(p, policy, keep=(), dtype=None):
+    """Parameter ``p`` as a layer uses it, in ``dtype`` (default its own):
+    its blocks all-gathered over every axis of its resident spec but those
+    in ``keep`` (the FSDP gather).  The cast comes first, so the gather
+    moves the compute dtype's bytes (the same values: a cast is per
+    element)."""
+    spec = getattr(p, "spec", None)
+    if dtype is not None:
+        p = p.to(dtype)
+    if spec is None or not on_mesh(policy):
+        return p
+    for d, entry in enumerate(spec):
+        gather = tuple(a for a in axes_of(entry) if a not in keep)
+        if gather:
+            p = coll.all_gather(p, policy.mesh, gather, d)
+    return p
+
+
+def use_spec(p, keep) -> tuple:
+    """The spec of ``weight(p, policy, keep)``'s result."""
+    spec = getattr(p, "spec", None) or (None,) * p.dim()
+    return tuple(e if e in keep else None for e in spec)
+
+
+def split_over(policy, *dims) -> bool:
+    """Whether the layer runs tensor-parallel: the policy splits over the
+    model axis (not ``pure_fsdp``) and so does every (parameter, dim)
+    pair's resident spec."""
+    keep = (policy.model_axis,)
+    return policy.tensor_parallel and all(
+        use_spec(p, keep)[d] == policy.model_axis for p, d in dims)
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +239,8 @@ def init_kv_cache(cfg, batch, cache_len, is_global_layer=True,
         slot_pos=torch.full((C,), -1, dtype=torch.int32, device=device))
 
 
-def attention(p, x, positions, cfg, *, is_global=True, cache=None):
+def attention(p, x, positions, cfg, *, is_global=True, cache=None,
+              policy=None):
     """Returns (out, new_cache).
 
     cache None        -> training/prefill full-sequence path (blockwise);
@@ -180,7 +248,12 @@ def attention(p, x, positions, cfg, *, is_global=True, cache=None):
     cache KVCache     -> single-token decode: x is (B, 1, D), positions
                          (B, 1); the second result is the updated ring
                          (new tensors: the given cache is not written).
+
+    On a mesh (``policy``) the blocks of ``_mesh_attention``.
     """
+    if on_mesh(policy):
+        return _mesh_attention(p, x, positions, cfg, is_global, cache,
+                               policy)
     B, S, D = x.shape
     H, KVh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     G = H // KVh
@@ -229,9 +302,132 @@ def attention(p, x, positions, cfg, *, is_global=True, cache=None):
     return out @ p["wo"].to(cd), KVCache(ck, cv, spos)
 
 
-def prefill_to_cache(cfg, k, v, positions, cache_len, is_global_layer=True):
+def _heads_split(p, cfg, policy) -> bool:
+    """Whether the attention runs tensor-parallel: wq/wk/wv split on their
+    columns and wo on its rows over the model axis, and the query and KV
+    heads divide it."""
+    n = policy.model_size
+    return split_over(policy, (p["wq"], 1), (p["wk"], 1), (p["wv"], 1),
+                      (p["wo"], 0)) and cfg.n_heads % n == 0 and \
+        cfg.n_kv_heads % n == 0
+
+
+def _mesh_attention(p, x, positions, cfg, is_global, cache, policy):
+    """Attention on this rank's tokens (B_loc, S_loc, D).  Under tensor
+    parallelism q/k/v hold this rank's heads and wo's partial sums are
+    all-reduced over "model"; else every head is local.  Prefill returns
+    K/V over the whole sequence (all-gathered over ``seq_shard``) in the
+    compute layout; decode reads and returns the cache in the decode
+    layout (``ShardingPolicy.kv_cache_spec``)."""
+    mesh, m = policy.mesh, policy.model_axis
+    tp = _heads_split(p, cfg, policy)
+    keep = (m,) if tp else ()
+    B, S, D = x.shape
+    H, KVh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    if tp:
+        H, KVh = H // policy.model_size, KVh // policy.model_size
+    G = H // KVh
+    cd = x.dtype
+
+    q = (x @ weight(p["wq"], policy, keep, cd)).reshape(B, S, H, hd)
+    k = (x @ weight(p["wk"], policy, keep, cd)).reshape(B, S, KVh, hd)
+    v = (x @ weight(p["wv"], policy, keep, cd)).reshape(B, S, KVh, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    window = cfg.sliding_window
+    chunk = cfg.attention_chunk if not is_global else 0
+    wo = weight(p["wo"], policy, keep, cd)
+
+    def project(o):                    # (B, S, H * hd) -> (B, S, D)
+        out = o @ wo
+        return coll.all_reduce(out, mesh, m) if tp else out
+
+    if cache is None:
+        pos_kv = positions
+        if policy.seq_shard:
+            k = coll.all_gather(k, mesh, policy.seq_shard, 1)
+            v = coll.all_gather(v, mesh, policy.seq_shard, 1)
+            pos_kv = coll.all_gather(positions, mesh, policy.seq_shard, 1)
+        out = blockwise_attention(
+            q.reshape(B, S, KVh, G, hd), k, v, positions, pos_kv,
+            causal=not cfg.is_encoder, window=window, chunk=chunk,
+            kv_block=cfg.kv_block, q_block=cfg.q_block)
+        return project(out.reshape(B, S, H * hd)), (k, v)
+
+    # ---- decode: the cache's block is (B_loc, C_loc, KV, hd_loc) ----
+    Cg = cache.slot_pos.shape[0]
+    cspec = policy.kv_cache_spec((policy.global_batch, Cg, cfg.n_kv_heads,
+                                  hd))
+    c_ax, d_ax = cspec[1], cspec[3]
+    if tp and d_ax:        # this rank's heads -> every head, its hd block
+        def to_cache(t):
+            return coll.all_to_all(t, mesh, m, 3, 2)
+    elif tp:
+        def to_cache(t):
+            return coll.all_gather(t, mesh, m, 2)
+    elif d_ax:
+        def to_cache(t):
+            n = t.shape[3] // policy.model_size
+            return t.narrow(3, mesh.coords[m] * n, n)
+    else:
+        def to_cache(t):
+            return t
+    q, k, v = to_cache(q), to_cache(k), to_cache(v)
+
+    Cl = cache.k.shape[1]
+    pos = positions[:, 0]
+    slot = (pos[:1] % Cg).long()
+    spos = cache.slot_pos.index_copy(0, slot, pos[:1].to(torch.int32))
+    lo = mesh.coords[c_ax] * Cl if c_ax else 0
+    local = slot - lo
+    inside = (local >= 0) & (local < Cl)
+    local = local.clamp(0, Cl - 1)
+    # the rank whose block holds the slot writes it; the others rewrite
+    # the slot's old value
+    ck = cache.k.index_copy(1, local, torch.where(
+        inside, k.to(cache.k.dtype), cache.k.index_select(1, local)))
+    cv = cache.v.index_copy(1, local, torch.where(
+        inside, v.to(cache.v.dtype), cache.v.index_select(1, local)))
+
+    s = _scores(q.reshape(B, 1, cfg.n_kv_heads, -1, q.shape[-1]), ck,
+                hd ** -0.5)
+    if d_ax:
+        s = coll.all_reduce(s, mesh, d_ax)
+    msk = _mask(pos[:, None], spos[lo:lo + Cl][None, :], causal=True,
+                window=window, chunk=chunk)
+    s = torch.where(msk[:, :, None, None, :], s, float("-inf"))
+    mx = s.amax(-1, keepdim=True)
+    if c_ax:
+        mx = coll.all_reduce(mx, mesh, c_ax, op="max")
+    mx = torch.where(torch.isfinite(mx), mx, 0.0)
+    pr = torch.exp(s - mx)
+    pr = torch.where(torch.isfinite(s), pr, 0.0)
+    o, l = _weighted(pr, cv), pr.sum(-1)
+    if c_ax:
+        o = coll.all_reduce(o, mesh, c_ax)
+        l = coll.all_reduce(l, mesh, c_ax)
+    o = (o / torch.clamp(l, min=1e-20)[..., None]).to(cd)
+    o = o.reshape(B, 1, cfg.n_heads, o.shape[-1])
+    if tp and d_ax:        # every head's hd block -> this rank's heads
+        o = coll.all_to_all(o, mesh, m, 2, 3)
+    elif tp:
+        o = o.narrow(2, mesh.coords[m] * H, H)
+    elif d_ax:
+        o = coll.all_gather(o, mesh, d_ax, 3)
+    return project(o.reshape(B, 1, H * hd)), KVCache(ck, cv, spos)
+
+
+def prefill_to_cache(cfg, k, v, positions, cache_len, is_global_layer=True,
+                     policy=None):
     """Convert full-sequence K/V from prefill into a (ring) KVCache in k's
-    dtype."""
+    dtype.  On a mesh, K/V come in ``_mesh_attention``'s layout and the
+    cache leaves in the decode policy's (``ShardingPolicy.for_decode``)."""
+    if on_mesh(policy):
+        return _mesh_prefill_cache(cfg, k, v, positions, cache_len,
+                                   is_global_layer, policy)
     B, S, KVh, hd = k.shape
     cache = init_kv_cache(cfg, B, cache_len, is_global_layer, dtype=k.dtype,
                           device=k.device)
@@ -252,6 +448,24 @@ def prefill_to_cache(cfg, k, v, positions, cache_len, is_global_layer=True):
     return cache
 
 
+def _mesh_prefill_cache(cfg, k, v, positions, cache_len, is_global_layer,
+                        policy):
+    mesh = policy.mesh
+    if policy.seq_shard:
+        positions = coll.all_gather(positions, mesh, policy.seq_shard, 1)
+    # under tensor parallelism this rank's K/V hold its heads only
+    heads = policy.model_axis if k.shape[2] < cfg.n_kv_heads else None
+    cache = prefill_to_cache(dataclasses.replace(cfg, n_kv_heads=k.shape[2]),
+                             k, v, positions, cache_len, is_global_layer)
+    ba = policy.batch_axes
+    src = (ba if len(ba) > 1 else (ba[0] if ba else None), None, heads, None)
+    full = (policy.global_batch, cache.k.shape[1], cfg.n_kv_heads,
+            cfg.head_dim_)
+    dst = policy.for_decode().kv_cache_spec(full)
+    return KVCache(coll.reshard(cache.k, mesh, src, dst),
+                   coll.reshard(cache.v, mesh, src, dst), cache.slot_pos)
+
+
 # ---------------------------------------------------------------------------
 # MLP & embeddings
 # ---------------------------------------------------------------------------
@@ -263,10 +477,20 @@ def init_mlp(d_model, d_ff, generator, device=None):
                              device=device)}
 
 
-def mlp(p, x):
+def mlp(p, x, policy=None):
+    """The gated MLP; on a mesh column-parallel wg/wu and row-parallel wd
+    (then an ``all_reduce`` over "model") when d_ff splits over the model
+    axis, else on the whole gathered weights."""
     cd = x.dtype
-    g = F.silu(x @ p["wg"].to(cd))
-    return (g * (x @ p["wu"].to(cd))) @ p["wd"].to(cd)
+    if not on_mesh(policy):
+        g = F.silu(x @ p["wg"].to(cd))
+        return (g * (x @ p["wu"].to(cd))) @ p["wd"].to(cd)
+    tp = split_over(policy, (p["wg"], 1), (p["wu"], 1), (p["wd"], 0))
+    keep = (policy.model_axis,) if tp else ()
+    g = F.silu(x @ weight(p["wg"], policy, keep, cd))
+    out = (g * (x @ weight(p["wu"], policy, keep, cd))) @ \
+        weight(p["wd"], policy, keep, cd)
+    return coll.all_reduce(out, policy.mesh, policy.model_axis) if tp else out
 
 
 def init_embed(vocab, d_model, generator, device=None):
@@ -274,7 +498,36 @@ def init_embed(vocab, d_model, generator, device=None):
                                  dtype=torch.float32, device=device) * 0.02}
 
 
-def embed(p, tokens, dtype=torch.bfloat16):
+def embed(p, tokens, dtype=torch.bfloat16, policy=None):
     """The table's rows of ``tokens`` in ``dtype`` (gathered, then cast:
-    the values of the JAX package's cast-then-gather)."""
-    return p["table"][tokens].to(dtype)
+    the values of the JAX package's cast-then-gather).  On a mesh
+    ``tokens`` is this rank's block of ``batch_first`` and so is the
+    result."""
+    table = p["table"]
+    if not on_mesh(policy) or getattr(table, "spec", None) is None:
+        return table[tokens].to(dtype)
+    mesh, m = policy.mesh, policy.model_axis
+    tv, td = table.spec
+    table = weight(table, policy, (m,))
+    if tv != m and td != m:
+        return table[tokens].to(dtype)
+    # the dim of the tokens that differs across the model axis, if any
+    tok_dim = 0 if m in policy.batch_axes else (
+        1 if policy.seq_shard == m else None)
+    ids = tokens if tok_dim is None else coll.all_gather(tokens, mesh, m,
+                                                      tok_dim)
+    if tv == m:
+        # vocab-parallel: this rank's rows, zero elsewhere, summed over
+        # the model axis (one non-zero term: exact)
+        vloc = table.shape[0]
+        loc = ids - mesh.coords[m] * vloc
+        ok = (loc >= 0) & (loc < vloc)
+        emb = torch.where(ok[..., None], table[loc.clamp(0, vloc - 1)],
+                          0).to(dtype)
+        if tok_dim is None:
+            return coll.all_reduce(emb, mesh, m)
+        return coll.reduce_scatter(emb, mesh, m, tok_dim)
+    emb = table[ids].to(dtype)                 # this rank's D block
+    if tok_dim is None:
+        return coll.all_gather(emb, mesh, m, emb.dim() - 1)
+    return coll.all_to_all(emb, mesh, m, tok_dim, emb.dim() - 1)

@@ -8,6 +8,19 @@ package's facade is stateless and takes a parameter tree in each call.
 The parameters are built with ``requires_grad=False``, so serving builds
 no graph; a training entry point turns gradients on for its own model
 (``model.requires_grad_(True)``).
+
+On a mesh of several ranks (``policy``: a ``ShardingPolicy`` on a
+``launch.mesh.Mesh``) a rank holds one resident layout of the parameters:
+its block of the given policy's ``param_spec``, which must be a tensor-
+parallel one (not ``pure_fsdp``).  The serving launchers name the decode
+policy's layout (TP + FSDP: weights split over "model" on heads / d_ff /
+experts / vocab and over "data" on d_model), since a server runs many
+decode steps; a decode step gathers each weight over "data" just before
+use, and a ``pure_fsdp`` prefill gathers each over every axis from the
+same blocks.  Each parameter carries its spec (``p.spec``); a rank's
+parameter bytes are those of its blocks (``param_bytes``).  Every rank
+draws every parameter from the same generator, so the ranks' blocks tile
+the parameters of a one-rank model of the same seed.
 """
 
 from __future__ import annotations
@@ -20,7 +33,8 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.models.sharding import ShardingPolicy, make_policy
+from repro_torch.models.sharding import ShardingPolicy, check_family, \
+    make_policy, mesh_ranks
 
 
 class TensorSpec(NamedTuple):
@@ -68,20 +82,41 @@ class Model(nn.Module):
     parameters stay f32 and are cast at use)."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator,
-                 device=None, dtype=torch.bfloat16):
+                 device=None, dtype=torch.bfloat16,
+                 policy: ShardingPolicy = None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.placement = None
+        if policy is not None and mesh_ranks(policy.mesh) > 1:
+            check_family(cfg, policy.mesh)
+            if policy.pure_fsdp:
+                raise ValueError("Model: place the parameters by a tensor-"
+                                 "parallel policy (the decode policy), not "
+                                 "a pure_fsdp one")
+            self.placement = policy
         self.params = T.Transformer(cfg, generator,
-                                    device or generator.device)
+                                    device or generator.device,
+                                    self.placement)
 
     @property
     def device(self) -> torch.device:
         return self.params.final_norm.device
 
+    @property
+    def mesh(self):
+        return None if self.placement is None else self.placement.mesh
+
     def _policy(self, policy, batch_size, kind):
-        return policy if policy is not None else make_policy(
-            None, batch_size, kind)
+        if policy is None:
+            return make_policy(self.mesh, batch_size, kind,
+                               head_fsdp=self.cfg.head_fsdp,
+                               pure_fsdp=kind != "decode" and
+                               self.cfg.parallelism == "fsdp")
+        if mesh_ranks(policy.mesh) > 1 and policy.mesh is not self.mesh:
+            raise ValueError("Model: the step's policy is on another mesh "
+                             "than the parameters' placement")
+        return policy
 
     # -- steps -------------------------------------------------------------
     def loss(self, batch, policy: ShardingPolicy = None):
@@ -93,12 +128,18 @@ class Model(nn.Module):
 
     def prefill(self, batch, policy: ShardingPolicy = None, cache_len=None):
         """Full prompts in: (logits of the last position (B, 1, V), the
-        caches)."""
+        caches).  On a mesh ``batch`` is the global batch; the logits are
+        this rank's block of ``policy.logits_spec`` and the caches its
+        block of the decode policy's layout."""
         policy = self._policy(policy, _batch_size(batch), "prefill")
-        hidden, caches, _ = T.forward(self.params, batch, self.cfg, policy,
-                                      mode="prefill", cache_len=cache_len,
-                                      dtype=self.dtype)
-        logits = T.logits_fn(self.params, hidden[:, -1:], self.cfg, policy)
+        with torch.no_grad():
+            hidden, caches, _ = T.forward(self.params, batch, self.cfg,
+                                          policy, mode="prefill",
+                                          cache_len=cache_len,
+                                          dtype=self.dtype)
+            logits = T.logits_fn(self.params,
+                                 T.last_position(hidden, policy), self.cfg,
+                                 policy)
         return logits, caches
 
     def decode_step(self, caches, tokens, positions,
@@ -106,12 +147,18 @@ class Model(nn.Module):
         """One token (B, 1) at ``positions`` (B, 1) through the caches:
         (logits (B, 1, V), new caches; the given caches are not written)."""
         policy = self._policy(policy, tokens.shape[0], "decode")
-        hidden, caches, _ = T.forward(self.params, {"tokens": tokens},
-                                      self.cfg, policy, mode="decode",
-                                      caches=caches, positions=positions,
-                                      dtype=self.dtype)
-        logits = T.logits_fn(self.params, hidden, self.cfg, policy)
+        with torch.no_grad():
+            hidden, caches, _ = T.forward(self.params, {"tokens": tokens},
+                                          self.cfg, policy, mode="decode",
+                                          caches=caches, positions=positions,
+                                          dtype=self.dtype)
+            logits = T.logits_fn(self.params, hidden, self.cfg, policy)
         return logits, caches
+
+    def greedy(self, logits, policy: ShardingPolicy):
+        """The next ids (B, 1) int32 of the whole batch from a step's
+        logits (``transformer.greedy``)."""
+        return T.greedy(logits, self.cfg, policy)
 
     def encode(self, batch, policy: ShardingPolicy = None):
         """Encoder-only forward (hubert): per-frame logits."""
@@ -131,14 +178,15 @@ def _batch_size(batch) -> int:
 
 
 def build_model(cfg_or_name, generator: torch.Generator = None, device=None,
-                dtype=torch.bfloat16) -> Model:
+                dtype=torch.bfloat16, policy: ShardingPolicy = None) -> Model:
     """The model of an ArchConfig or an architecture's name, on the card
     unless ``device`` asks for the CPU; ``generator`` (default: seed 0 on
-    that device) draws the parameters."""
+    that device) draws the parameters; ``policy`` places them on a
+    mesh."""
     if isinstance(cfg_or_name, str):
         from repro_torch.configs.base import get_config
         cfg_or_name = get_config(cfg_or_name)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    return Model(cfg_or_name, generator, device, dtype)
+    return Model(cfg_or_name, generator, device, dtype, policy)

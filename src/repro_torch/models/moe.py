@@ -1,4 +1,4 @@
-"""Capacity-based top-k routed MoE with shared expert(s), on one card.
+"""Capacity-based top-k routed MoE with shared expert(s).
 
 The port of the JAX package's ``repro.models.moe``.  Token→slot assignment
 is the one-hot-cumsum capacity scheme (GShard/Switch): static shapes, each
@@ -7,11 +7,19 @@ expert takes at most C tokens of the call, the overflow is dropped
 balanced).  The expert FFN runs over the whole (E, C, D) slot buffer, the
 empty slots too, as three batched products.
 
-The JAX package parallelizes the expert FFN over its ``model`` mesh axis in
-one of three modes (``ep``: experts divide the axis; ``tp``: every peer
-computes all experts on a d_ff shard; all-to-all dispatch under ZeRO).
-On one card the model axis has one peer, which is the ``ep`` branch with no
-collective; the other modes need the multi-rank ShardingPolicy.
+On a mesh every rank routes its own block of tokens (the JAX package's
+``shard_map`` over the batch axes: capacity is per block,
+``_capacity(cfg, T_loc)``) and the expert FFN runs in one of the JAX
+package's modes, chosen as its ``moe_ffn`` chooses them:
+  * ``ep``: experts divide the model axis; each peer computes its expert
+    slice of the slot buffer, the outputs are all-gathered;
+  * ``tp``: experts don't divide; every peer computes all experts on its
+    d_ff shard, the down-projection is all-reduced;
+  * ``pure_fsdp`` with experts dividing the model axis: the slot buffers
+    go to the experts' home peers and back with two ``all_to_all``s;
+  * ``pure_fsdp`` otherwise: every expert local on gathered weights.
+The aux loss is the mean over the token blocks (``jnp.mean(aux)`` of the
+JAX package's per-shard values).
 """
 
 from __future__ import annotations
@@ -19,7 +27,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, init_mlp, mlp
+from repro_torch.models import collectives as coll
+from repro_torch.models.layers import dense_init, init_mlp, mlp, on_mesh, \
+    split_over, weight
 
 
 def init_moe(cfg, generator, device=None):
@@ -69,9 +79,19 @@ def _slots(flat_e, E):
     return (before * onehot).sum(1)
 
 
-def _dispatch_combine(x, router, wg, wu, wd, cfg):
-    """The ``ep`` branch on one model peer. x: (B, S, D).  Returns (routed
-    out (B, S, D), aux, dropped: the (token, choice) rows past capacity)."""
+def _ffn(buf, wg, wu, wd):
+    """The gated expert FFN over a slot buffer (E, C, D)."""
+    cd = buf.dtype
+    h = torch.bmm(buf, wg.to(cd))
+    u = torch.bmm(buf, wu.to(cd))
+    return torch.bmm(F.silu(h) * u, wd.to(cd))
+
+
+def _dispatch_combine(x, router, wg, wu, wd, cfg, experts=None):
+    """Route the tokens of ``x`` (B, S, D) into the slot buffer, run the
+    experts over it (``experts(buf)`` -> (E, C, D); by default all of them
+    here on ``wg``/``wu``/``wd``) and combine.  Returns (routed out (B, S,
+    D), aux, dropped: the (token, choice) rows past capacity)."""
     B, S, D = x.shape
     T = B * S
     k = cfg.experts_per_token
@@ -95,9 +115,7 @@ def _dispatch_combine(x, router, wg, wu, wd, cfg):
     buf.index_put_((flat_e, pos_c),
                    torch.where(keep[:, None], xt_rep, 0), accumulate=True)
 
-    h = torch.bmm(buf, wg.to(cd))
-    u = torch.bmm(buf, wu.to(cd))
-    y = torch.bmm(F.silu(h) * u, wd.to(cd))                 # (E, C, D)
+    y = experts(buf) if experts is not None else _ffn(buf, wg, wu, wd)
 
     got = y[flat_e, pos_c]                                  # (T*k, D)
     got = torch.where(keep[:, None], got, 0)
@@ -105,15 +123,67 @@ def _dispatch_combine(x, router, wg, wu, wd, cfg):
     return out.reshape(B, S, D), aux, (~keep).sum()
 
 
+def _mesh_experts(p, cfg, policy, dtype):
+    """(wg, wu, wd, experts) of this rank's mode (module docstring), the
+    weights in ``dtype``."""
+    mesh, m, n = policy.mesh, policy.model_axis, policy.model_size
+    E = cfg.n_experts
+    ws = (p["we_gate"], p["we_up"], p["we_down"])
+    if n > 1 and E % n == 0:
+        # the experts' home peers: the resident blocks (m, None, None)
+        wg, wu, wd = (weight(w, policy, (m,), dtype) for w in ws)
+        eloc = E // n
+        if policy.pure_fsdp:
+            def experts(buf):
+                Cc, D = buf.shape[1:]
+                recv = coll.all_to_all(buf.reshape(n, eloc, Cc, D), mesh,
+                                       m, 0, 0)             # (P, eloc, C, D)
+                toks = recv.transpose(0, 1).reshape(eloc, n * Cc, D)
+                y = _ffn(toks, wg, wu, wd)
+                y = y.reshape(eloc, n, Cc, D).transpose(0, 1)
+                return coll.all_to_all(y, mesh, m, 0, 0).reshape(E, Cc, D)
+        else:
+            def experts(buf):
+                mi = mesh.coords[m]
+                y = _ffn(buf[mi * eloc:(mi + 1) * eloc], wg, wu, wd)
+                return coll.all_gather(y, mesh, m, 0)
+        return wg, wu, wd, experts
+    tp = not policy.pure_fsdp and split_over(
+        policy, (ws[0], 2), (ws[1], 2), (ws[2], 1))
+    wg, wu, wd = (weight(w, policy, (m,) if tp else (), dtype)
+                  for w in ws)
+    if not tp:
+        return wg, wu, wd, None
+
+    def experts(buf):
+        return coll.all_reduce(_ffn(buf, wg, wu, wd), mesh, m)
+    return wg, wu, wd, experts
+
+
+def token_axes(policy) -> tuple:
+    """The axes over which the ranks' token blocks differ: the batch axes,
+    and the sequence axis under ``seq_shard``."""
+    ax = policy.batch_axes
+    if policy.seq_shard and policy.seq_shard not in ax:
+        ax = ax + (policy.seq_shard,)
+    return ax
+
+
 def moe_ffn(p, x, cfg, policy):
     """Routed + shared expert FFN. Returns (out, aux_loss scalar)."""
-    if policy.model_size > 1:
-        raise NotImplementedError(
-            "moe_ffn on a model axis of more than one peer: the tp and "
-            "all-to-all dispatch modes need the multi-rank ShardingPolicy "
-            "(ROADMAP queue 1, item 4)")
-    out, aux, _ = _dispatch_combine(
-        x, p["router"], p["we_gate"], p["we_up"], p["we_down"], cfg)
+    if not on_mesh(policy):
+        out, aux, _ = _dispatch_combine(
+            x, p["router"], p["we_gate"], p["we_up"], p["we_down"], cfg)
+        if "shared" in p:
+            out = out + mlp(p["shared"], x)
+        return out, aux
+    wg, wu, wd, experts = _mesh_experts(p, cfg, policy, x.dtype)
+    router = weight(p["router"], policy)
+    out, aux, _ = _dispatch_combine(x, router, wg, wu, wd, cfg, experts)
+    axes = token_axes(policy)
+    if axes:
+        aux = coll.all_reduce(aux.reshape(1), policy.mesh, axes)[0] / \
+            policy.mesh.size(axes)
     if "shared" in p:
-        out = out + mlp(p["shared"], x)
+        out = out + mlp(p["shared"], x, policy)
     return out, aux

@@ -23,6 +23,15 @@ Modes: "train" (a forward over full sequences, no caches; each group
 checkpointed under ``cfg.remat`` while autograd records), "prefill"
 (returns ring caches), "decode" (one token through the caches).
 ``loss_fn`` is the training loss over a train-mode forward.
+
+On a mesh of several ranks (the dense and moe families, serving) the
+batch a forward is given is the global one, on every rank; it is placed
+(``sharding.place``: batch over the batch axes, the sequence over
+``seq_shard``) and every activation after it is this rank's block.  The
+caches come out of prefill, and go into decode, as the decode policy
+places them; the logits leave vocab-sharded (``ShardingPolicy.logits_spec``)
+and ``greedy`` picks the next ids with a max and an argmax over the model
+axis.
 """
 
 from __future__ import annotations
@@ -32,9 +41,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import collectives as coll
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.models.sharding import place
 
 
 # ---------------------------------------------------------------------------
@@ -66,17 +77,28 @@ def sublayer_is_global(cfg, i, n_sub):
 # parameters
 # ---------------------------------------------------------------------------
 
-def _params(tree):
+def _param(name, t, placement=None):
+    """A parameter of ``t``; with a ``placement`` policy, this rank's block
+    of it, its spec as ``.spec`` (``param_spec`` of the leaf's name)."""
+    if placement is None:
+        return nn.Parameter(t, requires_grad=False)
+    spec = placement.param_spec(name, t.shape)
+    p = nn.Parameter(place(t, spec, placement.mesh), requires_grad=False)
+    p.spec = spec
+    return p
+
+
+def _params(tree, placement=None):
     """A parameter dict of ``tree`` (nested dicts become nested
-    ParameterDicts)."""
+    ParameterDicts), each leaf placed by ``_param``."""
     return nn.ParameterDict({
-        k: _params(v) if isinstance(v, dict)
-        else nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
+        k: _params(v, placement) if isinstance(v, dict)
+        else _param(k, v, placement) for k, v in tree.items()})
 
 
-def _ones(cfg, device):
-    return nn.Parameter(torch.ones(cfg.d_model, dtype=torch.float32,
-                                   device=device), requires_grad=False)
+def _ones(cfg, device, placement=None):
+    return _param("norm", torch.ones(cfg.d_model, dtype=torch.float32,
+                                     device=device), placement)
 
 
 class Block(nn.Module):
@@ -85,16 +107,18 @@ class Block(nn.Module):
     we_gate, we_up, we_down and the ``shared`` MLP) in the moe family, else
     ``mlp`` (wg, wu, wd)."""
 
-    def __init__(self, cfg, generator, device=None):
+    def __init__(self, cfg, generator, device=None, placement=None):
         super().__init__()
-        self.ln1 = _ones(cfg, device)
-        self.attn = _params(L.init_attention(cfg, generator, device))
-        self.ln2 = _ones(cfg, device)
+        self.ln1 = _ones(cfg, device, placement)
+        self.attn = _params(L.init_attention(cfg, generator, device),
+                            placement)
+        self.ln2 = _ones(cfg, device, placement)
         if cfg.family == "moe":
-            self.moe = _params(MOE.init_moe(cfg, generator, device))
+            self.moe = _params(MOE.init_moe(cfg, generator, device),
+                               placement)
         else:
             self.mlp = _params(L.init_mlp(cfg.d_model, cfg.d_ff, generator,
-                                          device))
+                                          device), placement)
 
 
 class SSMBlock(nn.Module):
@@ -108,10 +132,10 @@ class SSMBlock(nn.Module):
         self.ssm = _params(init(cfg, generator, device))
 
 
-def _sublayer(cfg, kind, generator, device):
+def _sublayer(cfg, kind, generator, device, placement):
     if kind == "ssm":
         return SSMBlock(cfg, generator, device)
-    return Block(cfg, generator, device)
+    return Block(cfg, generator, device, placement)
 
 
 class Transformer(nn.Module):
@@ -119,9 +143,13 @@ class Transformer(nn.Module):
     ``embed`` (the padded vocabulary's table, absent for audio), ``groups``
     (G groups of sublayers), ``shared_block`` (the hybrid family's one
     attention + MLP Block, else None), ``final_norm`` and, unless the
-    embeddings are tied, ``lm_head`` (D, padded vocab)."""
+    embeddings are tied, ``lm_head`` (D, padded vocab).
 
-    def __init__(self, cfg, generator, device=None):
+    With a ``placement`` policy each parameter is drawn whole, in the same
+    order, and only this rank's block of it is kept (``_param``): a
+    sublayer's leaves are the most that is alive at once."""
+
+    def __init__(self, cfg, generator, device=None, placement=None):
         super().__init__()
         n_groups, kinds, has_shared = group_layout(cfg)
         self.embed = None
@@ -129,19 +157,20 @@ class Transformer(nn.Module):
             # padded rows keep odd vocabs a multiple of 16; the extra
             # logits are masked in logits_fn and never indexed by tokens
             self.embed = _params(L.init_embed(cfg.padded_vocab, cfg.d_model,
-                                              generator, device))
+                                              generator, device), placement)
         self.groups = nn.ModuleList(
-            nn.ModuleList(_sublayer(cfg, kind, generator, device)
+            nn.ModuleList(_sublayer(cfg, kind, generator, device, placement)
                           for kind in kinds)
             for _ in range(n_groups))
         self.shared_block = Block(cfg, generator, device) if has_shared \
             else None
-        self.final_norm = _ones(cfg, device)
+        self.final_norm = _ones(cfg, device, placement)
         self.lm_head = None
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(
-                L.dense_init(generator, (cfg.d_model, cfg.padded_vocab),
-                             device=device), requires_grad=False)
+            self.lm_head = _param(
+                "lm_head", L.dense_init(generator,
+                                        (cfg.d_model, cfg.padded_vocab),
+                                        device=device), placement)
 
 
 # ---------------------------------------------------------------------------
@@ -152,14 +181,15 @@ def _apply_attn_block(p, x, positions, cfg, policy, is_global, cache, mode,
                       cache_len=None):
     h, kv = L.attention(p.attn, L.rms_norm(x, p.ln1, cfg.norm_eps),
                         positions, cfg, is_global=is_global,
-                        cache=cache if mode == "decode" else None)
+                        cache=cache if mode == "decode" else None,
+                        policy=policy)
     x = x + h
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     xn = L.rms_norm(x, p.ln2, cfg.norm_eps)
     if hasattr(p, "moe"):
         h2, aux = MOE.moe_ffn(p.moe, xn, cfg, policy)
     else:
-        h2 = L.mlp(p.mlp, xn)
+        h2 = L.mlp(p.mlp, xn, policy)
     x = policy.constrain_tokens(x + h2)
     if mode == "train":
         new_cache = None
@@ -167,8 +197,8 @@ def _apply_attn_block(p, x, positions, cfg, policy, is_global, cache, mode,
         k, v = kv
         new_cache = L.prefill_to_cache(
             cfg, k, v, positions,
-            cache_len=cache_len or positions.shape[1],
-            is_global_layer=is_global)
+            cache_len=cache_len or k.shape[1],
+            is_global_layer=is_global, policy=policy)
     else:  # decode: L.attention already returned the updated KVCache
         new_cache = kv
     return x, new_cache, aux
@@ -223,15 +253,30 @@ def _apply_group(gp, shared_p, x, positions, cfg, policy, caches, mode,
 # full forward
 # ---------------------------------------------------------------------------
 
+def place_tokens(t, policy):
+    """This rank's block of a global (B, S, ...) input under
+    ``batch_first``; ``t`` itself off a mesh."""
+    if not L.on_mesh(policy):
+        return t
+    return place(t, policy.batch_first(t.shape), policy.mesh)
+
+
 def _embed_inputs(params, batch, cfg, policy, dtype):
-    """-> (x (B,S,D) in ``dtype``, positions (B,S) int32)."""
+    """-> (x (B,S,D) in ``dtype``, positions (B,S) int32); on a mesh this
+    rank's blocks of both."""
     if cfg.family == "vlm":
         tok_emb = L.embed(params.embed, batch["tokens"], dtype)
         x = torch.cat([batch["image_embeds"].to(dtype), tok_emb], dim=1)
     elif cfg.frontend_stub:  # audio
         x = batch["frames"].to(dtype)
     else:
-        x = L.embed(params.embed, batch["tokens"], dtype)
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, S)
+        x = L.embed(params.embed, place_tokens(tokens, policy), dtype,
+                    policy)
+        return policy.constrain_tokens(x), place_tokens(positions, policy)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
@@ -281,8 +326,9 @@ def forward(params, batch, cfg, policy, mode="train", caches=None,
     if mode == "decode":
         if cfg.frontend_stub and cfg.family != "vlm":
             raise ValueError("encoder-only arch has no decode step")
-        x = L.embed(params.embed, batch["tokens"], dtype)
-        pos = positions
+        x = L.embed(params.embed, place_tokens(batch["tokens"], policy),
+                    dtype, policy)
+        pos = place_tokens(positions, policy)
     else:
         x, pos = _embed_inputs(params, batch, cfg, policy, dtype)
 
@@ -310,12 +356,84 @@ def forward(params, batch, cfg, policy, mode="train", caches=None,
 
 
 def logits_fn(params, hidden, cfg, policy):
+    if L.on_mesh(policy):
+        return _mesh_logits(params, hidden, cfg, policy)
     head = params.embed["table"].T if cfg.tie_embeddings else params.lm_head
     logits = hidden @ head.to(hidden.dtype)
     if cfg.padded_vocab != cfg.vocab_size:
         # mask pad columns (large-negative, not -inf: keeps lse finite)
         logits[..., cfg.vocab_size:] = -1e30
     return logits
+
+
+def _mesh_logits(params, hidden, cfg, policy):
+    """Logits of this rank's block of ``logits_spec``: the hidden rows
+    gathered off the model axis (under ``pure_fsdp`` the batch is on it),
+    then this rank's vocab block of the head (a D-sharded tied table gives
+    partial sums, reduce-scattered over "model")."""
+    mesh, m = policy.mesh, policy.model_axis
+    if m in policy.batch_axes:
+        hidden = coll.all_gather(hidden, mesh, m, 0)
+    B, S = hidden.shape[:2]
+    spec = policy.logits_spec((policy.global_batch, S, cfg.padded_vocab))
+    if cfg.tie_embeddings:
+        raw = params.embed["table"]
+        dv, dd = raw.spec                       # the head (D, V) is its .T
+        head = L.weight(raw, policy, (m,), hidden.dtype).T
+    else:
+        raw = params.lm_head
+        dd, dv = raw.spec
+        head = L.weight(raw, policy, (m,), hidden.dtype)
+    dd, dv = (e if e == m else None for e in (dd, dv))
+    if dd == m:       # partial sums of this rank's D block
+        n = head.shape[0]
+        h = hidden.narrow(-1, mesh.coords[m] * n, n)
+        part = h @ head.to(hidden.dtype)
+        logits = coll.reduce_scatter(part, mesh, m, 2) if spec[2] == m \
+            else coll.all_reduce(part, mesh, m)
+    else:
+        logits = hidden @ head.to(hidden.dtype)
+        if spec[2] == m and dv != m:
+            n = logits.shape[-1] // policy.model_size
+            logits = logits.narrow(-1, mesh.coords[m] * n, n).contiguous()
+    if cfg.padded_vocab != cfg.vocab_size:
+        lo = mesh.coords[m] * logits.shape[-1] if spec[2] == m else 0
+        logits[..., max(cfg.vocab_size - lo, 0):] = -1e30
+    return logits
+
+
+def last_position(hidden, policy):
+    """The last position's hidden state (B, 1, D): under ``seq_shard`` it
+    lives on the sequence axis's last rank, so the last positions are
+    all-gathered over that axis first."""
+    last = hidden[:, -1:]
+    if L.on_mesh(policy) and policy.seq_shard:
+        last = coll.all_gather(last.contiguous(), policy.mesh,
+                               policy.seq_shard, 1)[:, -1:]
+    return last
+
+
+def greedy(logits, cfg, policy):
+    """The argmax ids (B, 1) int32 of the last position's logits, for the
+    whole batch on every rank.  Off a mesh, ``argmax``; on a mesh the
+    vocab is sharded over "model": each rank's max and argmax, then the
+    first maximum over the model axis (the lowest id among ties, as
+    ``argmax``), and the batch blocks all-gathered."""
+    last = logits[:, -1]
+    if not L.on_mesh(policy):
+        return last.argmax(-1, keepdim=True).to(torch.int32)
+    mesh, m = policy.mesh, policy.model_axis
+    spec = policy.logits_spec((policy.global_batch, 1, cfg.padded_vocab))
+    idx = last.argmax(-1, keepdim=True)
+    val = last.gather(-1, idx)
+    idx = idx.to(torch.int32)
+    if spec[2] == m:
+        idx = idx + mesh.coords[m] * last.shape[-1]
+        vals = coll.all_gather(val.float(), mesh, m, 1)     # (B_loc, n)
+        idxs = coll.all_gather(idx, mesh, m, 1)
+        idx = idxs.gather(1, vals.argmax(1, keepdim=True))
+    ba = tuple(a for a in policy.batch_axes if a != m)
+    return coll.all_gather(idx, mesh, ba, 0) if ba else idx
 
 
 def loss_fn(params, batch, cfg, policy, dtype=torch.bfloat16):

@@ -56,8 +56,10 @@ def one_rank():
             dist.destroy_process_group()
 
 
-def spawn(world: int, cases, timeout: float = 240.0):
-    """Run ``cases`` on ``world`` ranks; returns [rank][case] results."""
+def spawn(world: int, cases, timeout: float = 240.0,
+          module: str = "_torch_mesh_ranks"):
+    """Run ``cases`` on ``world`` ranks; returns [rank][case] results.
+    ``module`` is the rank side (its ``main`` runs the cases)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "cases.pkl")
         with open(path, "wb") as f:
@@ -68,7 +70,7 @@ def spawn(world: int, cases, timeout: float = 240.0):
         logs = [open(os.path.join(tmp, f"log{r}"), "w+b")
                 for r in range(world)]
         procs = [subprocess.Popen(
-            [sys.executable, "-m", "_torch_mesh_ranks", str(r), str(world),
+            [sys.executable, "-m", module, str(r), str(world),
              os.path.join(tmp, "store"), path, os.path.join(tmp, f"out{r}")],
             env=env, cwd=tmp, stdout=logs[r], stderr=subprocess.STDOUT)
             for r in range(world)]

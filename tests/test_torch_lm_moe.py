@@ -24,7 +24,9 @@ from repro.configs.base import get_config as jget_config
 from repro.models import moe as JM
 from repro.models.sharding import make_policy as jmake_policy
 from repro_torch import interop
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import ShapeSpec, get_config
+from repro_torch.launch.steps import decode_step_bundle
+from repro_torch.models.model import Model as TModel
 from repro_torch.models import moe as TM
 from repro_torch.models.layers import mlp
 from repro_torch.models.sharding import make_policy
@@ -172,14 +174,25 @@ def test_moe_ffn_matches_a_dense_reference(name, params):
 
 
 def test_moe_ffn_needs_one_model_peer(params):
-    """The tp and all-to-all modes live across model-axis peers."""
+    """The moe family runs on a multi-rank mesh (its tp, ep and all-to-all
+    modes, ``test_torch_lm_mesh.py``); the ssm and hybrid families on one
+    raise, naming the next slice, before a parameter is drawn, and a
+    one-peer policy keeps the one-card path."""
+    class Mesh22:
+        shape = {"data": 2, "model": 2}
+    for name in ("falcon-mamba-7b", "zamba2-2.7b"):
+        cfg = get_config(name).reduced()
+        policy = make_policy(Mesh22(), 4, "decode")
+        with pytest.raises(NotImplementedError, match="next slice"):
+            TModel(cfg, torch.Generator().manual_seed(0), "cpu",
+                   policy=policy)
+        with pytest.raises(NotImplementedError, match="next slice"):
+            decode_step_bundle(cfg, ShapeSpec("t", 8, 4, "decode"), Mesh22())
     cfg = get_config("qwen2-moe-a2.7b").reduced()
-
-    class Wide:
-        model_size = 2
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TM.moe_ffn(_port_params(params["qwen2-moe-a2.7b"]),
-                   torch.zeros((B, S, cfg.d_model)), cfg, Wide())
+    x = torch.zeros((B, S, cfg.d_model))
+    out, aux = TM.moe_ffn(_port_params(params["qwen2-moe-a2.7b"]), x, cfg,
+                          make_policy(None, B, "decode"))
+    assert out.shape == x.shape and torch.isfinite(aux)
 
 
 @pytest.mark.parametrize("name", ARCHS)

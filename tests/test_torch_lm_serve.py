@@ -110,20 +110,34 @@ def test_bundle_for(shape_name):
 
 
 def test_policy_is_one_card():
+    """The policy's answers on a (data 2, model 1) mesh, and on one card:
+    the batch over "data", nothing over the one-peer model axis."""
     class FakeMesh:
         shape = {"data": 2, "model": 1}
-    with pytest.raises(NotImplementedError, match="ShardingPolicy"):
-        make_policy(FakeMesh(), 4)
-    p = make_policy(None, 4, "decode")
+    p = make_policy(FakeMesh(), 4, "decode")
+    assert p.batch_axes == ("data",) and p.data_parallel_size == 2
+    assert p.model_size == 1 and p.seq_axis is None and not p.tensor_parallel
+    assert p.batch_first((4, 8, 16)) == ("data", None, None)
+    assert p.param_spec("groups.0.0.attn.wq", (128, 256)) == ("data", None)
+    assert p.kv_cache_spec((2, 4, 64, 2, 32)) == (None, "data", None, None,
+                                                  None)
     x = torch.ones(2, 3)
-    assert p.constrain_tokens(x) is x and p.model_size == 1
+    assert p.constrain_tokens(x) is x
+    with pytest.raises(ValueError, match="block"):
+        p.constrain_tokens(torch.ones(4, 3))
+    one = make_policy(None, 4, "decode")
+    assert one.constrain_tokens(x) is x and one.model_size == 1
+    assert one.batch_axes == () and one.param_spec("wq", (8, 8)) == (None,
+                                                                     None)
 
 
-def _cli(*args, timeout=120):
+def _cli(*args, timeout=120, ranks=0):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    return subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                           *args], env=env, cwd=ROOT, capture_output=True,
-                          text=True, timeout=timeout)
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(ranks)] if ranks else [sys.executable]
+    return subprocess.run(run + ["-m", "repro_torch.launch.serve", *args],
+                          env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
 
 
 def test_serve_cli_on_the_cpu():
@@ -155,13 +169,16 @@ def test_serve_cli_serves_the_hybrid():
 
 @pytest.mark.parametrize("args,message", [
     ((), "no CUDA device"),                 # the card by default
-    (("--device", "cpu", "--model-parallel", "2"), "model-parallel"),
+    # an ssm arch on a mesh of two ranks (torchrun): the mesh path serves
+    # the dense and moe families only
+    (("--device", "cpu", "--model-parallel", "2", "--arch",
+      "falcon-mamba-7b"), "next slice"),
     (("--device", "cpu", "--arch", "hubert-xlarge"), "encoder-only"),
 ])
 def test_serve_cli_refuses(args, message):
     if not args and torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default runs on it")
-    p = _cli(*args)
+    p = _cli(*args, ranks=2 if "--model-parallel" in args else 0)
     assert p.returncode != 0
     assert message in p.stderr + p.stdout
     assert "[serve]" not in p.stdout
