@@ -157,7 +157,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    (b) a qwen3-1.7b prefill of B = 8 x 4096 tokens (q_block 512 and
    kv_block 1024 both tile), ms, tok/s, model_flops_for over the bf16
    peak and peak memory; (c) h2o-danube-1.8b (window 4096, head_dim 80;
-   8 of its 24 layers), B = 1, prompt 4160, generate 16: the ring branch
+   4 of its 24 layers), B = 1, prompt 4160, generate 16: the ring branch
    of prefill_to_cache
    and a decode that wraps the ring, with (a)'s decode-vs-prefill check;
    (d) ``python -m repro_torch.launch.serve --arch qwen3-1.7b`` on the
@@ -170,12 +170,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    CLI; random weights on the card, bf16 compute), each part printing its
    seconds, ms, tok/s, peak memory and one decode step against its
    roofline bound: (a) qwen2-moe-a2.7b at full width (60 experts top-4,
-   shared width 5632), its 24 layers cut to 8 at launch/serve.py's
+   shared width 5632), its 24 layers cut to 4 at launch/serve.py's
    defaults twice (the same ids), the (token, choice) rows its
    capacity_factor 1.25 drops in prefill, and decode against prefill with
    capacity raised to E / k (nothing drops) at (a)'s bf16 bar; (b)
    falcon-mamba-7b at full width (d_inner 8192), its 64 Mamba1 layers
-   cut to 16 twice, a B = 1 x 4096 prefill (32 chunks of 128), and decode
+   cut to 8 twice, a B = 1 x 4096 prefill (32 chunks of 128), and decode
    against prefill in f32 compute (within 1e-3, every argmax equal); (c)
    zamba2-2.7b at full width, its 9 groups (6 Mamba2 layers + the
    shared block each) cut to 3, prompt 200 (the chunk's pad branch), the shared block's
@@ -187,11 +187,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    zamba2-2.7b`` on the card.
 12. LM training (launches no kernel; the JAX package's LM stack reaches
    no ``pl.pallas_call``): (a) qwen3-1.7b at full width and depth, 10 x
-   4096 tokens, the Trainer for 3 steps with curation every 2, bf16
+   4096 tokens, the Trainer for 2 steps with curation every 2, bf16
    compute; each step's ms, tokens/s, loss, grad norm, lr and MFU, the
-   peak memory under 70 GiB; (b) 2 steps, a checkpoint, 2 resumed steps
-   against 4 straight (2 layers), bit-equal; (c) falcon-mamba-7b at full
-   width cut to 4 layers, one step at A = 8 micro-batches and one at A =
+   peak memory under 70 GiB; (b) a step, a checkpoint, a resumed step
+   against 2 straight (1 layer), bit-equal; (c) falcon-mamba-7b at full
+   width cut to 2 layers, one step at A = 8 micro-batches and one at A =
    1: loss, parameters, every gradient leaf and the grad norm; (d) one
    step of qwen2-moe-a2.7b (2 layers) and of zamba2-2.7b (2 groups): a
    finite loss and aux, every parameter a non-zero gradient, the MoE's
@@ -208,7 +208,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    its seconds, prefill and decode ms, each rank's parameter bytes and
    peak memory, and the collectives' calls and operand bytes by kind and
    axes of the prefill and of a decode step: (a) qwen3-1.7b at full width
-   and depth (28 layers) on (2, 2), B = 4, prompt 64, generate 8, bf16
+   cut to 4 of its 28 layers on (2, 2), B = 4, prompt 64, generate 8, bf16
    (rtol = atol 0.08, argmax agreement >= 0.95 where the top-2 gap
    exceeds it), then 2 layers in f32 (within 1e-4, every argmax equal)
    and a B = 1 prefill of 1024 tokens (the seq_shard branch, within
@@ -216,10 +216,33 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    (one chunked-local, one global: four ranks of its 4-layer group
    would hold 84 GB), f32, capacity E / k: prefill's all-to-all dispatch,
    decode's ep, within 1e-4 and every argmax equal; (c) qwen2-moe-a2.7b
-   at full width on (1, 8), 2 layers, f32, capacity E / k: 60 experts do
+   at full width on (1, 8), 1 layer, f32, capacity E / k: 60 experts do
    not divide 8, so decode runs tp and prefill ZeRO without EP (its
    sequence over "model"), within 1e-4 and every argmax equal.
-14. Print the kernel table as one JSON line, the card's name and power
+14. LM training on a (data, model) mesh of four gloo ranks sharing the
+   card (the ZeRO-3 train step: the collectives' backward, the
+   vocab-parallel CE, AdamW over shards; the mesh-independent checkpoint;
+   the curation on the training mesh; launches no LM kernel), each part
+   against the one-rank step of the same seeded weights and batch on the
+   card, every rank's metrics equal to rank 0's, printing step ms,
+   tokens/s, the collectives' calls and operand bytes by kind and axes,
+   each rank's parameter and moment bytes and peak memory: (a)
+   qwen3-1.7b at full width cut to 2 layers on (2, 2), batch 4 x 4096:
+   the Trainer for 3 bf16 steps curated every 2, one bf16 step against
+   one rank's (loss rtol 2e-2, gradients within 1e-2 of their max,
+   parameters rtol 5e-2 atol 5e-3, grad norm rtol 1e-3) and one f32 step
+   (metrics rtol 1e-5, gradients and moments within 1e-4 of their leaf's
+   max, parameters within 2 lr); (b) the same at batch 2 in f32, the
+   sequence over "model" (seq_shard); (c) qwen2-moe-a2.7b at full width
+   cut to 2 layers on (1, 4), batch 4 x 1024, f32, capacity E / k: the
+   all-to-all dispatch and its inverse in backward; (d) (a)'s f32 run
+   saved after step 1 (the blocks gathered to rank 0, which writes the
+   whole leaves), step 2
+   resumed on (2, 2) bit for bit the straight run's and re-meshed to (1,
+   4) within the f32 bars; (e) (a)'s step-0 curation pool through the
+   selector on the training mesh, kernel route, dense and fused engines:
+   the plain route's ids on every rank.
+15. Print the kernel table as one JSON line, the card's name and power
    limit, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -3684,8 +3707,9 @@ LM_LONG_B, LM_LONG_PROMPT = 8, 4096        # q_block 512 and kv_block 1024
 RING_ARCH = "h2o-danube-1.8b"   # sliding window 4096, head_dim 80
 RING_B, RING_PROMPT, RING_GEN = 1, 4160, 16  # a prompt past the window: the
 #                                              ring branch, decode wraps
-RING_LAYERS = 8                 # of h2o-danube's 24, for the time budget (the
-#                                 part took 28.7 s at 24 layers, 9.5 s at 8)
+RING_LAYERS = 4                 # of h2o-danube's 24, for the time budget (the
+#                                 part took 28.7 s at 24 layers, 9.5 s at 8;
+#                                 8 before phase 14)
 LM_TOL, LM_ARGMAX = 0.08, 0.95  # the JAX package's decode-vs-prefill bar
 LM_CLI_TIMEOUT_S = 300
 EXCL_LANES = len(QUERY_KS) * L  # the 148-lane batch's filter: (L, C, k) =
@@ -4074,8 +4098,9 @@ SSM_ARCH = "falcon-mamba-7b"        # 64 Mamba1 layers, d_inner 8192
 HYBRID_ARCH = "zamba2-2.7b"         # 9 groups of 6 Mamba2 + shared block
 # depth cuts for the time budget (phase 13's mesh serving came after them);
 # every part keeps its full width
-MOE_LAYERS = 8                      # of qwen2-moe's 24
-SSM_LAYERS = 16                     # of falcon-mamba's 64
+MOE_LAYERS = 4                      # of qwen2-moe's 24 (8 before phase 14)
+SSM_LAYERS = 8                      # of falcon-mamba's 64 (16 before
+#                                     phase 14)
 HYBRID_GROUPS = 3                   # of zamba2's 9 groups
 CHUNK_ARCH = "llama4-scout-17b-a16e"  # 16 experts top-1, chunk 8192
 SSM_LONG_B, SSM_LONG_PROMPT = 1, 4096  # 32 chunks of ssm_chunk 128
@@ -4568,12 +4593,17 @@ TRAIN_B = 10                    # cut from train_4k's 256: the largest batch
 #                                 whose peak stays under TRAIN_PEAK_GIB
 #                                 (python -m repro_torch.runtime.batch_probe)
 TRAIN_PEAK_GIB = 70
-TRAIN_STEPS, TRAIN_SELECT_EVERY = 3, 2  # 3 steps (4 before phase 13, for
-#                                        the time budget): curated at 0, 2
-RESUME_LAYERS, RESUME_B, RESUME_SEQ = 2, 2, 1024
+TRAIN_STEPS, TRAIN_SELECT_EVERY = 2, 2  # 2 steps (4 before phase 13, 3
+#                                        before phase 14, for the time
+#                                        budget): curated at 0
+RESUME_LAYERS, RESUME_B, RESUME_SEQ = 1, 2, 1024  # 2 layers before phase 14
+RESUME_STEPS = 2                # a step, a checkpoint, a resumed step (4
+#                                 straight before phase 14, for the time
+#                                 budget)
 RESUME_TOL = 2e-5               # tests/test_runtime.py's resume bar, where
 #                                 an atomic backward reorders a sum
-MB_ARCH, MB_LAYERS, MB_B, MB_SEQ = "falcon-mamba-7b", 4, 8, 512
+MB_ARCH, MB_LAYERS, MB_B, MB_SEQ = "falcon-mamba-7b", 2, 8, 512  # 4
+#                                 layers before phase 14, for the time budget
 MB_LOSS_RTOL, MB_RTOL, MB_ATOL = 2e-2, 5e-2, 5e-3  # tests/test_perf_features
 # the parameter bar cannot fail after one step at lr 1e-3 (Adam moves an
 # element by at most lr (1 + wd |p|)), so the gradients are held too: each
@@ -4585,7 +4615,9 @@ CPU_ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "qwen2-moe-a2.7b")
 CPU_B, CPU_SEQ = 8, 64          # falcon-mamba's 8 micro-batches of one
 CPU_LOSS_RTOL, CPU_GRAD_REL = 1e-5, 1e-4
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1)  # parameters move in one step
-TRAIN_CLI = ["--arch", TRAIN_ARCH, "--no-smoke", "--steps", "3", "--batch",
+TRAIN_CLI_STEPS = 2             # 3 before phase 14, for the time budget
+TRAIN_CLI = ["--arch", TRAIN_ARCH, "--no-smoke", "--steps",
+             str(TRAIN_CLI_STEPS), "--batch",
              "2", "--seq", "512", "--select"]
 
 
@@ -4616,9 +4648,9 @@ class SpyUpdate:
     def __enter__(self):
         update = self.orig = self.adamw.update
 
-        def spied(cfg, params, grads, state):
+        def spied(cfg, params, grads, state, **kw):
             self.keep(grads)
-            return update(cfg, params, grads, state)
+            return update(cfg, params, grads, state, **kw)
         self.adamw.update = spied
 
     def __exit__(self, *exc):
@@ -4687,7 +4719,7 @@ def train_part_a(torch, analysis, card):
 
 
 def train_part_b(torch, card):
-    """Part (b): 2 steps, a checkpoint, 2 resumed steps against 4 straight
+    """Part (b): a step, a checkpoint, a resumed step against 2 straight
     (qwen3-1.7b at full width cut to 2 layers)."""
     import dataclasses
     import os
@@ -4706,7 +4738,7 @@ def train_part_b(torch, card):
                        train=TrainConfig(steps=steps, ckpt_dir=ckpt,
                                          ckpt_every=100, log_every=100),
                        opt=AdamWConfig(**TRAIN_OPT), device="cuda")
-    straight = trainer(4, None)
+    straight = trainer(RESUME_STEPS, None)
     m_full, o_full = straight.run()
     full = {f"params/{n}": p.detach() for n, p in
             m_full.params.named_parameters()}
@@ -4715,23 +4747,24 @@ def train_part_b(torch, card):
     del m_full
     ck = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        trainer(2, ck).run()
+        trainer(RESUME_STEPS // 2, ck).run()
         nbytes = sum(os.path.getsize(os.path.join(d, f))
                      for d, _, fs in os.walk(ck) for f in fs)
-        resumed = trainer(4, ck)
+        resumed = trainer(RESUME_STEPS, ck)
         m_res, o_res = resumed.run()
     finally:
         shutil.rmtree(ck, ignore_errors=True)
     check(not os.path.exists(ck), f"[train] (b) {ck} was not removed")
-    check([r.step for r in resumed.history] == [2, 3],
+    want_steps = list(range(RESUME_STEPS // 2, RESUME_STEPS))
+    check([r.step for r in resumed.history] == want_steps,
           f"[train] (b) the resumed run took steps "
-          f"{[r.step for r in resumed.history]}, not [2, 3]")
+          f"{[r.step for r in resumed.history]}, not {want_steps}")
     got = {f"params/{n}": p.detach() for n, p in
            m_res.params.named_parameters()}
     got.update({f"m/{n}": t for n, t in o_res.m.items()})
     got.update({f"v/{n}": t for n, t in o_res.v.items()})
     differ = [n for n in full if not torch.equal(full[n], got[n])]
-    losses = [r.loss for r in straight.history[2:]]
+    losses = [r.loss for r in straight.history[RESUME_STEPS // 2:]]
     res_losses = [r.loss for r in resumed.history]
     if differ:
         worst = max(float(((got[n] - full[n]).abs() /
@@ -4741,18 +4774,20 @@ def train_part_b(torch, card):
               f"[train] (b) resumed vs straight beyond rtol = atol "
               f"{RESUME_TOL} in {differ}")
     print(f"[train] (b) {cfg.name} cut to {RESUME_LAYERS} layers, batch "
-          f"{RESUME_B} x {RESUME_SEQ}: 2 steps, a checkpoint of {nbytes} "
-          f"bytes (deleted), 2 resumed steps (first StepRecord.step "
-          f"{resumed.history[0].step}) against 4 straight: "
+          f"{RESUME_B} x {RESUME_SEQ}: steps before a checkpoint of "
+          f"{nbytes} bytes (deleted) {RESUME_STEPS // 2}, resumed "
+          f"{RESUME_STEPS - RESUME_STEPS // 2} (first StepRecord.step "
+          f"{resumed.history[0].step}), against {RESUME_STEPS} straight: "
           + ("every parameter, m and v bit-equal" if not differ else
              f"{len(differ)} of {len(full)} tensors differ, within rtol = "
              f"atol {RESUME_TOL}: {differ}")
-          + f"; losses of steps 2-3 {res_losses} (straight {losses}); "
+          + f"; losses of the resumed steps {res_losses} (straight "
+          f"{losses}); "
           f"card: {card}")
 
 
 def train_part_c(torch, card):
-    """Part (c): falcon-mamba-7b at full width cut to 4 layers, one step at
+    """Part (c): falcon-mamba-7b at full width cut to 2 layers, one step at
     its configured 8 micro-batches and one at 1, on the same batch."""
     import dataclasses
     from repro_torch.configs.base import ShapeSpec, get_config
@@ -5012,7 +5047,8 @@ def train_part_g(card):
                        text=True, timeout=LM_CLI_TIMEOUT_S)
     lines = [ln for ln in p.stdout.splitlines() if ln.startswith("[train]")]
     check(p.returncode == 0 and lines
-          and lines[-1].startswith("[train] done: steps=3 loss "),
+          and lines[-1].startswith(
+              f"[train] done: steps={TRAIN_CLI_STEPS} loss "),
           f"[train] (g) train exited {p.returncode}:\n{p.stdout[-2000:]}\n"
           f"{p.stderr[-3000:]}")
     for ln in lines:
@@ -5068,7 +5104,10 @@ def train_phase(torch, ops):
 LMM_GROUP_TIMEOUT_S = 600    # a process group's collectives give up after
 LMM_JOB_TIMEOUT_S = 600      # a spawned job's limit
 LMM_B, LMM_PROMPT, LMM_GEN = 4, 64, 8
-LMM_A_LAYERS = 28            # qwen3-1.7b at full depth
+LMM_A_LAYERS = 4             # qwen3-1.7b's 28 layers cut to 4 (full
+#                              depth before phase 14, for the time budget)
+LMM_MOE8_LAYERS = 1          # (c): qwen2-moe on (1, 8), 1 layer (2 before
+#                              phase 14, for the time budget)
 LMM_F32_LAYERS = 2
 LMM_LONG = 1024              # the B = 1 prefill: the seq_shard branch
 LMM_MOE_LAYERS = 2           # llama4: 2 layers (global_attn_every 2: one
@@ -5087,7 +5126,7 @@ LMM_PARTS = {
                  LMM_LONG, 131),
     "(b)": ((2, 2), "llama4-scout-17b-a16e", LMM_MOE_LAYERS, "float32", True,
             LMM_B, LMM_PROMPT, 132),
-    "(c)": ((1, 8), "qwen2-moe-a2.7b", LMM_F32_LAYERS, "float32", True,
+    "(c)": ((1, 8), "qwen2-moe-a2.7b", LMM_MOE8_LAYERS, "float32", True,
             LMM_B, LMM_PROMPT, 133),
 }
 
@@ -5441,6 +5480,673 @@ def lm_mesh_phase(torch):
           f"card: {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: LM training on a (data, model) mesh of gloo ranks sharing the one
+# card (the ZeRO-3 train step with the collectives' backward, the
+# vocab-parallel CE, AdamW over shards, the mesh-independent checkpoint, the
+# curation on the training mesh)
+# ---------------------------------------------------------------------------
+
+TM_ARCH, TM_LAYERS = "qwen3-1.7b", 2   # 28 layers cut to 2
+TM_B, TM_SEQ = 4, 4096          # train_4k's length, its batch 256 cut to 4
+TM_STEPS, TM_SELECT_EVERY = 3, 2
+TM_SEQ_B = 2                    # (b): 2 rows cannot fill 4 ranks: seq_shard
+TM_MOE_ARCH, TM_MOE_LAYERS = "qwen2-moe-a2.7b", 2   # 24 layers cut to 2
+TM_MOE_B, TM_MOE_SEQ = 4, 1024
+TM_OPT = dict(lr=1e-3, warmup_steps=1)
+TM_RTOL, TM_LEAF = 1e-5, 1e-4   # the f32 bars: metrics; a leaf's max |.|
+TM_GROUP_TIMEOUT_S = 600
+TM_JOB_TIMEOUT_S = 900
+#: reference -> (architecture, layers, compute dtype name, capacity raised
+#: to E / k, batch, sequence, the leaves kept for the ranks' comparison)
+TM_REFS = {
+    "(a) f32": (TM_ARCH, TM_LAYERS, "float32", False, TM_B, TM_SEQ,
+                ("grads", "params", "m", "v")),
+    "(a) bf16": (TM_ARCH, TM_LAYERS, "bfloat16", False, TM_B, TM_SEQ,
+                 ("grads", "params")),
+    "(b)": (TM_ARCH, TM_LAYERS, "float32", False, TM_SEQ_B, TM_SEQ,
+            ("grads", "params")),
+    "(c)": (TM_MOE_ARCH, TM_MOE_LAYERS, "float32", True, TM_MOE_B,
+            TM_MOE_SEQ, ("grads",)),
+}
+
+
+def tm_config(name, layers, raised):
+    """``lmm_config``'s cut; with capacity raised, the router aux loss's
+    coefficient 0 too: on a mesh the aux is the mean over the token blocks
+    of each block's aux (the JAX package's ``shard_map``), not one rank's
+    aux of the whole batch, so the comparison keeps it out of the
+    gradients."""
+    cfg = lmm_config(name, layers, raised)
+    if raised:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, router_aux_coef=0.0)
+    return cfg
+
+
+def tm_batch(torch, cfg, B, S, step=0):
+    """The global batch of ``step`` (every rank draws the same one)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    return SyntheticLM(cfg, DataConfig(seed=14, global_batch=B, seq_len=S),
+                       "cuda").batch_at(step)
+
+
+def tm_model(torch, cfg, dtype, policy=None):
+    """The parameters drawn on the card from the train seed 0 (the
+    Trainer's), placed by ``policy`` on a mesh."""
+    from repro_torch.models.model import build_model
+    return build_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       "cuda", dtype, policy=policy)
+
+
+def tm_step(torch, cfg, B, S, model, mesh=None, batch_step=0):
+    """One train step of ``model`` on ``mesh`` (None: one rank) from a
+    fresh opt state: (metrics, {"grads", "params", "m", "v"} by name, ms,
+    the collectives of the step)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import train_step_bundle
+    from repro_torch.models import collectives as C
+    from repro_torch.optim import adamw
+    bundle = train_step_bundle(cfg, ShapeSpec("tm", S, B, "train"), mesh,
+                               adamw.AdamWConfig(**TM_OPT))
+    opt = adamw.init(dict(model.params.named_parameters()))
+    batch = tm_batch(torch, cfg, B, S, batch_step)
+    grads = {}
+    sync = torch.distributed.barrier if mesh is not None else (lambda: None)
+    torch.cuda.synchronize()
+    sync()
+    C.reset_counts()
+    with SpyUpdate(grads.update):
+        t0 = time.perf_counter()
+        model, opt, m = bundle.fn(model, opt, batch)
+        torch.cuda.synchronize()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+    counts = C.counts()
+    state = {"grads": grads,
+             "params": {n: p.detach() for n, p in
+                        model.params.named_parameters()},
+             "m": opt.m, "v": opt.v}
+    return {k: float(v) for k, v in m.items()}, state, ms, counts
+
+
+def tm_reference(torch, label):
+    """The one-rank step of a reference on the card: its metrics, each
+    kept leaf's max |.|, and the kept leaves themselves, left on the card
+    for the spawned ranks (torch.multiprocessing hands them CUDA tensors
+    by IPC handle, so a rank reads its blocks where they lie)."""
+    name, layers, dt, raised, B, S, kinds = TM_REFS[label]
+    cfg = tm_config(name, layers, raised)
+    model = tm_model(torch, cfg, getattr(torch, dt))
+    # the kept leaves' memory is taken before the step, so the step's
+    # freed activations leave no segment reserved around them
+    kept = {kind: {n: torch.empty(p.shape, dtype=torch.float32,
+                                  device="cuda")
+                   for n, p in model.params.named_parameters()}
+            for kind in kinds}
+    torch.cuda.reset_peak_memory_stats()
+    metrics, state, ms, _ = tm_step(torch, cfg, B, S, model)
+    peak = torch.cuda.max_memory_allocated()
+    for kind, leaves in kept.items():
+        for n, t in leaves.items():
+            t.copy_(state[kind][n])
+    del model, state
+    torch.cuda.empty_cache()
+    scale = {(kind, n): t.abs().max().item()
+             for kind, leaves in kept.items() for n, t in leaves.items()}
+    print(f"[trainmesh] {label} one rank: {cfg.name}, {layers} layers, {dt}, "
+          f"batch {B} x {S}: {ms:.1f} ms, loss {metrics['loss']:.6f}, "
+          f"grad_norm {metrics['grad_norm']:.6f}; peak "
+          f"{peak / 2 ** 30:.3f} GiB")
+    return dict(metrics=metrics, scale=scale, ms=ms, leaves=kept)
+
+
+def tm_compare(torch, ref, label, state, specs, mesh, bf16=False):
+    """This rank's blocks against the one-rank reference's leaves: per kind
+    (the worst leaf's value, the leaf): the gradients' and moments' max
+    |diff| over the leaf's max |.|; the parameters' max |diff| in f32 (the
+    bar is 2 lr), in bf16 the worst |diff| / (atol + rtol |p|)."""
+    from repro_torch.models.sharding import block
+    worst = {}
+    for kind in TM_REFS[label][6]:
+        for n, t in state[kind].items():
+            full = ref["leaves"][kind][n]
+            want = full[block(full.shape, specs[n], mesh.shape, mesh.coords)]
+            diff = (t.float() - want).abs()
+            if kind != "params":
+                r = diff.max().item() / max(ref["scale"][(kind, n)], 1e-30)
+            elif bf16:
+                r = (diff / (MB_ATOL + MB_RTOL * want.abs())).max().item()
+            else:
+                r = diff.max().item()
+            if r >= worst.get(kind, (-1.0, ""))[0]:
+                worst[kind] = (r, n)
+    return worst
+
+
+def tm_blocks_ok(label, worst, bf16, lr):
+    bars = {"grads": MB_GRAD_REL if bf16 else TM_LEAF,
+            "params": 1.0 if bf16 else 2 * lr, "m": TM_LEAF, "v": TM_LEAF}
+    for kind, (r, n) in worst.items():
+        check(r <= bars[kind], f"[trainmesh] {label}: {kind} leaf {n} at {r} "
+              f"(bar {bars[kind]})")
+
+
+def tm_metrics_ok(label, got, want, bf16, moe=False):
+    if bf16:
+        check(abs(got["loss"] - want["loss"]) <= MB_LOSS_RTOL *
+              abs(want["loss"]) and abs(got["grad_norm"] - want["grad_norm"])
+              <= MB_NORM_RTOL * want["grad_norm"],
+              f"[trainmesh] {label}: {got} against one rank's {want}")
+        return
+    for k in ("loss", "ce", "lr", "grad_norm") + (() if moe else ("aux",)):
+        check(abs(got[k] - want[k]) <= TM_RTOL * abs(want[k]) + 1e-12,
+              f"[trainmesh] {label}: {k} {got[k]} against one rank's "
+              f"{want[k]} (rtol {TM_RTOL})")
+
+
+def tm_bytes(model, opt):
+    return (sum(p.numel() * p.element_size() for p in model.parameters()),
+            sum(t.numel() * t.element_size()
+                for t in list(opt.m.values()) + list(opt.v.values())))
+
+
+def tm_part_a(torch, mesh, refs, ops):
+    """Part (a) on this rank: the Trainer, bf16, 3 steps curated every 2;
+    then one bf16 step against one rank's."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import collectives as C
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = tm_config(TM_ARCH, TM_LAYERS, False)
+    torch.cuda.reset_peak_memory_stats()
+    t = Trainer(cfg, ShapeSpec("tm", TM_SEQ, TM_B, "train"), mesh,
+                data=DataConfig(global_batch=TM_B, seq_len=TM_SEQ,
+                                select_every=TM_SELECT_EVERY),
+                train=TrainConfig(steps=TM_STEPS, log_every=100),
+                opt=AdamWConfig(**TM_OPT), select=True, device="cuda")
+    seen, step = [], t._step_fn
+
+    def spied(model, opt, batch):
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        C.reset_counts()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        seen.append(dict({k: float(v) for k, v in m.items()},
+                         ms=(time.perf_counter() - t0) * 1e3,
+                         counts=C.counts()))
+        return model, opt, m
+    t._step_fn = spied
+    ops.reset_launch_counts()
+    model, opt = t.run()
+    launches = {k: v for k, v in read_counts(ops).items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    p_bytes, m_bytes = tm_bytes(model, opt)
+    sel = t.pipeline._last_sel
+    out = dict(steps=seen, peak=peak, param_bytes=p_bytes,
+               moment_bytes=m_bytes, launches=launches,
+               batch_axes=t.policy.batch_axes, seq_shard=t.policy.seq_shard,
+               curated=int(sel.sol_size), ids=sel.sol_ids.cpu(),
+               pool=t.pipeline.pool)
+    pipeline = t.pipeline
+    del model, opt, t
+    torch.cuda.empty_cache()
+    model = tm_model(torch, cfg, torch.bfloat16, pipeline.policy)
+    metrics, state, ms, counts = tm_step(torch, cfg, TM_B, TM_SEQ, model,
+                                         mesh)
+    specs = {n: p.spec for n, p in model.params.named_parameters()}
+    ref = refs["(a) bf16"]
+    worst = tm_compare(torch, ref, "(a) bf16", state, specs, mesh, bf16=True)
+    out["bf16"] = dict(metrics=metrics, ref=ref["metrics"], worst=worst,
+                       ms=ms, ref_ms=ref["ms"])
+    del model, state
+    torch.cuda.empty_cache()
+    return out, pipeline
+
+
+def tm_part_ad(torch, mesh, remesh, refs, out_dir):
+    """Parts (a) f32 and (d) on this rank: step 1 against one rank's, a
+    save, step 2; step 2 again after a restore on the same mesh (bit for
+    bit) and after ``elastic_remesh`` to ``remesh`` (within the bars)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import collectives as C
+    from repro_torch.models.sharding import place
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.adamw import init as adamw_init
+    from repro_torch.runtime.trainer import TrainConfig, Trainer, \
+        elastic_remesh
+    cfg = tm_config(TM_ARCH, TM_LAYERS, False)
+    ck = Path(out_dir) / "ck"
+
+    def f32(t):
+        # the Trainer's state in f32: its fresh state and a restore's
+        # template alike come from init_state
+        def init_state():
+            model = tm_model(torch, cfg, torch.float32, t.policy)
+            model.requires_grad_(True)
+            return model, adamw_init(dict(model.params.named_parameters())), 0
+        t.init_state = init_state
+        return t
+
+    def trainer(where, on):
+        return f32(Trainer(cfg, ShapeSpec("tm", TM_SEQ, TM_B, "train"), on,
+                           data=DataConfig(seed=14, global_batch=TM_B,
+                                           seq_len=TM_SEQ),
+                           train=TrainConfig(steps=2, ckpt_dir=str(where),
+                                             ckpt_async=False,
+                                             log_every=100),
+                           opt=AdamWConfig(**TM_OPT), device="cuda"))
+
+    def step(t, model, opt, s):
+        grads = {}
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        C.reset_counts()
+        with SpyUpdate(grads.update):
+            t0 = time.perf_counter()
+            model, opt, m = t._step_fn(model, opt, t.pipeline.batch_at(s))
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+        ms = (time.perf_counter() - t0) * 1e3
+        return {k: float(v) for k, v in m.items()}, grads, ms, C.counts()
+
+    t = trainer(ck / "a", mesh)
+    model, opt, _ = t.init_state()
+    specs = {n: p.spec for n, p in model.params.named_parameters()}
+    m1, grads, ms1, counts1 = step(t, model, opt, 0)
+    state = {"grads": grads, "params": {n: p.detach() for n, p in
+                                        model.params.named_parameters()},
+             "m": opt.m, "v": opt.v}
+    ref = refs["(a) f32"]
+    worst = tm_compare(torch, ref, "(a) f32", state, specs, mesh)
+    del grads, state
+    p_bytes, m_bytes = tm_bytes(model, opt)
+    t0 = time.perf_counter()
+    t.save(model, opt, 1, blocking=True)
+    torch.distributed.barrier()
+    save_s = time.perf_counter() - t0
+    m2, _, ms2, counts2 = step(t, model, opt, 1)
+    straight = {n: p.detach().clone() for n, p in
+                model.params.named_parameters()}
+    straight_m = {n: v.clone() for n, v in opt.m.items()}
+    del model, opt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tr = trainer(ck / "a", mesh)
+    model, opt, cursor = tr.restore_or_init()
+    restore_s = time.perf_counter() - t0
+    check(cursor == 1, f"[trainmesh] (d) restored cursor {cursor}")
+    mr, _, _, _ = step(tr, model, opt, 1)
+    differ = [n for n, p in model.params.named_parameters()
+              if not torch.equal(p.detach(), straight[n])]
+    differ += [f"m/{n}" for n, v in opt.m.items()
+               if not torch.equal(v, straight_m[n])]
+    del model, opt
+    torch.cuda.empty_cache()
+    # the same checkpoint: the resumed runs write none
+    t14 = f32(elastic_remesh(trainer(ck / "a", mesh), remesh))
+    model, opt, cursor14 = t14.restore_or_init()
+    check(cursor14 == 1, f"[trainmesh] (d) re-meshed cursor {cursor14}")
+    m14, _, _, _ = step(t14, model, opt, 1)
+    # the straight run's leaves, gathered whole, cut to the (1, 4) blocks
+    from repro_torch.models import collectives as coll
+    lr = m2["lr"]
+    p_worst = m_worst = 0.0
+    for n, p in model.params.named_parameters():
+        whole = coll.reshard(straight[n], mesh, specs[n], ())
+        want = place(whole, p.spec, remesh)
+        p_worst = max(p_worst, (p.detach() - want).abs().max().item())
+        whole = coll.reshard(straight_m[n], mesh, specs[n], ())
+        want = place(whole, p.spec, remesh)
+        m_worst = max(m_worst, (opt.m[n] - want).abs().max().item() /
+                      max(whole.abs().max().item(), 1e-30))
+        del whole, want
+    out = dict(metrics=m1, ref=ref["metrics"], worst=worst, ms=[ms1, ms2],
+               ref_ms=ref["ms"], counts=counts1, param_bytes=p_bytes,
+               moment_bytes=m_bytes, save_s=save_s, restore_s=restore_s,
+               m2=m2, resumed=mr, differ=differ, remeshed=m14,
+               remesh_p=p_worst, remesh_m=m_worst, lr2=lr,
+               remesh_shape=dict(remesh.shape))
+    del model, opt, straight, straight_m
+    torch.cuda.empty_cache()
+    return out
+
+
+def tm_part_bc(torch, label, mesh):
+    """Parts (b) and (c) on this rank: one step on ``mesh`` against one
+    rank's."""
+    name, layers, dt, raised, B, S, _ = TM_REFS[label]
+    cfg = tm_config(name, layers, raised)
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import train_step_bundle
+    policy = train_step_bundle(cfg, ShapeSpec("tm", S, B, "train"),
+                               mesh).policy
+    torch.cuda.reset_peak_memory_stats()
+    model = tm_model(torch, cfg, getattr(torch, dt), policy)
+    metrics, state, ms, counts = tm_step(torch, cfg, B, S, model, mesh)
+    peak = torch.cuda.max_memory_allocated()
+    return cfg, model, metrics, state, ms, counts, peak, policy
+
+
+def tm_part_e(torch, ops, pipeline):
+    """Part (e) on this rank: (a)'s step-0 curation pool through the
+    selector on the training mesh with use_kernel=True, dense and fused
+    engines, against the plain route's ids."""
+    import dataclasses
+    from repro_torch.core.selector import DistributedSelector
+    from repro_torch.data.pipeline import doc_embeddings, step_generator
+    d = pipeline.base.data
+    pools = [pipeline.base.batch_at(i + 10_000) for i in range(d.pool_factor)]
+    cat = {k: torch.cat([p[k] for p in pools]) for k in pools[0]}
+    emb = doc_embeddings(cat, pipeline.emb_dim)
+
+    def select(sel):
+        return sel.select(sel.data_sharding(emb), sel.opt_upper_bound(emb),
+                          generator=step_generator(d.seed + 77, 0, "cuda"))
+    plain = pipeline.selector
+    want = select(plain).sol_ids.cpu()
+    out = dict(want=want, tp=plain.tp)
+    for engine in ("dense", "fused"):
+        spec = dataclasses.replace(plain.spec, use_kernel=True, engine=engine)
+        sel = DistributedSelector(spec, n_total=pipeline.pool,
+                                  feat_dim=pipeline.emb_dim, device="cuda",
+                                  mesh=pipeline.policy.mesh,
+                                  axes=("pod", "data"))
+        ops.reset_launch_counts()
+        got = select(sel).sol_ids.cpu()
+        torch.cuda.synchronize()
+        out[engine] = (got, {k: v for k, v in read_counts(ops).items()
+                             if v and "@" not in k})
+    return out
+
+
+def tm_rank(rank, world, store, out_dir, refs):
+    """A rank of phase 14's spawned job: joins the gloo job on the one card
+    and runs parts (a)-(e), writing its findings to ``out_dir``."""
+    import datetime
+    import pickle
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh_for
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=TM_GROUP_TIMEOUT_S))
+    mesh22 = make_mesh_for(world, model_parallel=2)
+    mesh14 = make_mesh_for(world, model_parallel=4)
+    res, seconds = {}, {}
+    # whether gloo sums bf16 CUDA tensors in reduce_scatter_tensor (the
+    # weights' gradients are summed in f32 whatever the answer)
+    x = torch.full((4, 8), rank + 1.0, dtype=torch.bfloat16, device="cuda")
+    y = torch.empty((2, 8), dtype=torch.bfloat16, device="cuda")
+    try:
+        dist.reduce_scatter_tensor(y, x, group=mesh22.group(("model",)))
+        res["bf16_reduce_scatter"] = f"supported, sum {y[0, 0].item()}"
+    except Exception as e:      # noqa: BLE001  (the probe's answer)
+        res["bf16_reduce_scatter"] = f"{type(e).__name__}: {e}"[:200]
+    t0 = time.perf_counter()
+    res["(a)"], pipeline = tm_part_a(torch, mesh22, refs, ops)
+    seconds["(a) bf16"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["(a) f32 + (d)"] = tm_part_ad(torch, mesh22, mesh14, refs, out_dir)
+    seconds["(a) f32 + (d)"] = time.perf_counter() - t0
+    for label, mesh in (("(b)", mesh22), ("(c)", mesh14)):
+        t0 = time.perf_counter()
+        cfg, model, metrics, state, ms, counts, peak, pol = tm_part_bc(
+            torch, label, mesh)
+        specs = {n: p.spec for n, p in model.params.named_parameters()}
+        ref = refs[label]
+        worst = tm_compare(torch, ref, label, state, specs, mesh)
+        p_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        res[label] = dict(metrics=metrics, ref=ref["metrics"], worst=worst,
+                          ms=ms, ref_ms=ref["ms"], counts=counts, peak=peak,
+                          param_bytes=p_bytes, batch_axes=pol.batch_axes,
+                          seq_shard=pol.seq_shard)
+        del model, state
+        torch.cuda.empty_cache()
+        seconds[label] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["(e)"] = tm_part_e(torch, ops, pipeline)
+    seconds["(e)"] = time.perf_counter() - t0
+    res["seconds"] = seconds
+    res["coords"] = dict(mesh22.coords)
+    # release the references' CUDA IPC handles before the process ends, so
+    # the parent may free them
+    refs.clear()
+    dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def tm_kinds(counts):
+    return {f"{k[0]} {'/'.join(k[1])}": v for k, v in sorted(counts.items())}
+
+
+def tm_mb(counts):
+    """Collective MB (operand bytes / 1e6) a step by kind."""
+    out = {}
+    for (kind, _), (_, b) in counts.items():
+        out[kind] = out.get(kind, 0.0) + b / 1e6
+    return {k: round(v, 3) for k, v in sorted(out.items())}
+
+
+def tm_report(torch, res, card):
+    """Hold every rank to the bars and print what the parts measured."""
+    r0 = res[0]
+
+    def metrics(x):
+        return [s for s in x["(a)"]["steps"]] + [
+            x[k]["metrics"] for k in ("(a) f32 + (d)", "(b)", "(c)")] + [
+            x["(a)"]["bf16"]["metrics"]]
+    for r, x in enumerate(res):
+        for got, want in zip(metrics(x), metrics(r0)):
+            check(got["loss"] == want["loss"] and
+                  got["grad_norm"] == want["grad_norm"],
+                  f"[trainmesh] rank {r}'s loss {got} is not rank 0's {want}")
+    a = r0["(a)"]
+    check(a["batch_axes"] == ("data", "model") and a["seq_shard"] is None,
+          f"[trainmesh] (a) batch axes {a['batch_axes']}")
+    check(len(a["steps"]) == TM_STEPS and a["curated"] == TM_B,
+          f"[trainmesh] (a) {len(a['steps'])} steps, curated {a['curated']}")
+    for r, x in enumerate(res):
+        check(torch.equal(x["(a)"]["ids"], a["ids"]),
+              f"[trainmesh] (a) rank {r} curated {x['(a)']['ids'].tolist()}")
+        # the LM stack reaches no pallas_call in the JAX package; the
+        # curation's selector runs the plain route, as the JAX package's
+        check(not x["(a)"]["launches"],
+              f"[trainmesh] (a) rank {r} launched {x['(a)']['launches']}")
+    for i, s in enumerate(a["steps"]):
+        check(all(map(math.isfinite, (s["loss"], s["grad_norm"]))),
+              f"[trainmesh] (a) step {i}: {s}")
+        print(f"[trainmesh] (a) {TM_ARCH} at full width, {TM_LAYERS} layers, "
+              f"mesh (data, model) = (2, 2), ZeRO-3, bf16, batch {TM_B} x "
+              f"{TM_SEQ} (train_4k's 256 cut to {TM_B}), curated every "
+              f"{TM_SELECT_EVERY}: step {i} {s['ms']:.1f} ms, "
+              f"{TM_B * TM_SEQ / s['ms'] * 1e3:.0f} tokens/s, loss "
+              f"{s['loss']:.6f}, grad_norm {s['grad_norm']:.6f}; collective "
+              f"MB by kind (rank 0) {tm_mb(s['counts'])}; card: {card}")
+    print(f"[trainmesh] (a) step 1's collectives (calls, operand bytes), "
+          f"rank 0: {tm_kinds(a['steps'][1]['counts'])}; card: {card}")
+    state_bytes = [(x["(a)"]["param_bytes"], x["(a)"]["moment_bytes"])
+                   for x in res]
+    print(f"[trainmesh] (a) peak GiB by rank "
+          f"{[round(x['(a)']['peak'] / 2 ** 30, 3) for x in res]}; parameter "
+          f"+ moment bytes by rank {state_bytes}; curated {a['curated']} of "
+          f"{a['pool']} ids {a['ids'].tolist()} on every rank; card: {card}")
+    b = a["bf16"]
+    tm_metrics_ok("(a) bf16", b["metrics"], b["ref"], True)
+    for r, x in enumerate(res):
+        tm_blocks_ok(f"(a) bf16 rank {r}", x["(a)"]["bf16"]["worst"], True,
+                     b["metrics"]["lr"])
+    print(f"[trainmesh] (a) bf16 step against one rank's (same weights and "
+          f"batch, same card): loss {b['metrics']['loss']:.6f} / "
+          f"{b['ref']['loss']:.6f} (rtol {MB_LOSS_RTOL}), grad_norm "
+          f"{b['metrics']['grad_norm']:.6f} / {b['ref']['grad_norm']:.6f} "
+          f"(rtol {MB_NORM_RTOL}); worst leaves by rank "
+          f"{[x['(a)']['bf16']['worst'] for x in res]} (gradients' bar "
+          f"{MB_GRAD_REL} of the max, parameters' atol {MB_ATOL} + rtol "
+          f"{MB_RTOL}); {b['ms']:.1f} ms (one rank {b['ref_ms']:.1f}); "
+          f"card: {card}")
+    f = r0["(a) f32 + (d)"]
+    tm_metrics_ok("(a) f32", f["metrics"], f["ref"], False)
+    for r, x in enumerate(res):
+        tm_blocks_ok(f"(a) f32 rank {r}", x["(a) f32 + (d)"]["worst"], False,
+                     f["metrics"]["lr"])
+    print(f"[trainmesh] (a) f32 step against one rank's: metrics "
+          f"{f['metrics']} / {f['ref']} (rtol {TM_RTOL}); worst leaves by "
+          f"rank {[x['(a) f32 + (d)']['worst'] for x in res]} (gradients "
+          f"and moments' bar {TM_LEAF} of the leaf's max; parameters' max "
+          f"|diff| bar 2 lr = {2 * f['metrics']['lr']:.3e}); steps "
+          f"{f['ms']} ms (one rank {f['ref_ms']:.1f}); collectives of step "
+          f"1 (calls, operand "
+          f"bytes), rank 0: {tm_kinds(f['counts'])}; parameter + moment "
+          f"bytes a rank {f['param_bytes']} + {f['moment_bytes']}; card: "
+          f"{card}")
+    check(not f["differ"], f"[trainmesh] (d) resumed on (2, 2): "
+          f"{f['differ']} differ from the straight run")
+    check(f["resumed"] == f["m2"], f"[trainmesh] (d) resumed metrics "
+          f"{f['resumed']}, straight {f['m2']}")
+    tm_metrics_ok("(d) re-meshed", f["remeshed"], f["m2"], False)
+    check(f["remesh_p"] <= 2 * f["lr2"] and f["remesh_m"] <= TM_LEAF,
+          f"[trainmesh] (d) re-meshed parameters {f['remesh_p']} (bar "
+          f"{2 * f['lr2']}), moments {f['remesh_m']} (bar {TM_LEAF})")
+    print(f"[trainmesh] (d) saved after step 1 in {f['save_s']:.3f} s "
+          f"(every rank's blocks gathered to rank 0, which writes the whole "
+          f"leaves), restored in {f['restore_s']:.3f} s (rank 0 reads, "
+          f"scatters the blocks): step 2 resumed on (2, 2) bit-equal to "
+          f"the straight run (every parameter and m), metrics {f['resumed']};"
+          f" re-meshed to {f['remesh_shape']}: metrics {f['remeshed']} "
+          f"(straight {f['m2']}, rtol {TM_RTOL}), parameters within "
+          f"{f['remesh_p']:.3e} (bar 2 lr = {2 * f['lr2']:.3e}), m within "
+          f"{f['remesh_m']:.3e} of its max (bar {TM_LEAF}); card: {card}")
+    for label, want in (("(b)", (("data",), "model")),
+                        ("(c)", (("data", "model"), None))):
+        x = r0[label]
+        check((x["batch_axes"], x["seq_shard"]) == want,
+              f"[trainmesh] {label}: batch axes {x['batch_axes']}, seq_shard "
+              f"{x['seq_shard']}")
+        tm_metrics_ok(label, x["metrics"], x["ref"], False,
+                      moe=label == "(c)")
+        for r, y in enumerate(res):
+            tm_blocks_ok(f"{label} rank {r}", y[label]["worst"], False,
+                         x["metrics"]["lr"])
+        name, layers, dt, _, B, S, _ = TM_REFS[label]
+        shape = "(2, 2)" if label == "(b)" else "(1, 4)"
+        print(f"[trainmesh] {label} {name} at full width, {layers} layers, "
+              f"{dt}, batch {B} x {S}, mesh {shape}, batch axes "
+              f"{x['batch_axes']}, seq_shard {x['seq_shard']}: "
+              f"{x['ms']:.1f} ms (one rank {x['ref_ms']:.1f}), "
+              f"{B * S / x['ms'] * 1e3:.0f} tokens/s; metrics {x['metrics']} "
+              f"/ {x['ref']} (rtol {TM_RTOL}); worst leaves by rank "
+              f"{[y[label]['worst'] for y in res]}; collectives (calls, "
+              f"operand bytes), rank 0: {tm_kinds(x['counts'])}; MB by kind "
+              f"{tm_mb(x['counts'])}; parameter bytes by rank "
+              f"{[y[label]['param_bytes'] for y in res]}; peak GiB by rank "
+              f"{[round(y[label]['peak'] / 2 ** 30, 3) for y in res]}; card: "
+              f"{card}")
+    c = r0["(c)"]["counts"]
+    check(c.get(("all_to_all", ("model",)), (0, 0))[0] ==
+          6 * TM_MOE_LAYERS,
+          f"[trainmesh] (c) all_to_all calls {c}: the dispatch and return "
+          f"a layer in forward, remat and backward")
+    for r, x in enumerate(res):
+        e = x["(e)"]
+        for engine in ("dense", "fused"):
+            got, launches = e[engine]
+            check(torch.equal(got, e["want"]) and
+                  torch.equal(got, r0["(e)"]["want"]),
+                  f"[trainmesh] (e) rank {r} {engine}: ids {got.tolist()}, "
+                  f"plain {e['want'].tolist()}")
+            # the tensor-parallel oracle's fused engine scans a chunk's
+            # rows with one all_reduce a row (TPOracle.chunk_accept), not
+            # the coverage_accept sweep
+            need = ("coverage_marginals",) + (
+                ("coverage_accept",) if engine == "fused" and not e["tp"]
+                else ())
+            check(all(launches.get(k, 0) > 0 for k in need),
+                  f"[trainmesh] (e) rank {r} {engine}: launches {launches}")
+    print(f"[trainmesh] (e) (a)'s step-0 pool on the training mesh (2 "
+          f"machines over \"data\", the features over \"model\": tensor-"
+          f"parallel oracle {r0['(e)']['tp']}), kernel route: ids "
+          f"{r0['(e)']['want'].tolist()} = the plain route's on every rank; "
+          f"launches by rank and engine "
+          f"{[{e: x['(e)'][e][1] for e in ('dense', 'fused')} for x in res]}"
+          f"; card: {card}")
+    print(f"[trainmesh] gloo reduce_scatter_tensor of bf16 CUDA tensors "
+          f"over \"model\": {r0['bf16_reduce_scatter']}; card: {card}")
+    print(f"[trainmesh] seconds by part, rank 0: "
+          f"{ {k: round(v, 3) for k, v in r0['seconds'].items()} }; card: "
+          f"{card}")
+
+
+def tm_spawn(world, out_dir, refs):
+    import torch.multiprocessing as mp
+    import pickle
+    store = Path(out_dir) / "store"
+    ctx = mp.start_processes(tm_rank,
+                             args=(world, str(store), out_dir, refs),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + TM_JOB_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"[trainmesh] the {world}-rank job outlived "
+                  f"{TM_JOB_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    out = []
+    for r in range(world):
+        with open(Path(out_dir) / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def train_mesh_phase(torch):
+    """Phase 14: the dense and moe families trained on a (data, model) mesh
+    of four gloo ranks sharing the one card (ZeRO-3), against the one-rank
+    step of the same seeded weights and batch on the same card: (a)
+    qwen3-1.7b on (2, 2), the Trainer in bf16 with curation, one bf16 and
+    one f32 step against one rank's; (b) B = 2 (seq_shard); (c)
+    qwen2-moe-a2.7b on (1, 4) (the all-to-all dispatch); (d) save, resume
+    on (2, 2) and re-mesh to (1, 4); (e) the curation's kernel route on the
+    training mesh."""
+    import tempfile
+    card = smi()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        refs = {label: tm_reference(torch, label) for label in TM_REFS}
+        print(f"[trainmesh] the one-rank references took "
+              f"{time.perf_counter() - t0:.3f} s; they hold "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB on the "
+              f"card for the ranks "
+              f"({torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB "
+              f"reserved); card: {card}")
+        t0 = time.perf_counter()
+        res = tm_spawn(4, tmp, refs)
+        del refs
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        print(f"[trainmesh] the 4-rank job took {time.perf_counter() - t0:.3f}"
+              f" s; card: {card}")
+        tm_report(torch, res, card)
+    print(f"[trainmesh] phase 14 took {time.perf_counter() - t_phase:.3f} s; "
+          f"card: {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5626,6 +6332,10 @@ def main() -> int:
     # own launches around its serving)
     torch.cuda.empty_cache()
     lm_mesh_phase(torch)
+
+    # LM training on a mesh of ranks sharing the card
+    torch.cuda.empty_cache()
+    train_mesh_phase(torch)
 
     check(SHAPES == _wrap.SHAPES, f"shape classes {_wrap.SHAPES}")
     table = []

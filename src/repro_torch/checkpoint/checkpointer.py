@@ -101,7 +101,8 @@ def from_host(arr: np.ndarray, name: str, like):
     tensor on ``like``'s device when the template leaf is a tensor, else a
     numpy array."""
     if isinstance(like, torch.Tensor):
-        t = torch.from_numpy(np.array(arr))
+        # an array np.load just read owns its memory: no copy needed
+        t = torch.from_numpy(arr if arr.flags.writeable else np.array(arr))
         if name == "bfloat16":
             t = t.view(torch.bfloat16)
         return t.to(like.device)

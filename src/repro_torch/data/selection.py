@@ -5,8 +5,11 @@ The port of the JAX package's ``repro.data.selection``.  Every
 documents is drawn, embedded (``doc_embeddings``), and the MapReduce
 selector picks the most diverse/covering ``batch`` of them in two rounds.
 On one card (``policy.mesh`` None) the selector runs the sim substrate with
-one machine, and its tensor-parallel oracle is inert; on a mesh it runs on
-the ``("pod", "data")`` axes there are.  The sample round draws from a
+one machine, and its tensor-parallel oracle is inert; on the training mesh
+it runs on the ``("pod", "data")`` axes there are, one machine a rank
+there, the oracle's features split over "model" (``oracle_tp``): every rank
+draws the same pool, takes its shard of the embeddings, and gets the same
+ids back.  The sample round draws from a
 generator derived from (seed + 77, step), so a curated batch, like a plain
 one, is a pure function of the step.
 """
@@ -48,6 +51,8 @@ class SelectionPipeline:
         cat = {k: torch.cat([p[k] for p in pools], dim=0) for k in pools[0]}
         emb = doc_embeddings(cat, self.emb_dim)
         opt_est = self.selector.opt_upper_bound(emb)
+        if self.policy.mesh is not None:
+            emb = self.selector.data_sharding(emb)
         res = self.selector.select(
             emb, opt_est,
             generator=step_generator(d.seed + 77, step, self.base.device))

@@ -39,7 +39,7 @@ from repro_torch.core.mapreduce import QueryBatch
 from repro_torch.models import layers as LM
 from repro_torch.models import ssm as SSM
 from repro_torch.models.model import Model
-from repro_torch.models.sharding import block, mesh_ranks
+from repro_torch.models.sharding import assemble, block, mesh_ranks
 from repro_torch.optim.adamw import OptState
 from repro_torch.streaming.sieve import SieveSpec, SieveState
 
@@ -332,13 +332,21 @@ def _jax_leaf(tree, name: str):
 def adamw_state(jax_opt, model: Model):
     """A JAX ``adamw.OptState`` (step, and m, v in the parameters' tree) as
     the port's: the step an int32 0-d tensor, m and v f32 by the port's
-    parameter names, on the model's device."""
-    names = [n for n, _ in model.params.named_parameters()]
-    dev = model.device
+    parameter names, on the model's device; on a mesh each moment is this
+    rank's block of its leaf, as its parameter is (ZeRO-3 under the train
+    policy)."""
+    named = dict(model.params.named_parameters())
+    dev, mesh = model.device, model.mesh
+
+    def leaf(tree, n):
+        a = np.asarray(_jax_leaf(tree, n), np.float32)
+        spec = getattr(named[n], "spec", None)
+        if spec is not None:
+            a = a[block(a.shape, spec, mesh.shape, mesh.coords)]
+        return tensor(a, dev)
 
     def moments(tree):
-        return {n: tensor(np.asarray(_jax_leaf(tree, n), np.float32), dev)
-                for n in names}
+        return {n: leaf(tree, n) for n in named}
     return OptState(step=tensor(np.asarray(jax_opt.step, np.int32), dev),
                     m=moments(jax_opt.m), v=moments(jax_opt.v))
 
@@ -359,7 +367,8 @@ def lm_tree(model: Model, grads: bool = False):
     """The port's parameters (or, with ``grads``, their ``.grad``; None
     reads as zeros) as numpy arrays in the JAX package's tree: the groups'
     leaves re-stacked on a leading G axis, one dict a sublayer; the inverse
-    of ``lm_params``."""
+    of ``lm_params``.  On a mesh each leaf is this rank's block
+    (``gather_named`` rebuilds the whole leaves from every rank's)."""
     def host(p):
         t = p.grad if grads else p
         if t is None:
@@ -428,17 +437,13 @@ def gather(blocks, spec, mesh_shape):
     """The whole array from every rank's block under ``spec``: ``blocks``
     in rank order (row-major over ``mesh_shape``, a dict of axis sizes in
     the mesh's order), each a numpy array; the inverse of the placement."""
-    names = list(mesh_shape)
-    dims = tuple(mesh_shape[a] for a in names)
-    b0 = np.asarray(blocks[0])
-    shape = []
-    for d, n in enumerate(b0.shape):
-        entry = spec[d] if d < len(spec) else None
-        axes = () if entry is None else (
-            entry if isinstance(entry, tuple) else (entry,))
-        shape.append(n * int(np.prod([mesh_shape[a] for a in axes])))
-    out = np.empty(shape, b0.dtype)
-    for r, b in enumerate(blocks):
-        coords = dict(zip(names, np.unravel_index(r, dims)))
-        out[block(shape, spec, mesh_shape, coords)] = np.asarray(b)
-    return out
+    return assemble([np.asarray(b) for b in blocks], spec, mesh_shape)
+
+
+def gather_named(blocks, specs, mesh_shape):
+    """Whole arrays by the port's parameter names from every rank's blocks:
+    ``blocks`` in rank order, each a {name: numpy block} dict (a
+    parameter's, its moment's or its gradient's), ``specs`` {name: spec}
+    (``p.spec``), ``mesh_shape`` the axis sizes in the mesh's order."""
+    return {n: gather([b[n] for b in blocks], specs[n], mesh_shape)
+            for n in blocks[0]}

@@ -54,9 +54,7 @@ class Mesh:
         self.axis_names = axis_names
         self.shape: Dict[str, int] = dict(zip(axis_names, shape))
         self.rank = dist.get_rank()
-        self.coords: Dict[str, int] = {
-            a: int(c) for a, c in zip(axis_names,
-                                      np.unravel_index(self.rank, shape))}
+        self.coords: Dict[str, int] = self.coords_of(self.rank)
         self._groups: Dict[Tuple[str, ...], object] = {}
         for a in axis_names:
             self.group((a,))
@@ -73,6 +71,12 @@ class Mesh:
 
     def size(self, axes) -> int:
         return math.prod(self.shape[a] for a in _axes(axes))
+
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """The coordinates of ``rank`` (row-major, as ``coords``)."""
+        dims = tuple(self.shape[a] for a in self.axis_names)
+        return {a: int(c) for a, c in zip(self.axis_names,
+                                          np.unravel_index(rank, dims))}
 
     def index(self, axes) -> int:
         """This rank's row-major index along ``axes``."""

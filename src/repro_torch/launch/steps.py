@@ -9,8 +9,8 @@ the serving bundles serve every family that decodes and the train step
 every family; on a mesh of several ranks (``launch.mesh``) the serving
 bundles serve the dense and moe families (prefill under the config's
 ``parallelism``: ZeRO-3 for "fsdp"; decode under TP + FSDP, the caches
-handed over to its layout), and the train step refuses: training on a
-mesh is the next slice.
+handed over to its layout), and the train step trains them under ZeRO-3
+(``parallelism="fsdp"``; ``sharding.check_train`` refuses the rest).
 """
 
 from __future__ import annotations
@@ -21,9 +21,10 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec
+from repro_torch.models import collectives as coll
 from repro_torch.models.model import TensorSpec, input_specs
 from repro_torch.models.sharding import ShardingPolicy, check_family, \
-    make_policy, mesh_ranks
+    check_train, make_policy, mesh_ranks
 from repro_torch.optim import adamw
 
 
@@ -45,20 +46,31 @@ def train_step_bundle(cfg: ArchConfig, shape: ShapeSpec, mesh=None,
     With ``cfg.microbatches`` A > 1 the batch is cut into A slices along
     its batch axis, one backward a slice, the gradients accumulated in f32
     (the parameters' dtype) and divided by A with the loss and the
-    metrics; the policy, and so the MoE's capacity, sees the micro-batch."""
-    if mesh_ranks(mesh) > 1:
-        raise NotImplementedError(
-            f"train_step_bundle on a mesh of {mesh_ranks(mesh)} ranks: "
-            f"training on a mesh (the collectives' backward, the gradient "
-            f"reduce_scatter, AdamW's global norm over shards) is the next "
-            f"slice")
+    metrics; the policy, and so the MoE's capacity, sees the micro-batch.
+
+    On a mesh of several ranks the step takes the global batch on every
+    rank and the model placed by this bundle's policy (``Model(...,
+    policy=bundle.policy)``: ZeRO-3 blocks).  Micro-batch a is the global
+    batch's a-th slice of B / A rows, of which each rank takes its block
+    (the JAX package's reshape to (A, B / A, ...), then the policy's
+    sharding); backward reduce-scatters each weight's gradient into its
+    block, a leaf's gradient is summed over the token axes its spec does
+    not split (``ShardingPolicy.replicated_axes``), and the global norm
+    sums over the ranks' blocks."""
     A = max(1, cfg.microbatches)
     policy = make_policy(mesh, shape.global_batch // A, "train",
                          head_fsdp=cfg.head_fsdp,
                          pure_fsdp=cfg.parallelism == "fsdp")
+    check_train(cfg, policy)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
+    sharded = mesh_ranks(mesh) > 1
 
     def train_step(model, opt_state, batch):
+        if sharded and (model.placement is None or
+                        model.placement.mesh is not mesh or
+                        not model.placement.pure_fsdp):
+            raise ValueError("train_step: place the model by the bundle's "
+                             "policy (Model(..., policy=bundle.policy))")
         model.requires_grad_(True)
         params = dict(model.params.named_parameters())
         for p in params.values():
@@ -83,12 +95,21 @@ def train_step_bundle(cfg: ArchConfig, shape: ShapeSpec, mesh=None,
                     k: metrics[k] + m[k] for k in m}
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
+        specs = None
+        if sharded:
+            specs = {n: p.spec for n, p in params.items()}
+            for n, g in grads.items():
+                axes = policy.replicated_axes(specs[n])
+                if axes:
+                    grads[n] = coll.all_reduce(g, mesh, axes)
         if A > 1:
             for g in grads.values():
                 g.div_(A)
             loss = loss / A
             metrics = {k: t / A for k, t in metrics.items()}
-        _, new_opt, om = adamw.update(opt_cfg, params, grads, opt_state)
+        _, new_opt, om = adamw.update(opt_cfg, params, grads, opt_state,
+                                      mesh=mesh if sharded else None,
+                                      specs=specs)
         for p in params.values():
             p.grad = None
         return model, new_opt, dict(metrics, loss=loss, **om)

@@ -9,15 +9,30 @@ It runs on the CUDA card unless ``--device cpu`` asks for the CPU.
 config; without it the full config is used.  Weights are random, drawn
 from the train seed 0 on the device; compute is bf16.  ``--select`` curates
 every ``--select-every``-th batch with the paper's two-round selector.
+
+Under ``torchrun`` (``WORLD_SIZE`` ranks) the job trains on a (data, model)
+mesh with ``--model-parallel`` ranks on the model axis (the dense and moe
+families, ZeRO-3): NCCL with one rank a card, gloo with ``--device cpu``;
+rank 0 prints the log.
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
+        --model-parallel 2
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ShapeSpec, get_config
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_mesh_for
 from repro_torch.optim import adamw
 from repro_torch.runtime.trainer import TrainConfig, Trainer
 
@@ -42,10 +57,28 @@ def main(argv=None) -> None:
                     help="cuda (default) or cpu; no fall-back between them")
     args = ap.parse_args(argv)
 
-    if args.model_parallel != 1:
-        raise SystemExit("--model-parallel > 1: training on a mesh is "
-                         "the next slice of the port")
     device = resolve_device(args.device)
+    mesh = None
+    if "WORLD_SIZE" in os.environ:
+        # NCCL on this rank's card, gloo on the CPU
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                timeout=datetime.timedelta(seconds=300))
+        mesh = make_mesh_for(dist.get_world_size(),
+                             model_parallel=args.model_parallel)
+    elif args.model_parallel != 1:
+        raise SystemExit("--model-parallel > 1 runs under torchrun "
+                         "(WORLD_SIZE ranks, a multiple of it)")
+    try:
+        _train(args, device, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _train(args, device, mesh) -> None:
     smoke = args.smoke
     if smoke is None:
         smoke = device.type == "cpu"
@@ -53,18 +86,23 @@ def main(argv=None) -> None:
     if smoke:
         cfg = cfg.reduced()
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
+    log = mesh is None or mesh.rank == 0
 
     trainer = Trainer(
-        cfg, shape,
+        cfg, shape, mesh,
         data=DataConfig(global_batch=args.batch, seq_len=args.seq,
                         select_every=args.select_every if args.select else 0),
         train=TrainConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
                           ckpt_every=args.ckpt_every),
         opt=adamw.AdamWConfig(lr=args.lr),
-        select=args.select, verbose=True, device=device)
+        select=args.select, verbose=log, device=device)
+    if log and mesh is not None:
+        print(f"[train] mesh={mesh.shape} batch axes "
+              f"{trainer.policy.batch_axes} seq_shard "
+              f"{trainer.policy.seq_shard}", flush=True)
     trainer.run()
     losses = [r.loss for r in trainer.history]
-    if losses:
+    if log and losses:
         print(f"[train] done: steps={len(losses)} "
               f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
 

@@ -17,8 +17,19 @@ and ``reset_counts()`` zeroes: the port's own collective bytes, for the
 roofline and the dry-run.  A call on one rank (axes of size 1) moves
 nothing and is not counted.
 
-Forward only: with autograd recording, a call raises (the collectives'
-backward comes with training on a mesh, the next slice).
+Under autograd each collective has its backward, fixed by one rule: every
+rank holds the same global loss, and a rank's gradient is its block of
+d(global loss)/d(global tensor).  So ``all_gather``'s backward is a summing
+``reduce_scatter`` (the gathered copies feed different work on each rank:
+other rows, other vocab slices, other queries), ``reduce_scatter``'s is
+``all_gather``, ``all_to_all``'s the inverse ``all_to_all``, and a summing
+``all_reduce``'s the identity (its result feeds the same work on every
+rank: the CE's log-sum-exp over "model", the loss's token sums, the MoE's
+aux mean).  A backward call counts under its own kind and the same axes;
+remat's re-run forward calls count too.  ``gather_cast`` is the FSDP
+weight gather: the cast first, so the gather moves the compute dtype's
+bytes, and its backward sums each rank's gradient into its block in the
+parameter's dtype.
 """
 
 from __future__ import annotations
@@ -53,10 +64,6 @@ def _norm(mesh, axes) -> Tuple[str, ...]:
 
 def _group(kind, mesh, axes, x):
     """(group, size) of ``axes``; counts the call when it moves data."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            f"collectives.{kind} under autograd: the mesh path is forward "
-            f"only until training on a mesh lands (the next slice)")
     axes = _norm(mesh, axes)
     n = mesh.size(axes) if axes else 1
     if n > 1:
@@ -66,9 +73,7 @@ def _group(kind, mesh, axes, x):
     return (mesh.group(axes) if n > 1 else None), n
 
 
-def all_gather(x, mesh, axes, dim: int = 0):
-    """The blocks of ``x`` from every rank along ``axes``, concatenated on
-    ``dim`` in the axes' row-major order."""
+def _all_gather(x, mesh, axes, dim: int = 0):
     group, n = _group("all_gather", mesh, axes, x)
     if n == 1:
         return x
@@ -79,10 +84,7 @@ def all_gather(x, mesh, axes, dim: int = 0):
     return out.movedim(0, dim)
 
 
-def reduce_scatter(x, mesh, axes, dim: int = 0):
-    """The sum of ``x`` over the ranks along ``axes``, of which this rank
-    keeps its block on ``dim`` (the dim splits into as many blocks as the
-    axes hold ranks)."""
+def _reduce_scatter(x, mesh, axes, dim: int = 0):
     group, n = _group("reduce_scatter", mesh, axes, x)
     if n == 1:
         return x
@@ -96,9 +98,7 @@ def reduce_scatter(x, mesh, axes, dim: int = 0):
     return out.movedim(0, dim)
 
 
-def all_reduce(x, mesh, axes, op: str = "sum"):
-    """``x`` summed (``op="max"``: the maximum) over the ranks along
-    ``axes``; a new tensor."""
+def _all_reduce(x, mesh, axes, op: str = "sum"):
     group, n = _group("all_reduce", mesh, axes, x)
     if n == 1:
         return x
@@ -108,10 +108,7 @@ def all_reduce(x, mesh, axes, op: str = "sum"):
     return out
 
 
-def all_to_all(x, mesh, axes, split_dim: int, concat_dim: int):
-    """Block j of ``x`` on ``split_dim`` goes to the j-th rank along
-    ``axes``; the blocks received, in the ranks' order, are concatenated
-    on ``concat_dim``."""
+def _all_to_all(x, mesh, axes, split_dim: int, concat_dim: int):
     group, n = _group("all_to_all", mesh, axes, x)
     if n == 1:
         return x
@@ -125,6 +122,125 @@ def all_to_all(x, mesh, axes, split_dim: int, concat_dim: int):
     # out: n blocks on dim 0, block j from rank j
     parts = out.chunk(n, 0)
     return torch.cat([p.movedim(0, split_dim) for p in parts], concat_dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, *ctx.args), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _reduce_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, split_dim, concat_dim):
+        ctx.args = (mesh, axes, concat_dim, split_dim)
+        return _all_to_all(x, mesh, axes, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None, None
+
+
+def _gather_cast(p, mesh, gathers, dtype):
+    x = p.to(dtype)
+    for dim, axes in gathers:
+        x = _all_gather(x, mesh, axes, dim)
+    return x
+
+
+class _GatherCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, mesh, gathers, dtype):
+        ctx.args = (mesh, gathers, p.dtype)
+        return _gather_cast(p, mesh, gathers, dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, gathers, dtype = ctx.args
+        # summed in the parameter's dtype (f32): a bf16 sum over the ranks
+        # would round each rank's partial gradient once more than one
+        # rank's product over every row does
+        g = g.to(dtype)
+        for dim, axes in reversed(gathers):
+            g = _reduce_scatter(g, mesh, axes, dim)
+        return g, None, None, None
+
+
+def _recording(x, mesh, axes) -> bool:
+    """Whether a call on ``x`` over ``axes`` moves data under autograd."""
+    return torch.is_grad_enabled() and x.requires_grad and \
+        mesh.size(_norm(mesh, axes)) > 1
+
+
+def all_gather(x, mesh, axes, dim: int = 0):
+    """The blocks of ``x`` from every rank along ``axes``, concatenated on
+    ``dim`` in the axes' row-major order."""
+    if _recording(x, mesh, axes):
+        return _AllGather.apply(x, mesh, axes, dim)
+    return _all_gather(x, mesh, axes, dim)
+
+
+def reduce_scatter(x, mesh, axes, dim: int = 0):
+    """The sum of ``x`` over the ranks along ``axes``, of which this rank
+    keeps its block on ``dim`` (the dim splits into as many blocks as the
+    axes hold ranks)."""
+    if _recording(x, mesh, axes):
+        return _ReduceScatter.apply(x, mesh, axes, dim)
+    return _reduce_scatter(x, mesh, axes, dim)
+
+
+def all_reduce(x, mesh, axes, op: str = "sum"):
+    """``x`` summed (``op="max"``: the maximum, not differentiable) over
+    the ranks along ``axes``; a new tensor."""
+    if _recording(x, mesh, axes):
+        if op != "sum":
+            raise ValueError(f"all_reduce: op {op!r} under autograd; "
+                             f"reduce a detached tensor")
+        return _AllReduce.apply(x, mesh, axes)
+    return _all_reduce(x, mesh, axes, op)
+
+
+def all_to_all(x, mesh, axes, split_dim: int, concat_dim: int):
+    """Block j of ``x`` on ``split_dim`` goes to the j-th rank along
+    ``axes``; the blocks received, in the ranks' order, are concatenated
+    on ``concat_dim``."""
+    if _recording(x, mesh, axes):
+        return _AllToAll.apply(x, mesh, axes, split_dim, concat_dim)
+    return _all_to_all(x, mesh, axes, split_dim, concat_dim)
+
+
+def gather_cast(p, mesh, gathers, dtype):
+    """``p`` cast to ``dtype``, then all-gathered on each (dim, axes) of
+    ``gathers`` in turn (the FSDP weight gather)."""
+    if gathers and torch.is_grad_enabled() and p.requires_grad:
+        return _GatherCast.apply(p, mesh, tuple(gathers), dtype)
+    return _gather_cast(p, mesh, gathers, dtype)
 
 
 def reshard(x, mesh, src, dst):

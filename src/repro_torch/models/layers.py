@@ -22,8 +22,9 @@ the layers call the collectives that GSPMD inserts for the JAX package
 (``collectives``):
   * a parameter carries its resident spec (``p.spec``); ``weight`` gathers
     its FSDP axes just before use (every axis but "model" under tensor
-    parallelism, every axis under ``pure_fsdp``), and the gathered copy is
-    dropped after the product;
+    parallelism, every axis under ``pure_fsdp``: ZeRO-3, the norms too),
+    and the gathered copy is dropped after the product; in backward the
+    gather's gradient is reduce-scattered into the rank's block;
   * tensor parallelism: wq/wk/wv/wg/wu column-parallel, wo/wd
     row-parallel followed by an ``all_reduce`` over "model"; where the
     heads (or d_ff) do not split over the model axis the layer gathers its
@@ -90,17 +91,19 @@ def weight(p, policy, keep=(), dtype=None):
     its blocks all-gathered over every axis of its resident spec but those
     in ``keep`` (the FSDP gather).  The cast comes first, so the gather
     moves the compute dtype's bytes (the same values: a cast is per
-    element)."""
+    element); under autograd its backward sums every rank's gradient of
+    the gathered copy into this rank's block, in f32
+    (``collectives.gather_cast``)."""
     spec = getattr(p, "spec", None)
-    if dtype is not None:
-        p = p.to(dtype)
+    dtype = dtype or p.dtype
     if spec is None or not on_mesh(policy):
-        return p
+        return p.to(dtype)
+    gathers = []
     for d, entry in enumerate(spec):
         gather = tuple(a for a in axes_of(entry) if a not in keep)
         if gather:
-            p = coll.all_gather(p, policy.mesh, gather, d)
-    return p
+            gathers.append((d, gather))
+    return coll.gather_cast(p, policy.mesh, gathers, dtype)
 
 
 def use_spec(p, keep) -> tuple:
@@ -333,8 +336,8 @@ def _mesh_attention(p, x, positions, cfg, is_global, cache, policy):
     k = (x @ weight(p["wk"], policy, keep, cd)).reshape(B, S, KVh, hd)
     v = (x @ weight(p["wv"], policy, keep, cd)).reshape(B, S, KVh, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, weight(p["q_norm"], policy), cfg.norm_eps)
+        k = rms_norm(k, weight(p["k_norm"], policy), cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window

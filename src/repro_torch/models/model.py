@@ -11,13 +11,15 @@ no graph; a training entry point turns gradients on for its own model
 
 On a mesh of several ranks (``policy``: a ``ShardingPolicy`` on a
 ``launch.mesh.Mesh``) a rank holds one resident layout of the parameters:
-its block of the given policy's ``param_spec``, which must be a tensor-
-parallel one (not ``pure_fsdp``).  The serving launchers name the decode
-policy's layout (TP + FSDP: weights split over "model" on heads / d_ff /
-experts / vocab and over "data" on d_model), since a server runs many
-decode steps; a decode step gathers each weight over "data" just before
-use, and a ``pure_fsdp`` prefill gathers each over every axis from the
-same blocks.  Each parameter carries its spec (``p.spec``); a rank's
+its block of the given policy's ``param_spec``.  The serving launchers
+name the decode policy's layout (TP + FSDP: weights split over "model" on
+heads / d_ff / experts / vocab and over "data" on d_model), since a server
+runs many decode steps; a decode step gathers each weight over "data"
+just before use, and a ``pure_fsdp`` prefill gathers each over every axis
+from the same blocks.  Training names the train policy's ZeRO-3 layout
+(``pure_fsdp``: every leaf split over ("data", "model") on one dim, the
+vocab over "model"); a model placed so prefills and trains, and refuses a
+decode step.  Each parameter carries its spec (``p.spec``); a rank's
 parameter bytes are those of its blocks (``param_bytes``).  Every rank
 draws every parameter from the same generator, so the ranks' blocks tile
 the parameters of a one-rank model of the same seed.
@@ -90,10 +92,6 @@ class Model(nn.Module):
         self.placement = None
         if policy is not None and mesh_ranks(policy.mesh) > 1:
             check_family(cfg, policy.mesh)
-            if policy.pure_fsdp:
-                raise ValueError("Model: place the parameters by a tensor-"
-                                 "parallel policy (the decode policy), not "
-                                 "a pure_fsdp one")
             self.placement = policy
         self.params = T.Transformer(cfg, generator,
                                     device or generator.device,
@@ -108,6 +106,11 @@ class Model(nn.Module):
         return None if self.placement is None else self.placement.mesh
 
     def _policy(self, policy, batch_size, kind):
+        if kind == "decode" and self.placement is not None and \
+                self.placement.pure_fsdp:
+            raise ValueError("Model: a decode step on parameters placed by a "
+                             "ZeRO-3 (pure_fsdp) policy; place a served "
+                             "model by the decode policy")
         if policy is None:
             return make_policy(self.mesh, batch_size, kind,
                                head_fsdp=self.cfg.head_fsdp,

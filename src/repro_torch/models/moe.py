@@ -19,7 +19,11 @@ package's modes, chosen as its ``moe_ffn`` chooses them:
     go to the experts' home peers and back with two ``all_to_all``s;
   * ``pure_fsdp`` otherwise: every expert local on gathered weights.
 The aux loss is the mean over the token blocks (``jnp.mean(aux)`` of the
-JAX package's per-shard values).
+JAX package's per-shard values), so on a mesh it is not the aux of the
+whole batch that one rank computes.  Training runs the ``pure_fsdp``
+modes: backward sends the slot buffers' gradients back through the
+inverse ``all_to_all``s, and gathered expert weights sum their gradients
+into each rank's block (``collectives``).
 """
 
 from __future__ import annotations
@@ -160,15 +164,6 @@ def _mesh_experts(p, cfg, policy, dtype):
     return wg, wu, wd, experts
 
 
-def token_axes(policy) -> tuple:
-    """The axes over which the ranks' token blocks differ: the batch axes,
-    and the sequence axis under ``seq_shard``."""
-    ax = policy.batch_axes
-    if policy.seq_shard and policy.seq_shard not in ax:
-        ax = ax + (policy.seq_shard,)
-    return ax
-
-
 def moe_ffn(p, x, cfg, policy):
     """Routed + shared expert FFN. Returns (out, aux_loss scalar)."""
     if not on_mesh(policy):
@@ -180,7 +175,7 @@ def moe_ffn(p, x, cfg, policy):
     wg, wu, wd, experts = _mesh_experts(p, cfg, policy, x.dtype)
     router = weight(p["router"], policy)
     out, aux, _ = _dispatch_combine(x, router, wg, wu, wd, cfg, experts)
-    axes = token_axes(policy)
+    axes = policy.token_axes
     if axes:
         aux = coll.all_reduce(aux.reshape(1), policy.mesh, axes)[0] / \
             policy.mesh.size(axes)

@@ -24,7 +24,9 @@ layers call them (``models.collectives``).  Every tensor of the LM stack
 on a rank is its block of one of these specs; ``place`` cuts a global
 tensor into this rank's block and ``collectives.reshard`` moves a block
 from one spec to another.  The mesh path covers the dense and moe
-families; ``check_family`` refuses the others on more than one rank.
+families, serving and training; ``check_family`` refuses the others on
+more than one rank, and ``check_train`` a train step the port cannot
+shard (a tensor-parallel policy, a batch that leaves an axis idle).
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Optional, Tuple
+
+import numpy as np
 
 Spec = Tuple
 
@@ -52,8 +56,40 @@ def check_family(cfg, mesh) -> None:
             f"{cfg.name}: the {cfg.family} family on a mesh of "
             f"{mesh_ranks(mesh)} ranks; the port shards the "
             f"{' and '.join(MESH_FAMILIES)} families only, the others come "
-            f"with the next slice (training on a mesh, the ssm and hybrid "
-            f"families' TP over d_inner, the vlm and audio inputs)")
+            f"with the next slice (the ssm and hybrid families' TP over "
+            f"d_inner, the vlm and audio inputs; ROADMAP.md queue 1)")
+
+
+def check_train(cfg, policy) -> None:
+    """Raise for a train step on a mesh of several ranks that the port
+    does not shard: a family off the mesh path, a config whose
+    ``parallelism`` is not "fsdp" (training under a tensor-parallel policy
+    needs the Megatron pair of an identity forward with an all-reduce
+    backward on replicated activations), a mesh axis that carries no
+    tokens (its ranks would repeat one another's work, and the weight
+    gradients' sums over it would count that work more than once), or a
+    vocabulary the model axis does not split (the CE is vocab-parallel)."""
+    mesh = policy.mesh
+    if mesh_ranks(mesh) == 1:
+        return
+    check_family(cfg, mesh)
+    if cfg.parallelism != "fsdp" or not policy.pure_fsdp:
+        raise NotImplementedError(
+            f"{cfg.name}: training on a mesh under parallelism="
+            f"{cfg.parallelism!r}; the port trains ZeRO-3 (\"fsdp\") only, "
+            f"training under a tensor-parallel policy is the next item of "
+            f"ROADMAP.md queue 1")
+    idle = [a for a, n in mesh.shape.items()
+            if n > 1 and a not in policy.token_axes]
+    if idle:
+        raise ValueError(
+            f"{cfg.name}: a micro-batch of {policy.global_batch} rows leaves "
+            f"the mesh's {idle} axes without tokens; pick a batch the "
+            f"(pod, data) axes divide")
+    if cfg.padded_vocab % policy.model_size:
+        raise ValueError(f"{cfg.name}: the vocabulary {cfg.padded_vocab} "
+                         f"does not split over the model axis of "
+                         f"{policy.model_size}")
 
 
 def axes_of(entry) -> Tuple[str, ...]:
@@ -61,6 +97,11 @@ def axes_of(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
     return entry if isinstance(entry, tuple) else (entry,)
+
+
+def split_axes(spec) -> Tuple[str, ...]:
+    """Every axis a spec splits a dim over, in the spec's order."""
+    return tuple(a for entry in spec for a in axes_of(entry))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +157,24 @@ class ShardingPolicy:
         if "data" in self.batch_axes or "data" not in self.shape:
             return None
         return "data"
+
+    @property
+    def token_axes(self) -> Tuple[str, ...]:
+        """The axes over which the ranks' token blocks differ: the batch
+        axes, and the sequence axis under ``seq_shard``."""
+        ax = self.batch_axes
+        if self.seq_shard and self.seq_shard not in ax:
+            ax = ax + (self.seq_shard,)
+        return ax
+
+    def replicated_axes(self, spec) -> Tuple[str, ...]:
+        """The token-carrying axes that ``spec`` (a leaf's fitted spec)
+        does not split, in the mesh's order: a leaf's gradient from
+        backward holds only this rank's tokens' share over them, so it is
+        summed over them before the clip."""
+        split = set(split_axes(spec))
+        return tuple(a for a in self.shape
+                     if a in self.token_axes and a not in split)
 
     @property
     def tensor_parallel(self) -> bool:
@@ -331,6 +390,23 @@ def block(shape, spec: Spec, mesh_shape, coords):
         size = n // parts
         out.append(slice(idx * size, (idx + 1) * size))
     return tuple(out)
+
+
+def assemble(blocks, spec: Spec, mesh_shape):
+    """The global tensor (or numpy array) from every rank's block under
+    ``spec``, ``blocks`` in rank order (row-major over ``mesh_shape``, the
+    axis sizes in the mesh's order); the inverse of ``place``."""
+    names = list(mesh_shape)
+    dims = tuple(mesh_shape[a] for a in names)
+    b0 = blocks[0]
+    shape = tuple(n * math.prod(mesh_shape[a] for a in axes_of(
+        spec[d] if d < len(spec) else None)) for d, n in enumerate(b0.shape))
+    out = b0.new_empty(shape) if hasattr(b0, "new_empty") else \
+        np.empty(shape, b0.dtype)
+    for r, b in enumerate(blocks):
+        coords = dict(zip(names, (int(c) for c in np.unravel_index(r, dims))))
+        out[block(shape, spec, mesh_shape, coords)] = b
+    return out
 
 
 def place(t, spec: Spec, mesh):

@@ -24,14 +24,16 @@ checkpointed under ``cfg.remat`` while autograd records), "prefill"
 (returns ring caches), "decode" (one token through the caches).
 ``loss_fn`` is the training loss over a train-mode forward.
 
-On a mesh of several ranks (the dense and moe families, serving) the
-batch a forward is given is the global one, on every rank; it is placed
-(``sharding.place``: batch over the batch axes, the sequence over
-``seq_shard``) and every activation after it is this rank's block.  The
-caches come out of prefill, and go into decode, as the decode policy
+On a mesh of several ranks (the dense and moe families, serving and
+training) the batch a forward is given is the global one, on every rank;
+it is placed (``sharding.place``: batch over the batch axes, the sequence
+over ``seq_shard``) and every activation after it is this rank's block.
+The caches come out of prefill, and go into decode, as the decode policy
 places them; the logits leave vocab-sharded (``ShardingPolicy.logits_spec``)
 and ``greedy`` picks the next ids with a max and an argmax over the model
-axis.
+axis.  ``loss_fn``'s CE is vocab-parallel and every rank holds the global
+loss; backward runs through the collectives' own backward
+(``collectives``), remat's recomputation included.
 """
 
 from __future__ import annotations
@@ -179,13 +181,14 @@ class Transformer(nn.Module):
 
 def _apply_attn_block(p, x, positions, cfg, policy, is_global, cache, mode,
                       cache_len=None):
-    h, kv = L.attention(p.attn, L.rms_norm(x, p.ln1, cfg.norm_eps),
+    h, kv = L.attention(p.attn, L.rms_norm(x, L.weight(p.ln1, policy),
+                                           cfg.norm_eps),
                         positions, cfg, is_global=is_global,
                         cache=cache if mode == "decode" else None,
                         policy=policy)
     x = x + h
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    xn = L.rms_norm(x, p.ln2, cfg.norm_eps)
+    xn = L.rms_norm(x, L.weight(p.ln2, policy), cfg.norm_eps)
     if hasattr(p, "moe"):
         h2, aux = MOE.moe_ffn(p.moe, xn, cfg, policy)
     else:
@@ -261,9 +264,9 @@ def place_tokens(t, policy):
     return place(t, policy.batch_first(t.shape), policy.mesh)
 
 
-def _embed_inputs(params, batch, cfg, policy, dtype):
+def _embed_inputs(params, batch, cfg, policy, dtype, table=None):
     """-> (x (B,S,D) in ``dtype``, positions (B,S) int32); on a mesh this
-    rank's blocks of both."""
+    rank's blocks of both (``table``: ``forward``'s ``embed_table``)."""
     if cfg.family == "vlm":
         tok_emb = L.embed(params.embed, batch["tokens"], dtype)
         x = torch.cat([batch["image_embeds"].to(dtype), tok_emb], dim=1)
@@ -274,8 +277,8 @@ def _embed_inputs(params, batch, cfg, policy, dtype):
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
-        x = L.embed(params.embed, place_tokens(tokens, policy), dtype,
-                    policy)
+        x = L.embed(params.embed if table is None else {"table": table},
+                    place_tokens(tokens, policy), dtype, policy)
         return policy.constrain_tokens(x), place_tokens(positions, policy)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
@@ -317,11 +320,14 @@ def _train_group(gp, shared_p, x, positions, cfg, policy):
 
 
 def forward(params, batch, cfg, policy, mode="train", caches=None,
-            positions=None, cache_len=None, dtype=torch.bfloat16):
+            positions=None, cache_len=None, dtype=torch.bfloat16,
+            embed_table=None):
     """mode train/prefill: batch holds full sequences.
     mode decode: batch {"tokens": (B,1)} (+ caches, positions (B,1)).
-    ``dtype`` is the compute dtype.  Returns (hidden (B,S,D), new_caches,
-    aux): aux is the router loss summed over sublayers and groups (zero in
+    ``dtype`` is the compute dtype; ``embed_table`` on a mesh, the table
+    ``_gathered_table`` gives, for a caller that uses it again (the tied
+    head of ``loss_fn``).  Returns (hidden (B,S,D), new_caches, aux):
+    aux is the router loss summed over sublayers and groups (zero in
     decode, as the JAX package's)."""
     if mode == "decode":
         if cfg.frontend_stub and cfg.family != "vlm":
@@ -330,7 +336,8 @@ def forward(params, batch, cfg, policy, mode="train", caches=None,
                     dtype, policy)
         pos = place_tokens(positions, policy)
     else:
-        x, pos = _embed_inputs(params, batch, cfg, policy, dtype)
+        x, pos = _embed_inputs(params, batch, cfg, policy, dtype,
+                               embed_table)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_list = []
@@ -352,7 +359,8 @@ def forward(params, batch, cfg, policy, mode="train", caches=None,
             aux = aux + a
         new_list.append(nc)
     new_caches = None if mode == "train" else _stack_caches(new_list)
-    return L.rms_norm(x, params.final_norm, cfg.norm_eps), new_caches, aux
+    return L.rms_norm(x, L.weight(params.final_norm, policy), cfg.norm_eps), \
+        new_caches, aux
 
 
 def logits_fn(params, hidden, cfg, policy):
@@ -366,25 +374,38 @@ def logits_fn(params, hidden, cfg, policy):
     return logits
 
 
-def _mesh_logits(params, hidden, cfg, policy):
-    """Logits of this rank's block of ``logits_spec``: the hidden rows
-    gathered off the model axis (under ``pure_fsdp`` the batch is on it),
-    then this rank's vocab block of the head (a D-sharded tied table gives
-    partial sums, reduce-scattered over "model")."""
-    mesh, m = policy.mesh, policy.model_axis
-    if m in policy.batch_axes:
-        hidden = coll.all_gather(hidden, mesh, m, 0)
-    B, S = hidden.shape[:2]
-    spec = policy.logits_spec((policy.global_batch, S, cfg.padded_vocab))
+def _mesh_head(params, cfg, policy, dtype, table=None):
+    """The head (D, V) as this rank's logits use it, in ``dtype``: gathered
+    over every axis but "model" (its vocab block, or its D block), and the
+    model-axis entries of its D and V dims.  ``table``: a tied table as
+    ``_gathered_table`` gives it (then only cast here)."""
+    m = policy.model_axis
     if cfg.tie_embeddings:
-        raw = params.embed["table"]
+        raw = params.embed["table"] if table is None else table
         dv, dd = raw.spec                       # the head (D, V) is its .T
-        head = L.weight(raw, policy, (m,), hidden.dtype).T
+        head = L.weight(raw, policy, (m,), dtype).T
     else:
         raw = params.lm_head
         dd, dv = raw.spec
-        head = L.weight(raw, policy, (m,), hidden.dtype)
-    dd, dv = (e if e == m else None for e in (dd, dv))
+        head = L.weight(raw, policy, (m,), dtype)
+    return (head,) + tuple(e if e == m else None for e in (dd, dv))
+
+
+def _mesh_logits(params, hidden, cfg, policy, head=None):
+    """Logits of this rank's block of ``logits_spec``: the hidden rows
+    gathered off the model axis (under ``pure_fsdp`` the batch is on it),
+    then this rank's vocab block of the head (a D-sharded tied table gives
+    partial sums, reduce-scattered over "model").  The CE passes its
+    ``head`` (``_mesh_head``), gathered once for all its chunks, with the
+    rows already handed back (``_ce_rows``)."""
+    mesh, m = policy.mesh, policy.model_axis
+    if head is None:
+        if m in policy.batch_axes:
+            hidden = coll.all_gather(hidden, mesh, m, 0)
+        head = _mesh_head(params, cfg, policy, hidden.dtype)
+    head, dd, dv = head
+    B, S = hidden.shape[:2]
+    spec = policy.logits_spec((policy.global_batch, S, cfg.padded_vocab))
     if dd == m:       # partial sums of this rank's D block
         n = head.shape[0]
         h = hidden.narrow(-1, mesh.coords[m] * n, n)
@@ -436,6 +457,56 @@ def greedy(logits, cfg, policy):
     return coll.all_gather(idx, mesh, ba, 0) if ba else idx
 
 
+def _ce_rows(hidden, labels, mask, policy):
+    """The CE's blocks on a mesh, as the JAX package's ``loss_fn`` lays
+    them out: the model axis handed back to the vocab, so this rank's
+    hidden rows are gathered off it (the batch's block under ZeRO-3 over
+    every axis, the sequence under ``seq_shard``), and its labels and mask
+    are its block of the global ones (the batch over the other batch
+    axes, the whole sequence)."""
+    mesh, m = policy.mesh, policy.model_axis
+    if m in policy.batch_axes:
+        hidden = coll.all_gather(hidden, mesh, m, 0)
+    elif policy.seq_shard == m:
+        hidden = coll.all_gather(hidden, mesh, m, 1)
+    ba = _ce_axes(policy)
+    spec = policy.spec(ba if len(ba) > 1 else (ba[0] if ba else None), None,
+                       shape=labels.shape)
+    return hidden, place(labels, spec, mesh), place(mask, spec, mesh)
+
+
+def _ce_axes(policy):
+    """The batch axes of the CE's rows (all but the model axis)."""
+    return tuple(a for a in policy.batch_axes if a != policy.model_axis)
+
+
+def _vocab_parallel(lg, y, policy):
+    """(log-sum-exp, the label's logit) of f32 logits whose vocab is split
+    over the model axis: the max and the sum over "model" (the max held
+    constant in backward: the value does not depend on it), and the
+    label's logit from the rank whose block holds it, summed."""
+    mesh, m = policy.mesh, policy.model_axis
+    vloc = lg.shape[-1]
+    mx = coll.all_reduce(lg.detach().amax(-1), mesh, m, op="max")
+    se = coll.all_reduce(torch.exp(lg - mx[..., None]).sum(-1), mesh, m)
+    loc = y - policy.mesh.coords[m] * vloc
+    ok = (loc >= 0) & (loc < vloc)
+    pick = torch.gather(lg, -1, loc.clamp(0, vloc - 1)[..., None])[..., 0]
+    return mx + torch.log(se), coll.all_reduce(torch.where(ok, pick, 0.0),
+                                               mesh, m)
+
+
+def _gathered_table(params, policy):
+    """The tied table gathered over every axis but "model" once, for the
+    lookup and the head alike (so its gradient is reduce-scattered once);
+    it carries the spec of what stays split, so ``L.weight`` only casts
+    it."""
+    raw, keep = params.embed["table"], (policy.model_axis,)
+    table = L.weight(raw, policy, keep)
+    table.spec = L.use_spec(raw, keep)
+    return table
+
+
 def loss_fn(params, batch, cfg, policy, dtype=torch.bfloat16):
     """Token-level CE over f32 logits, plus ``router_aux_coef`` times the
     router aux loss: (loss, {"ce", "aux"}).  The vlm's image positions
@@ -443,9 +514,21 @@ def loss_fn(params, batch, cfg, policy, dtype=torch.bfloat16):
     given.  Over ``cfg.loss_chunk`` positions at a time when the chunk
     divides the sequence and is shorter, each chunk's CE checkpointed, so
     one (B, chunk, V) f32 logits buffer is alive at a time in backward
-    too (the JAX package's ``jax.checkpoint`` of the scanned body)."""
+    too (the JAX package's ``jax.checkpoint`` of the scanned body).
+
+    On a mesh ``batch`` is the global one; the CE is vocab-parallel
+    (``_ce_rows``, ``_vocab_parallel``; the head gathered once for every
+    chunk, a tied one once with the lookup's table, so its gradient is
+    reduce-scattered once) and the token sum and
+    count are summed over the CE's batch axes, so every rank holds the
+    global mean loss (and every rank recomputes its checkpointed chunks in
+    the same order, collectives included)."""
+    on_mesh = L.on_mesh(policy)
+    split = on_mesh and policy.model_size > 1
+    table = _gathered_table(params, policy) \
+        if on_mesh and cfg.tie_embeddings else None
     hidden, _, aux = forward(params, batch, cfg, policy, mode="train",
-                             dtype=dtype)
+                             dtype=dtype, embed_table=table)
     if cfg.family == "vlm":
         hidden = hidden[:, batch["image_embeds"].shape[1]:]
     labels = batch["labels"].long()
@@ -453,15 +536,22 @@ def loss_fn(params, batch, cfg, policy, dtype=torch.bfloat16):
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
+    if on_mesh:
+        hidden, labels, mask = _ce_rows(hidden, labels, mask, policy)
+        head = _mesh_head(params, cfg, policy, hidden.dtype, table)
 
     def ce(h, y, msk):
-        lg = logits_fn(params, h, cfg, policy).float()
-        lse = torch.logsumexp(lg, dim=-1)
-        if cfg.ce_onehot:
-            onehot = F.one_hot(y, lg.shape[-1]).to(lg.dtype)
-            true = torch.einsum("bsv,bsv->bs", lg, onehot)
+        lg = (_mesh_logits(params, h, cfg, policy, head) if on_mesh
+              else logits_fn(params, h, cfg, policy)).float()
+        if split:
+            lse, true = _vocab_parallel(lg, y, policy)
         else:
-            true = torch.gather(lg, -1, y[..., None])[..., 0]
+            lse = torch.logsumexp(lg, dim=-1)
+            if cfg.ce_onehot:
+                onehot = F.one_hot(y, lg.shape[-1]).to(lg.dtype)
+                true = torch.einsum("bsv,bsv->bs", lg, onehot)
+            else:
+                true = torch.gather(lg, -1, y[..., None])[..., 0]
         return torch.sum((lse - true) * msk), torch.sum(msk)
 
     S, chunk = hidden.shape[1], cfg.loss_chunk
@@ -476,6 +566,10 @@ def loss_fn(params, batch, cfg, policy, dtype=torch.bfloat16):
             tot, cnt = tot + ds, cnt + dc
     else:
         tot, cnt = ce(hidden, labels, mask)
+    if on_mesh and _ce_axes(policy):
+        both = coll.all_reduce(torch.stack([tot, cnt]), policy.mesh,
+                               _ce_axes(policy))
+        tot, cnt = both[0], both[1]
     loss = tot / torch.clamp(cnt, min=1.0)
     return loss + cfg.router_aux_coef * aux, {"ce": loss, "aux": aux}
 

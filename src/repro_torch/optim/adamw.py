@@ -9,6 +9,11 @@ mappings from a parameter's name (``Model.params.named_parameters()``'s
 dotted names) to its tensor; ``update`` writes the parameters and moments
 in place under ``torch.no_grad()``.  The moments share the parameters'
 device.
+
+On a mesh every tensor is this rank's block (the parameters' ZeRO-3
+blocks; the moments inherit them, so ZeRO-1 falls out, as in the JAX
+package); the update is elementwise, so it runs on the blocks unchanged,
+and only the global norm sums over the ranks (``global_norm``).
 """
 
 from __future__ import annotations
@@ -18,6 +23,9 @@ import math
 from typing import Dict, Mapping, NamedTuple
 
 import torch
+
+from repro_torch.models import collectives as coll
+from repro_torch.models.sharding import mesh_ranks, split_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,9 +68,26 @@ def init(params: Mapping[str, torch.Tensor]) -> OptState:
                     v={n: torch.zeros_like(z) for n, z in zeros.items()})
 
 
-def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, in f32."""
-    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
+def global_norm(grads: Mapping[str, torch.Tensor], mesh=None,
+                specs: Mapping[str, tuple] = None) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares, in f32.  On a mesh
+    (``specs``: each leaf's spec) a leaf's squares are summed over the
+    ranks that hold its distinct blocks, the axes its spec splits, and a
+    leaf replicated over an axis counts once: one ``all_reduce`` for the
+    leaves that split over the same axes."""
+    if mesh_ranks(mesh) == 1:
+        return torch.sqrt(sum(torch.sum(g.float() ** 2)
+                              for g in grads.values()))
+    by_axes = {}
+    for name, g in grads.items():
+        ax = tuple(a for a in mesh.axis_names
+                   if a in split_axes(specs[name]))
+        by_axes[ax] = by_axes.get(ax, 0) + torch.sum(g.float() ** 2)
+    total = 0
+    for ax in sorted(by_axes):
+        total = total + coll.all_reduce(by_axes[ax].reshape(1), mesh,
+                                        ax)[0]
+    return torch.sqrt(total)
 
 
 _NO_DECAY = ("ln", "norm", "bias", "A_log", "D_skip", "dt_bias")
@@ -81,12 +106,14 @@ def decays(name: str, p: torch.Tensor) -> bool:
 
 
 def update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
-           grads: Mapping[str, torch.Tensor], state: OptState):
+           grads: Mapping[str, torch.Tensor], state: OptState, mesh=None,
+           specs: Mapping[str, tuple] = None):
     """-> (params, new state, {"lr", "grad_norm"}); the parameters and the
-    moments are written in place."""
+    moments are written in place.  On a mesh (``specs``: each leaf's spec)
+    every tensor is this rank's block."""
     step = state.step + 1
     lr = schedule(cfg, step)
-    gn = global_norm(grads)
+    gn = global_norm(grads, mesh, specs)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0) \
         if cfg.clip_norm else 1.0
     b1c = 1 - cfg.b1 ** step.float()
