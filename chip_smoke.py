@@ -242,7 +242,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    4) within the f32 bars; (e) (a)'s step-0 curation pool through the
    selector on the training mesh, kernel route, dense and fused engines:
    the plain route's ids on every rank.
-15. Print the kernel table as one JSON line, the card's name and power
+15. The ssm and hybrid families on the (2, 2) mesh of four gloo ranks
+   sharing the card (the Mamba1 / Mamba2 blocks split over d_inner under
+   TP or gathered whole under ZeRO-3, the shared block, the Mamba caches
+   handed to the decode layout; launches no LM kernel), each part against
+   one rank on the same seeded weights, batch and card at phases 13's and
+   14's bars, printing the collectives' calls and operand bytes by kind
+   and axes, each rank's parameter bytes and peak memory and ms beside
+   one rank's: (a) falcon-mamba-7b at full width cut to 2 of 64 layers,
+   B = 4, prompt 64 and 8 decode steps under TP in bf16 and in f32, and
+   one TP train step in f32 of its 8 micro-batches of 2 x 256 (the
+   Megatron pair's backward sums over "model"); (b) zamba2-2.7b cut to 1
+   of 9 groups (6 Mamba2 layers and the shared block), a ZeRO-3 prefill
+   of B = 4, prompt 200, then 8 TP decode steps, a B = 1 prefill of 1024
+   tokens (seq_shard), and one ZeRO-3 train step in f32 of 4 x 1024.
+16. Print the kernel table as one JSON line, the card's name and power
    limit, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -5601,14 +5615,16 @@ def tm_reference(torch, label):
     return dict(metrics=metrics, scale=scale, ms=ms, leaves=kept)
 
 
-def tm_compare(torch, ref, label, state, specs, mesh, bf16=False):
+def tm_compare(torch, ref, label, state, specs, mesh, bf16=False,
+               kinds=None):
     """This rank's blocks against the one-rank reference's leaves: per kind
     (the worst leaf's value, the leaf): the gradients' and moments' max
     |diff| over the leaf's max |.|; the parameters' max |diff| in f32 (the
-    bar is 2 lr), in bf16 the worst |diff| / (atol + rtol |p|)."""
+    bar is 2 lr), in bf16 the worst |diff| / (atol + rtol |p|).  ``kinds``:
+    the kinds kept (default: the reference's ``TM_REFS`` entry)."""
     from repro_torch.models.sharding import block
     worst = {}
-    for kind in TM_REFS[label][6]:
+    for kind in kinds or TM_REFS[label][6]:
         for n, t in state[kind].items():
             full = ref["leaves"][kind][n]
             want = full[block(full.shape, specs[n], mesh.shape, mesh.coords)]
@@ -6147,6 +6163,374 @@ def train_mesh_phase(torch):
           f"card: {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the ssm and hybrid families on a (data, model) mesh of gloo
+# ranks sharing the one card: the Mamba1 / Mamba2 blocks split over d_inner
+# (TP) or gathered whole (ZeRO-3), the hybrid's shared block on the mesh,
+# the Mamba caches handed to the decode layout, and a train step under the
+# tensor-parallel policy falcon-mamba-7b uses
+# ---------------------------------------------------------------------------
+
+SM_GROUP_TIMEOUT_S = 600
+SM_JOB_TIMEOUT_S = 600
+SM_FALCON, SM_FALCON_LAYERS = "falcon-mamba-7b", 2   # 64 layers cut to 2
+SM_ZAMBA, SM_ZAMBA_LAYERS = "zamba2-2.7b", 6   # 9 groups cut to 1: 6 Mamba2
+#                                                layers and the shared block
+SM_TOL = 1e-4                   # the f32 bar of phases 13 and 14
+#: serving part -> (architecture, layers, compute dtype name, B, prompt,
+#: decode steps, seed)
+SM_SERVE = {
+    "(a) bf16": (SM_FALCON, SM_FALCON_LAYERS, "bfloat16", 4, 64, 8, 150),
+    "(a) f32": (SM_FALCON, SM_FALCON_LAYERS, "float32", 4, 64, 8, 150),
+    "(b)": (SM_ZAMBA, SM_ZAMBA_LAYERS, "float32", 4, HYBRID_PROMPT, 8, 151),
+    "(b) long": (SM_ZAMBA, SM_ZAMBA_LAYERS, "float32", 1, LMM_LONG, 0, 151),
+}
+#: train part -> (architecture, layers, batch, sequence, leaves compared):
+#: falcon-mamba's 8 micro-batches of 2 rows (one a data rank), TP; zamba2
+#: under ZeRO-3
+SM_TRAIN = {
+    "(a) train": (SM_FALCON, SM_FALCON_LAYERS, 16, 256, ("grads", "m")),
+    "(b) train": (SM_ZAMBA, SM_ZAMBA_LAYERS, 4, 1024, ("grads", "m")),
+}
+#: what each serving part's prefill and decode policies must be
+SM_BRANCHES = {
+    "(a) bf16": dict(batch_axes=("data",), seq_shard=None,
+                     dec_batch_axes=("data",)),
+    "(a) f32": dict(batch_axes=("data",), seq_shard=None,
+                    dec_batch_axes=("data",)),
+    "(b)": dict(batch_axes=("data", "model"), seq_shard=None,
+                dec_batch_axes=("data",)),
+    "(b) long": dict(batch_axes=(), seq_shard="model"),
+}
+
+
+def sm_config(name, layers):
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(name), n_layers=layers)
+
+
+def sm_serve_reference(torch, steps, label, out_dir):
+    """A serving part's one-rank run on the card: writes the prompts, the
+    greedy ids and every step's whole logits to ``out_dir``."""
+    import pickle
+    from repro_torch.models.model import build_model
+    name, layers, dt, B, prompt, dec, seed = SM_SERVE[label]
+    cfg = sm_config(name, layers)
+    model = build_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        "cuda", getattr(torch, dt))
+    toks = lmm_tokens(torch, cfg, B, prompt, seed + 1000)
+    torch.cuda.reset_peak_memory_stats()
+    ids, logits, t_pre, t_dec, _, _ = lmm_serve(
+        torch, steps, model, cfg, None, B, prompt, dec + 1, toks, None)
+    peak = torch.cuda.max_memory_allocated()
+    with open(Path(out_dir) / f"sm{label}.pkl", "wb") as f:
+        pickle.dump(dict(tokens=toks.cpu(), ids=ids, logits=logits,
+                         t_pre=t_pre, t_dec=t_dec), f)
+    print(f"[ssmmesh] {label} one rank: {cfg.name}, {layers} layers, {dt}, "
+          f"B={B} prompt={prompt}, {dec} decode steps: prefill "
+          f"{t_pre:.3f} ms, decode {[round(t, 3) for t in t_dec]} ms; peak "
+          f"{peak / 2 ** 30:.3f} GiB")
+    del model
+    torch.cuda.empty_cache()
+
+
+def sm_train_reference(torch, label):
+    """A train part's one-rank step on the card (``tm_reference``'s): the
+    metrics, the kept leaves left on the card for the ranks (CUDA IPC) and
+    their max |.|."""
+    name, layers, B, S, kinds = SM_TRAIN[label]
+    cfg = sm_config(name, layers)
+    model = tm_model(torch, cfg, torch.float32)
+    kept = {kind: {n: torch.empty(p.shape, dtype=torch.float32,
+                                  device="cuda")
+                   for n, p in model.params.named_parameters()}
+            for kind in kinds}
+    torch.cuda.reset_peak_memory_stats()
+    metrics, state, ms, _ = tm_step(torch, cfg, B, S, model)
+    peak = torch.cuda.max_memory_allocated()
+    for kind, leaves in kept.items():
+        for n, t in leaves.items():
+            t.copy_(state[kind][n])
+    del model, state
+    torch.cuda.empty_cache()
+    scale = {(kind, n): t.abs().max().item()
+             for kind, leaves in kept.items() for n, t in leaves.items()}
+    print(f"[ssmmesh] {label} one rank: {cfg.name}, {layers} layers, f32, "
+          f"batch {B} x {S} in {cfg.microbatches} micro-batches: {ms:.1f} "
+          f"ms, loss {metrics['loss']:.6f}, grad_norm "
+          f"{metrics['grad_norm']:.6f}; peak {peak / 2 ** 30:.3f} GiB")
+    return dict(metrics=metrics, scale=scale, ms=ms, leaves=kept)
+
+
+def sm_build(torch, cfg, dtype, policy, seed, rank, world):
+    """This rank's model placed by ``policy``: the ranks draw their blocks
+    one after another (a rank holds a whole sublayer while it draws)."""
+    import torch.distributed as dist
+    from repro_torch.models.model import build_model
+    model = None
+    for r in range(world):
+        if r == rank:
+            model = build_model(
+                cfg, torch.Generator(device="cuda").manual_seed(seed),
+                "cuda", dtype, policy=policy)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return model
+
+
+def sm_rank(rank, world, store, out_dir, refs):
+    """A rank of phase 15's spawned job: serves and trains every part on
+    the (2, 2) mesh against the one-rank runs; writes its findings to
+    ``out_dir``."""
+    import datetime
+    import pickle
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh_for
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SM_GROUP_TIMEOUT_S))
+    mesh = make_mesh_for(world, model_parallel=2)
+    res = {}
+    for label, (name, layers, dt, B, prompt, dec, seed) in SM_SERVE.items():
+        t_part = time.perf_counter()
+        cfg = sm_config(name, layers)
+        dtype = getattr(torch, dt)
+        with open(Path(out_dir) / f"sm{label}.pkl", "rb") as f:
+            ref = pickle.load(f)
+        gen = dec + 1
+        dpol = steps.decode_step_bundle(
+            cfg, ShapeSpec("sm", prompt + gen, B, "decode"), mesh).policy
+        model = sm_build(torch, cfg, dtype, dpol, seed, rank, world)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        ids, logits, t_pre, t_dec, counts, pol = lmm_serve(
+            torch, steps, model, cfg, mesh, B, prompt, gen,
+            ref["tokens"].cuda(), ref["ids"].cuda() if dec else None)
+        launches = {k: v for k, v in read_counts(ops).items() if v}
+        tol = SM_TOL if dtype == torch.float32 else LM_TOL
+        spec = pol.logits_spec((B, 1, cfg.padded_vocab))
+        dspec = dpol.logits_spec((B, 1, cfg.padded_vocab))
+        ex0, w0 = lmm_compare(logits[:1], ref["logits"][:1], spec, mesh, tol)
+        ex1, w1 = lmm_compare(logits[1:], ref["logits"][1:], dspec, mesh,
+                              tol)
+        ref_top = torch.stack([w[:, -1, :cfg.vocab_size].topk(2, -1).values
+                               for w in ref["logits"]], 1)
+        wide = (ref_top[..., 0] - ref_top[..., 1]) > tol
+        same = ids == ref["ids"]
+        res[label] = dict(
+            ids=ids, ref_ids=ref["ids"], excess=max(ex0, ex1),
+            worst=max(w0, w1), tol=tol,
+            agree=(int(same.sum()), same.numel(), int((same & wide).sum()),
+                   int(wide.sum())),
+            t_pre=t_pre, t_dec=t_dec, ref_pre=ref["t_pre"],
+            ref_dec=ref["t_dec"], counts=counts, launches=launches,
+            peak=torch.cuda.max_memory_allocated(),
+            param_bytes=sum(p.numel() * p.element_size()
+                            for p in model.params.parameters()),
+            batch_axes=pol.batch_axes, seq_shard=pol.seq_shard,
+            dec_batch_axes=dpol.batch_axes,
+            specs={n: p.spec for n, p in model.params.named_parameters()},
+            seconds=time.perf_counter() - t_part)
+        del model, logits
+        torch.cuda.empty_cache()
+        dist.barrier()
+    for label, (name, layers, B, S, kinds) in SM_TRAIN.items():
+        t_part = time.perf_counter()
+        cfg = sm_config(name, layers)
+        policy = steps.train_step_bundle(
+            cfg, ShapeSpec("sm", S, B, "train"), mesh).policy
+        model = sm_build(torch, cfg, torch.float32, policy, 0, rank, world)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        metrics, state, ms, counts = tm_step(torch, cfg, B, S, model, mesh)
+        launches = {k: v for k, v in read_counts(ops).items() if v}
+        specs = {n: p.spec for n, p in model.params.named_parameters()}
+        ref = refs[label]
+        worst = tm_compare(torch, ref, label, state, specs, mesh,
+                           kinds=kinds)
+        res[label] = dict(
+            metrics=metrics, ref=ref["metrics"], worst=worst, ms=ms,
+            ref_ms=ref["ms"], counts=counts, launches=launches,
+            peak=torch.cuda.max_memory_allocated(),
+            param_bytes=sum(p.numel() * p.element_size()
+                            for p in model.params.parameters()),
+            batch_axes=policy.batch_axes, seq_shard=policy.seq_shard,
+            pure_fsdp=policy.pure_fsdp,
+            seconds=time.perf_counter() - t_part)
+        del model, state
+        torch.cuda.empty_cache()
+        dist.barrier()
+    refs.clear()
+    dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def sm_spawn(world, out_dir, refs):
+    import pickle
+    import torch.multiprocessing as mp
+    store = Path(out_dir) / "store"
+    ctx = mp.start_processes(sm_rank, args=(world, str(store), out_dir, refs),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + SM_JOB_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"[ssmmesh] the {world}-rank job outlived "
+                  f"{SM_JOB_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    out = []
+    for r in range(world):
+        with open(Path(out_dir) / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def sm_split(specs, version):
+    """The SSM leaves the rule table splits over "model", as placed: each
+    must name the axis (``_fit`` kept it at full width)."""
+    leaves = ("in_proj", "conv_w", "out_proj", "dt_bias", "D_skip") + (
+        ("x_proj", "dt_proj", "A_log") if version == 1 else ())
+    return {n: s for n, s in specs.items()
+            if n.split(".")[-1] in leaves and ".ssm." in n and
+            "model" not in s}
+
+
+def sm_report(torch, res, card):
+    """Hold every rank to the bars and print what the parts measured."""
+    from repro_torch.configs.base import get_config
+    r0 = res[0]
+    for label, (name, layers, dt, B, prompt, dec, _) in SM_SERVE.items():
+        x0 = r0[label]
+        for r, rr in enumerate(res):
+            x = rr[label]
+            check(bool((x["ids"] == x0["ids"]).all()),
+                  f"[ssmmesh] {label}: rank {r}'s ids {x['ids'].tolist()} "
+                  f"are not rank 0's {x0['ids'].tolist()}")
+            check(x["excess"] <= x["tol"],
+                  f"[ssmmesh] {label}: rank {r}'s logits differ from the "
+                  f"one-rank run's by {x['excess']} beyond rtol = atol "
+                  f"{x['tol']} (max |diff| {x['worst']})")
+            check(not x["launches"],
+                  f"[ssmmesh] {label}: rank {r} launched {x['launches']}")
+        for key, val in SM_BRANCHES[label].items():
+            check(x0[key] == val, f"[ssmmesh] {label}: {key} {x0[key]}, "
+                  f"the branch wants {val}")
+        bad = sm_split(x0["specs"], get_config(name).ssm_version)
+        check(not bad, f"[ssmmesh] {label}: leaves not split over the model "
+              f"axis: {bad}")
+        agree, rows, kept_agree, kept = x0["agree"]
+        check(agree == rows if dt == "float32" else
+              kept_agree >= LM_ARGMAX * kept,
+              f"[ssmmesh] {label}: greedy ids {x0['ids'].tolist()} against "
+              f"the one-rank run's {x0['ref_ids'].tolist()}")
+        kinds = {s: tm_kinds(c) for s, c in (
+            ("prefill", x0["counts"][0]),
+            ("decode step", x0["counts"][1] if dec else {}))}
+        print(f"[ssmmesh] {label} {name} at full width, {layers} layers, "
+              f"{dt}, mesh (data, model) = (2, 2), B={B} prompt={prompt}, "
+              f"{dec} decode steps: prefill batch axes {x0['batch_axes']} "
+              f"seq_shard {x0['seq_shard']}; max |logit diff| to one rank "
+              f"{max(x[label]['worst'] for x in res)} (bar rtol = atol "
+              f"{x0['tol']}), argmax = one rank's in {agree}/{rows}, "
+              f"{kept_agree}/{kept} where the top-2 gap exceeds the bar "
+              f"(every rank's ids the same); card: {card}")
+        print(f"[ssmmesh] {label} prefill ms by rank "
+              f"{[round(x[label]['t_pre'], 3) for x in res]} (one rank "
+              f"{x0['ref_pre']:.3f}); decode ms a step (rank 0) "
+              f"{[round(t, 3) for t in x0['t_dec']]} (one rank "
+              f"{[round(t, 3) for t in x0['ref_dec']]}); parameter bytes by "
+              f"rank {[x[label]['param_bytes'] for x in res]}; peak GiB by "
+              f"rank {[round(x[label]['peak'] / 2 ** 30, 3) for x in res]}; "
+              f"collectives (calls, operand bytes) by kind, rank 0: {kinds}; "
+              f"MB prefill {tm_mb(x0['counts'][0])}, a decode step "
+              f"{tm_mb(x0['counts'][1]) if dec else {}}; took "
+              f"{x0['seconds']:.3f} s; card: {card}")
+    for label, (name, layers, B, S, _) in SM_TRAIN.items():
+        x0 = r0[label]
+        for r, rr in enumerate(res):
+            x = rr[label]
+            check(x["metrics"]["loss"] == x0["metrics"]["loss"] and
+                  x["metrics"]["grad_norm"] == x0["metrics"]["grad_norm"],
+                  f"[ssmmesh] {label}: rank {r}'s metrics {x['metrics']} are "
+                  f"not rank 0's {x0['metrics']}")
+            tm_blocks_ok(f"{label} rank {r}", x["worst"], False,
+                         x0["metrics"]["lr"])
+            check(not x["launches"],
+                  f"[ssmmesh] {label}: rank {r} launched {x['launches']}")
+        tm_metrics_ok(label, x0["metrics"], x0["ref"], False)
+        tp = label == "(a) train"
+        check(x0["pure_fsdp"] != tp and x0["batch_axes"] ==
+              (("data",) if tp else ("data", "model")),
+              f"[ssmmesh] {label}: pure_fsdp {x0['pure_fsdp']}, batch axes "
+              f"{x0['batch_axes']}")
+        check(not tp or x0["counts"].get(("replicate", ("model",)),
+                                         (0, 0))[0] > 0,
+              f"[ssmmesh] {label}: no replicate over the model axis "
+              f"{x0['counts']}")
+        cfg = get_config(name)
+        print(f"[ssmmesh] {label} {name} at full width, {layers} layers, f32, "
+              f"mesh (2, 2), {'TP + FSDP' if tp else 'ZeRO-3'}, batch {B} x "
+              f"{S} in {cfg.microbatches} micro-batches, batch axes "
+              f"{x0['batch_axes']}: {x0['ms']:.1f} ms (one rank "
+              f"{x0['ref_ms']:.1f}), {B * S / x0['ms'] * 1e3:.0f} tokens/s; "
+              f"metrics {x0['metrics']} / {x0['ref']} (rtol {TM_RTOL}); worst "
+              f"leaves by rank {[x[label]['worst'] for x in res]} (bar "
+              f"{TM_LEAF} of the leaf's max); collectives (calls, operand "
+              f"bytes), rank 0: {tm_kinds(x0['counts'])}; MB by kind "
+              f"{tm_mb(x0['counts'])}; parameter bytes by rank "
+              f"{[x[label]['param_bytes'] for x in res]}; peak GiB by rank "
+              f"{[round(x[label]['peak'] / 2 ** 30, 3) for x in res]}; took "
+              f"{x0['seconds']:.3f} s; card: {card}")
+
+
+def ssm_mesh_phase(torch):
+    """Phase 15: the ssm and hybrid families on a (2, 2) mesh of four gloo
+    ranks sharing the one card, at full width, against one rank on the
+    same seeded weights, batch and card: (a) falcon-mamba-7b, 2 of 64
+    layers, served under TP (B = 4, prompt 64, 8 decode steps) in bf16 and
+    f32, and one TP train step in f32 of 8 micro-batches of 2 x 256; (b)
+    zamba2-2.7b, one of 9 groups, a ZeRO-3 prefill (B = 4, prompt 200) and
+    8 TP decode steps, a B = 1 prefill of 1024 tokens (``seq_shard``), and
+    one ZeRO-3 train step in f32 of 4 x 1024.  The decode steps take the
+    one-rank run's ids.  The path reaches no kernel of the table."""
+    import tempfile
+    from repro_torch.launch import steps
+    card = smi()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for label in SM_SERVE:
+            sm_serve_reference(torch, steps, label, tmp)
+        refs = {label: sm_train_reference(torch, label) for label in SM_TRAIN}
+        print(f"[ssmmesh] the one-rank runs took "
+              f"{time.perf_counter() - t0:.3f} s; card: {card}")
+        t0 = time.perf_counter()
+        res = sm_spawn(4, tmp, refs)
+        del refs
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        print(f"[ssmmesh] the 4-rank job took {time.perf_counter() - t0:.3f} "
+              f"s; card: {card}")
+        sm_report(torch, res, card)
+    print(f"[ssmmesh] phase 15 took {time.perf_counter() - t_phase:.3f} s; "
+          f"card: {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6336,6 +6720,10 @@ def main() -> int:
     # LM training on a mesh of ranks sharing the card
     torch.cuda.empty_cache()
     train_mesh_phase(torch)
+
+    # the ssm and hybrid families on a mesh of ranks sharing the card
+    torch.cuda.empty_cache()
+    ssm_mesh_phase(torch)
 
     check(SHAPES == _wrap.SHAPES, f"shape classes {_wrap.SHAPES}")
     table = []

@@ -402,19 +402,20 @@ def _cache(c, device, policy):
                          f"leaves; the port knows {sorted(_CACHES)}")
     if policy is None or mesh_ranks(policy.mesh) == 1:
         return kind(*(tensor(t, device) for t in c))
-    if kind is not LM.KVCache:
-        raise NotImplementedError(
-            f"lm_caches: a {type(c).__name__} on a mesh of "
-            f"{mesh_ranks(policy.mesh)} ranks; the port shards KV caches "
-            f"only, the ssm caches come with the ssm and hybrid families on "
-            f"a mesh (the next slice)")
     mesh = policy.mesh
+    h = "h1" if kind is SSM.Mamba1Cache else "h2"
     out = []
     for field, t in zip(kind._fields, c):
         t = np.asarray(t)
-        # k, v by kv_cache_spec; slot_pos replicated, as cache_shardings
-        spec = policy.kv_cache_spec(t.shape) if field in ("k", "v") \
-            else (None,) * t.ndim
+        # as cache_shardings: k, v by kv_cache_spec, conv and h by
+        # ssm_cache_spec; slot_pos replicated
+        if field in ("k", "v"):
+            spec = policy.kv_cache_spec(t.shape)
+        elif field in ("conv", "h"):
+            spec = policy.ssm_cache_spec(t.shape,
+                                         "conv" if field == "conv" else h)
+        else:
+            spec = (None,) * t.ndim
         out.append(tensor(t[block(t.shape, spec, mesh.shape, mesh.coords)],
                           device))
     return kind(*out)
@@ -425,8 +426,8 @@ def lm_caches(caches, device="cpu", policy=None):
     Mamba2Cache, ...]}`` and the hybrid family's ``"shared"`` KVCache,
     leaves stacked on a leading G axis) as the port's, each leaf bit for
     bit; with a ``policy`` on a mesh of more than one rank, this rank's
-    block of each KVCache leaf (``ShardingPolicy.kv_cache_spec``, as the
-    JAX package's ``cache_shardings``)."""
+    block of each leaf (``ShardingPolicy.kv_cache_spec`` and
+    ``ssm_cache_spec``, as the JAX package's ``cache_shardings``)."""
     out = {"sub": [_cache(c, device, policy) for c in caches["sub"]]}
     if "shared" in caches:
         out["shared"] = _cache(caches["shared"], device, policy)

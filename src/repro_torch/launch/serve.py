@@ -18,8 +18,8 @@ the device.
 
 Under ``torchrun`` (``WORLD_SIZE`` set) the ranks form the mesh
 ``make_mesh_for(world, model_parallel)``, as the JAX CLI builds it, over
-NCCL on ``cuda:LOCAL_RANK`` or gloo with ``--device cpu``; the dense and
-moe families are served there (the others raise).  Every rank draws the
+NCCL on ``cuda:LOCAL_RANK`` or gloo with ``--device cpu``; the dense,
+moe, ssm and hybrid families are served there (vlm and audio raise).  Every rank draws the
 same prompts and weights, keeps its block of the weights (the decode
 policy's layout) and generates the same ids; rank 0 prints the
 ``[serve]`` lines.

@@ -7,10 +7,11 @@ port's model owns its parameters (placed by ``Model(..., policy=)`` on a
 mesh), so a step takes the ``Model`` as its first argument.  On one card
 the serving bundles serve every family that decodes and the train step
 every family; on a mesh of several ranks (``launch.mesh``) the serving
-bundles serve the dense and moe families (prefill under the config's
-``parallelism``: ZeRO-3 for "fsdp"; decode under TP + FSDP, the caches
-handed over to its layout), and the train step trains them under ZeRO-3
-(``parallelism="fsdp"``; ``sharding.check_train`` refuses the rest).
+bundles serve the dense, moe, ssm and hybrid families (prefill under the
+config's ``parallelism``: ZeRO-3 for "fsdp", TP + FSDP for "tp"; decode
+under TP + FSDP, the caches handed over to its layout), and the train step
+trains them under the config's ``parallelism`` too
+(``sharding.check_train`` refuses what it cannot shard).
 """
 
 from __future__ import annotations
@@ -50,13 +51,16 @@ def train_step_bundle(cfg: ArchConfig, shape: ShapeSpec, mesh=None,
 
     On a mesh of several ranks the step takes the global batch on every
     rank and the model placed by this bundle's policy (``Model(...,
-    policy=bundle.policy)``: ZeRO-3 blocks).  Micro-batch a is the global
-    batch's a-th slice of B / A rows, of which each rank takes its block
-    (the JAX package's reshape to (A, B / A, ...), then the policy's
-    sharding); backward reduce-scatters each weight's gradient into its
-    block, a leaf's gradient is summed over the token axes its spec does
-    not split (``ShardingPolicy.replicated_axes``), and the global norm
-    sums over the ranks' blocks."""
+    policy=bundle.policy)``: ZeRO-3 blocks for ``parallelism="fsdp"``, the
+    TP + FSDP blocks for "tp").  Micro-batch a is the global batch's a-th
+    slice of B / A rows, of which each rank takes its block (the JAX
+    package's reshape to (A, B / A, ...), then the policy's sharding);
+    backward reduce-scatters each weight's gradient into its block, a
+    leaf's gradient is summed over the token axes its spec does not split
+    (``ShardingPolicy.replicated_axes``: under TP a leaf whole over
+    "model" is summed over "data" only, its gradient already whole on
+    every model rank), and the global norm sums each leaf's squares over
+    the axes that split it, so a leaf whole over "model" counts once."""
     A = max(1, cfg.microbatches)
     policy = make_policy(mesh, shape.global_batch // A, "train",
                          head_fsdp=cfg.head_fsdp,
@@ -66,9 +70,10 @@ def train_step_bundle(cfg: ArchConfig, shape: ShapeSpec, mesh=None,
     sharded = mesh_ranks(mesh) > 1
 
     def train_step(model, opt_state, batch):
-        if sharded and (model.placement is None or
-                        model.placement.mesh is not mesh or
-                        not model.placement.pure_fsdp):
+        placed = model.placement
+        if sharded and (placed is None or placed.mesh is not mesh or
+                        placed.pure_fsdp != policy.pure_fsdp or
+                        placed.head_fsdp != policy.head_fsdp):
             raise ValueError("train_step: place the model by the bundle's "
                              "policy (Model(..., policy=bundle.policy))")
         model.requires_grad_(True)

@@ -11,9 +11,10 @@ from the train seed 0 on the device; compute is bf16.  ``--select`` curates
 every ``--select-every``-th batch with the paper's two-round selector.
 
 Under ``torchrun`` (``WORLD_SIZE`` ranks) the job trains on a (data, model)
-mesh with ``--model-parallel`` ranks on the model axis (the dense and moe
-families, ZeRO-3): NCCL with one rank a card, gloo with ``--device cpu``;
-rank 0 prints the log.
+mesh with ``--model-parallel`` ranks on the model axis (the dense, moe,
+ssm and hybrid families, under the config's ``parallelism``: ZeRO-3 for
+"fsdp", TP + FSDP for "tp", as falcon-mamba-7b): NCCL with one rank a
+card, gloo with ``--device cpu``; rank 0 prints the log.
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train --device cpu \

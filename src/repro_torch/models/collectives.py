@@ -30,6 +30,17 @@ remat's re-run forward calls count too.  ``gather_cast`` is the FSDP
 weight gather: the cast first, so the gather moves the compute dtype's
 bytes, and its backward sums each rank's gradient into its block in the
 parameter's dtype.
+
+Under tensor parallelism the model axis carries no tokens: its ranks hold
+the same activations and the same loss, and split the work of a layer
+(Megatron's pair).  A summing ``all_reduce`` ends a row-parallel product
+(backward: the identity); ``replicate`` starts a column-parallel one, or
+any work that differs across the axis on a tensor every rank holds alike
+(a rank's slice of a replicated leaf): the identity forward, and in
+backward the sum of the ranks' partial gradients (counted under
+"replicate").  A gather whose copies feed the same work on every rank
+(``alike``) hands back, in backward, this rank's block of a gradient that
+is already whole, where a gather whose copies feed different work sums.
 """
 
 from __future__ import annotations
@@ -98,8 +109,8 @@ def _reduce_scatter(x, mesh, axes, dim: int = 0):
     return out.movedim(0, dim)
 
 
-def _all_reduce(x, mesh, axes, op: str = "sum"):
-    group, n = _group("all_reduce", mesh, axes, x)
+def _all_reduce(x, mesh, axes, op: str = "sum", kind: str = "all_reduce"):
+    group, n = _group(kind, mesh, axes, x)
     if n == 1:
         return x
     out = x.contiguous().clone()
@@ -124,15 +135,23 @@ def _all_to_all(x, mesh, axes, split_dim: int, concat_dim: int):
     return torch.cat([p.movedim(0, split_dim) for p in parts], concat_dim)
 
 
+def _block_of(g, mesh, axes, dim):
+    """This rank's block of ``g`` on ``dim`` along ``axes`` (row-major)."""
+    n = g.shape[dim] // mesh.size(axes)
+    return g.narrow(dim, mesh.index(axes) * n, n).contiguous()
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes, dim):
-        ctx.args = (mesh, axes, dim)
+    def forward(ctx, x, mesh, axes, dim, alike):
+        ctx.args, ctx.alike = (mesh, axes, dim), alike
         return _all_gather(x, mesh, axes, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_scatter(g, *ctx.args), None, None, None
+        if ctx.alike:
+            return _block_of(g, *ctx.args), None, None, None, None
+        return _reduce_scatter(g, *ctx.args), None, None, None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -156,6 +175,18 @@ class _AllReduce(torch.autograd.Function):
         return g, None, None
 
 
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return _all_reduce(g, mesh, axes, kind="replicate"), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes, split_dim, concat_dim):
@@ -176,20 +207,27 @@ def _gather_cast(p, mesh, gathers, dtype):
 
 class _GatherCast(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, p, mesh, gathers, dtype):
-        ctx.args = (mesh, gathers, p.dtype)
+    def forward(ctx, p, mesh, gathers, dtype, alike):
+        ctx.args = (mesh, gathers, p.dtype, alike)
         return _gather_cast(p, mesh, gathers, dtype)
 
     @staticmethod
     def backward(ctx, g):
-        mesh, gathers, dtype = ctx.args
+        mesh, gathers, dtype, alike = ctx.args
         # summed in the parameter's dtype (f32): a bf16 sum over the ranks
         # would round each rank's partial gradient once more than one
         # rank's product over every row does
         g = g.to(dtype)
         for dim, axes in reversed(gathers):
-            g = _reduce_scatter(g, mesh, axes, dim)
-        return g, None, None, None
+            if not any(a in alike for a in axes):
+                g = _reduce_scatter(g, mesh, axes, dim)
+                continue
+            # axis by axis, the major first: an alike axis keeps this
+            # rank's block, the others sum theirs
+            for a in axes:
+                g = _block_of(g, mesh, (a,), dim) if a in alike else \
+                    _reduce_scatter(g, mesh, (a,), dim)
+        return g, None, None, None, None
 
 
 def _recording(x, mesh, axes) -> bool:
@@ -198,12 +236,24 @@ def _recording(x, mesh, axes) -> bool:
         mesh.size(_norm(mesh, axes)) > 1
 
 
-def all_gather(x, mesh, axes, dim: int = 0):
+def all_gather(x, mesh, axes, dim: int = 0, alike: bool = False):
     """The blocks of ``x`` from every rank along ``axes``, concatenated on
-    ``dim`` in the axes' row-major order."""
+    ``dim`` in the axes' row-major order.  ``alike``: every rank along the
+    axes does the same work with the result (backward keeps this rank's
+    block of the gradient instead of summing it)."""
     if _recording(x, mesh, axes):
-        return _AllGather.apply(x, mesh, axes, dim)
+        return _AllGather.apply(x, mesh, axes, dim, alike)
     return _all_gather(x, mesh, axes, dim)
+
+
+def replicate(x, mesh, axes):
+    """``x`` itself, which every rank along ``axes`` holds alike, where it
+    enters work that differs across them; in backward the ranks' partial
+    gradients are summed over ``axes`` (Megatron's identity / all-reduce
+    pair, the half that ``all_reduce`` lacks)."""
+    if _recording(x, mesh, axes):
+        return _Replicate.apply(x, mesh, axes)
+    return x
 
 
 def reduce_scatter(x, mesh, axes, dim: int = 0):
@@ -235,11 +285,14 @@ def all_to_all(x, mesh, axes, split_dim: int, concat_dim: int):
     return _all_to_all(x, mesh, axes, split_dim, concat_dim)
 
 
-def gather_cast(p, mesh, gathers, dtype):
+def gather_cast(p, mesh, gathers, dtype, alike=()):
     """``p`` cast to ``dtype``, then all-gathered on each (dim, axes) of
-    ``gathers`` in turn (the FSDP weight gather)."""
+    ``gathers`` in turn (the FSDP weight gather).  ``alike``: the axes
+    whose ranks all do the same work with the gathered weight (backward
+    keeps this rank's block over them, and sums over the others)."""
     if gathers and torch.is_grad_enabled() and p.requires_grad:
-        return _GatherCast.apply(p, mesh, tuple(gathers), dtype)
+        return _GatherCast.apply(p, mesh, tuple(gathers), dtype,
+                                 tuple(alike))
     return _gather_cast(p, mesh, gathers, dtype)
 
 

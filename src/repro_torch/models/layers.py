@@ -28,7 +28,12 @@ the layers call the collectives that GSPMD inserts for the JAX package
   * tensor parallelism: wq/wk/wv/wg/wu column-parallel, wo/wd
     row-parallel followed by an ``all_reduce`` over "model"; where the
     heads (or d_ff) do not split over the model axis the layer gathers its
-    weights whole instead;
+    weights whole instead; in training the activations enter the
+    column-parallel products through ``collectives.replicate`` (its
+    backward sums their gradients over "model"), and so do the q/k norms
+    that each rank applies to its own heads, while a weight gathered whole
+    over "model" keeps this rank's block of its gradient (every rank of
+    the axis did the same work with it);
   * sequence sharding (``seq_shard``): attention all-gathers K/V over the
     sequence axis, everything else stays local;
   * decode reads the cache in the decode policy's layout (batch over the
@@ -93,7 +98,9 @@ def weight(p, policy, keep=(), dtype=None):
     moves the compute dtype's bytes (the same values: a cast is per
     element); under autograd its backward sums every rank's gradient of
     the gathered copy into this rank's block, in f32
-    (``collectives.gather_cast``)."""
+    (``collectives.gather_cast``).  Under tensor parallelism the model
+    axis carries no tokens, so a weight gathered over it is used alike on
+    its ranks."""
     spec = getattr(p, "spec", None)
     dtype = dtype or p.dtype
     if spec is None or not on_mesh(policy):
@@ -103,7 +110,8 @@ def weight(p, policy, keep=(), dtype=None):
         gather = tuple(a for a in axes_of(entry) if a not in keep)
         if gather:
             gathers.append((d, gather))
-    return coll.gather_cast(p, policy.mesh, gathers, dtype)
+    alike = (policy.model_axis,) if policy.tensor_parallel else ()
+    return coll.gather_cast(p, policy.mesh, gathers, dtype, alike)
 
 
 def use_spec(p, keep) -> tuple:
@@ -332,12 +340,15 @@ def _mesh_attention(p, x, positions, cfg, is_global, cache, policy):
     G = H // KVh
     cd = x.dtype
 
+    def rank_work(t):             # every rank's copy enters its own heads
+        return coll.replicate(t, mesh, m) if tp else t
+    x = rank_work(x)
     q = (x @ weight(p["wq"], policy, keep, cd)).reshape(B, S, H, hd)
     k = (x @ weight(p["wk"], policy, keep, cd)).reshape(B, S, KVh, hd)
     v = (x @ weight(p["wv"], policy, keep, cd)).reshape(B, S, KVh, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, weight(p["q_norm"], policy), cfg.norm_eps)
-        k = rms_norm(k, weight(p["k_norm"], policy), cfg.norm_eps)
+        q = rms_norm(q, rank_work(weight(p["q_norm"], policy)), cfg.norm_eps)
+        k = rms_norm(k, rank_work(weight(p["k_norm"], policy)), cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window
@@ -490,6 +501,8 @@ def mlp(p, x, policy=None):
         return (g * (x @ p["wu"].to(cd))) @ p["wd"].to(cd)
     tp = split_over(policy, (p["wg"], 1), (p["wu"], 1), (p["wd"], 0))
     keep = (policy.model_axis,) if tp else ()
+    if tp:
+        x = coll.replicate(x, policy.mesh, policy.model_axis)
     g = F.silu(x @ weight(p["wg"], policy, keep, cd))
     out = (g * (x @ weight(p["wu"], policy, keep, cd))) @ \
         weight(p["wd"], policy, keep, cd)
@@ -531,6 +544,6 @@ def embed(p, tokens, dtype=torch.bfloat16, policy=None):
             return coll.all_reduce(emb, mesh, m)
         return coll.reduce_scatter(emb, mesh, m, tok_dim)
     emb = table[ids].to(dtype)                 # this rank's D block
-    if tok_dim is None:
-        return coll.all_gather(emb, mesh, m, emb.dim() - 1)
+    if tok_dim is None:        # tensor parallelism: the ranks' tokens alike
+        return coll.all_gather(emb, mesh, m, emb.dim() - 1, alike=True)
     return coll.all_to_all(emb, mesh, m, tok_dim, emb.dim() - 1)

@@ -16,12 +16,15 @@ name the decode policy's layout (TP + FSDP: weights split over "model" on
 heads / d_ff / experts / vocab and over "data" on d_model), since a server
 runs many decode steps; a decode step gathers each weight over "data"
 just before use, and a ``pure_fsdp`` prefill gathers each over every axis
-from the same blocks.  Training names the train policy's ZeRO-3 layout
-(``pure_fsdp``: every leaf split over ("data", "model") on one dim, the
-vocab over "model"); a model placed so prefills and trains, and refuses a
-decode step.  Each parameter carries its spec (``p.spec``); a rank's
-parameter bytes are those of its blocks (``param_bytes``).  Every rank
-draws every parameter from the same generator, so the ranks' blocks tile
+from the same blocks.  Training names the train policy's layout: ZeRO-3
+for ``parallelism="fsdp"`` (``pure_fsdp``: every leaf split over ("data",
+"model") on one dim, the vocab over "model"; a model placed so prefills
+and trains, and refuses a decode step), TP + FSDP for "tp" (the decode
+policy's layout).  The dense, moe, ssm and hybrid families are placed
+(``sharding.MESH_FAMILIES``).  Each parameter carries its spec
+(``p.spec``); a rank's parameter bytes are those of its blocks
+(``param_bytes``).  Every rank draws every parameter from the same
+generator, so the ranks' blocks tile
 the parameters of a one-rank model of the same seed.
 """
 

@@ -20,10 +20,14 @@ package's modes, chosen as its ``moe_ffn`` chooses them:
   * ``pure_fsdp`` otherwise: every expert local on gathered weights.
 The aux loss is the mean over the token blocks (``jnp.mean(aux)`` of the
 JAX package's per-shard values), so on a mesh it is not the aux of the
-whole batch that one rank computes.  Training runs the ``pure_fsdp``
-modes: backward sends the slot buffers' gradients back through the
-inverse ``all_to_all``s, and gathered expert weights sum their gradients
-into each rank's block (``collectives``).
+whole batch that one rank computes.  In training the ``pure_fsdp`` modes
+send the slot buffers' gradients back through the inverse
+``all_to_all``s, and gathered expert weights sum their gradients into
+each rank's block (``collectives``); the ``ep`` and ``tp`` modes (a
+tensor-parallel policy) take the slot buffer, which the model axis's
+ranks hold alike, through ``collectives.replicate`` into their own
+experts or d_ff shard, and ``ep``'s gathered outputs hand each rank its
+experts' gradient.
 """
 
 from __future__ import annotations
@@ -149,8 +153,9 @@ def _mesh_experts(p, cfg, policy, dtype):
         else:
             def experts(buf):
                 mi = mesh.coords[m]
+                buf = coll.replicate(buf, mesh, m)
                 y = _ffn(buf[mi * eloc:(mi + 1) * eloc], wg, wu, wd)
-                return coll.all_gather(y, mesh, m, 0)
+                return coll.all_gather(y, mesh, m, 0, alike=True)
         return wg, wu, wd, experts
     tp = not policy.pure_fsdp and split_over(
         policy, (ws[0], 2), (ws[1], 2), (ws[2], 1))
@@ -160,7 +165,8 @@ def _mesh_experts(p, cfg, policy, dtype):
         return wg, wu, wd, None
 
     def experts(buf):
-        return coll.all_reduce(_ffn(buf, wg, wu, wd), mesh, m)
+        return coll.all_reduce(_ffn(coll.replicate(buf, mesh, m), wg, wu,
+                                    wd), mesh, m)
     return wg, wu, wd, experts
 
 

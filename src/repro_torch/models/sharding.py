@@ -23,10 +23,11 @@ Where the JAX package lets GSPMD insert the collectives, the port's
 layers call them (``models.collectives``).  Every tensor of the LM stack
 on a rank is its block of one of these specs; ``place`` cuts a global
 tensor into this rank's block and ``collectives.reshard`` moves a block
-from one spec to another.  The mesh path covers the dense and moe
-families, serving and training; ``check_family`` refuses the others on
-more than one rank, and ``check_train`` a train step the port cannot
-shard (a tensor-parallel policy, a batch that leaves an axis idle).
+from one spec to another.  The mesh path covers the dense, moe, ssm and
+hybrid families, serving and training (ZeRO-3 for ``parallelism="fsdp"``,
+TP + FSDP for "tp"); ``check_family`` refuses the vlm and audio families
+on more than one rank, and ``check_train`` a train step the port cannot
+shard (a batch that leaves an axis idle).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ import numpy as np
 Spec = Tuple
 
 #: families that run on a mesh of more than one rank
-MESH_FAMILIES = ("dense", "moe")
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def mesh_ranks(mesh) -> int:
@@ -55,32 +56,34 @@ def check_family(cfg, mesh) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family on a mesh of "
             f"{mesh_ranks(mesh)} ranks; the port shards the "
-            f"{' and '.join(MESH_FAMILIES)} families only, the others come "
-            f"with the next slice (the ssm and hybrid families' TP over "
-            f"d_inner, the vlm and audio inputs; ROADMAP.md queue 1)")
+            f"{', '.join(MESH_FAMILIES)} families only; the vlm and audio "
+            f"families' inputs on a mesh come with the next slice "
+            f"(ROADMAP.md queue 1)")
 
 
 def check_train(cfg, policy) -> None:
     """Raise for a train step on a mesh of several ranks that the port
-    does not shard: a family off the mesh path, a config whose
-    ``parallelism`` is not "fsdp" (training under a tensor-parallel policy
-    needs the Megatron pair of an identity forward with an all-reduce
-    backward on replicated activations), a mesh axis that carries no
-    tokens (its ranks would repeat one another's work, and the weight
-    gradients' sums over it would count that work more than once), or a
-    vocabulary the model axis does not split (the CE is vocab-parallel)."""
+    does not shard: a family off the mesh path, a policy that is not the
+    config's ``parallelism`` (ZeRO-3 for "fsdp", TP + FSDP for "tp"), a
+    mesh axis that carries no tokens and splits no layer's work (its ranks
+    would repeat one another's work, and the weight gradients' sums over
+    it would count that work more than once; under TP the model axis
+    carries none but splits the layers, its ranks' partial gradients
+    summed by the Megatron pair), or a vocabulary the model axis does not
+    split (the CE is vocab-parallel)."""
     mesh = policy.mesh
     if mesh_ranks(mesh) == 1:
         return
     check_family(cfg, mesh)
-    if cfg.parallelism != "fsdp" or not policy.pure_fsdp:
-        raise NotImplementedError(
-            f"{cfg.name}: training on a mesh under parallelism="
-            f"{cfg.parallelism!r}; the port trains ZeRO-3 (\"fsdp\") only, "
-            f"training under a tensor-parallel policy is the next item of "
-            f"ROADMAP.md queue 1")
+    if cfg.parallelism not in ("fsdp", "tp") or \
+            policy.pure_fsdp != (cfg.parallelism == "fsdp"):
+        raise ValueError(
+            f"{cfg.name}: a {'ZeRO-3' if policy.pure_fsdp else 'TP'} "
+            f"policy for parallelism={cfg.parallelism!r}; the port trains "
+            f"\"fsdp\" under ZeRO-3 and \"tp\" under TP + FSDP")
+    splits = (policy.model_axis,) if policy.tensor_parallel else ()
     idle = [a for a, n in mesh.shape.items()
-            if n > 1 and a not in policy.token_axes]
+            if n > 1 and a not in policy.token_axes and a not in splits]
     if idle:
         raise ValueError(
             f"{cfg.name}: a micro-batch of {policy.global_batch} rows leaves "
@@ -171,7 +174,11 @@ class ShardingPolicy:
         """The token-carrying axes that ``spec`` (a leaf's fitted spec)
         does not split, in the mesh's order: a leaf's gradient from
         backward holds only this rank's tokens' share over them, so it is
-        summed over them before the clip."""
+        summed over them before the clip.  Under tensor parallelism the
+        model axis carries no tokens: a leaf whole over it (a norm,
+        ``conv_b``, ``norm_w``, ``A_log2``) already holds its whole
+        gradient on each of its ranks (the layers' ``replicate`` summed
+        the partial ones), so it is summed over "data" only."""
         split = set(split_axes(spec))
         return tuple(a for a in self.shape
                      if a in self.token_axes and a not in split)

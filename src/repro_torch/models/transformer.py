@@ -24,16 +24,19 @@ checkpointed under ``cfg.remat`` while autograd records), "prefill"
 (returns ring caches), "decode" (one token through the caches).
 ``loss_fn`` is the training loss over a train-mode forward.
 
-On a mesh of several ranks (the dense and moe families, serving and
-training) the batch a forward is given is the global one, on every rank;
-it is placed (``sharding.place``: batch over the batch axes, the sequence
-over ``seq_shard``) and every activation after it is this rank's block.
-The caches come out of prefill, and go into decode, as the decode policy
-places them; the logits leave vocab-sharded (``ShardingPolicy.logits_spec``)
-and ``greedy`` picks the next ids with a max and an argmax over the model
-axis.  ``loss_fn``'s CE is vocab-parallel and every rank holds the global
-loss; backward runs through the collectives' own backward
-(``collectives``), remat's recomputation included.
+On a mesh of several ranks (the dense, moe, ssm and hybrid families,
+serving and training) the batch a forward is given is the global one, on
+every rank; it is placed (``sharding.place``: batch over the batch axes,
+the sequence over ``seq_shard``) and every activation after it is this
+rank's block.  The caches come out of prefill, and go into decode, as the
+decode policy places them (the KV caches and the Mamba caches alike,
+each group's copy of the hybrid family's shared block's too); the logits
+leave vocab-sharded (``ShardingPolicy.logits_spec``) and ``greedy`` picks
+the next ids with a max and an argmax over the model axis.  ``loss_fn``'s
+CE is vocab-parallel and every rank holds the global loss; backward runs
+through the collectives' own backward (``collectives``), remat's
+recomputation included; under tensor parallelism the hidden rows enter
+the vocab-parallel head through ``collectives.replicate``.
 """
 
 from __future__ import annotations
@@ -127,16 +130,16 @@ class SSMBlock(nn.Module):
     """One SSM sublayer: ``ln1`` and ``ssm`` (Mamba1 or Mamba2), no
     ``ln2``."""
 
-    def __init__(self, cfg, generator, device=None):
+    def __init__(self, cfg, generator, device=None, placement=None):
         super().__init__()
-        self.ln1 = _ones(cfg, device)
+        self.ln1 = _ones(cfg, device, placement)
         init = SSM.init_mamba1 if cfg.ssm_version == 1 else SSM.init_mamba2
-        self.ssm = _params(init(cfg, generator, device))
+        self.ssm = _params(init(cfg, generator, device), placement)
 
 
 def _sublayer(cfg, kind, generator, device, placement):
     if kind == "ssm":
-        return SSMBlock(cfg, generator, device)
+        return SSMBlock(cfg, generator, device, placement)
     return Block(cfg, generator, device, placement)
 
 
@@ -164,8 +167,8 @@ class Transformer(nn.Module):
             nn.ModuleList(_sublayer(cfg, kind, generator, device, placement)
                           for kind in kinds)
             for _ in range(n_groups))
-        self.shared_block = Block(cfg, generator, device) if has_shared \
-            else None
+        self.shared_block = Block(cfg, generator, device, placement) \
+            if has_shared else None
         self.final_norm = _ones(cfg, device, placement)
         self.lm_head = None
         if not cfg.tie_embeddings:
@@ -209,10 +212,13 @@ def _apply_attn_block(p, x, positions, cfg, policy, is_global, cache, mode,
 
 def _apply_ssm_block(p, x, cfg, policy, cache, mode):
     fn = SSM.mamba1 if cfg.ssm_version == 1 else SSM.mamba2
-    h, new_cache = fn(p.ssm, L.rms_norm(x, p.ln1, cfg.norm_eps), cfg, cache)
+    h, new_cache = fn(p.ssm, L.rms_norm(x, L.weight(p.ln1, policy),
+                                        cfg.norm_eps), cfg, cache, policy)
     x = policy.constrain_tokens(x + h)
     if mode == "train":
         new_cache = None
+    elif mode == "prefill" and L.on_mesh(policy):
+        new_cache = SSM.decode_layout(p.ssm, new_cache, cfg, policy)
     return x, new_cache, torch.zeros((), dtype=torch.float32,
                                      device=x.device)
 
@@ -461,14 +467,18 @@ def _ce_rows(hidden, labels, mask, policy):
     """The CE's blocks on a mesh, as the JAX package's ``loss_fn`` lays
     them out: the model axis handed back to the vocab, so this rank's
     hidden rows are gathered off it (the batch's block under ZeRO-3 over
-    every axis, the sequence under ``seq_shard``), and its labels and mask
-    are its block of the global ones (the batch over the other batch
-    axes, the whole sequence)."""
+    every axis, the sequence under ``seq_shard``; under TP they are
+    already whole over it, and enter its vocab blocks through
+    ``replicate``), and its labels and mask are its block of the global
+    ones (the batch over the other batch axes, the whole sequence)."""
     mesh, m = policy.mesh, policy.model_axis
     if m in policy.batch_axes:
         hidden = coll.all_gather(hidden, mesh, m, 0)
     elif policy.seq_shard == m:
         hidden = coll.all_gather(hidden, mesh, m, 1)
+    elif policy.tensor_parallel:
+        # the rows every model rank holds alike meet its own vocab block
+        hidden = coll.replicate(hidden, mesh, m)
     ba = _ce_axes(policy)
     spec = policy.spec(ba if len(ba) > 1 else (ba[0] if ba else None), None,
                        shape=labels.shape)

@@ -18,8 +18,8 @@ The port of the JAX package's ``repro.runtime.trainer``:
 The model owns its parameters, so the state the loop carries is (model,
 opt state); it runs on the card unless ``device`` asks for the CPU.
 
-On a ``launch.mesh.Mesh`` of several ranks (the dense and moe families,
-ZeRO-3) every rank runs the loop: it draws the same global batch of each
+On a ``launch.mesh.Mesh`` of several ranks (the dense, moe, ssm and hybrid
+families, under ZeRO-3 or TP + FSDP) every rank runs the loop: it draws the same global batch of each
 step, holds its blocks of the parameters and moments (placed by the train
 policy), and takes part in every save.  The checkpoint is mesh-independent,
 as the JAX package's (whose ``save`` writes global arrays): every rank's

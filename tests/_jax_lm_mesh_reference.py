@@ -112,7 +112,10 @@ def run(case):
                 out.append(np.asarray(logits))
                 ids.append(np.asarray(tok))
             JM._route = route
-            aux = float(forward(p_pre, batch))
+            # the router aux of the prefill forward (``aux``: False skips
+            # it, for a family without a router)
+            aux = float(forward(p_pre, batch)) if case.get("aux", True) \
+                else 0.0
             jax.effects_barrier()
     finally:
         JM._route = saved_route

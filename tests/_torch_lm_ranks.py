@@ -31,9 +31,13 @@ def spawn(world: int, cases, timeout: float = 240.0):
 
 
 def cache_leaves(caches):
-    """(name, numpy block) of every cache leaf, named as the JAX tree's
-    paths (``sub/i/k``)."""
+    """(name, numpy block) of every cache leaf, named and ordered as the
+    JAX tree's flattened paths (``shared/k`` of the hybrid family's shared
+    block first, then ``sub/i/k``)."""
     out = []
+    if "shared" in caches:
+        c = caches["shared"]
+        out += [(f"shared/{f}", t.numpy()) for f, t in zip(c._fields, c)]
     for i, c in enumerate(caches["sub"]):
         out += [(f"sub/{i}/{f}", t.numpy()) for f, t in zip(c._fields, c)]
     return out

@@ -6,8 +6,10 @@ the rank side) starts ``world`` gloo ranks that run every case on a
 (data, model) mesh; a case is a plain dict, so the ranks import only
 torch, numpy and repro_torch, never JAX.  Kinds: ``step`` (``run_step``:
 train steps from given parameters and batches), ``resume`` (``run_resume``:
-the Trainer saved, resumed and re-meshed) and ``curate`` (``run_curate``:
-the Trainer with curation, and the curated rows of every rank).
+the Trainer saved, resumed and re-meshed), ``curate`` (``run_curate``:
+the Trainer with curation, and the curated rows of every rank) and
+``serve`` (``_torch_lm_ranks.run_lm``: a prefill and decode steps), so one
+spawn serves and trains.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+import _torch_lm_ranks
 import _torch_mesh_ranks as mesh_ranks
 from repro_torch import interop
 from repro_torch.configs.base import ShapeSpec, get_config
@@ -184,7 +187,8 @@ def run_curate(case, meshes):
                 tokens=batch["tokens"].numpy())
 
 
-KINDS = {"step": run_step, "resume": run_resume, "curate": run_curate}
+KINDS = {"step": run_step, "resume": run_resume, "curate": run_curate,
+         "serve": _torch_lm_ranks.run_lm}
 
 
 def main(argv) -> None:

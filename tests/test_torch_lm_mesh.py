@@ -260,13 +260,23 @@ def test_lm_caches_places_each_rank_block(served, name):
 
 
 def test_lm_caches_refuses_ssm_caches_on_a_mesh():
+    """Mamba caches on a mesh are placed now, not refused: rank (0, 1)'s
+    block of a Mamba2 cache is its batch block over "data" with its half
+    of the conv channels and of the heads over "model"
+    (``ssm_cache_spec``); a cache the port does not know is still
+    refused."""
     cfg = _cfg("qwen3-1.7b", {})
     policy = decode_step_bundle(cfg, ShapeSpec("t", S + GEN, 4, "decode"),
-                                _RankMesh(0)).policy
-    caches = {"sub": [JSSM.Mamba2Cache(np.zeros((1, 4, 3, 8), np.float32),
-                                  np.zeros((1, 4, 2, 4, 16), np.float32))]}
-    with pytest.raises(NotImplementedError, match="ssm caches"):
-        interop.lm_caches(caches, "cpu", policy=policy)
+                                _RankMesh(1)).policy
+    conv = np.arange(1 * 4 * 3 * 8, dtype=np.float32).reshape(1, 4, 3, 8)
+    h = np.arange(1 * 4 * 2 * 4 * 16, dtype=np.float32).reshape(1, 4, 2, 4,
+                                                                16)
+    caches = {"sub": [JSSM.Mamba2Cache(conv, h)]}
+    got = interop.lm_caches(caches, "cpu", policy=policy)["sub"][0]
+    np.testing.assert_array_equal(got.conv.numpy(), conv[:, :2, :, 4:])
+    np.testing.assert_array_equal(got.h.numpy(), h[:, :2, 1:])
+    with pytest.raises(ValueError, match="the port knows"):
+        interop.lm_caches({"sub": [(conv,)]}, "cpu", policy=policy)
 
 
 def _one_rank(case):

@@ -175,12 +175,13 @@ def test_moe_ffn_matches_a_dense_reference(name, params):
 
 def test_moe_ffn_needs_one_model_peer(params):
     """The moe family runs on a multi-rank mesh (its tp, ep and all-to-all
-    modes, ``test_torch_lm_mesh.py``); the ssm and hybrid families on one
-    raise, naming the next slice, before a parameter is drawn, and a
-    one-peer policy keeps the one-card path."""
+    modes, ``test_torch_lm_mesh.py``), as the ssm and hybrid families do
+    since their slice (``test_torch_lm_ssm_mesh.py``); the vlm and audio
+    families on one raise, naming the next slice, before a parameter is
+    drawn, and a one-peer policy keeps the one-card path."""
     class Mesh22:
         shape = {"data": 2, "model": 2}
-    for name in ("falcon-mamba-7b", "zamba2-2.7b"):
+    for name in ("internvl2-26b", "hubert-xlarge"):
         cfg = get_config(name).reduced()
         policy = make_policy(Mesh22(), 4, "decode")
         with pytest.raises(NotImplementedError, match="next slice"):

@@ -169,10 +169,10 @@ def test_serve_cli_serves_the_hybrid():
 
 @pytest.mark.parametrize("args,message", [
     ((), "no CUDA device"),                 # the card by default
-    # an ssm arch on a mesh of two ranks (torchrun): the mesh path serves
-    # the dense and moe families only
+    # a vlm arch on a mesh of two ranks (torchrun): the mesh path serves
+    # the dense, moe, ssm and hybrid families
     (("--device", "cpu", "--model-parallel", "2", "--arch",
-      "falcon-mamba-7b"), "next slice"),
+      "internvl2-26b"), "next slice"),
     (("--device", "cpu", "--arch", "hubert-xlarge"), "encoder-only"),
 ])
 def test_serve_cli_refuses(args, message):

@@ -32,8 +32,10 @@ directory holds the checkpoint), re-meshed to (1, 4) and on one rank
 within the bars.  The Trainer with curation on the four ranks: every rank
 the same losses and the same curated rows.  ``launch/train.py`` runs
 under ``torch.distributed.run`` on four gloo ranks with
-``--model-parallel 2 --select``.  A tensor-parallel config, and a family off the mesh
-path, refuse to train on a mesh.  The ranks (``_torch_train_ranks``) run
+``--model-parallel 2 --select``.  A family off the mesh path (vlm,
+audio) refuses to train on a mesh, and so does a batch that leaves an
+axis without tokens (the ssm and hybrid families and training under a
+tensor-parallel policy: ``test_torch_lm_ssm_mesh.py``).  The ranks (``_torch_train_ranks``) run
 as one spawn of four processes, beside the JAX subprocess.
 """
 
@@ -430,9 +432,8 @@ class StubMesh:
 
 
 @pytest.mark.parametrize("arch,over,error,match", [
-    ("qwen3-1.7b", {"parallelism": "tp"}, NotImplementedError,
-     "ROADMAP.md"),
-    ("falcon-mamba-7b", {}, NotImplementedError, "next slice"),
+    ("internvl2-26b", {}, NotImplementedError, "next slice"),
+    ("hubert-xlarge", {}, NotImplementedError, "next slice"),
     # B = 1 leaves "data" without tokens
     ("qwen3-1.7b", {}, ValueError, "without tokens"),
 ])

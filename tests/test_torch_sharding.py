@@ -157,14 +157,19 @@ def test_block_tiles_the_leaf():
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid", "vlm", "audio"])
 def test_other_families_refuse_a_mesh(family):
-    """Only the dense and moe families run on more than one rank; the
-    others raise, naming the next slice, and never run replicated."""
+    """The dense, moe, ssm and hybrid families run on more than one rank;
+    the vlm and audio families raise, naming the next slice, and never run
+    replicated."""
     name = {"ssm": "falcon-mamba-7b", "hybrid": "zamba2-2.7b",
             "vlm": "internvl2-26b", "audio": "hubert-xlarge"}[family]
     cfg = get_config(name)
     assert cfg.family == family
-    with pytest.raises(NotImplementedError, match="next slice"):
+    if family in ("ssm", "hybrid"):
+        assert family in TS.MESH_FAMILIES
         TS.check_family(cfg, StubMesh((2, 2), ("data", "model")))
+    else:
+        with pytest.raises(NotImplementedError, match="next slice"):
+            TS.check_family(cfg, StubMesh((2, 2), ("data", "model")))
     TS.check_family(cfg, StubMesh((1, 1), ("data", "model")))
     TS.check_family(cfg, None)
     for ok in ("qwen3-1.7b", "qwen2-moe-a2.7b"):
